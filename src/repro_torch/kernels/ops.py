@@ -1,0 +1,75 @@
+"""Dispatch over the selection path's kernels by the tensor's device.
+
+A CPU tensor goes to the plain PyTorch version (``kernels/ref.py``); a
+CUDA tensor goes to the hand-written kernel, or the call raises.  There
+is no environment switch and no fallback: a kernel that fails to build
+or launch raises, and never hands its work to the plain version.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.kernels import ref
+
+
+def _on_cuda(t: torch.Tensor) -> bool:
+    if t.device.type == "cuda":
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(f"no kernel or plain version for device {t.device}")
+
+
+def _rules_on(t: torch.Tensor, rule_table, rule_levels):
+    return (torch.as_tensor(np.asarray(rule_table), device=t.device),
+            torch.as_tensor(np.asarray(rule_levels), device=t.device))
+
+
+def fuzzy_eval(x: torch.Tensor, means: torch.Tensor, sigmas: torch.Tensor,
+               rule_table: np.ndarray, rule_levels: np.ndarray,
+               level_centers: torch.Tensor,
+               normalize: bool = False) -> torch.Tensor:
+    """Mamdani evaluation (P, 4) -> (P,); ``normalize=True`` takes raw
+    columns and applies Eq. 8 first."""
+    if _on_cuda(x):
+        from repro_torch.kernels.fuzzy_eval import fuzzy_eval_cuda
+        return fuzzy_eval_cuda(x, means, sigmas, rule_table, rule_levels,
+                               level_centers, normalize=normalize)
+    return ref.fuzzy_eval_ref(x, means, sigmas,
+                              *_rules_on(x, rule_table, rule_levels),
+                              level_centers, normalize=normalize)
+
+
+def probe_fuzzy(params, images, labels, seg, counts, aux, means, sigmas,
+                rule_table: np.ndarray, rule_levels: np.ndarray,
+                level_centers, *, n_clients: int,
+                col_maxima: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The fused selection fast path: packed Eq. 7 probe samples ->
+    ``(feats (N, 4) raw, evals (N,))``."""
+    if _on_cuda(images):
+        from repro_torch.kernels.probe_fuzzy import probe_fuzzy_cuda
+        return probe_fuzzy_cuda(params, images, labels, seg, counts, aux,
+                                means, sigmas, rule_table, rule_levels,
+                                level_centers, n_clients=n_clients,
+                                col_maxima=col_maxima)
+    return ref.probe_fuzzy_ref(params, images, labels, seg, counts, aux,
+                               means, sigmas,
+                               *_rules_on(images, rule_table, rule_levels),
+                               level_centers, n_clients=n_clients,
+                               col_maxima=col_maxima)
+
+
+def neighbor_elect(pos: torch.Tensor, evals: torch.Tensor, *,
+                   comm_range: float, top_m: int,
+                   e_tau: float) -> torch.Tensor:
+    """Dense DCS election -> int32 mask (N,)."""
+    if _on_cuda(pos):
+        from repro_torch.kernels.neighbor_elect import neighbor_elect_cuda
+        return neighbor_elect_cuda(pos, evals, comm_range=comm_range,
+                                   top_m=top_m, e_tau=e_tau)
+    return ref.neighbor_elect_ref(pos, evals, comm_range=comm_range,
+                                  top_m=top_m, e_tau=e_tau)
