@@ -6,28 +6,40 @@
 Phases (any failure exits non-zero; no phase's exception is caught):
 
 1. the card: name, device count, ``nvidia-smi`` name and power limit;
-2. build every CUDA kernel of the slice from ``src/repro_torch/csrc``
-   (one ``nvcc`` per source, all started together) and print ptxas'
-   register / shared-memory report;
+2. build all four CUDA kernels from ``src/repro_torch/csrc`` (one
+   ``nvcc`` per source, all started together) and print ptxas' register
+   / shared-memory report; build the two simulations of the paths (the
+   fast profile, 30 vehicles; the large fleet, 4096 vehicles at 1 per
+   metre, whose uniform and extreme placements share one dataset);
 3. hold each kernel against its plain PyTorch version on the card, TF32
-   off, at the main path's shapes and at larger ones;
+   off, at the paths' shapes and at larger ones: ``windowed_counts``
+   bit-equal at the large fleet's sorted round-0 arrays, at 65,536
+   vehicles and on a clustered fleet; the windowed election's mask equal
+   to ``neighbor_elect``'s wherever its flag is 0, and flagged wherever
+   the rank-distance oracle flags;
 4. time each kernel and its plain version with CUDA events and print its
    bound (the larger of bytes over 3.35 TB/s and operations over the
-   fp32 peak of 67 TFLOP/s);
-5. the main path: the round-0 selection prefix on the card against the
+   fp32 peak of 67 TFLOP/s); time the whole windowed election against
+   the dense kernel at 4096, 16,384 and 65,536 vehicles;
+5. the paths, each with the launch counters reset just before and read
+   just after: the round-0 selection prefix on the card against the
    port's CPU plain path, then ``FLSimulation`` (fast profile, ``dcs``)
-   for 3 rounds on ``cuda``, with the launch counters reset just before
-   and read just after; the same 3 rounds again (default cuDNN
+   for 3 rounds on ``cuda``; the same 3 rounds again (default cuDNN
    algorithms); round 0's training and FedAvg held against the CPU's
    (fp64: to 1e-6; fp32: a reading); the 3 rounds twice under
-   deterministic algorithms, which must repeat bit for bit; then 1
-   unfused round, its counters read alone;
+   deterministic algorithms, which must repeat bit for bit; 1 unfused
+   round; the large fleet for 2 rounds through ``elect="auto"`` (the
+   windowed election, no dense launch unless a round overflows), then
+   1 round of its extreme placement, which overflows and falls back to
+   the dense kernel with the masks of ``elect="gather"``;
 6. ``{"kernels": [...]}`` on the line before the last;
 7. ``{"ok": true, "device": {...}}`` as the last line.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -54,6 +66,7 @@ PROBE_FLOP_PER_SAMPLE = 2 * (28 * 28 * 32 * 25 + 14 * 14 * 64 * 32 * 25
 MAMDANI_OPS = 12 * 5 + 81 * 4 + 9 * 3 + 1
 EQ8_OPS = 16
 ELECT_OPS_PER_PAIR = 8             # sub, abs, 4 compares, and/or, add
+LARGE_FLEET = 4096                 # vehicles of the large-fleet path
 
 
 def log(msg: str) -> None:
@@ -65,6 +78,45 @@ def bound(n_bytes: float, n_ops: float):
     t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / FP32_FLOP_PER_S
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
+
+
+def visited_pairs(m: int, block: int, window: int) -> int:
+    """Row-candidate pairs that ``windowed_counts`` compares on (M,)
+    arrays: row block ib sweeps blocks [ib - hops, ib + hops] clipped
+    to the array, hops = ceil(window / block)."""
+    nb, hops = m // block, -(-window // block)
+    return sum(min(ib + hops, nb - 1) - max(ib - hops, 0) + 1
+               for ib in range(nb)) * block * block
+
+
+def large_fleet_config(distribution: str):
+    """The large-fleet path: the fast profile's client shapes (12 big
+    clients of 300 samples, the rest of 45) for 4096 vehicles on a
+    4096 m road, the density of the reference's ``windowed_scaling``
+    bench; 23000 samples per class is the smallest round figure that
+    partitions 4096 clients without exhausting a class."""
+    from repro_torch.fl.mobility import MobilityConfig
+    from repro_torch.launch.fl_sim import fast_config
+    cfg = fast_config("dcs", n_rounds=2, samples_per_class=23000)
+    cfg.partition = dataclasses.replace(cfg.partition,
+                                        n_clients=LARGE_FLEET)
+    cfg.mobility = MobilityConfig(n_vehicles=LARGE_FLEET,
+                                  road_length_m=float(LARGE_FLEET),
+                                  distribution=distribution, seed=0)
+    return cfg
+
+
+@contextlib.contextmanager
+def one_dataset():
+    """While inside, ``FLSimulation`` builds each synthetic dataset once:
+    simulations of one data configuration share it."""
+    from repro_torch.fl import rounds
+    make = rounds.make_dataset
+    rounds.make_dataset = functools.lru_cache(maxsize=1)(make)
+    try:
+        yield
+    finally:
+        rounds.make_dataset = make
 
 
 def time_ms(fn, iters: int, warmup: int = 3) -> float:
@@ -91,11 +143,13 @@ def main() -> int:
               file=sys.stderr)
         return 2
 
+    from repro_torch.core.elect import auto_window
     from repro_torch.core.rules import build_rule_table
     from repro_torch.device import fp32_strict
     from repro_torch.fl import pipeline
     from repro_torch.fl.rounds import FLSimulation
     from repro_torch.fl.runconfig import RunConfig
+    from repro_torch.fl.schemes import elect_window
     from repro_torch.kernels import build, ops, ref
     from repro_torch.launch.fl_sim import fast_config
 
@@ -133,6 +187,28 @@ def main() -> int:
     s_main, n_main = st.probe_images.shape[0], sim.n
     log(f"[main path] probe S={s_main} N={n_main}")
 
+    # the large-fleet path: its uniform and extreme placements share one
+    # dataset; the uniform one's round 0 gives the path's shapes
+    t0 = time.perf_counter()
+    with one_dataset():
+        big = FLSimulation(large_fleet_config("uniform"), run=RunConfig(),
+                           device=dev)
+        big_x = FLSimulation(large_fleet_config("extreme"),
+                             run=RunConfig(), device=dev)
+    big_cfg = big.stage_cfg
+    window_big = elect_window(big_cfg)
+    bst, bfields0 = big.statics, big.round_fields(0)
+    bpos0 = pipeline.positions(bst, big_cfg, torch.zeros((), device=dev))
+    big_probe = (big.params, bst.probe_images, bst.probe_labels,
+                 bst.probe_seg, bst.probe_counts,
+                 pipeline.aux_features(bst, big_cfg, bpos0, bfields0))
+    s_big4k = bst.probe_images.shape[0]
+    log(f"[large fleet] built both placements in "
+        f"{time.perf_counter() - t0:.1f}s: probe S={s_big4k} N={big.n}, "
+        f"elect={big_cfg.elect!r}, window {window_big} per side")
+    if big_cfg.elect != "windowed":
+        raise AssertionError("elect='auto' did not resolve to windowed")
+
     # the Mamdani operands as the kernel wrappers and as the plain
     # versions take them (the plain ones want the rule table as tensors)
     mam = (st.means, st.sigmas, table, levels, st.level_centers)
@@ -165,6 +241,9 @@ def main() -> int:
 
     feats_main, evals0, err_probe = check_probe(
         f"S={s_main} N={n_main}", main_probe, n_main)
+    _, bevals0, err_probe_big = check_probe(
+        f"S={s_big4k} N={big.n} (large fleet)", big_probe, big.n)
+    err_probe = max(err_probe, err_probe_big)
     # the Eq. 8 seam with external column maxima
     check_probe(f"S={s_main} N={n_main} col_maxima", main_probe, n_main,
                 col_maxima=feats_main.max(dim=0).values * 1.25)
@@ -225,14 +304,80 @@ def main() -> int:
         if not same:
             raise AssertionError(f"neighbor_elect {label} not bit-equal")
 
+    # windowed counts: bit-equal, on sorted arrays the election builds
+    # (M a multiple of the block, so no padding): the large fleet's
+    # round 0, a 65,536-vehicle fleet at 1 per metre, a clustered fleet
+    def sorted_fleet(pos, ev):
+        order = torch.argsort(pos, stable=True)
+        return pos[order], ev[order], order.to(torch.int32)
+
+    def uniform_fleet(n, seed):
+        r = np.random.default_rng(seed)
+        pos = r.uniform(0, n, n).astype(np.float32)
+        ev = r.uniform(0, 100, n).astype(np.float32)
+        pos[:6] = [100, 300, 300, 500, 700, 900]       # d == comm_range
+        ev[:6] = [50, 50, 50, 30, 30, 29.999]           # ties, E_tau
+        ev[6:40] = 50.0
+        return (torch.tensor(pos, device=dev), torch.tensor(ev, device=dev))
+
+    clustered = uniform_fleet(LARGE_FLEET, 7)
+    clustered[0][: LARGE_FLEET // 2] = torch.rand(
+        LARGE_FLEET // 2, device=dev, generator=g) * 150.0
+    fleets = {"large fleet round 0": (bpos0.contiguous(),
+                                      bevals0.contiguous()),
+              "N=65536 1/m": uniform_fleet(65536, 6),
+              f"N={LARGE_FLEET} clustered": clustered}
+    count_kw = dict(comm_range=big_cfg.comm_range_m, e_tau=big_cfg.e_tau)
+    win_cases = {}
+    for label, (pos, ev) in fleets.items():
+        m = pos.shape[0]
+        sp, se, sg = sorted_fleet(pos, ev)
+        win_cases[label] = (sp, se, sg)
+        for window in sorted({16, 300, auto_window(m, 200.0, float(m))}):
+            kw = dict(count_kw, n_valid=m, window=window, block=128)
+            got = ops.windowed_counts(sp, se, sg, **kw)
+            want = ref.windowed_counts_ref(sp, se, sg, **kw)
+            again = ops.windowed_counts(sp, se, sg, **kw)
+            torch.cuda.synchronize()
+            same = torch.equal(got, want) and torch.equal(got, again)
+            log(f"[check] windowed_counts {label} M={m} window {window}: "
+                f"bit-equal and repeatable {same}, counts sum "
+                f"{int(want.sum())} {'OK' if same else 'FAIL'}")
+            if not same:
+                raise AssertionError(f"windowed_counts {label} differs")
+
+    # the windowed election against the dense kernel and the oracle
+    for label, (pos, ev) in fleets.items():
+        m = pos.shape[0]
+        if m != LARGE_FLEET:
+            continue
+        dense = ops.neighbor_elect(pos, ev, **elect_kw)
+        for window in (16, 64, auto_window(m, 200.0, float(m))):
+            mask, ovf = ops.neighbor_elect_windowed(pos, ev, window=window,
+                                                    **elect_kw)
+            _, oracle = ref.windowed_elect_ref(pos, ev, window=window,
+                                               **elect_kw)
+            ovf, oracle = int(ovf), int(oracle)
+            ok = ovf >= oracle and (ovf == 1 or torch.equal(mask, dense))
+            log(f"[check] windowed election {label} window {window}: "
+                f"flag {ovf} (oracle {oracle}), mask equals dense "
+                f"{torch.equal(mask, dense)} {'OK' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"windowed election {label} wrong")
+
     # -- 4. timing -----------------------------------------------------------
     param_bytes = sum(t.numel() * 4 for t in sim.params.values())
     probe_bytes = (s_main * (28 * 28 * 4 + 8) + n_main * (4 + 12 + 16 + 4)
                    + param_bytes)
     pos_big, ev_big = elect_cases[-1][1:]
     n_eb, p_big = pos_big.shape[0], x_big.shape[0]
+    sp_b, se_b, sg_b = win_cases["large fleet round 0"]
+    sp_h, se_h, sg_h = win_cases["N=65536 1/m"]
+    wkw_b = dict(count_kw, n_valid=big.n, window=window_big, block=128)
+    window_h = auto_window(65536, 200.0, 65536.0)
+    wkw_h = dict(count_kw, n_valid=65536, window=window_h, block=128)
     # name -> (shape, kernel call, plain call, iterations, (bound, by));
-    # the first row of each kernel is the main path's shape
+    # the first row of each kernel is its path's shape
     cases = [
         ("probe_fuzzy", f"S={s_main} N={n_main}",
          lambda: ops.probe_fuzzy(*main_probe, *mam, n_clients=n_main),
@@ -247,6 +392,22 @@ def main() -> int:
          lambda: ops.neighbor_elect(pos0, evals0, **elect_kw),
          lambda: ref.neighbor_elect_ref(pos0, evals0, **elect_kw), 200,
          bound(n_main * 12, n_main * n_main * ELECT_OPS_PER_PAIR)),
+        ("probe_fuzzy", f"S={s_big4k} N={big.n} (large fleet)",
+         lambda: ops.probe_fuzzy(*big_probe, *mam, n_clients=big.n),
+         lambda: ref.probe_fuzzy_ref(*big_probe, *mam_ref,
+                                     n_clients=big.n), 3,
+         bound(s_big4k * (28 * 28 * 4 + 8) + big.n * 36 + param_bytes,
+               s_big4k * PROBE_FLOP_PER_SAMPLE)),
+        ("windowed_counts", f"M={big.n} window {window_big}",
+         lambda: ops.windowed_counts(sp_b, se_b, sg_b, **wkw_b),
+         lambda: ref.windowed_counts_ref(sp_b, se_b, sg_b, **wkw_b), 200,
+         bound(big.n * 16, visited_pairs(big.n, 128, window_big)
+               * ELECT_OPS_PER_PAIR)),
+        ("windowed_counts", f"M=65536 window {window_h}",
+         lambda: ops.windowed_counts(sp_h, se_h, sg_h, **wkw_h),
+         lambda: ref.windowed_counts_ref(sp_h, se_h, sg_h, **wkw_h), 50,
+         bound(65536 * 16, visited_pairs(65536, 128, window_h)
+               * ELECT_OPS_PER_PAIR)),
         ("fuzzy_eval", f"P={p_big} normalize=True",
          lambda: ops.fuzzy_eval(x_big, *mam, normalize=True),
          lambda: ref.fuzzy_eval_ref(x_big, *mam_ref, normalize=True), 20,
@@ -262,6 +423,20 @@ def main() -> int:
         timings.setdefault(name, (ms, plain_ms, b_ms, b_by))
         log(f"[time] {name} {shape}: kernel {ms:.4f} ms, plain "
             f"{plain_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by})")
+
+    # the whole windowed election (sort, counts, coverage, scatter)
+    # against the dense kernel, at 1 vehicle per metre
+    for n in (LARGE_FLEET, 16384, 65536):
+        pos, ev = (fleets["large fleet round 0"] if n == LARGE_FLEET
+                   else uniform_fleet(n, n))
+        window = auto_window(n, 200.0, float(n))
+        win_ms = time_ms(lambda: ops.neighbor_elect_windowed(
+            pos, ev, window=window, **elect_kw), 50)
+        dense_ms = time_ms(lambda: ops.neighbor_elect(pos, ev, **elect_kw),
+                           50)
+        log(f"[time] election N={n} window {window}: windowed "
+            f"{win_ms:.4f} ms, dense kernel {dense_ms:.4f} ms, "
+            f"windowed/dense {win_ms / dense_ms:.3f}")
 
     # -- 5. the main path ------------------------------------------------------
     # the round-0 prefix on the card against the port's CPU plain path
@@ -294,6 +469,7 @@ def main() -> int:
             torch.cuda.synchronize()
             row["prefix_s"] = t_prefix - t
             row["round_s"] = time.perf_counter() - t
+            row["elect_overflow"] = int(state["elect_overflow"])
             rows.append(row)
             log(f"[main path] {label} {json.dumps(row)}")
         counts = dict(build.LAUNCHES)
@@ -385,10 +561,58 @@ def main() -> int:
     unfused_sim = FLSimulation(fast_config("dcs", n_rounds=1),
                                run=RunConfig(fused_probe=False), device=dev)
     unfused, _ = drive(unfused_sim, 1, "dcs unfused")
+    # the large fleet through elect="auto": round 0's windowed mask is
+    # the dense election's (flag 0), then 2 rounds launch windowed_counts
+    # once each and neighbor_elect only for a round that overflowed
+    state_w = big.selection_state(0, bfields0)
+    state_g = big.selection_state(0, bfields0, elect="gather")
+    flag0 = int(state_w["elect_overflow"])
+    _, oracle0 = ref.windowed_elect_ref(state_w["pos"], state_w["evals"],
+                                        window=window_big, **elect_kw)
+    last_ev = float(state_w["evals"][torch.argmax(state_w["pos"])])
+    same = torch.equal(state_w["mask"], state_g["mask"])
+    log(f"[check] large fleet round 0: overflow {flag0} (oracle "
+        f"{int(oracle0)}; last vehicle's eval {last_ev:.3f}), windowed "
+        f"mask equals gather's {same}, {int(state_w['n_selected'])} "
+        f"selected")
+    if flag0 < int(oracle0) or (flag0 == 0 and not same):
+        raise AssertionError("large fleet: windowed election is wrong")
+    del state_w, state_g
+    windowed, rows_w = drive(big, 2, "large fleet uniform")
+    n_over = sum(row["elect_overflow"] for row in rows_w)
+    if n_over:
+        log(f"[main path] large fleet uniform: {n_over} round(s) "
+            f"overflowed the window and ran the dense fallback")
+    if (windowed["windowed_counts"] != 2
+            or windowed["neighbor_elect"] != n_over
+            or any(row["n_selected"] <= 0 for row in rows_w)):
+        raise AssertionError(f"large fleet uniform: launches {windowed}, "
+                             f"rows {rows_w}")
+
+    # the extreme placement crowds half the fleet into 150 m: the window
+    # overflows and the round runs on the dense kernel's masks, the same
+    # as elect="gather" gives
+    xfields = big_x.round_fields(0)
+    flag_x = int(big_x.selection_state(0, xfields)["elect_overflow"])
+    gather_x = big_x.selection_state(0, xfields,
+                                     elect="gather")["mask"].cpu().numpy()
+    fallback, rows_x = drive(big_x, 1, "large fleet extreme")
+    same = bool(np.array_equal(big_x.last_mask, gather_x))
+    log(f"[check] large fleet extreme: overflow {flag_x}, round mask "
+        f"equals gather's {same}")
+    if (flag_x != 1 or rows_x[0]["elect_overflow"] != 1 or not same
+            or fallback["neighbor_elect"] != 1
+            or fallback["windowed_counts"] != 1
+            or rows_x[0]["n_selected"] <= 0):
+        raise AssertionError(f"large fleet extreme: launches {fallback}, "
+                             f"rows {rows_x}")
+
     launches = {"probe_fuzzy": fused["probe_fuzzy"],
                 "neighbor_elect": fused["neighbor_elect"],
-                "fuzzy_eval": unfused["fuzzy_eval"]}
-    if min(launches.values()) <= 0 or unfused["neighbor_elect"] <= 0:
+                "fuzzy_eval": unfused["fuzzy_eval"],
+                "windowed_counts": windowed["windowed_counts"]}
+    if (min(launches.values()) <= 0 or unfused["neighbor_elect"] <= 0
+            or windowed["probe_fuzzy"] != 2 + n_over):
         raise AssertionError(f"a kernel of the path never ran: {launches}")
 
     # -- 6. the kernels line ---------------------------------------------------
@@ -399,6 +623,8 @@ def main() -> int:
                        "src/repro/kernels/fuzzy_eval.py:101", err_fuzzy),
         "neighbor_elect": ("src/repro_torch/csrc/neighbor_elect.cu",
                            "src/repro/kernels/neighbor_elect.py:66", 0.0),
+        "windowed_counts": ("src/repro_torch/csrc/windowed_counts.cu",
+                            "src/repro/kernels/neighbor_elect.py:141", 0.0),
     }
     kernels = []
     for name in build.KERNELS:

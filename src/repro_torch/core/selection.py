@@ -4,11 +4,15 @@
   broadcasts its evaluation to DSRC neighbours (within ``comm_range``)
   iff it clears ``E_tau`` and elects itself iff it is in the top-m of
   its neighbourhood table (Alg. 1).
+- ``dcs_select_windowed`` — the same election over a position-sorted
+  window, with an overflow flag (``core/elect.py``).
 - ``ccs_fuzzy_select``  — server-side global top-n on evaluations.
 - ``ccs_random_select`` — server-side uniform pick; the draw itself is
   an input (``idx``), so the port and the reference can share it.
 """
 from __future__ import annotations
+
+from typing import Tuple
 
 import torch
 
@@ -21,6 +25,19 @@ def dcs_select(pos: torch.Tensor, evals: torch.Tensor, *,
     """Distributed election -> int32 mask (N,), 1 = self-elected."""
     return kops.neighbor_elect(pos, evals, comm_range=comm_range,
                                top_m=top_m, e_tau=e_tau)
+
+
+def dcs_select_windowed(pos: torch.Tensor, evals: torch.Tensor, *,
+                        comm_range: float = 200.0, top_m: int = 2,
+                        e_tau: float = 30.0, window: int = 64
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Windowed distributed election: O(N * window) over a position-
+    sorted sweep.  Returns ``(mask (N,) int32, overflow () int32)``; the
+    mask equals ``dcs_select``'s whenever ``overflow == 0``, and the
+    caller falls back to the dense election otherwise."""
+    return kops.neighbor_elect_windowed(pos, evals, comm_range=comm_range,
+                                        top_m=top_m, e_tau=e_tau,
+                                        window=window)
 
 
 def ccs_fuzzy_select(evals: torch.Tensor, n_clients: int) -> torch.Tensor:

@@ -12,9 +12,11 @@
 // Out-of-range slots of the last tile carry the TPU kernel's sentinels
 // (position 1e18, evaluation -1e18).  Every comparison is fp32 with fp32
 // thresholds, so the mask is bit-equal to the plain version, including
-// at d == comm_range and on tied evaluations (lower index wins).
+// at d == comm_range and on tied evaluations (lower index wins).  The
+// predicate lives in elect_predicate.cuh, shared with the windowed counts.
 #include <cuda_runtime.h>
-#include <math.h>
+
+#include "elect_predicate.cuh"
 
 #define NE_TILE 256
 
@@ -34,13 +36,9 @@ neighbor_elect_kernel(const float* __restrict__ pos,
     se[threadIdx.x] = j < n ? ev[j] : -1e18f;
     __syncthreads();
     const int lim = n - j0 < NE_TILE ? n - j0 : NE_TILE;
-    for (int t = 0; t < lim; ++t) {
-      const float d = fabsf(pi - sp[t]);
-      const float ej = se[t];
-      const bool valid = (d <= comm_range) && (ej >= e_tau);
-      const bool better = (ej > ei) || ((ej == ei) && (j0 + t < i));
-      count += (valid && better) ? 1 : 0;
-    }
+    for (int t = 0; t < lim; ++t)
+      count += elect_better(pi, ei, i, sp[t], se[t], j0 + t, comm_range,
+                            e_tau, n);
     __syncthreads();
   }
   if (i < n) out[i] = (ei >= e_tau && count < top_m) ? 1 : 0;

@@ -13,8 +13,10 @@ stages.  The survivors cross once, at the cohort gather in
 ``train_groups``.  On a CUDA device the prefix runs the hand-written
 kernels (``kernels/ops.py``): the fused probe -> Eq. 8 -> Mamdani kernel
 (``fused_probe=True``) or the standalone Mamdani kernel behind the
-plain-PyTorch probe (``fused_probe=False``), and the dense election for
-``dcs``.
+plain-PyTorch probe (``fused_probe=False``), and for ``dcs`` the dense
+election (``elect="gather"``) or the windowed counts
+(``elect="windowed"``), whose ``elect_overflow`` flag sends the round
+back through the dense election (``FLSimulation.finish_round``).
 
 Every random draw of a round enters as a ``RoundFields`` tensor, so a
 round is deterministic in ``(statics, params, rnd, fields)``.
@@ -90,6 +92,11 @@ class StageConfig:
     # the fused probe -> Eq. 8 -> Mamdani kernel (with the tight probe
     # pack); False runs the plain probe and the standalone Mamdani kernel
     fused_probe: bool
+    # DCS election: "gather" (the dense O(N^2) election) or "windowed"
+    # (the O(N * W) position-sorted window, flagged on overflow);
+    # RunConfig resolves "auto"
+    elect: str
+    elect_window: int             # sorted neighbours per side (0 = auto)
 
 
 @functools.lru_cache(maxsize=None)
@@ -174,7 +181,12 @@ def selection_prefix(st: RoundStatics, params: Params, rnd: int,
         else:
             pos, feats = features(st, cfg, params, t_s, fields)
             evals = evaluate(st, feats)
-        mask = select(cfg, pos, evals, fields)
+        windowed = get_scheme(cfg.scheme).select_windowed
+        if cfg.elect == "windowed" and windowed is not None:
+            mask, elect_overflow = windowed(cfg, pos, evals, fields)
+        else:
+            mask = select(cfg, pos, evals, fields)
+            elect_overflow = torch.zeros((), dtype=torch.int32, device=dev)
         survivors, n_straggler = deadline_filter(st, cfg, pos, mask,
                                                  fields.upload_shadow)
         stats = selection_stats(mask, evals)
@@ -182,7 +194,8 @@ def selection_prefix(st: RoundStatics, params: Params, rnd: int,
             "survivors": survivors, "n_straggler": n_straggler,
             "n_selected": stats["n_selected"],
             "n_survivor": survivors.sum(),
-            "mean_eval_selected": stats["mean_eval_selected"]}
+            "mean_eval_selected": stats["mean_eval_selected"],
+            "elect_overflow": elect_overflow}
 
 
 def cohort_bucket(k: int) -> int:

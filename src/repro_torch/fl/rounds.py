@@ -7,6 +7,8 @@ the selection prefix (probe -> evaluate -> select -> deadline) runs on
 the device (``fl/pipeline.py``); the survivors cross to the host once,
 at the cohort gather; each capacity group's cohort trains with one
 batched local-SGD call; masked FedAvg and the test accuracy close it.
+A round whose windowed election overflowed re-runs its prefix through
+the dense election on the same draws before the gather.
 
 The batched engine and the serial driver are ported.  Randomness comes
 from ``torch.Generator``s seeded from ``FLSimConfig.seed``, or from an
@@ -15,7 +17,7 @@ reference's draws through it).
 """
 from __future__ import annotations
 
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 from typing import Callable, Dict, List, Optional
 
 import numpy as np
@@ -67,7 +69,7 @@ class FLSimulation:
         get_scheme(cfg.scheme)               # unknown schemes raise here
         self.cfg = cfg
         self.n = cfg.partition.n_clients
-        self.run_cfg = (run or RunConfig()).resolved(self.n)
+        self.run_cfg = (run or RunConfig()).resolved()
         self.device = resolve_device(device)
         fp32_strict()
         self._fields = fields
@@ -174,12 +176,32 @@ class FLSimulation:
 
     # -- one round ---------------------------------------------------------
     def selection_state(self, rnd: int,
-                        fields: Optional[pipeline.RoundFields] = None
+                        fields: Optional[pipeline.RoundFields] = None,
+                        elect: Optional[str] = None
                         ) -> Dict[str, torch.Tensor]:
-        """The selection prefix for round ``rnd`` (outputs on device)."""
+        """The selection prefix for round ``rnd`` (outputs on device).
+        ``elect`` overrides the stage config's election for this call:
+        the overflow fallback re-runs a round with ``elect="gather"``."""
         fields = fields if fields is not None else self.round_fields(rnd)
+        cfg = self.stage_cfg
+        if elect is not None and elect != cfg.elect:
+            cfg = replace(cfg, elect=elect)
         return pipeline.selection_prefix(self.statics, self.params, rnd,
-                                         fields, cfg=self.stage_cfg)
+                                         fields, cfg=cfg)
+
+    def resolve_elect_overflow(self, rnd: int, host: Dict[str, np.ndarray],
+                               fields: pipeline.RoundFields
+                               ) -> Dict[str, np.ndarray]:
+        """The windowed election's escape hatch: when round ``rnd``'s
+        prefix raised ``elect_overflow`` (the window could not hold every
+        dense comparison), re-run the prefix with the dense election on
+        the same ``fields`` and use that state instead.  The prefix is
+        pure in ``(params, rnd, fields)``, so the masks are exactly the
+        dense election's."""
+        if int(host["elect_overflow"]) == 0:
+            return host
+        state = self.selection_state(rnd, fields, elect="gather")
+        return {k: v.cpu().numpy() for k, v in state.items()}
 
     def run_round(self, rnd: int) -> Dict[str, float]:
         fields = self.round_fields(rnd)
@@ -188,9 +210,12 @@ class FLSimulation:
 
     def finish_round(self, rnd: int, state: Dict[str, torch.Tensor],
                      fields: pipeline.RoundFields) -> Dict[str, float]:
-        """Steps 5 + 7 and the row: the prefix's outputs cross to the
-        host here, once, for the cohort gather."""
-        host = {k: v.cpu().numpy() for k, v in state.items()}
+        """Steps 5 + 7 and the row: the prefix's outputs, the windowed
+        election's overflow flag among them, cross to the host here,
+        once, for the cohort gather (twice on an overflow round, whose
+        dense re-run crosses too)."""
+        host = self.resolve_elect_overflow(
+            rnd, {k: v.cpu().numpy() for k, v in state.items()}, fields)
         survivors = host["survivors"]
         self.last_mask = host["mask"]
         cfg = self.cfg

@@ -32,13 +32,18 @@ class RunConfig:
     staleness: str = "drop"
     staleness_lambda: float = 0.0
     agg_cadence_s: Optional[float] = None
-    elect: str = "auto"                  # auto | gather | windowed
+    # DCS election: auto (windowed at N >= AUTO_WINDOWED_MIN_CLIENTS,
+    # else gather), gather (dense O(N^2)), windowed (O(N * W) sorted
+    # window; an overflow round re-runs through gather, so masks are
+    # the dense election's either way)
+    elect: str = "auto"
+    elect_window: int = 0                # sorted window per side (0 = auto)
     checkpoint_dir: Optional[str] = None
     resume: bool = False
 
-    def resolved(self, n_clients: int) -> "RunConfig":
-        """Validate for a fleet of ``n_clients``; every unported knob
-        raises here, before any work is done."""
+    def resolved(self) -> "RunConfig":
+        """Validate; every unported knob raises here, before any work is
+        done."""
         if self.engine == "loop":
             raise _unported("engine='loop'", "A6 (loop engine)")
         if self.engine != "batched":
@@ -57,18 +62,19 @@ class RunConfig:
         if self.elect not in ELECT_MODES:
             raise ValueError(f"elect must be one of {ELECT_MODES}: "
                              f"{self.elect!r}")
-        if self.elect == "windowed" or (
-                self.elect == "auto"
-                and n_clients >= AUTO_WINDOWED_MIN_CLIENTS):
-            raise _unported(f"the windowed election (elect={self.elect!r} "
-                            f"at N={n_clients}; pass elect='gather' for "
-                            f"the dense election)", "A4w")
+        if self.elect_window < 0:
+            raise ValueError(f"elect_window must be >= 0: "
+                             f"{self.elect_window}")
         return self
 
     def to_stage_config(self, cfg, *, n_clients: int):
         """The prefix's ``StageConfig`` from one ``FLSimConfig``."""
         from repro_torch.fl.pipeline import StageConfig
         from repro_torch.fl.timing import TimingConfig
+        elect = self.elect
+        if elect == "auto":
+            elect = ("windowed" if n_clients >= AUTO_WINDOWED_MIN_CLIENTS
+                     else "gather")
         return StageConfig(
             scheme=cfg.scheme, n_clients=n_clients,
             comm_range_m=cfg.comm_range_m, top_m=cfg.top_m,
@@ -78,4 +84,5 @@ class RunConfig:
             speed_jitter=cfg.mobility.speed_jitter,
             timing=TimingConfig(cfg.local_epochs, cfg.batch_size,
                                 deadline_s=cfg.deadline_s),
-            network=cfg.network, fused_probe=self.fused_probe)
+            network=cfg.network, fused_probe=self.fused_probe,
+            elect=elect, elect_window=self.elect_window)

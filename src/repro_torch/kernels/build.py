@@ -26,7 +26,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-KERNELS = ("probe_fuzzy", "fuzzy_eval", "neighbor_elect")
+KERNELS = ("probe_fuzzy", "fuzzy_eval", "neighbor_elect", "windowed_counts")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
               "-lineinfo")
@@ -38,6 +38,7 @@ _SIGNATURES = {
     "fuzzy_eval": {"fuzzy_eval_launch": "piipppppipp",
                    "fuzzy_eval_scratch_floats": "i"},
     "neighbor_elect": {"neighbor_elect_launch": "ppiffipp"},
+    "windowed_counts": {"windowed_counts_launch": "pppiiiffipp"},
 }
 _CTYPE = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
 

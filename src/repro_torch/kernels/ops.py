@@ -73,3 +73,29 @@ def neighbor_elect(pos: torch.Tensor, evals: torch.Tensor, *,
                                    top_m=top_m, e_tau=e_tau)
     return ref.neighbor_elect_ref(pos, evals, comm_range=comm_range,
                                   top_m=top_m, e_tau=e_tau)
+
+
+def windowed_counts(sp: torch.Tensor, se: torch.Tensor, sg: torch.Tensor,
+                    *, comm_range: float, e_tau: float, n_valid: int,
+                    window: int, block: int) -> torch.Tensor:
+    """Windowed better-neighbour counts over position-sorted (M,) arrays
+    padded to a multiple of ``block`` -> (M,) int32."""
+    kw = dict(comm_range=comm_range, e_tau=e_tau, n_valid=n_valid,
+              window=window, block=block)
+    if _on_cuda(sp):
+        from repro_torch.kernels.windowed_counts import windowed_counts_cuda
+        return windowed_counts_cuda(sp, se, sg, **kw)
+    return ref.windowed_counts_ref(sp, se, sg, **kw)
+
+
+def neighbor_elect_windowed(pos: torch.Tensor, evals: torch.Tensor, *,
+                            comm_range: float, top_m: int, e_tau: float,
+                            window: int
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """O(N * W) windowed DCS election -> ``(mask (N,) int32, overflow ()
+    int32)``; ``overflow == 0`` certifies the mask equal to
+    ``neighbor_elect``'s.  The counting sweep goes through
+    ``windowed_counts``."""
+    from repro_torch.core.elect import windowed_elect
+    return windowed_elect(pos, evals, comm_range=comm_range, top_m=top_m,
+                          e_tau=e_tau, window=window)

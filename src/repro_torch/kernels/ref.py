@@ -100,3 +100,57 @@ def neighbor_elect_ref(pos: torch.Tensor, evals: torch.Tensor, *,
         out.append((valid & better).sum(dim=1))
     n_better = torch.cat(out)
     return ((evals >= et) & (n_better < top_m)).to(torch.int32)
+
+
+def windowed_counts_ref(sp: torch.Tensor, se: torch.Tensor,
+                        sg: torch.Tensor, *, comm_range: float,
+                        e_tau: float, n_valid: int, window: int,
+                        block: int) -> torch.Tensor:
+    """Better-neighbour counts over position-sorted (M,) arrays padded to
+    a multiple of ``block`` (sentinels pos 1e18 / ev -1e18 / id >=
+    ``n_valid``) -> (M,) int32.
+
+    The candidate set is the Pallas kernel's, block-granular: row block
+    ``ib`` visits candidate blocks ``[ib - hops, ib + hops]`` clipped to
+    the array, ``hops = ceil(window / block)``, each once.  It is wider
+    than ``window`` ranks; the two agree wherever ``window_coverage``
+    certifies the window."""
+    m = sp.shape[0]
+    nb = m // block
+    hops = min(-(-int(window) // block), max(nb - 1, 0))
+    cr, et = _f32(comm_range, sp), _f32(e_tau, sp)
+    p, e, g = (t.reshape(nb, block) for t in (sp, se, sg))
+    ib = torch.arange(nb, device=sp.device)
+    counts = torch.zeros(nb, block, dtype=torch.int32, device=sp.device)
+    for off in range(-hops, hops + 1):
+        tgt = ib + off
+        inb = ((tgt >= 0) & (tgt < nb))[:, None, None]
+        tc = tgt.clamp(0, nb - 1)
+        pj, ej, gj = p[tc][:, None, :], e[tc][:, None, :], g[tc][:, None, :]
+        pi, ei, gi = p[:, :, None], e[:, :, None], g[:, :, None]
+        ok = (torch.abs(pi - pj) <= cr) & (ej >= et) & (gj < n_valid)
+        better = (ej > ei) | ((ej == ei) & (gj < gi))
+        counts += (ok & better & inb).sum(dim=2, dtype=torch.int32)
+    return counts.reshape(m)
+
+
+def windowed_elect_ref(pos: torch.Tensor, evals: torch.Tensor, *,
+                       comm_range: float, top_m: int, e_tau: float,
+                       window: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Oracle of the windowed election's contract (tests only):
+    ``(mask, overflow)`` with the dense election's mask, and ``overflow``
+    1 iff some vehicle has a valid in-range neighbour more than
+    ``window`` position-sorted ranks away.  A windowed election must give
+    this mask wherever its own flag is 0, and flag wherever this one
+    flags."""
+    n = pos.shape[0]
+    mask = neighbor_elect_ref(pos, evals, comm_range=comm_range,
+                              top_m=top_m, e_tau=e_tau)
+    order = torch.argsort(pos, stable=True)
+    rank = torch.empty(n, dtype=torch.int64, device=pos.device)
+    rank[order] = torch.arange(n, device=pos.device)
+    validc = ((torch.abs(pos[:, None] - pos[None, :])
+               <= _f32(comm_range, pos))
+              & (evals[None, :] >= _f32(e_tau, pos)))
+    far = torch.abs(rank[:, None] - rank[None, :]) > window
+    return mask, (validc & far).any().to(torch.int32)

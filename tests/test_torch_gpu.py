@@ -10,6 +10,7 @@ import pytest
 import torch
 
 from repro_torch.configs.mnist_cnn import CONFIG
+from repro_torch.core import elect
 from repro_torch.core.fuzzy import FuzzyEvaluatorConfig, default_level_centers
 from repro_torch.core.rules import build_rule_table
 from repro_torch.kernels import build, ops, ref
@@ -111,3 +112,60 @@ def test_neighbor_elect_kernel_bit_equal(cuda, n):
     got = ops.neighbor_elect(torch.tensor(pos, device=cuda),
                              torch.tensor(ev, device=cuda), **kw)
     assert torch.equal(got.cpu(), want)
+
+
+def _sorted_fleet(n, seed, road, device):
+    """A fleet sorted by position and padded as ``sorted_window_counts``
+    pads it, with pairs exactly ``comm_range`` apart, duplicate
+    positions and tied evaluations."""
+    rng = np.random.default_rng(seed)
+    pos = rng.uniform(0, road, n).astype(np.float32)
+    ev = rng.uniform(0, 100, n).astype(np.float32)
+    pos[:6] = [100, 300, 300, 500, 700, 900]
+    ev[:6] = [50, 50, 50, 30, 30, 29.999]
+    ev[6:40] = 50.0
+    order = np.argsort(pos, kind="stable")
+    block = min(128, max(32, n))
+    pad = -(-n // block) * block - n
+    def t(parts, dtype):
+        return torch.tensor(np.concatenate(parts).astype(dtype),
+                            device=device)
+    return (t([pos[order], np.full(pad, elect.SENT_POS)], np.float32),
+            t([ev[order], np.full(pad, elect.SENT_EV)], np.float32),
+            t([order, np.full(pad, n)], np.int32), block)
+
+
+@pytest.mark.parametrize("window", [1, 100, 616])
+@pytest.mark.parametrize("n", [100, 129, 4096, 65536])
+def test_windowed_counts_kernel_bit_equal(cuda, n, window):
+    sp, se, sg, block = _sorted_fleet(n, n, float(n), cuda)
+    kw = dict(comm_range=200.0, e_tau=30.0, n_valid=n, window=window,
+              block=block)
+    before = build.LAUNCHES["windowed_counts"]
+    got = ops.windowed_counts(sp, se, sg, **kw)
+    assert build.LAUNCHES["windowed_counts"] == before + 1
+    want = ref.windowed_counts_ref(sp, se, sg, **kw)
+    assert torch.equal(got, want)
+    assert torch.equal(ops.windowed_counts(sp, se, sg, **kw), got)
+
+
+@pytest.mark.parametrize("kind", ["uniform", "clustered"])
+def test_windowed_election_equals_dense_kernel_unless_flagged(cuda, kind):
+    n = 4096
+    rng = np.random.default_rng(3)
+    pos = rng.uniform(0, n, n).astype(np.float32)
+    if kind == "clustered":
+        pos[: n // 2] = rng.uniform(0, 150, n // 2)
+    ev = rng.uniform(0, 100, n).astype(np.float32)
+    tp, te = torch.tensor(pos, device=cuda), torch.tensor(ev, device=cuda)
+    kw = dict(comm_range=200.0, top_m=2, e_tau=30.0)
+    dense = ops.neighbor_elect(tp, te, **kw)
+    flags = []
+    for window in (16, elect.auto_window(n, 200.0, float(n))):
+        mask, ovf = ops.neighbor_elect_windowed(tp, te, window=window, **kw)
+        _, oracle = ref.windowed_elect_ref(tp, te, window=window, **kw)
+        assert int(ovf) >= int(oracle)
+        if int(ovf) == 0:
+            assert torch.equal(mask, dense)
+        flags.append(int(ovf))
+    assert flags == ([1, 0] if kind == "uniform" else [1, 1])

@@ -5,11 +5,13 @@ capacity groups, the 81-rule table, freeway mobility, Eq. 6 timing);
 the tensor twins of mobility and the Reno predictor are held to fp32
 rounding on the same inputs.
 """
+import dataclasses
 import importlib
 
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from repro.core.fuzzy import FuzzyEvaluatorConfig as RefFuzzyCfg
@@ -20,10 +22,12 @@ from repro.data.synthetic import train_test_split as ref_split
 from repro.fl import mobility as ref_mob
 from repro.fl import network as ref_net
 from repro.fl import timing as ref_timing
+from repro.launch.fl_sim import fast_config as ref_fast_config
 from repro_torch.core.fuzzy import FuzzyEvaluatorConfig, default_level_centers
 from repro_torch.core.rules import build_rule_table, verify_anchors
 from repro_torch.data.synthetic import make_dataset, train_test_split
 from repro_torch.fl import mobility, network, partition, timing
+from repro_torch.launch.fl_sim import fast_config
 
 # ``repro.fl`` re-exports a ``partition`` function under the module's name
 ref_part = importlib.import_module("repro.fl.partition")
@@ -67,6 +71,27 @@ def test_partition_and_capacity_groups_bit_equal():
     for cap in (1, 20, 45, 4500):
         assert partition.steps_per_epoch(cap, 20) == \
             ref_part.steps_per_epoch(cap, 20)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 7])
+def test_fast_config_partition_and_mobility_match_reference(seed):
+    """The fast profile's partition and mobility settings are the
+    reference's for every run seed (its partition always uses seed 0),
+    and so are the partitions they produce, sample for sample."""
+    cfg, rcfg = fast_config("dcs", seed=seed), ref_fast_config("dcs",
+                                                               seed=seed)
+    assert cfg.seed == rcfg.seed == seed
+    for f in ("partition", "mobility"):
+        assert dataclasses.asdict(getattr(cfg, f)) == \
+            dataclasses.asdict(getattr(rcfg, f)), f
+    (im, lb), _ = train_test_split(*make_dataset(cfg.samples_per_class,
+                                                 seed=seed), seed=seed)
+    parts = partition.partition(im, lb, cfg.partition)
+    rparts = ref_part.partition(im, lb, rcfg.partition)
+    assert len(parts) == len(rparts) == cfg.partition.n_clients
+    for (a, b), (c, d) in zip(parts, rparts):
+        np.testing.assert_array_equal(a, c)
+        np.testing.assert_array_equal(b, d)
 
 
 def test_rule_table_and_fuzzy_parameters_bit_equal():

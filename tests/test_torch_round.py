@@ -40,18 +40,18 @@ REPO = Path(__file__).resolve().parent.parent
 N = 10
 
 
-def _cfgs(scheme="dcs", seed=0):
+def _cfgs(scheme="dcs", seed=0, n=N, distribution="uniform"):
     """The reference's 10-client parity profile (tests/test_probe_fuzzy.py)
-    in both packages."""
+    in both packages, for a fleet of ``n``."""
     kw = dict(scheme=scheme, n_rounds=2, local_epochs=1,
               samples_per_class=260, probe_samples=64, seed=seed)
-    part = dict(n_clients=N, big_clients=3, big_quantity=120,
+    part = dict(n_clients=n, big_clients=3, big_quantity=120,
                 small_quantity=40, classes_per_client=9, seed=seed)
+    mob = dict(n_vehicles=n, seed=seed, distribution=distribution)
     return (RefSimConfig(partition=RefPartition(**part),
-                         mobility=RefMobility(n_vehicles=N, seed=seed), **kw),
+                         mobility=RefMobility(**mob), **kw),
             FLSimConfig(partition=PartitionConfig(**part),
-                        mobility=MobilityConfig(n_vehicles=N, seed=seed),
-                        **kw))
+                        mobility=MobilityConfig(**mob), **kw))
 
 
 def reference_fields(sim: RefSimulation, rnd: int) -> pipeline.RoundFields:
@@ -196,11 +196,23 @@ def _ref_init(seed):
     return jax.device_get(ref_init_cnn(jax.random.PRNGKey(seed), REF_CNN))
 
 
+def _check_round(ref, port, rnd):
+    """One whole round in both packages: integer row fields and masks
+    equal, accuracy within 0.01 (four of the 390 test images)."""
+    want, got = ref.run_round(rnd), port.run_round(rnd)
+    for key in ("round", "n_selected", "n_aggregated", "n_straggler",
+                "n_active"):
+        assert got[key] == want[key], (rnd, key, got, want)
+    np.testing.assert_array_equal(port.last_mask, ref.last_mask)
+    assert abs(got["accuracy"] - want["accuracy"]) <= 0.01
+    assert abs(got["mean_eval_selected"]
+               - want["mean_eval_selected"]) <= 1e-3
+
+
 @pytest.mark.parametrize("fused", [True, False])
 def test_two_rounds_match_reference(fused):
-    """Two whole rounds from the same params on the reference's draws:
-    integer row fields and masks equal, accuracy within 0.01 (four of
-    the 390 test images).  Then a third round from params re-synced to
+    """Two whole rounds from the same params on the reference's draws
+    (``_check_round``).  Then a third round from params re-synced to
     the reference's: the global params agree to 1e-5.  (Carried across
     rounds, the 1e-7 gap of one round grows to ~5e-4: SGD at lr 0.05
     amplifies it through the ReLU kinks, so the params are compared
@@ -209,20 +221,10 @@ def test_two_rounds_match_reference(fused):
     ref.params = jax.tree.map(jnp.asarray, _ref_init(0))
     port.params = params_from_jax(_ref_init(0))
 
-    def check(rnd):
-        want, got = ref.run_round(rnd), port.run_round(rnd)
-        for key in ("round", "n_selected", "n_aggregated", "n_straggler",
-                    "n_active"):
-            assert got[key] == want[key], (rnd, key, got, want)
-        np.testing.assert_array_equal(port.last_mask, ref.last_mask)
-        assert abs(got["accuracy"] - want["accuracy"]) <= 0.01
-        assert abs(got["mean_eval_selected"]
-                   - want["mean_eval_selected"]) <= 1e-3
-
-    check(0)
-    check(1)
+    _check_round(ref, port, 0)
+    _check_round(ref, port, 1)
     port.params = params_from_jax(jax.device_get(ref.params))
-    check(2)
+    _check_round(ref, port, 2)
     mine, theirs = params_to_numpy(port.params), jax.device_get(ref.params)
     for name in mine:
         for leaf in ("w", "b"):
@@ -236,7 +238,9 @@ def test_port_imports_neither_jax_nor_repro():
             "import repro_torch.fl.rounds, repro_torch.launch.fl_sim\n"
             "import repro_torch.kernels.probe_fuzzy, "
             "repro_torch.kernels.fuzzy_eval, "
-            "repro_torch.kernels.neighbor_elect, repro_torch.convert\n"
+            "repro_torch.kernels.neighbor_elect, "
+            "repro_torch.kernels.windowed_counts, repro_torch.core.elect, "
+            "repro_torch.convert\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "
             "m.startswith('repro.')]\n"
@@ -266,13 +270,112 @@ def test_cli_without_cuda_raises():
     dict(engine="loop"), dict(mesh="clients=4"), dict(server="event"),
     dict(churn_rate=0.3), dict(staleness="weighted"),
     dict(agg_cadence_s=10.0), dict(checkpoint_dir="ckpt"),
-    dict(resume=True), dict(elect="windowed"), dict(overlap_rounds=True)])
+    dict(resume=True), dict(overlap_rounds=True)])
 def test_unported_knobs_raise(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        RunConfig(**kw).resolved(30)
+        RunConfig(**kw).resolved()
 
 
-def test_auto_election_raises_at_large_fleets_and_gather_runs():
-    with pytest.raises(NotImplementedError, match="A4w"):
-        RunConfig().resolved(512)
-    assert RunConfig(elect="gather").resolved(4096).elect == "gather"
+@pytest.mark.parametrize("n,want", [(30, "gather"), (511, "gather"),
+                                    (512, "windowed"), (4096, "windowed")])
+def test_auto_election_resolves_by_fleet_size(n, want):
+    """``elect="auto"`` resolves as the reference's does: windowed from
+    512 vehicles on; an explicit choice is kept at any size."""
+    rcfg, cfg = _cfgs()
+    assert RunConfig().to_stage_config(cfg, n_clients=n).elect == want
+    assert RefRunConfig().to_stage_config(rcfg, n_clients=n).elect == want
+    for elect in ("gather", "windowed"):
+        sc = RunConfig(elect=elect, elect_window=7).to_stage_config(
+            cfg, n_clients=n)
+        assert (sc.elect, sc.elect_window) == (elect, 7)
+    with pytest.raises(ValueError, match="elect_window"):
+        RunConfig(elect_window=-1).resolved()
+
+
+def _windowed_pair(n, distribution="uniform", elect_window=0):
+    """Both packages on ``_cfgs(n=n)`` with the windowed election forced,
+    from the same params, the port fed the reference's draws."""
+    rcfg, cfg = _cfgs(n=n, distribution=distribution)
+    ref = RefSimulation(rcfg, run=RefRunConfig(
+        elect="windowed", elect_window=elect_window, overlap_rounds=False))
+    port = FLSimulation(cfg, run=RunConfig(elect="windowed",
+                                           elect_window=elect_window),
+                        device="cpu",
+                        fields=lambda r: reference_fields(ref, r))
+    ref.params = jax.tree.map(jnp.asarray, _ref_init(0))
+    port.params = params_from_jax(_ref_init(0))
+    return ref, port
+
+
+def _overflow(ref, port, rnd):
+    want = jax.device_get(ref.selection_state(rnd))
+    got = port.selection_state(rnd)
+    assert got["elect_overflow"].dtype == torch.int32
+    assert got["elect_overflow"].shape == ()
+    return int(got["elect_overflow"]), int(want["elect_overflow"])
+
+
+@pytest.mark.parametrize("n", [N, 30])
+def test_windowed_rounds_match_reference(n):
+    """``elect="windowed"`` at the auto window: no overflow in either
+    package, and two rounds match the reference (``_check_round``)."""
+    ref, port = _windowed_pair(n)
+    assert port.stage_cfg.elect == "windowed"
+    for rnd in (0, 1):
+        assert _overflow(ref, port, rnd) == (0, 0)
+        _check_round(ref, port, rnd)
+
+
+@pytest.mark.parametrize("n", [N, 30])
+def test_windowed_overflow_falls_back_to_gather(n):
+    """A 2-rank window on the crowded 'extreme' fleet overflows in both
+    packages; the round then runs on the dense election's masks, equal
+    to the reference's and to the port's own ``elect="gather"`` round."""
+    ref, port = _windowed_pair(n, distribution="extreme", elect_window=2)
+    assert _overflow(ref, port, 0) == (1, 1)
+    _check_round(ref, port, 0)
+    _, cfg = _cfgs(n=n, distribution="extreme")
+    gather = FLSimulation(cfg, run=RunConfig(elect="gather"), device="cpu",
+                          fields=lambda r: reference_fields(ref, r))
+    gather.params = params_from_jax(_ref_init(0))
+    gather.run_round(0)
+    np.testing.assert_array_equal(port.last_mask, gather.last_mask)
+
+
+def _counting(monkeypatch, obj, name, calls):
+    fn = getattr(obj, name)
+
+    def counted(*args, **kwargs):
+        calls.append((args, kwargs))
+        return fn(*args, **kwargs)
+    monkeypatch.setattr(obj, name, counted)
+
+
+@pytest.mark.parametrize("distribution,overflows", [("uniform", False),
+                                                    ("extreme", True)])
+def test_overflow_rerun_reuses_the_rounds_fields(monkeypatch, distribution,
+                                                 overflows):
+    """A round draws its fields once.  Without overflow it runs the
+    windowed counts once and never the dense election; on overflow the
+    prefix re-runs on the same ``RoundFields`` object through the dense
+    election."""
+    from repro_torch.kernels import ops
+    _, cfg = _cfgs(distribution=distribution)
+    sim = FLSimulation(cfg, run=RunConfig(
+        elect="windowed", elect_window=0 if not overflows else 2),
+        device="cpu")
+    draws, prefixes, dense, counts = [], [], [], []
+    _counting(monkeypatch, sim, "round_fields", draws)
+    _counting(monkeypatch, pipeline, "selection_prefix", prefixes)
+    _counting(monkeypatch, ops, "neighbor_elect", dense)
+    _counting(monkeypatch, ops, "windowed_counts", counts)
+    sim.run_round(0)
+    assert len(draws) == 1 and len(counts) == 1
+    if not overflows:
+        assert len(prefixes) == 1 and dense == []
+    else:
+        assert len(prefixes) == 2 and len(dense) == 1
+        (first, kw0), (rerun, kw1) = prefixes
+        assert rerun[3] is first[3]                    # the same fields
+        assert (kw0["cfg"].elect, kw1["cfg"].elect) == ("windowed",
+                                                        "gather")
