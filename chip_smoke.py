@@ -6,7 +6,7 @@
 Phases (any failure exits non-zero; no phase's exception is caught):
 
 1. the card: name, device count, ``nvidia-smi`` name and power limit;
-2. build all four CUDA kernels from ``src/repro_torch/csrc`` (one
+2. build all five CUDA kernels from ``src/repro_torch/csrc`` (one
    ``nvcc`` per source, all started together) and print ptxas' register
    / shared-memory report; build the two simulations of the paths (the
    fast profile, 30 vehicles; the large fleet, 4096 vehicles at 1 per
@@ -16,11 +16,14 @@ Phases (any failure exits non-zero; no phase's exception is caught):
    bit-equal at the large fleet's sorted round-0 arrays, at 65,536
    vehicles and on a clustered fleet; the windowed election's mask equal
    to ``neighbor_elect``'s wherever its flag is 0, and flagged wherever
-   the rank-distance oracle flags;
+   the rank-distance oracle flags; ``wkv6`` at the serving prefill's
+   shape (B=4, T=64, H=40, N=64, bf16 r/k/v, fp32 w) and at B=1,
+   T=4096, and bit-repeatable;
 4. time each kernel and its plain version with CUDA events and print its
    bound (the larger of bytes over 3.35 TB/s and operations over the
    fp32 peak of 67 TFLOP/s); time the whole windowed election against
-   the dense kernel at 4096, 16,384 and 65,536 vehicles;
+   the dense kernel at 4096, 16,384 and 65,536 vehicles; ``wkv6`` at its
+   two shapes;
 5. the paths, each with the launch counters reset just before and read
    just after: the round-0 selection prefix on the card against the
    port's CPU plain path, then ``FLSimulation`` (fast profile, ``dcs``)
@@ -31,7 +34,12 @@ Phases (any failure exits non-zero; no phase's exception is caught):
    round; the large fleet for 2 rounds through ``elect="auto"`` (the
    windowed election, no dense launch unless a round overflows), then
    1 round of its extreme placement, which overflows and falls back to
-   the dense kernel with the masks of ``elect="gather"``;
+   the dense kernel with the masks of ``elect="gather"``; rwkv6-3b with
+   2 layers at full width, the card against the port's CPU path over 8
+   teacher-forced steps; then the serving path: ``python -m
+   repro_torch.launch.serve`` at full width (32 layers, B=4, prompt 64,
+   32 new tokens, greedy, random weights from seed 0), which must
+   launch ``wkv6`` once per layer at prefill and never in decode;
 6. ``{"kernels": [...]}`` on the line before the last;
 7. ``{"ok": true, "device": {...}}`` as the last line.
 """
@@ -40,6 +48,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
+import io
 import json
 import math
 import os
@@ -67,6 +76,15 @@ MAMDANI_OPS = 12 * 5 + 81 * 4 + 9 * 3 + 1
 EQ8_OPS = 16
 ELECT_OPS_PER_PAIR = 8             # sub, abs, 4 compares, and/or, add
 LARGE_FLEET = 4096                 # vehicles of the large-fleet path
+# the serving path: rwkv6-3b at full width, 4 prompts of 64 tokens, 32
+# new tokens each; its WKV shape
+SERVE_ARGV = ["--arch", "rwkv6-3b", "--batch", "4", "--prompt-len", "64",
+              "--max-new", "32"]
+WKV_B, WKV_T, WKV_H, WKV_N = 4, 64, 40, 64
+# bf16 tolerance of the model check, relative to each tensor's largest
+# magnitude: the card and the CPU round bf16 at other places (cuBLAS
+# against oneDNN, FMA), a few bf16 ulps (2^-8) through the blocks
+MODEL_TOL = 2 ** -5
 
 
 def log(msg: str) -> None:
@@ -87,6 +105,46 @@ def visited_pairs(m: int, block: int, window: int) -> int:
     nb, hops = m // block, -(-window // block)
     return sum(min(ib + hops, nb - 1) - max(ib - hops, 0) + 1
                for ib in range(nb)) * block * block
+
+
+def wkv_inputs(b, t, h, g, device):
+    """Model-like WKV operands: unit-scale bf16 r, k, v, fp32 decays
+    over (0.37, 0.9975) (``exp(-exp(w0 + lora))`` with w0 = -6 gives
+    0.9975), bonus u ~ 0.5 N(0, 1), a nonzero fp32 initial state."""
+    import torch
+    r, k, v = (torch.randn(b, t, h, WKV_N, generator=g, device=device)
+               .to(torch.bfloat16) for _ in range(3))
+    w = torch.exp(-torch.exp(torch.rand(b, t, h, WKV_N, generator=g,
+                                        device=device) * 6 - 6))
+    u = 0.5 * torch.randn(h, WKV_N, generator=g, device=device)
+    s0 = torch.randn(b, h, WKV_N, WKV_N, generator=g, device=device)
+    return r, k, v, w, u, s0
+
+
+def wkv_bound(b, t, h):
+    """(ms, by) for one WKV call: bf16 r, k, v, fp32 w read and fp32 y
+    written per (b, t, h, n); u, s0 read and sT written once; ~6 N^2
+    fp32 operations per (b, h, t)."""
+    n_bytes = (b * t * h * WKV_N * (3 * 2 + 4 + 4) + h * WKV_N * 4
+               + 2 * b * h * WKV_N * WKV_N * 4)
+    return bound(n_bytes, 6 * WKV_N * WKV_N * b * h * t)
+
+
+def tree_to(tree, device):
+    """A parameter or cache tree (dicts, lists, tensors) on ``device``."""
+    import torch
+    if torch.is_tensor(tree):
+        return tree.to(device)
+    if isinstance(tree, dict):
+        return {k: tree_to(v, device) for k, v in tree.items()}
+    return [tree_to(v, device) for v in tree]
+
+
+def scaled_err(got, want) -> float:
+    """Max abs error over the largest magnitude of ``want``."""
+    got, want = got.float().cpu(), want.float().cpu()
+    return float((got - want).abs().max() / want.abs().max().clamp(
+        min=1e-30))
 
 
 def large_fleet_config(distribution: str):
@@ -365,6 +423,33 @@ def main() -> int:
             if not ok:
                 raise AssertionError(f"windowed election {label} wrong")
 
+    # wkv6 at the serving prefill's shape and at a long sequence: the
+    # kernel's fp32 y and sT against the plain version's, both fp32
+    # recurrences from the same operands summed in other orders, to 1e-5
+    # of the largest magnitude; and bit for bit against a second launch
+    from repro_torch.kernels.wkv6 import wkv6_cuda
+    wkv_cases = {}
+    err_wkv = 0.0
+    for b, t in ((WKV_B, WKV_T), (1, 4096)):
+        args = wkv_inputs(b, t, WKV_H, g, dev)
+        wkv_cases[(b, t)] = args
+        y, s_t = wkv6_cuda(*args)
+        y2, s_t2 = wkv6_cuda(*args)
+        want_y, want_s = ref.wkv6_ref(*args)
+        torch.cuda.synchronize()
+        e_y, e_s = scaled_err(y, want_y), scaled_err(s_t, want_s)
+        same = torch.equal(y, y2) and torch.equal(s_t, s_t2)
+        ok = (e_y <= 1e-5 and e_s <= 1e-5 and same
+              and bool(torch.isfinite(y).all()))
+        if (b, t) == (WKV_B, WKV_T):
+            err_wkv = float((y - want_y).abs().max())
+        log(f"[check] wkv6 B={b} T={t} H={WKV_H} N={WKV_N} bf16 r/k/v: y "
+            f"max err / scale {e_y:.3g} (scale {float(want_y.abs().max()):.4g}"
+            f"), sT {e_s:.3g} (tol 1e-5); bit-repeatable {same} "
+            f"{'OK' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"wkv6 B={b} T={t} disagrees")
+
     # -- 4. timing -----------------------------------------------------------
     param_bytes = sum(t.numel() * 4 for t in sim.params.values())
     probe_bytes = (s_main * (28 * 28 * 4 + 8) + n_main * (4 + 12 + 16 + 4)
@@ -417,6 +502,12 @@ def main() -> int:
          lambda: ref.neighbor_elect_ref(pos_big, ev_big, **elect_kw), 20,
          bound(n_eb * 12, n_eb * n_eb * ELECT_OPS_PER_PAIR)),
     ]
+    for (b, t), args in wkv_cases.items():
+        cases.append((
+            "wkv6", f"B={b} T={t} H={WKV_H} N={WKV_N} bf16",
+            functools.partial(wkv6_cuda, *args),
+            functools.partial(ref.wkv6_ref, *args),
+            200 if t <= WKV_T else 5, wkv_bound(b, t, WKV_H)))
     timings = {}
     for name, shape, fn, plain, iters, (b_ms, b_by) in cases:
         ms, plain_ms = time_ms(fn, iters), time_ms(plain, iters)
@@ -607,10 +698,91 @@ def main() -> int:
         raise AssertionError(f"large fleet extreme: launches {fallback}, "
                              f"rows {rows_x}")
 
+    # rwkv6-3b with 2 layers at full width: the card against the port's
+    # CPU path on the same weights (drawn on the card from seed 0, cast
+    # once to bf16 where the forward computes in bf16), teacher-forced on
+    # the CPU's greedy tokens for 8 steps (the prefill and 7 decodes).
+    # Logits and caches within MODEL_TOL of their largest magnitude; the
+    # card's argmax equal to the CPU's wherever the CPU's top-2 gap
+    # exceeds twice that bound
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.models import registry
+    t0 = time.perf_counter()
+    cfg2 = dataclasses.replace(get_arch("rwkv6-3b"), num_layers=2)
+    p_dev = registry.serving_params(registry.init_params(
+        torch.Generator(device=dev).manual_seed(0), cfg2))
+    p_cpu = tree_to(p_dev, "cpu")
+    toks = torch.randint(0, cfg2.vocab_size, (2, 64),
+                         generator=torch.Generator().manual_seed(1))
+    prefill2, decode2 = (registry.prefill_fn(cfg2),
+                         registry.decode_fn(cfg2, 72))
+    lg_c, c_c = prefill2(p_cpu, {"tokens": toks})
+    lg_d, c_d = prefill2(p_dev, {"tokens": toks.to(dev)})
+    errs = dict.fromkeys(("logits", "S", "x_tm", "x_cm"), 0.0)
+    decisive = flipped = 0
+    for i in range(8):
+        errs["logits"] = max(errs["logits"], scaled_err(lg_d, lg_c))
+        for key in ("S", "x_tm", "x_cm"):
+            errs[key] = max([errs[key]] + [
+                scaled_err(a[key], b[key])
+                for a, b in zip(c_d["layers"], c_c["layers"])])
+        last = lg_c[:, -1]
+        top2 = last.topk(2, dim=-1).values
+        sure = top2[:, 0] - top2[:, 1] > 2 * MODEL_TOL * last.abs().max()
+        tok = last.argmax(-1)
+        decisive += int(sure.sum())
+        flipped += int((lg_d[:, -1].argmax(-1).cpu() != tok)[sure].sum())
+        if i < 7:
+            lg_c, c_c = decode2(p_cpu, c_c, tok[:, None])
+            lg_d, c_d = decode2(p_dev, c_d, tok[:, None].to(dev))
+    ok = (max(errs.values()) <= MODEL_TOL and flipped == 0
+          and bool(torch.isfinite(lg_d).all()))
+    log(f"[check] rwkv6-3b 2 layers at full width, cuda vs cpu (bf16, B=2, "
+        f"T=64, 8 steps): max err / scale {json.dumps(errs)} (tol "
+        f"{MODEL_TOL}); argmax equal on {decisive - flipped} of {decisive} "
+        f"decisive steps of 16; {time.perf_counter() - t0:.1f}s "
+        f"{'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("rwkv6-3b on the card disagrees with the CPU")
+    del p_dev, p_cpu, c_d, lg_d
+    torch.cuda.empty_cache()
+
+    # the serving path, through its CLI at full width; its peak device
+    # memory includes what the earlier phases still hold
+    held = torch.cuda.memory_allocated(dev)
+    build.reset_launches()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = serve_cli.main(SERVE_ARGV)
+    served = dict(build.LAUNCHES)
+    lines = out.getvalue().strip().splitlines()
+    for line in lines:
+        log(f"[serve path] {line}")
+    stats = json.loads(lines[-1])
+    first = json.loads(next(line for line in lines if line.startswith(
+        "[serve] first sequence:")).split(":", 1)[1])
+    arch = get_arch("rwkv6-3b")
+    log(f"[serve path] launches {served}; {stats['params']} params; peak "
+        f"device memory {stats['peak_mem_bytes'] / 1e9:.2f} GB (of which "
+        f"{held / 1e9:.2f} GB held by earlier phases); prefill "
+        f"{stats['prefill_s']:.4f} s, decode {stats['decode_s']:.4f} s for "
+        f"{stats['max_new']} steps ({stats['decode_tok_s']:.1f} tok/s)")
+    if (rc != 0 or not stats["device"].startswith("cuda")
+            or served["wkv6"] != arch.num_layers
+            or any(n for k, n in served.items() if k != "wkv6")
+            or not all(0 <= t < arch.vocab_size for t in first)
+            or len(first) != 16
+            or not (math.isfinite(stats["prefill_s"])
+                    and math.isfinite(stats["decode_s"]))):
+        raise AssertionError(f"serving path: rc {rc}, launches {served}, "
+                             f"stats {stats}")
+
     launches = {"probe_fuzzy": fused["probe_fuzzy"],
                 "neighbor_elect": fused["neighbor_elect"],
                 "fuzzy_eval": unfused["fuzzy_eval"],
-                "windowed_counts": windowed["windowed_counts"]}
+                "windowed_counts": windowed["windowed_counts"],
+                "wkv6": served["wkv6"]}
     if (min(launches.values()) <= 0 or unfused["neighbor_elect"] <= 0
             or windowed["probe_fuzzy"] != 2 + n_over):
         raise AssertionError(f"a kernel of the path never ran: {launches}")
@@ -625,6 +797,8 @@ def main() -> int:
                            "src/repro/kernels/neighbor_elect.py:66", 0.0),
         "windowed_counts": ("src/repro_torch/csrc/windowed_counts.cu",
                             "src/repro/kernels/neighbor_elect.py:141", 0.0),
+        "wkv6": ("src/repro_torch/csrc/wkv6.cu",
+                 "src/repro/kernels/wkv6.py:62", err_wkv),
     }
     kernels = []
     for name in build.KERNELS:

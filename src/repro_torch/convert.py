@@ -1,10 +1,11 @@
-"""Carry CNN parameters between the JAX reference's pytree and the port.
+"""Carry parameters between the JAX reference's pytrees and the port.
 
-The reference stores ``{"conv1": {"w": HWIO, "b"}, ..., "fc1": {"w":
-(in, out), "b"}, ...}``; the port stores a flat dict in PyTorch's layout
-(conv OIHW, dense ``(out, in)``).  The fc1 ``in`` axis keeps the NHWC
-flatten order on both sides — ``cnn_forward`` permutes its activation to
-NHWC before flattening, so no row of fc1 is permuted here.
+For the CNN the reference stores ``{"conv1": {"w": HWIO, "b"}, ...,
+"fc1": {"w": (in, out), "b"}, ...}``; the port stores a flat dict in
+PyTorch's layout (conv OIHW, dense ``(out, in)``).  The fc1 ``in`` axis
+keeps the NHWC flatten order on both sides — ``cnn_forward`` permutes
+its activation to NHWC before flattening, so no row of fc1 is permuted
+here.  For RWKV-6 see ``rwkv_params_from_jax``.
 """
 from __future__ import annotations
 
@@ -38,4 +39,32 @@ def params_to_numpy(params: Mapping[str, torch.Tensor]) -> Dict:
         w = w.transpose(2, 3, 1, 0) if name in CONV else w.T
         out[name] = {"w": np.ascontiguousarray(w),
                      "b": params[name + ".b"].detach().cpu().numpy()}
+    return out
+
+
+# RWKV-6 dense weights: (in, out) in the reference, (out, in) here
+RWKV_DENSE = ("wr", "wk", "wv", "wg", "wo", "wA", "wB", "ck", "cv")
+
+
+def rwkv_params_from_jax(tree: Mapping, device=None) -> Dict:
+    """The reference's ssm-family parameter tree (numpy or array-like
+    leaves; ``blocks`` stacked on a leading layer axis) -> the port's
+    (``blocks`` a list of per-layer dicts, dense weights and the head
+    ``(out, in)``).  Norm weights are copied as stored (weight - 1)."""
+    def t(a):
+        return torch.tensor(np.ascontiguousarray(a), device=device)
+
+    blocks = tree["blocks"]
+    out = {"embed": t(tree["embed"]),
+           "final_norm": {k: t(v) for k, v in tree["final_norm"].items()},
+           "blocks": []}
+    if "lm_head" in tree:
+        out["lm_head"] = t(np.asarray(tree["lm_head"]).T)
+    for i in range(np.asarray(blocks["n1"]["w"]).shape[0]):
+        rw = {k: np.asarray(v)[i] for k, v in blocks["rwkv"].items()}
+        out["blocks"].append({
+            "n1": {"w": t(np.asarray(blocks["n1"]["w"])[i])},
+            "n2": {"w": t(np.asarray(blocks["n2"]["w"])[i])},
+            "rwkv": {k: t(v.T if k in RWKV_DENSE else v)
+                     for k, v in rw.items()}})
     return out

@@ -1,4 +1,4 @@
-"""Dispatch over the selection path's kernels by the tensor's device.
+"""Dispatch over the hand-written kernels by the tensor's device.
 
 A CPU tensor goes to the plain PyTorch version (``kernels/ref.py``); a
 CUDA tensor goes to the hand-written kernel, or the call raises.  There
@@ -99,3 +99,17 @@ def neighbor_elect_windowed(pos: torch.Tensor, evals: torch.Tensor, *,
     from repro_torch.core.elect import windowed_elect
     return windowed_elect(pos, evals, comm_range=comm_range, top_m=top_m,
                           e_tau=e_tau, window=window)
+
+
+def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+         w: torch.Tensor, u: torch.Tensor, s0: torch.Tensor
+         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The RWKV-6 recurrence over a sequence: r, k, v, w (B, T, H, N),
+    u (H, N), s0 (B, H, N, N) fp32 -> ``(y (B, T, H, N) in r's dtype,
+    sT (B, H, N, N) fp32)``."""
+    if _on_cuda(r):
+        from repro_torch.kernels.wkv6 import wkv6_cuda
+        y, s_t = wkv6_cuda(r, k, v, w, u, s0)
+    else:
+        y, s_t = ref.wkv6_ref(r, k, v, w, u, s0)
+    return y.to(r.dtype), s_t

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the selection path's kernels.
+"""Plain PyTorch versions of the hand-written kernels.
 
 Direct transcriptions of ``repro.kernels.ref`` — the yardstick the CUDA
 kernels are held against on the card, and what ``kernels/ops.py`` runs
@@ -154,3 +154,25 @@ def windowed_elect_ref(pos: torch.Tensor, evals: torch.Tensor, *,
               & (evals[None, :] >= _f32(e_tau, pos)))
     far = torch.abs(rank[:, None] - rank[None, :]) > window
     return mask, (validc & far).any().to(torch.int32)
+
+
+def wkv6_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             w: torch.Tensor, u: torch.Tensor, s0: torch.Tensor
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The RWKV-6 recurrence, one step at a time, in fp32.
+
+    r, k, v, w: (B, T, H, N) of any float dtype; u: (H, N); s0:
+    (B, H, N, N), indexed key x value.  Per step
+    ``y_t = r_t . (S + u (x) k_t v_t^T)`` and ``S <- diag(w_t) S +
+    k_t v_t^T``.  Returns ``(y (B, T, H, N) fp32, sT (B, H, N, N)
+    fp32)``."""
+    r, k, v, w = (z.float() for z in (r, k, v, w))
+    u, s = u.float(), s0.float()
+    ys = []
+    for t in range(r.shape[1]):
+        kv = k[:, t, :, :, None] * v[:, t, :, None, :]
+        ys.append(torch.einsum("bhi,bhij->bhj", r[:, t],
+                               s + u[..., :, None] * kv))
+        s = w[:, t, :, :, None] * s + kv
+    y = torch.stack(ys, dim=1) if ys else torch.zeros_like(r)
+    return y, s

@@ -9,12 +9,15 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import get_arch, scaled_down
 from repro_torch.configs.mnist_cnn import CONFIG
 from repro_torch.core import elect
 from repro_torch.core.fuzzy import FuzzyEvaluatorConfig, default_level_centers
 from repro_torch.core.rules import build_rule_table
 from repro_torch.kernels import build, ops, ref
+from repro_torch.models import registry
 from repro_torch.models.cnn import init_cnn
+from repro_torch.serve import engine
 
 pytestmark = pytest.mark.gpu
 
@@ -169,3 +172,82 @@ def test_windowed_election_equals_dense_kernel_unless_flagged(cuda, kind):
             assert torch.equal(mask, dense)
         flags.append(int(ovf))
     assert flags == ([1, 0] if kind == "uniform" else [1, 1])
+
+
+def _wkv_inputs(b, t, h, dtype, w_dtype, device, seed=0):
+    """Model-like WKV operands: unit-scale r, k, v, decays over
+    (0.37, 0.9975), a nonzero initial state."""
+    g = torch.Generator().manual_seed(seed)
+    r, k, v = (torch.randn(b, t, h, 64, generator=g).to(dtype)
+               for _ in range(3))
+    w = torch.exp(-torch.exp(torch.rand(b, t, h, 64, generator=g) * 6 - 6))
+    u = 0.5 * torch.randn(h, 64, generator=g)
+    s0 = torch.randn(b, h, 64, 64, generator=g)
+    return [z.to(device) for z in (r, k, v, w.to(w_dtype), u, s0)]
+
+
+def _scaled_err(got, want):
+    return float((got - want).abs().max() / want.abs().max())
+
+
+@pytest.mark.parametrize("b,t,h,dtype,w_dtype", [
+    (4, 64, 40, torch.bfloat16, torch.float32),    # the serving prefill
+    (1, 300, 4, torch.float32, torch.float32),     # a ragged last chunk
+    (2, 33, 3, torch.bfloat16, torch.bfloat16),
+    (3, 1, 2, torch.float32, torch.bfloat16),
+    (2, 0, 2, torch.bfloat16, torch.float32)])
+def test_wkv6_kernel_matches_plain(cuda, b, t, h, dtype, w_dtype):
+    """fp32 sums in another order (four partial sums, FMA): y and sT
+    within 1e-5 of their largest magnitude, as on the CPU against the
+    reference."""
+    from repro_torch.kernels.wkv6 import wkv6_cuda
+    args = _wkv_inputs(b, t, h, dtype, w_dtype, cuda)
+    before = build.LAUNCHES["wkv6"]
+    y, s_t = wkv6_cuda(*args)
+    assert build.LAUNCHES["wkv6"] == before + 1
+    want_y, want_s = ref.wkv6_ref(*args)
+    torch.cuda.synchronize()
+    assert y.dtype == s_t.dtype == torch.float32
+    assert _scaled_err(s_t, want_s) <= 1e-5
+    if t:
+        assert _scaled_err(y, want_y) <= 1e-5
+    # the op: the same kernel, y in r's dtype
+    y_op, s_op = ops.wkv6(*args)
+    assert build.LAUNCHES["wkv6"] == before + 2
+    assert y_op.dtype == dtype
+    assert torch.equal(y_op, y.to(dtype)) and torch.equal(s_op, s_t)
+
+
+def test_wkv6_kernel_is_bit_repeatable(cuda):
+    from repro_torch.kernels.wkv6 import wkv6_cuda
+    args = _wkv_inputs(4, 64, 40, torch.bfloat16, torch.float32, cuda, 1)
+    (y1, s1), (y2, s2) = wkv6_cuda(*args), wkv6_cuda(*args)
+    assert torch.equal(y1, y2) and torch.equal(s1, s2)
+    y0, _ = ref.wkv6_ref(*args)
+    assert _scaled_err(y1, y0) <= 1e-5
+
+
+def test_rwkv_prefill_launches_wkv6_once_per_layer(cuda):
+    """The scaled-down model on the card: one wkv6 launch per layer at
+    prefill, none in decode; logits within 2^-5 of the CPU's (bf16
+    rounded in other places)."""
+    cfg = scaled_down(get_arch("rwkv6-3b"))
+    params = registry.init_params(torch.Generator().manual_seed(0), cfg)
+    on = lambda tree, dev: (tree.to(dev) if torch.is_tensor(tree) else
+                            {k: on(v, dev) for k, v in tree.items()}
+                            if isinstance(tree, dict) else
+                            [on(v, dev) for v in tree])
+    toks = torch.randint(0, cfg.vocab_size, (2, 64),
+                         generator=torch.Generator().manual_seed(1))
+    build.reset_launches()
+    want_lg, _ = registry.prefill_fn(cfg)(params, {"tokens": toks})
+    got_lg, cache = registry.prefill_fn(cfg)(on(params, cuda),
+                                             {"tokens": toks.to(cuda)})
+    assert build.LAUNCHES["wkv6"] == cfg.num_layers
+    assert _scaled_err(got_lg.cpu(), want_lg) <= 2 ** -5
+    registry.decode_fn(cfg, 65)(on(params, cuda), cache,
+                                toks[:, :1].to(cuda))
+    assert build.LAUNCHES["wkv6"] == cfg.num_layers
+    got, _ = engine.generate(cfg, on(params, cuda),
+                             {"tokens": toks.to(cuda)}, 4)
+    assert got.shape == (2, 4) and got.device.type == "cuda"
