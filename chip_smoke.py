@@ -6,7 +6,7 @@
 Phases (any failure exits non-zero; no phase's exception is caught):
 
 1. the card: name, device count, ``nvidia-smi`` name and power limit;
-2. build all five CUDA kernels from ``src/repro_torch/csrc`` (one
+2. build all six CUDA kernels from ``src/repro_torch/csrc`` (one
    ``nvcc`` per source, all started together) and print ptxas' register
    / shared-memory report; build the two simulations of the paths (the
    fast profile, 30 vehicles; the large fleet, 4096 vehicles at 1 per
@@ -40,6 +40,19 @@ Phases (any failure exits non-zero; no phase's exception is caught):
    repro_torch.launch.serve`` at full width (32 layers, B=4, prompt 64,
    32 new tokens, greedy, random weights from seed 0), which must
    launch ``wkv6`` once per layer at prefill and never in decode;
+5b. the dense family, after the rwkv6 weights are freed:
+   ``flash_attention`` against its plain version (fp32 to 1e-5 and bf16
+   to 2^-7 of the largest |out|, bit-repeatable) at gemma-2b's serving
+   prefill (B=4, S=64, 8 q heads over 1 kv head of 256), at S=8192, a
+   window (S=4096, window 1024), prefix_len 64, Sq=96 / Skv=160 without
+   a mask, and Dh 64 and 128 with groups of 1 and 4; timed in bf16 at
+   the serving shape and at S=8192 beside its plain version and the
+   library's ``scaled_dot_product_attention``, with its bound (bf16
+   operations at 989 TFLOP/s); gemma-2b with 2 layers at full width,
+   the card against the CPU; then ``python -m repro_torch.launch.serve``
+   with its default arch, gemma-2b, at full width (18 layers, B=4,
+   prompt 64, 32 new tokens), which must launch ``flash_attention`` once
+   per layer at prefill and nothing else;
 6. ``{"kernels": [...]}`` on the line before the last;
 7. ``{"ok": true, "device": {...}}`` as the last line.
 """
@@ -48,6 +61,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
+import gc
 import io
 import json
 import math
@@ -65,6 +79,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 FP32_FLOP_PER_S = 67e12            # non-tensor-core fp32 peak
+BF16_FLOP_PER_S = 989e12           # dense bf16 tensor-core peak
 
 # CNN work per probe sample (conv1, conv2, fc1, fc2 multiply-adds x 2)
 PROBE_FLOP_PER_SAMPLE = 2 * (28 * 28 * 32 * 25 + 14 * 14 * 64 * 32 * 25
@@ -85,15 +100,33 @@ WKV_B, WKV_T, WKV_H, WKV_N = 4, 64, 40, 64
 # magnitude: the card and the CPU round bf16 at other places (cuBLAS
 # against oneDNN, FMA), a few bf16 ulps (2^-8) through the blocks
 MODEL_TOL = 2 ** -5
+# the dense serving path: gemma-2b (the CLI's default --arch) at full
+# width, 4 prompts of 64 tokens, 32 new tokens each
+GEMMA_SERVE_ARGV = ["--batch", "4", "--prompt-len", "64", "--max-new", "32"]
+# flash_attention's shapes: (B, Sq, Skv, Hq, Hkv, Dh, causal, window,
+# prefix_len); the first is gemma-2b's serving prefill (8 q heads over 1
+# kv head of 256), the second a long prompt
+FLASH_CASES = [
+    (4, 64, 64, 8, 1, 256, True, 0, 0),
+    (1, 8192, 8192, 8, 1, 256, True, 0, 0),
+    (1, 4096, 4096, 8, 1, 256, True, 1024, 0),    # sliding window
+    (2, 300, 300, 8, 1, 256, True, 0, 64),        # prefix-LM
+    (2, 96, 160, 8, 1, 256, False, 0, 0),         # Sq != Skv, not causal
+    (2, 200, 200, 4, 4, 64, True, 0, 0),          # Dh 64, groups of 1
+    (2, 200, 200, 8, 2, 64, True, 0, 0),          # Dh 64, groups of 4
+    (2, 200, 200, 4, 4, 128, True, 0, 0),         # Dh 128, groups of 1
+    (2, 200, 200, 8, 2, 128, True, 0, 0),         # Dh 128, groups of 4
+]
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def bound(n_bytes: float, n_ops: float):
-    """(least ms, what bounds it) for the work of one call."""
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / FP32_FLOP_PER_S
+def bound(n_bytes: float, n_ops: float, flop_per_s: float = FP32_FLOP_PER_S):
+    """(least ms, what bounds it) for the work of one call, its
+    operations at ``flop_per_s`` (the peak for the inputs' type)."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / flop_per_s
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -190,6 +223,211 @@ def time_ms(fn, iters: int, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def kept_pairs(sq, skv, causal, window, prefix) -> int:
+    """(q, kv) pairs that flash_attention's mask keeps, per batch row and
+    q head."""
+    import torch
+    qp, kp = torch.arange(sq)[:, None], torch.arange(skv)[None, :]
+    if not causal:
+        return sq * skv
+    ok = kp <= qp
+    if window:
+        ok &= (qp - kp) < window
+    if prefix:
+        ok |= kp < prefix
+    return int(ok.sum())
+
+
+def flash_bound(case, elem_bytes: int):
+    """(ms, by) for one flash_attention call: q, k, v read and o written
+    once; 4 Dh operations per kept pair and q head, at the bf16
+    tensor-core peak for bf16 inputs, the fp32 peak for fp32 ones."""
+    b, sq, skv, hq, hkv, dh, causal, window, prefix = case
+    n_bytes = (2 * b * sq * hq + 2 * b * skv * hkv) * dh * elem_bytes
+    n_ops = 4 * dh * kept_pairs(sq, skv, causal, window, prefix) * b * hq
+    return bound(n_bytes, n_ops,
+                 BF16_FLOP_PER_S if elem_bytes == 2 else FP32_FLOP_PER_S)
+
+
+def flash_inputs(case, dtype, device, seed=0):
+    import torch
+    b, sq, skv, hq, hkv, dh = case[:6]
+    g = torch.Generator(device=device).manual_seed(seed)
+    return [torch.randn(b, s, h, dh, generator=g, device=device).to(dtype)
+            for s, h in ((sq, hq), (skv, hkv), (skv, hkv))]
+
+
+def flash_label(case, dtype) -> str:
+    b, sq, skv, hq, hkv, dh, causal, window, prefix = case
+    return (f"B={b} Sq={sq} Skv={skv} Hq={hq} Hkv={hkv} Dh={dh} "
+            f"causal={causal} window={window} prefix={prefix} "
+            f"{str(dtype).split('.')[-1]}")
+
+
+def flash_checks(dev) -> float:
+    """flash_attention against its plain version at every case, fp32 and
+    bf16: both compute in fp32 and round the output once, so fp32 within
+    1e-5 of the largest |out| (sums in another order) and bf16 within
+    2^-7 of it (one bf16 ulp at the largest value); a second launch
+    equal bit for bit.  Returns the max abs error at the serving shape
+    in bf16."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    err_serve = None
+    for case in FLASH_CASES:
+        kw = dict(zip(("causal", "window", "prefix_len"), case[6:]))
+        for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2 ** -7)):
+            q, k, v = flash_inputs(case, dtype, dev)
+            out = flash_attention_cuda(q, k, v, **kw)
+            again = flash_attention_cuda(q, k, v, **kw)
+            want = ref.flash_attention_ref(q, k, v, **kw)
+            torch.cuda.synchronize()
+            err = scaled_err(out, want)
+            same = torch.equal(out, again)
+            ok = (err <= tol and same and out.dtype == dtype
+                  and bool(torch.isfinite(out).all()))
+            if case == FLASH_CASES[0] and dtype == torch.bfloat16:
+                err_serve = float((out.float() - want.float()).abs().max())
+            log(f"[check] flash_attention {flash_label(case, dtype)}: max err "
+                f"/ scale {err:.3g} (tol {tol:.3g}), bit-repeatable {same} "
+                f"{'OK' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"flash_attention {case} {dtype} "
+                                     f"disagrees")
+            del q, k, v, out, again, want
+    return err_serve
+
+
+def flash_times(dev):
+    """flash_attention, its plain version and the library's
+    ``scaled_dot_product_attention`` (causal, GQA) in bf16 at the serving
+    shape and the long prompt, each with its bound.  Returns (ms,
+    plain ms, bound ms, bound by, library ms) at the serving shape."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    rows = []
+    for case, iters in ((FLASH_CASES[0], 200), (FLASH_CASES[1], 5)):
+        q, k, v = flash_inputs(case, torch.bfloat16, dev, seed=2)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+
+        def library():
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                  enable_gqa=True)
+        lib_err = scaled_err(library().transpose(1, 2),
+                             ref.flash_attention_ref(q, k, v))
+        ms = time_ms(lambda: flash_attention_cuda(q, k, v), iters)
+        plain_ms = time_ms(lambda: ref.flash_attention_ref(q, k, v), iters)
+        lib_ms = time_ms(library, iters)
+        b_ms, b_by = flash_bound(case, 2)
+        log(f"[time] flash_attention {flash_label(case, torch.bfloat16)}: "
+            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+            f"(scaled_dot_product_attention; max err / scale against plain "
+            f"{lib_err:.3g}) {lib_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by})")
+        rows.append((ms, plain_ms, b_ms, b_by, lib_ms))
+        del q, k, v, qt, kt, vt
+    return rows[0]
+
+
+def model_check(arch: str, dev, cache_keys, exact=()) -> None:
+    """``arch`` with 2 layers at full width: the card against the port's
+    CPU path on the same weights (drawn on the card from seed 0, cast
+    once to bf16 where the forward computes in bf16), teacher-forced on
+    the CPU's greedy tokens for 8 steps (the prefill and 7 decodes).
+    Logits and each cache's ``cache_keys`` within MODEL_TOL of their
+    largest magnitude, its ``exact`` keys equal; the card's argmax equal
+    to the CPU's wherever the CPU's top-2 gap exceeds twice that
+    bound."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models import registry
+    t0 = time.perf_counter()
+    cfg2 = dataclasses.replace(get_arch(arch), num_layers=2)
+    p_dev = registry.serving_params(registry.init_params(
+        torch.Generator(device=dev).manual_seed(0), cfg2))
+    p_cpu = tree_to(p_dev, "cpu")
+    toks = torch.randint(0, cfg2.vocab_size, (2, 64),
+                         generator=torch.Generator().manual_seed(1))
+    prefill2, decode2 = (registry.prefill_fn(cfg2),
+                         registry.decode_fn(cfg2, 72))
+    lg_c, c_c = prefill2(p_cpu, {"tokens": toks}, context=72)
+    lg_d, c_d = prefill2(p_dev, {"tokens": toks.to(dev)}, context=72)
+    errs = dict.fromkeys(("logits",) + tuple(cache_keys), 0.0)
+    decisive = flipped = 0
+    equal = True
+    for i in range(8):
+        errs["logits"] = max(errs["logits"], scaled_err(lg_d, lg_c))
+        for a, b in zip(c_d["layers"], c_c["layers"]):
+            for key in cache_keys:
+                errs[key] = max(errs[key], scaled_err(a[key], b[key]))
+            equal = equal and all(torch.equal(a[key].cpu(), b[key])
+                                  for key in exact)
+        last = lg_c[:, -1]
+        top2 = last.topk(2, dim=-1).values
+        sure = top2[:, 0] - top2[:, 1] > 2 * MODEL_TOL * last.abs().max()
+        tok = last.argmax(-1)
+        decisive += int(sure.sum())
+        flipped += int((lg_d[:, -1].argmax(-1).cpu() != tok)[sure].sum())
+        if i < 7:
+            lg_c, c_c = decode2(p_cpu, c_c, tok[:, None])
+            lg_d, c_d = decode2(p_dev, c_d, tok[:, None].to(dev))
+    ok = (max(errs.values()) <= MODEL_TOL and flipped == 0 and equal
+          and bool(torch.isfinite(lg_d).all()))
+    same = f"; {', '.join(exact)} equal {equal}" if exact else ""
+    log(f"[check] {arch} 2 layers at full width, cuda vs cpu (bf16, B=2, "
+        f"T=64, 8 steps): max err / scale {json.dumps(errs)} (tol "
+        f"{MODEL_TOL}){same}; argmax equal on {decisive - flipped} of "
+        f"{decisive} decisive steps of 16; {time.perf_counter() - t0:.1f}s "
+        f"{'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{arch} on the card disagrees with the CPU")
+    del p_dev, p_cpu, c_d, lg_d
+    torch.cuda.empty_cache()
+
+
+def serve_path(argv, arch: str, kernel: str, dev):
+    """``python -m repro_torch.launch.serve`` at full width, its launch
+    counts reset just before and read just after: ``kernel`` launched
+    once per layer at prefill and never in decode, no other kernel
+    launched.  Its peak device memory includes what the earlier phases
+    still hold.  Returns the launch counts."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import build
+    from repro_torch.launch import serve as serve_cli
+    held = torch.cuda.memory_allocated(dev)
+    build.reset_launches()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = serve_cli.main(argv)
+    served = dict(build.LAUNCHES)
+    lines = out.getvalue().strip().splitlines()
+    for line in lines:
+        log(f"[serve path] {line}")
+    stats = json.loads(lines[-1])
+    first = json.loads(next(line for line in lines if line.startswith(
+        "[serve] first sequence:")).split(":", 1)[1])
+    cfg = get_arch(arch)
+    log(f"[serve path] {arch} launches {served}; {stats['params']} params; "
+        f"peak device memory {stats['peak_mem_bytes'] / 1e9:.2f} GB (of "
+        f"which {held / 1e9:.2f} GB held by earlier phases); prefill "
+        f"{stats['prefill_s']:.4f} s, decode {stats['decode_s']:.4f} s for "
+        f"{stats['max_new']} steps ({stats['decode_tok_s']:.1f} tok/s)")
+    if (rc != 0 or not stats["device"].startswith("cuda")
+            or stats["arch"] != arch
+            or served[kernel] != cfg.num_layers
+            or any(n for k, n in served.items() if k != kernel)
+            or not all(0 <= t < cfg.vocab_size for t in first)
+            or len(first) != 16
+            or not (math.isfinite(stats["prefill_s"])
+                    and math.isfinite(stats["decode_s"]))):
+        raise AssertionError(f"serving path {arch}: rc {rc}, launches "
+                             f"{served}, stats {stats}")
+    return served
 
 
 def main() -> int:
@@ -699,90 +937,25 @@ def main() -> int:
                              f"rows {rows_x}")
 
     # rwkv6-3b with 2 layers at full width: the card against the port's
-    # CPU path on the same weights (drawn on the card from seed 0, cast
-    # once to bf16 where the forward computes in bf16), teacher-forced on
-    # the CPU's greedy tokens for 8 steps (the prefill and 7 decodes).
-    # Logits and caches within MODEL_TOL of their largest magnitude; the
-    # card's argmax equal to the CPU's wherever the CPU's top-2 gap
-    # exceeds twice that bound
-    from repro_torch.configs import get_arch
-    from repro_torch.launch import serve as serve_cli
-    from repro_torch.models import registry
-    t0 = time.perf_counter()
-    cfg2 = dataclasses.replace(get_arch("rwkv6-3b"), num_layers=2)
-    p_dev = registry.serving_params(registry.init_params(
-        torch.Generator(device=dev).manual_seed(0), cfg2))
-    p_cpu = tree_to(p_dev, "cpu")
-    toks = torch.randint(0, cfg2.vocab_size, (2, 64),
-                         generator=torch.Generator().manual_seed(1))
-    prefill2, decode2 = (registry.prefill_fn(cfg2),
-                         registry.decode_fn(cfg2, 72))
-    lg_c, c_c = prefill2(p_cpu, {"tokens": toks})
-    lg_d, c_d = prefill2(p_dev, {"tokens": toks.to(dev)})
-    errs = dict.fromkeys(("logits", "S", "x_tm", "x_cm"), 0.0)
-    decisive = flipped = 0
-    for i in range(8):
-        errs["logits"] = max(errs["logits"], scaled_err(lg_d, lg_c))
-        for key in ("S", "x_tm", "x_cm"):
-            errs[key] = max([errs[key]] + [
-                scaled_err(a[key], b[key])
-                for a, b in zip(c_d["layers"], c_c["layers"])])
-        last = lg_c[:, -1]
-        top2 = last.topk(2, dim=-1).values
-        sure = top2[:, 0] - top2[:, 1] > 2 * MODEL_TOL * last.abs().max()
-        tok = last.argmax(-1)
-        decisive += int(sure.sum())
-        flipped += int((lg_d[:, -1].argmax(-1).cpu() != tok)[sure].sum())
-        if i < 7:
-            lg_c, c_c = decode2(p_cpu, c_c, tok[:, None])
-            lg_d, c_d = decode2(p_dev, c_d, tok[:, None].to(dev))
-    ok = (max(errs.values()) <= MODEL_TOL and flipped == 0
-          and bool(torch.isfinite(lg_d).all()))
-    log(f"[check] rwkv6-3b 2 layers at full width, cuda vs cpu (bf16, B=2, "
-        f"T=64, 8 steps): max err / scale {json.dumps(errs)} (tol "
-        f"{MODEL_TOL}); argmax equal on {decisive - flipped} of {decisive} "
-        f"decisive steps of 16; {time.perf_counter() - t0:.1f}s "
-        f"{'OK' if ok else 'FAIL'}")
-    if not ok:
-        raise AssertionError("rwkv6-3b on the card disagrees with the CPU")
-    del p_dev, p_cpu, c_d, lg_d
-    torch.cuda.empty_cache()
+    # CPU path, then the serving path through its CLI at full width
+    model_check("rwkv6-3b", dev, ("S", "x_tm", "x_cm"))
+    served = serve_path(SERVE_ARGV, "rwkv6-3b", "wkv6", dev)
 
-    # the serving path, through its CLI at full width; its peak device
-    # memory includes what the earlier phases still hold
-    held = torch.cuda.memory_allocated(dev)
-    build.reset_launches()
-    out = io.StringIO()
-    with contextlib.redirect_stdout(out):
-        rc = serve_cli.main(SERVE_ARGV)
-    served = dict(build.LAUNCHES)
-    lines = out.getvalue().strip().splitlines()
-    for line in lines:
-        log(f"[serve path] {line}")
-    stats = json.loads(lines[-1])
-    first = json.loads(next(line for line in lines if line.startswith(
-        "[serve] first sequence:")).split(":", 1)[1])
-    arch = get_arch("rwkv6-3b")
-    log(f"[serve path] launches {served}; {stats['params']} params; peak "
-        f"device memory {stats['peak_mem_bytes'] / 1e9:.2f} GB (of which "
-        f"{held / 1e9:.2f} GB held by earlier phases); prefill "
-        f"{stats['prefill_s']:.4f} s, decode {stats['decode_s']:.4f} s for "
-        f"{stats['max_new']} steps ({stats['decode_tok_s']:.1f} tok/s)")
-    if (rc != 0 or not stats["device"].startswith("cuda")
-            or served["wkv6"] != arch.num_layers
-            or any(n for k, n in served.items() if k != "wkv6")
-            or not all(0 <= t < arch.vocab_size for t in first)
-            or len(first) != 16
-            or not (math.isfinite(stats["prefill_s"])
-                    and math.isfinite(stats["decode_s"]))):
-        raise AssertionError(f"serving path: rc {rc}, launches {served}, "
-                             f"stats {stats}")
+    # -- 5b. the dense family: flash_attention, then gemma-2b ----------------
+    gc.collect()                      # the rwkv6 weights are gone
+    torch.cuda.empty_cache()
+    err_flash = flash_checks(dev)
+    flash_timing = flash_times(dev)
+    model_check("gemma-2b", dev, ("k", "v"), exact=("pos", "idx"))
+    served_dense = serve_path(GEMMA_SERVE_ARGV, "gemma-2b",
+                              "flash_attention", dev)
 
     launches = {"probe_fuzzy": fused["probe_fuzzy"],
                 "neighbor_elect": fused["neighbor_elect"],
                 "fuzzy_eval": unfused["fuzzy_eval"],
                 "windowed_counts": windowed["windowed_counts"],
-                "wkv6": served["wkv6"]}
+                "wkv6": served["wkv6"],
+                "flash_attention": served_dense["flash_attention"]}
     if (min(launches.values()) <= 0 or unfused["neighbor_elect"] <= 0
             or windowed["probe_fuzzy"] != 2 + n_over):
         raise AssertionError(f"a kernel of the path never ran: {launches}")
@@ -799,7 +972,12 @@ def main() -> int:
                             "src/repro/kernels/neighbor_elect.py:141", 0.0),
         "wkv6": ("src/repro_torch/csrc/wkv6.cu",
                  "src/repro/kernels/wkv6.py:62", err_wkv),
+        "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                            "src/repro/kernels/flash_attention.py:79",
+                            err_flash),
     }
+    timings["flash_attention"] = flash_timing[:4]
+    library = {"flash_attention": flash_timing[4]}
     kernels = []
     for name in build.KERNELS:
         src, replaces, err = meta[name]
@@ -808,7 +986,7 @@ def main() -> int:
                         "replaces": replaces, "launches": launches[name],
                         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                         "bound_ms": b_ms, "bound_by": b_by,
-                        "library_ms": None})
+                        "library_ms": library.get(name)})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                               "count": count}}), flush=True)

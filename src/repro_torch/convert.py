@@ -5,7 +5,8 @@ For the CNN the reference stores ``{"conv1": {"w": HWIO, "b"}, ...,
 PyTorch's layout (conv OIHW, dense ``(out, in)``).  The fc1 ``in`` axis
 keeps the NHWC flatten order on both sides — ``cnn_forward`` permutes
 its activation to NHWC before flattening, so no row of fc1 is permuted
-here.  For RWKV-6 see ``rwkv_params_from_jax``.
+here.  For the LM zoo see ``rwkv_params_from_jax`` and
+``dense_params_from_jax``.
 """
 from __future__ import annotations
 
@@ -42,15 +43,14 @@ def params_to_numpy(params: Mapping[str, torch.Tensor]) -> Dict:
     return out
 
 
-# RWKV-6 dense weights: (in, out) in the reference, (out, in) here
+# dense weights of the LM blocks: (in, out) in the reference, (out, in)
+# here, by block group
 RWKV_DENSE = ("wr", "wk", "wv", "wg", "wo", "wA", "wB", "ck", "cv")
+_LM_DENSE = {"rwkv": RWKV_DENSE, "attn": ("wq", "wk", "wv", "wo"),
+             "mlp": ("wi", "wg", "wo")}
 
 
-def rwkv_params_from_jax(tree: Mapping, device=None) -> Dict:
-    """The reference's ssm-family parameter tree (numpy or array-like
-    leaves; ``blocks`` stacked on a leading layer axis) -> the port's
-    (``blocks`` a list of per-layer dicts, dense weights and the head
-    ``(out, in)``).  Norm weights are copied as stored (weight - 1)."""
+def _lm_params_from_jax(tree: Mapping, device=None) -> Dict:
     def t(a):
         return torch.tensor(np.ascontiguousarray(a), device=device)
 
@@ -61,10 +61,25 @@ def rwkv_params_from_jax(tree: Mapping, device=None) -> Dict:
     if "lm_head" in tree:
         out["lm_head"] = t(np.asarray(tree["lm_head"]).T)
     for i in range(np.asarray(blocks["n1"]["w"]).shape[0]):
-        rw = {k: np.asarray(v)[i] for k, v in blocks["rwkv"].items()}
         out["blocks"].append({
-            "n1": {"w": t(np.asarray(blocks["n1"]["w"])[i])},
-            "n2": {"w": t(np.asarray(blocks["n2"]["w"])[i])},
-            "rwkv": {k: t(v.T if k in RWKV_DENSE else v)
-                     for k, v in rw.items()}})
+            group: {k: t(np.asarray(v)[i].T if k in _LM_DENSE.get(group, ())
+                         else np.asarray(v)[i]) for k, v in leaves.items()}
+            for group, leaves in blocks.items()})
     return out
+
+
+def rwkv_params_from_jax(tree: Mapping, device=None) -> Dict:
+    """The reference's ssm-family parameter tree (numpy or array-like
+    leaves; ``blocks`` stacked on a leading layer axis) -> the port's
+    (``blocks`` a list of per-layer dicts, dense weights and the head
+    ``(out, in)``).  Norm weights are copied as stored (weight - 1)."""
+    return _lm_params_from_jax(tree, device)
+
+
+def dense_params_from_jax(tree: Mapping, device=None) -> Dict:
+    """The reference's dense-family parameter tree (``blocks`` stacked
+    on a leading layer axis, each with ``n1``, ``n2``, ``attn`` and
+    ``mlp``) -> the port's per-layer list, the attention and MLP weights
+    and the head ``(out, in)``.  Norm weights (and qk norms) are copied
+    as stored (weight - 1)."""
+    return _lm_params_from_jax(tree, device)

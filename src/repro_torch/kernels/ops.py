@@ -113,3 +113,17 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     else:
         y, s_t = ref.wkv6_ref(r, k, v, w, u, s0)
     return y.to(r.dtype), s_t
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0,
+                    prefix_len: int = 0) -> torch.Tensor:
+    """Online-softmax attention over the natural positions: q (B, Sq,
+    Hq, Dh), k and v (B, Skv, Hkv, Dh) -> (B, Sq, Hq, Dh) in q's dtype;
+    GQA by ``Hq // Hkv``, ``window`` and ``prefix_len`` only when
+    causal."""
+    kw = dict(causal=causal, window=window, prefix_len=prefix_len)
+    if _on_cuda(q):
+        from repro_torch.kernels.flash_attention import flash_attention_cuda
+        return flash_attention_cuda(q, k, v, **kw)
+    return ref.flash_attention_ref(q, k, v, **kw)

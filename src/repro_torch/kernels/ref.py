@@ -7,6 +7,7 @@ for a tensor on the CPU.  Sums over clients go through a one-hot matmul
 """
 from __future__ import annotations
 
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -14,6 +15,7 @@ import torch
 from repro_torch.fl.client import dataset_loss_packed
 
 NUM_OUT = 9
+NEG_INF = -1e30          # the TPU kernel's masked score: finite
 
 
 def _f32(v: float, like: torch.Tensor) -> torch.Tensor:
@@ -176,3 +178,32 @@ def wkv6_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         s = w[:, t, :, :, None] * s + kv
     y = torch.stack(ys, dim=1) if ys else torch.zeros_like(r)
     return y, s
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True, window: int = 0,
+                        prefix_len: int = 0) -> torch.Tensor:
+    """Masked softmax attention in fp32 over the natural positions
+    0..S-1 of q and kv, with ``flash_attention_pallas``'s mask: causal
+    first, then ``window`` narrowing it and ``prefix_len`` widening it
+    (both only when causal), dropped scores ``NEG_INF``.
+
+    q: (B, Sq, Hq, Dh); k, v: (B, Skv, Hkv, Dh), q head h reading kv
+    head ``h // (Hq // Hkv)`` -> (B, Sq, Hq, Dh) in q's dtype."""
+    b, sq, hq, dh = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    qf = q.float().reshape(b, sq, hkv, hq // hkv, dh)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qf, k.float()) * (
+        1.0 / math.sqrt(dh))
+    if causal:
+        qp = torch.arange(sq, device=q.device)[:, None]
+        kp = torch.arange(skv, device=q.device)[None, :]
+        ok = kp <= qp
+        if window:
+            ok &= (qp - kp) < window
+        if prefix_len:
+            ok |= kp < prefix_len
+        s = s.masked_fill(~ok, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
+    return out.reshape(b, sq, hq, dh).to(q.dtype)

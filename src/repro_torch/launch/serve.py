@@ -2,17 +2,16 @@
 ``--device cpu`` is given.
 
 Usage:
-  python -m repro_torch.launch.serve --arch rwkv6-3b \
-      --batch 4 --prompt-len 64 --max-new 32
+  python -m repro_torch.launch.serve --batch 4 --prompt-len 64 --max-new 32
+  python -m repro_torch.launch.serve --arch rwkv6-3b
   python -m repro_torch.launch.serve --reduced --device cpu
 
-``--arch`` defaults to rwkv6-3b, the one family the port serves so far
-(the reference's default, gemma-2b, comes with ROADMAP A13).  Weights
-are random, drawn from ``--seed`` on the device; after init they are
-cast once to bf16 where the forward computes in bf16
-(``registry.serving_params``).  The last line is a JSON object with
-the prefill and decode seconds, tokens per second and, on the card,
-the peak device memory.
+``--arch`` defaults to gemma-2b, as the reference's does; the port also
+serves rwkv6-3b.  Weights are random, drawn from ``--seed`` on the
+device; after init they are cast once to bf16 where the forward
+computes in bf16 (``registry.serving_params``).  The last line is a
+JSON object with the prefill and decode seconds, tokens per second
+and, on the card, the peak device memory.
 """
 from __future__ import annotations
 
@@ -36,7 +35,7 @@ def _numel(tree) -> int:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", choices=ARCH_IDS, default="rwkv6-3b")
+    ap.add_argument("--arch", choices=ARCH_IDS, default="gemma-2b")
     ap.add_argument("--reduced", action="store_true",
                     help="the scaled-down variant (2 layers, d_model 256)")
     ap.add_argument("--batch", type=int, default=4)

@@ -13,6 +13,7 @@ import math
 from typing import Dict, Optional
 
 import torch
+import torch.nn.functional as F
 
 Params = Dict[str, object]
 
@@ -75,3 +76,58 @@ def apply_norm(cfg, p: Params, x: torch.Tensor) -> torch.Tensor:
     if cfg.norm == "layernorm":
         return layer_norm(x, p["w"], p["b"])
     return rms_norm(x, p["w"])
+
+
+def weak_scalar(c: float, dtype: torch.dtype) -> float:
+    """``c`` rounded to ``dtype``, as JAX casts a weakly typed Python
+    float to the array's dtype before it multiplies (torch multiplies a
+    bf16 tensor by the fp32 value instead, which rounds some products
+    the other way)."""
+    return torch.tensor(c, dtype=dtype).item()
+
+
+# --------------------------------------------------------------------------
+# rotary embeddings
+# --------------------------------------------------------------------------
+
+def rope(x: torch.Tensor, positions: torch.Tensor,
+         theta: float) -> torch.Tensor:
+    """Rotary embeddings.  x: (..., S, H, Dh); positions: (..., S).  The
+    rotation is fp32 (a bf16 x promotes), cast back to x's dtype."""
+    half = x.shape[-1] // 2
+    freqs = torch.exp(-math.log(theta) * torch.arange(
+        half, dtype=torch.float32, device=x.device) / half)
+    ang = positions[..., :, None].float() * freqs          # (..., S, half)
+    cos = torch.cos(ang)[..., :, None, :]                  # (..., S, 1, half)
+    sin = torch.sin(ang)[..., :, None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    rot = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return rot.to(x.dtype)
+
+
+# --------------------------------------------------------------------------
+# MLP (gated and plain)
+# --------------------------------------------------------------------------
+
+def init_mlp(g: torch.Generator, cfg, d: int, d_ff: int) -> Params:
+    p = {"wi": dense_init(g, d, d_ff)}
+    if cfg.hidden_act in ("silu", "geglu"):
+        p["wg"] = dense_init(g, d, d_ff)
+    p["wo"] = dense_init(g, d_ff, d)
+    return p
+
+
+def apply_mlp(cfg, p: Params, x: torch.Tensor) -> torch.Tensor:
+    dt = x.dtype
+    h = F.linear(x, p["wi"].to(dt))
+    if cfg.hidden_act == "silu":
+        h = F.silu(h) * F.linear(x, p["wg"].to(dt))
+    elif cfg.hidden_act == "geglu":
+        h = F.gelu(h, approximate="tanh") * F.linear(x, p["wg"].to(dt))
+    elif cfg.hidden_act == "gelu":
+        h = F.gelu(h, approximate="tanh")
+    elif cfg.hidden_act == "relu_sq":
+        h = torch.square(torch.relu(h))
+    else:
+        raise ValueError(cfg.hidden_act)
+    return F.linear(h, p["wo"].to(dt))

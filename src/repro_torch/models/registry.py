@@ -13,10 +13,15 @@ from repro_torch.models.layers import COMPUTE_DTYPE, Params
 
 # the weights the forward casts to the compute dtype at every use: the
 # embedding and head (gathered/projected in bf16) and, per block, the
-# dense matrices and the lerp coefficients.  Norm weights, w0 and u are
-# read in fp32 and stay fp32.
-_CAST_IN_BLOCK = ("mu", "wr", "wk", "wv", "wg", "wo", "wA", "wB", "mu_c",
-                  "ck", "cv")
+# dense matrices (and RWKV's lerp coefficients), by the block's groups.
+# Norm weights (n1, n2, final_norm, qk norms), w0 and u are read in fp32
+# and stay fp32.
+_CAST_IN_BLOCK = {
+    "rwkv": ("mu", "wr", "wk", "wv", "wg", "wo", "wA", "wB", "mu_c", "ck",
+             "cv"),
+    "attn": ("wq", "wk", "wv", "wo"),
+    "mlp": ("wi", "wg", "wo"),
+}
 
 
 def init_params(g: torch.Generator, cfg: ArchConfig) -> Params:
@@ -28,9 +33,8 @@ def prefill_fn(cfg: ArchConfig) -> Callable:
 
 
 def decode_fn(cfg: ArchConfig, context: int) -> Callable:
-    """``context`` sizes a sliding-window decode in the reference; the
-    recurrent family has no window."""
-    return functools.partial(tfm.decode_step, cfg)
+    return functools.partial(tfm.decode_step, cfg,
+                             window=tfm.decode_window(cfg, context))
 
 
 def init_cache(cfg: ArchConfig, batch: int, context: int, device=None):
@@ -46,7 +50,9 @@ def serving_params(params: Params) -> Params:
         if key in params:
             params[key] = params[key].to(COMPUTE_DTYPE)
     for lp in params["blocks"]:
-        p = lp["rwkv"]
-        for key in _CAST_IN_BLOCK:
-            p[key] = p[key].to(COMPUTE_DTYPE)
+        for group, keys in _CAST_IN_BLOCK.items():
+            p = lp.get(group, {})
+            for key in keys:
+                if key in p:
+                    p[key] = p[key].to(COMPUTE_DTYPE)
     return params

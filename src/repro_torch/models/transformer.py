@@ -1,32 +1,39 @@
 """Model assembly (``repro.models.transformer``), for the families the
-port serves: the attention-free ``ssm`` family (RWKV-6).
+port serves: the attention-free ``ssm`` family (RWKV-6) and the ``dense``
+family (gemma-2b).
 
 Parameters are a nested dict: ``embed`` (V, D), ``final_norm``,
 ``lm_head`` (V, D) unless tied, and ``blocks``, a list with one dict
 per layer (the reference stacks layers on a leading axis and scans
-over it; the port loops).  The decode cache is ``{"layers": [state per
-layer]}``.  Any other family raises ``NotImplementedError`` (ROADMAP
-A13).
+over it; the port loops).  The decode cache is ``{"layers": [one
+entry per layer]}``: an RWKV state, or a dense layer's slot cache
+(``attention.make_kv_cache``).  The other families raise
+``NotImplementedError`` (ROADMAP A13b).
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+import math
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.models import attention as attn
 from repro_torch.models import rwkv6 as rwkv
-from repro_torch.models.layers import (COMPUTE_DTYPE, Params, apply_norm,
-                                       dense_init, embed_init, init_norm)
+from repro_torch.models.layers import (COMPUTE_DTYPE, Params, apply_mlp,
+                                       apply_norm, dense_init, embed_init,
+                                       init_mlp, init_norm, weak_scalar)
+
+PORTED_FAMILIES = ("ssm", "dense")
 
 
-def _require_ssm(cfg: ArchConfig) -> None:
-    if cfg.family != "ssm":
+def _require_ported(cfg: ArchConfig) -> None:
+    if cfg.family not in PORTED_FAMILIES or cfg.is_moe:
         raise NotImplementedError(
             f"family {cfg.family!r} ({cfg.name}) is not ported yet: the "
-            f"port serves the ssm family (rwkv6); the others come with "
-            f"ROADMAP A13")
+            f"port serves the ssm (rwkv6) and dense (gemma) families; "
+            f"MoE, hybrid, audio and vlm come with ROADMAP A13b")
 
 
 # ==========================================================================
@@ -39,27 +46,132 @@ def _init_rwkv_layer(g: torch.Generator, cfg: ArchConfig) -> Params:
             "rwkv": rwkv.init_rwkv_layer(g, cfg)}
 
 
+def _init_dense_layer(g: torch.Generator, cfg: ArchConfig) -> Params:
+    return {"n1": init_norm(cfg, cfg.d_model, g.device),
+            "n2": init_norm(cfg, cfg.d_model, g.device),
+            "attn": attn.init_attention(g, cfg, cfg.d_model),
+            "mlp": init_mlp(g, cfg, cfg.d_model, cfg.d_ff)}
+
+
 def init_params(g: torch.Generator, cfg: ArchConfig) -> Params:
     """The full parameter tree (fp32), drawn from ``g`` on its device."""
-    _require_ssm(cfg)
+    _require_ported(cfg)
     params: Params = {
         "embed": embed_init(g, cfg.vocab_size, cfg.d_model),
         "final_norm": init_norm(cfg, cfg.d_model, g.device),
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = dense_init(g, cfg.d_model, cfg.vocab_size)
-    params["blocks"] = [_init_rwkv_layer(g, cfg)
-                        for _ in range(cfg.num_layers)]
+    init_layer = _init_rwkv_layer if cfg.family == "ssm" else _init_dense_layer
+    params["blocks"] = [init_layer(g, cfg) for _ in range(cfg.num_layers)]
     return params
+
+
+def decode_window(cfg: ArchConfig, context: int) -> int:
+    """The sliding window of a decode over ``context`` positions: the
+    arch's, once the context exceeds it; 0 (none) otherwise."""
+    if cfg.sliding_window and context > cfg.sliding_window:
+        return cfg.sliding_window
+    return 0
 
 
 def init_cache(cfg: ArchConfig, batch: int, context: int,
                device=None) -> Params:
-    """Decode cache: one zero state per layer (``context`` is unused by
-    a recurrent model; it is the reference's interface)."""
-    _require_ssm(cfg)
-    return {"layers": [rwkv.init_rwkv_state(cfg, batch, device=device)
+    """Decode cache, one entry per layer: a zero RWKV state (``context``
+    unused), or an empty slot cache of ``context`` positions, only the
+    window's (a ring) once the context exceeds the window."""
+    _require_ported(cfg)
+    if cfg.family == "ssm":
+        return {"layers": [rwkv.init_rwkv_state(cfg, batch, device=device)
+                           for _ in range(cfg.num_layers)]}
+    slots = decode_window(cfg, context) or context
+    return {"layers": [attn.make_kv_cache(batch, slots, cfg.num_kv_heads,
+                                          cfg.head_dim, device=device)
                        for _ in range(cfg.num_layers)]}
+
+
+# ==========================================================================
+# dense layers
+# ==========================================================================
+
+def _residual(cfg: ArchConfig, x: torch.Tensor, y: torch.Tensor
+              ) -> torch.Tensor:
+    return x + y * weak_scalar(cfg.residual_scale, y.dtype)
+
+
+def _ffn(cfg: ArchConfig, lp: Params, x: torch.Tensor) -> torch.Tensor:
+    return apply_mlp(cfg, lp["mlp"], apply_norm(cfg, lp["n2"], x))
+
+
+def _dense_layer_full(cfg, lp, x, positions, *, window=0, prefix_len=0):
+    """Pre-norm attention then MLP over the full sequence; returns (x,
+    the layer's (k, v))."""
+    h = apply_norm(cfg, lp["n1"], x)
+    y, kv = attn.attn_apply_full(cfg, lp["attn"], h, positions,
+                                 window=window, prefix_len=prefix_len,
+                                 return_kv=True)
+    x = _residual(cfg, x, y)
+    return _residual(cfg, x, _ffn(cfg, lp, x)), kv
+
+
+def _dense_layer_decode(cfg, lp, x, cache, *, window=0, prefix_len=0):
+    h = apply_norm(cfg, lp["n1"], x)
+    y, cache = attn.attn_apply_decode(cfg, lp["attn"], h, cache,
+                                      window=window, prefix_len=prefix_len)
+    x = _residual(cfg, x, y)
+    return _residual(cfg, x, _ffn(cfg, lp, x)), cache
+
+
+def _run_dense_stack(cfg, params, x, positions, *, mode, cache=None,
+                     window=0, prefix_len=0, context=0):
+    """Every layer in order; returns (x, the new cache)."""
+    if mode == "decode":
+        layers = []
+        for lp, c in zip(params["blocks"], cache["layers"]):
+            x, c = _dense_layer_decode(cfg, lp, x, c, window=window,
+                                       prefix_len=prefix_len)
+            layers.append(c)
+        return x, {"layers": layers}
+    kvs = []
+    for lp in params["blocks"]:
+        x, kv = _dense_layer_full(cfg, lp, x, positions, window=window,
+                                  prefix_len=prefix_len)
+        kvs.append(kv)
+    return x, _kvs_to_cache(cfg, kvs, positions, context)
+
+
+def _kvs_to_cache(cfg, kvs: List[Tuple[torch.Tensor, torch.Tensor]],
+                  positions: torch.Tensor, context: int = 0) -> Params:
+    """Turn the prefill's per-layer (B, S, Hkv, Dh) K/V into slot caches.
+
+    ``context`` is the total number of positions the cache must serve
+    (prompt + decode headroom); without it, the first decode step would
+    ring-wrap onto slot 0 and drop the first prompt token.  A
+    sliding-window arch whose context exceeds the window keeps the last
+    ``window`` positions in ring order (slot = pos % window): a roll of
+    the tail, padded with empty slots when the prompt is shorter."""
+    s = positions.shape[0]
+    slots, keep, shift = max(s, context), s, 0
+    if cfg.sliding_window and slots > cfg.sliding_window:
+        slots = cfg.sliding_window
+        keep = min(slots, s)
+        shift = (s - keep) % slots
+    pad = slots - keep
+    pos = torch.cat([positions[s - keep:].to(torch.int32),
+                     torch.full((pad,), -1, dtype=torch.int32,
+                                device=positions.device)])
+    layers = []
+    for k, v in kvs:
+        zeros = k.new_zeros((k.shape[0], pad) + k.shape[2:],
+                            dtype=COMPUTE_DTYPE)
+        k, v = (torch.cat([t[:, s - keep:].to(COMPUTE_DTYPE), zeros], dim=1)
+                for t in (k, v))
+        layers.append({"k": torch.roll(k, shift, dims=1),
+                       "v": torch.roll(v, shift, dims=1),
+                       "pos": torch.roll(pos, shift),
+                       "idx": torch.full((), s, dtype=torch.int32,
+                                         device=pos.device)})
+    return {"layers": layers}
 
 
 # ==========================================================================
@@ -75,21 +187,36 @@ def _run_rwkv_stack(cfg, params, x, *, mode, cache=None):
             cfg, lp["rwkv"], {"n1": lp["n1"]["w"], "n2": lp["n2"]["w"]},
             x, st)
         states.append(st)
-    return x, states
+    return x, {"layers": states}
+
+
+def _embed(cfg: ArchConfig, params: Params,
+           tokens: torch.Tensor) -> torch.Tensor:
+    x = params["embed"][tokens].to(COMPUTE_DTYPE)
+    if cfg.scale_embed:
+        x = x * weak_scalar(math.sqrt(cfg.d_model), x.dtype)
+    return x
 
 
 def forward(cfg: ArchConfig, params: Params,
             batch: Dict[str, torch.Tensor], *, mode: str,
-            cache: Optional[Params] = None
-            ) -> Tuple[torch.Tensor, Params]:
+            cache: Optional[Params] = None, window: int = 0,
+            context: int = 0) -> Tuple[torch.Tensor, Params]:
     """mode: 'prefill' | 'decode'.  Returns (hidden (B, S, D), the new
-    cache)."""
-    _require_ssm(cfg)
+    cache).  ``window`` masks a sliding window; ``context`` sizes a
+    prefill's cache (both unused by the recurrent family)."""
+    _require_ported(cfg)
     if mode not in ("prefill", "decode"):
         raise ValueError(f"mode must be 'prefill' or 'decode', got {mode!r}")
-    x = params["embed"][batch["tokens"]].to(COMPUTE_DTYPE)
-    x, states = _run_rwkv_stack(cfg, params, x, mode=mode, cache=cache)
-    return apply_norm(cfg, params["final_norm"], x), {"layers": states}
+    x = _embed(cfg, params, batch["tokens"])
+    if cfg.family == "ssm":
+        x, cache = _run_rwkv_stack(cfg, params, x, mode=mode, cache=cache)
+    else:
+        positions = torch.arange(x.shape[1], device=x.device)
+        x, cache = _run_dense_stack(cfg, params, x, positions, mode=mode,
+                                    cache=cache, window=window,
+                                    context=context)
+    return apply_norm(cfg, params["final_norm"], x), cache
 
 
 def _logits(params, x: torch.Tensor) -> torch.Tensor:
@@ -100,17 +227,22 @@ def _logits(params, x: torch.Tensor) -> torch.Tensor:
 
 
 def prefill(cfg: ArchConfig, params: Params,
-            batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, Params]:
+            batch: Dict[str, torch.Tensor], context: int = 0,
+            window: int = 0) -> Tuple[torch.Tensor, Params]:
     """Run the full prompt; return last-position logits (B, 1, V) fp32
-    and the decode cache."""
-    x, cache = forward(cfg, params, batch, mode="prefill")
+    and the decode cache.  ``context`` sizes the cache for prompt +
+    decode headroom; ``window`` masks the prompt pass with a sliding
+    window."""
+    x, cache = forward(cfg, params, batch, mode="prefill", context=context,
+                       window=window)
     return _logits(params, x[:, -1:]), cache
 
 
 def decode_step(cfg: ArchConfig, params: Params, cache: Params,
-                tokens: torch.Tensor) -> Tuple[torch.Tensor, Params]:
+                tokens: torch.Tensor,
+                window: int = 0) -> Tuple[torch.Tensor, Params]:
     """One decode step: tokens (B, 1) -> logits (B, 1, V), updated
     cache."""
     x, cache = forward(cfg, params, {"tokens": tokens}, mode="decode",
-                       cache=cache)
+                       cache=cache, window=window)
     return _logits(params, x), cache

@@ -13,10 +13,12 @@ from repro_torch.models import transformer as tfm
 
 
 def make_serve_step(cfg: ArchConfig, context: int) -> Callable:
-    """serve_step(params, cache, tokens (B, 1)) -> (logits, cache)."""
+    """serve_step(params, cache, tokens (B, 1)) -> (logits, cache), with
+    the sliding window that ``context`` calls for."""
+    window = tfm.decode_window(cfg, context)
 
     def serve_step(params, cache, tokens):
-        return tfm.decode_step(cfg, params, cache, tokens)
+        return tfm.decode_step(cfg, params, cache, tokens, window=window)
 
     return serve_step
 
@@ -35,13 +37,17 @@ def generate(cfg: ArchConfig, params, batch: Dict[str, torch.Tensor],
     not the reference's).  Returns (tokens (B, max_new_tokens), info):
     the first token comes from the prefill's logits, as in the
     reference, whose loop also runs one more decode step than it keeps
-    (the cache in ``info`` has seen it).  ``info`` holds the cache, the
-    prompt length and the prefill and decode seconds (host clock, the
-    device synchronised at both ends)."""
+    (the cache in ``info`` has seen it).  The cache is sized for
+    ``prompt + max_new_tokens`` positions; as in the reference, the
+    prompt pass runs without a sliding window and only decode uses it.
+    ``info`` holds the cache, the prompt length and the prefill and
+    decode seconds (host clock, the device synchronised at both
+    ends)."""
     tokens = batch["tokens"]
     device = tokens.device
     prompt_len = tokens.shape[1]
-    step = make_serve_step(cfg, prompt_len + max_new_tokens)
+    context = prompt_len + max_new_tokens
+    step = make_serve_step(cfg, context)
 
     def sample(lg):
         if temperature <= 0.0:
@@ -51,7 +57,7 @@ def generate(cfg: ArchConfig, params, batch: Dict[str, torch.Tensor],
 
     _sync(device)
     t0 = time.perf_counter()
-    logits, cache = tfm.prefill(cfg, params, batch)
+    logits, cache = tfm.prefill(cfg, params, batch, context=context)
     tok = sample(logits)
     _sync(device)
     t1 = time.perf_counter()

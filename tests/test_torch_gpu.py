@@ -251,3 +251,97 @@ def test_rwkv_prefill_launches_wkv6_once_per_layer(cuda):
     got, _ = engine.generate(cfg, on(params, cuda),
                              {"tokens": toks.to(cuda)}, 4)
     assert got.shape == (2, 4) and got.device.type == "cuda"
+
+
+# flash attention at chip_smoke.py's shapes: (B, Sq, Skv, Hq, Hkv, Dh,
+# causal, window, prefix_len)
+FLASH_CASES = [
+    (4, 64, 64, 8, 1, 256, True, 0, 0),          # gemma-2b serving prefill
+    (1, 8192, 8192, 8, 1, 256, True, 0, 0),      # a long prompt
+    (1, 4096, 4096, 8, 1, 256, True, 1024, 0),   # sliding window
+    (2, 300, 300, 8, 1, 256, True, 0, 64),       # prefix-LM
+    (2, 96, 160, 8, 1, 256, False, 0, 0),        # Sq != Skv, not causal
+    (2, 200, 200, 4, 4, 64, True, 0, 0),         # Dh 64, groups of 1
+    (2, 200, 200, 8, 2, 64, True, 0, 0),         # Dh 64, groups of 4
+    (2, 200, 200, 4, 4, 128, True, 0, 0),        # Dh 128, groups of 1
+    (2, 200, 200, 8, 2, 128, True, 0, 0),        # Dh 128, groups of 4
+]
+
+
+def _flash_inputs(b, sq, skv, hq, hkv, dh, dtype, device, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    return [torch.randn(b, s, h, dh, generator=g).to(dtype).to(device)
+            for s, h in ((sq, hq), (skv, hkv), (skv, hkv))]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,sq,skv,hq,hkv,dh,causal,window,prefix",
+                         FLASH_CASES)
+def test_flash_attention_kernel_matches_plain(cuda, b, sq, skv, hq, hkv, dh,
+                                              causal, window, prefix, dtype):
+    """Both compute in fp32 and round the output once: fp32 within 1e-5
+    of the largest |out| (sums in another order), bf16 within 2^-7 of it
+    (one bf16 ulp at the largest value)."""
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    q, k, v = _flash_inputs(b, sq, skv, hq, hkv, dh, dtype, cuda)
+    kw = dict(causal=causal, window=window, prefix_len=prefix)
+    before = build.LAUNCHES["flash_attention"]
+    out = flash_attention_cuda(q, k, v, **kw)
+    assert build.LAUNCHES["flash_attention"] == before + 1
+    want = ref.flash_attention_ref(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and out.shape == q.shape
+    assert bool(torch.isfinite(out).all())
+    assert _scaled_err(out.float(), want.float()) <= (
+        1e-5 if dtype == torch.float32 else 2 ** -7)
+    assert torch.equal(ops.flash_attention(q, k, v, **kw), out)
+
+
+def test_flash_attention_kernel_is_bit_repeatable(cuda):
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    q, k, v = _flash_inputs(1, 4096, 4096, 8, 1, 256, torch.bfloat16, cuda,
+                            seed=1)
+    a = flash_attention_cuda(q, k, v, window=1024)
+    assert torch.equal(a, flash_attention_cuda(q, k, v, window=1024))
+
+
+def test_flash_attention_kernel_refuses_what_it_was_not_built_for(cuda):
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    q, k, v = _flash_inputs(1, 8, 8, 2, 1, 32, torch.float32, cuda)
+    with pytest.raises(ValueError, match="head_dim 32"):
+        flash_attention_cuda(q, k, v)
+    q, k, v = _flash_inputs(1, 8, 8, 3, 2, 64, torch.float32, cuda)
+    with pytest.raises(ValueError, match="kv heads"):
+        flash_attention_cuda(q, k, v)
+
+
+def test_gemma_prefill_launches_flash_attention_once_per_layer(cuda):
+    """Scaled-down gemma-2b with its 18 layers on the card: one
+    flash_attention launch per layer at prefill, none in decode; logits
+    within 2^-5 of the CPU's (bf16 rounded in other places)."""
+    cfg = scaled_down(get_arch("gemma-2b"), layers=18)
+    params = registry.serving_params(registry.init_params(
+        torch.Generator().manual_seed(0), cfg))
+    on = lambda tree, dev: (tree.to(dev) if torch.is_tensor(tree) else
+                            {k: on(v, dev) for k, v in tree.items()}
+                            if isinstance(tree, dict) else
+                            [on(v, dev) for v in tree])
+    toks = torch.randint(0, cfg.vocab_size, (2, 64),
+                         generator=torch.Generator().manual_seed(1))
+    prefill = registry.prefill_fn(cfg)
+    want_lg, want_cache = prefill(params, {"tokens": toks}, context=72)
+    build.reset_launches()
+    got_lg, cache = prefill(on(params, cuda), {"tokens": toks.to(cuda)},
+                            context=72)
+    assert build.LAUNCHES["flash_attention"] == cfg.num_layers == 18
+    assert _scaled_err(got_lg.cpu(), want_lg) <= 2 ** -5
+    for a, b in zip(cache["layers"], want_cache["layers"]):
+        assert torch.equal(a["pos"].cpu(), b["pos"])
+        assert _scaled_err(a["k"].float().cpu(), b["k"].float()) <= 2 ** -5
+    registry.decode_fn(cfg, 72)(on(params, cuda), cache,
+                                toks[:, :1].to(cuda))
+    assert build.LAUNCHES["flash_attention"] == cfg.num_layers
+    assert sum(build.LAUNCHES.values()) == cfg.num_layers
+    got, _ = engine.generate(cfg, on(params, cuda),
+                             {"tokens": toks.to(cuda)}, 4)
+    assert got.shape == (2, 4) and got.device.type == "cuda"

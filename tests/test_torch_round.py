@@ -241,7 +241,9 @@ def test_port_imports_neither_jax_nor_repro():
             "repro_torch.kernels.neighbor_elect, "
             "repro_torch.kernels.windowed_counts, repro_torch.core.elect, "
             "repro_torch.convert, repro_torch.kernels.wkv6, "
-            "repro_torch.launch.serve, repro_torch.serve.engine\n"
+            "repro_torch.launch.serve, repro_torch.serve.engine, "
+            "repro_torch.kernels.flash_attention, "
+            "repro_torch.models.attention\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "
             "m.startswith('repro.')]\n"

@@ -325,13 +325,14 @@ def test_serving_params_keep_the_numbers(ref_params):
 
 
 def test_other_families_raise():
-    dense = dataclasses.replace(CFG, family="dense")
-    with pytest.raises(NotImplementedError, match="A13"):
-        registry.init_params(torch.Generator().manual_seed(0), dense)
-    with pytest.raises(NotImplementedError, match="A13"):
-        registry.init_cache(dense, 1, 4)
-    with pytest.raises(KeyError, match="A13"):
-        get_arch("gemma-2b")
+    for family in ("moe", "hybrid", "audio", "vlm"):
+        other = dataclasses.replace(CFG, family=family)
+        with pytest.raises(NotImplementedError, match="A13b"):
+            registry.init_params(torch.Generator().manual_seed(0), other)
+        with pytest.raises(NotImplementedError, match="A13b"):
+            registry.init_cache(other, 1, 4)
+    with pytest.raises(KeyError, match="A13b"):
+        get_arch("jamba-v0.1-52b")
 
 
 def test_port_init_has_the_references_shapes_and_dtypes(ref_params):
@@ -357,8 +358,9 @@ def test_port_init_has_the_references_shapes_and_dtypes(ref_params):
 @pytest.mark.parametrize("temperature", ["0", "0.8"])
 def test_serve_cli_runs_reduced_on_cpu(temperature):
     from repro_torch.launch import serve
-    argv = ["--reduced", "--device", "cpu", "--batch", "2", "--prompt-len",
-            "8", "--max-new", "4", "--temperature", temperature]
+    argv = ["--arch", "rwkv6-3b", "--reduced", "--device", "cpu", "--batch",
+            "2", "--prompt-len", "8", "--max-new", "4", "--temperature",
+            temperature]
     runs = []
     for _ in range(2):
         out = io.StringIO()
@@ -367,6 +369,7 @@ def test_serve_cli_runs_reduced_on_cpu(temperature):
         runs.append(out.getvalue().strip().splitlines())
     stats = json.loads(runs[0][-1])
     assert stats["device"] == "cpu" and stats["layers"] == 2
+    assert stats["arch"] == "rwkv6-3b"
     assert stats["prefill_s"] > 0 and stats["decode_s"] > 0
     # one seed, the same tokens (sampled ones too)
     first = [json.loads(r[1].split(":", 1)[1]) for r in runs]
@@ -379,4 +382,4 @@ def test_serve_cli_without_cuda_raises():
     if torch.cuda.is_available():
         pytest.skip("a card is present")
     with pytest.raises(RuntimeError, match="device='cpu'"):
-        serve.main(["--reduced"])
+        serve.main(["--reduced", "--arch", "rwkv6-3b"])
