@@ -6,7 +6,7 @@
 Phases (any failure exits non-zero; no phase's exception is caught):
 
 1. the card: name, device count, ``nvidia-smi`` name and power limit;
-2. build all six CUDA kernels from ``src/repro_torch/csrc`` (one
+2. build all seven CUDA kernels from ``src/repro_torch/csrc`` (one
    ``nvcc`` per source, all started together) and print ptxas' register
    / shared-memory report; build the two simulations of the paths (the
    fast profile, 30 vehicles; the large fleet, 4096 vehicles at 1 per
@@ -53,6 +53,22 @@ Phases (any failure exits non-zero; no phase's exception is caught):
    with its default arch, gemma-2b, at full width (18 layers, B=4,
    prompt 64, 32 new tokens), which must launch ``flash_attention`` once
    per layer at prefill and nothing else;
+5c. the hybrid family, after the gemma-2b weights are freed:
+   ``selective_scan`` against its plain version (fp32 and bf16 inputs,
+   y and hT to 1e-5 of their largest magnitude, bit-repeatable) at
+   jamba's serving prefill (B=4, T=64, Di=8192, N=16), at B=1, T=4096
+   and at an odd Di and T; timed in bf16 at the first two beside its
+   plain version, with its bound (bytes, fp32 operations, or the exp
+   count over the SFU's 16 per SM per clock); jamba-v0.1-52b with 2
+   layers at full width (mamba + MoE, then attention + MLP; 4 experts
+   of full width), the card against the CPU, a batch row held until a
+   router near-tie sends one of its tokens to other experts on one
+   side; then ``launch/serve.py``'s ``serve()`` on jamba-v0.1-52b at
+   full width with 2 of its 4 layer groups (16 layers, 52 GB of bf16
+   weights: 32 layers do not fit one 80 GB card; B=4, prompt 64, 32
+   new tokens), which must launch ``selective_scan`` once per mamba
+   layer (14) and ``flash_attention`` once per attention layer (2) at
+   prefill and nothing else;
 6. ``{"kernels": [...]}`` on the line before the last;
 7. ``{"ok": true, "device": {...}}`` as the last line.
 """
@@ -105,7 +121,9 @@ MODEL_TOL = 2 ** -5
 GEMMA_SERVE_ARGV = ["--batch", "4", "--prompt-len", "64", "--max-new", "32"]
 # flash_attention's shapes: (B, Sq, Skv, Hq, Hkv, Dh, causal, window,
 # prefix_len); the first is gemma-2b's serving prefill (8 q heads over 1
-# kv head of 256), the second a long prompt
+# kv head of 256), the second a long prompt, the last jamba-v0.1-52b's
+# serving prefill (32 q heads over 8 kv heads of 128)
+JAMBA_FLASH = (4, 64, 64, 32, 8, 128, True, 0, 0)
 FLASH_CASES = [
     (4, 64, 64, 8, 1, 256, True, 0, 0),
     (1, 8192, 8192, 8, 1, 256, True, 0, 0),
@@ -116,7 +134,24 @@ FLASH_CASES = [
     (2, 200, 200, 8, 2, 64, True, 0, 0),          # Dh 64, groups of 4
     (2, 200, 200, 4, 4, 128, True, 0, 0),         # Dh 128, groups of 1
     (2, 200, 200, 8, 2, 128, True, 0, 0),         # Dh 128, groups of 4
+    JAMBA_FLASH,
 ]
+# the hybrid serving path: jamba-v0.1-52b at full width with 2 of its 4
+# layer groups (16 layers), 4 prompts of 64 tokens, 32 new tokens each;
+# its 2-layer check puts the MoE on the mamba layer, with 4 experts
+JAMBA = "jamba-v0.1-52b"
+JAMBA_GROUPS = 2
+JAMBA_SERVE = dict(batch=4, prompt_len=64, max_new=32, temperature=0.0,
+                   seed=0)
+JAMBA_CHECK = dict(num_layers=2, attn_layer_period=2, attn_layer_offset=1,
+                   moe_layer_offset=0, num_experts=4)
+# selective_scan's shapes: (B, T, Di, N); the first is jamba's serving
+# prefill (Di = 2 x 4096), the second a long prompt, the third an odd Di
+# and T with N under the template's 16
+SCAN_CASES = [(4, 64, 8192, 16), (1, 4096, 8192, 16), (3, 77, 300, 7)]
+# exp (one MUFU.EX2 each) per second: 16 per SM per clock, 132 SMs at
+# the H100 SXM's 1.98 GHz boost clock
+SFU_EXP_PER_S = 16 * 132 * 1.98e9
 
 
 def log(msg: str) -> None:
@@ -303,15 +338,17 @@ def flash_checks(dev) -> float:
 
 def flash_times(dev):
     """flash_attention, its plain version and the library's
-    ``scaled_dot_product_attention`` (causal, GQA) in bf16 at the serving
-    shape and the long prompt, each with its bound.  Returns (ms,
+    ``scaled_dot_product_attention`` (causal, GQA) in bf16 at gemma's
+    serving shape, the long prompt and jamba's serving shape, each with
+    its bound.  Returns (ms,
     plain ms, bound ms, bound by, library ms) at the serving shape."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import flash_attention_cuda
     rows = []
-    for case, iters in ((FLASH_CASES[0], 200), (FLASH_CASES[1], 5)):
+    for case, iters in ((FLASH_CASES[0], 200), (FLASH_CASES[1], 5),
+                        (JAMBA_FLASH, 200)):
         q, k, v = flash_inputs(case, torch.bfloat16, dev, seed=2)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
 
@@ -333,20 +370,122 @@ def flash_times(dev):
     return rows[0]
 
 
-def model_check(arch: str, dev, cache_keys, exact=()) -> None:
-    """``arch`` with 2 layers at full width: the card against the port's
-    CPU path on the same weights (drawn on the card from seed 0, cast
-    once to bf16 where the forward computes in bf16), teacher-forced on
-    the CPU's greedy tokens for 8 steps (the prefill and 7 decodes).
-    Logits and each cache's ``cache_keys`` within MODEL_TOL of their
-    largest magnitude, its ``exact`` keys equal; the card's argmax equal
-    to the CPU's wherever the CPU's top-2 gap exceeds twice that
-    bound."""
+def scan_inputs(case, dtype, device, seed=0):
+    """Model-like scan operands: unit-scale x, B and C, dt a softplus of
+    small values (jamba's dt_bias puts it near 0.01), negative a, a
+    nonzero initial state; x, dt, B and C in ``dtype``."""
     import torch
+    import torch.nn.functional as F
+    b, t, di, n = case
+    g = torch.Generator(device=device).manual_seed(seed)
+    rnd = lambda *shape: torch.randn(*shape, generator=g, device=device)
+    x, dt = rnd(b, t, di), F.softplus(rnd(b, t, di) - 4)
+    bm, cm = rnd(b, t, n), rnd(b, t, n)
+    a, h0 = -torch.exp(0.5 * rnd(di, n)), 0.1 * rnd(b, di, n)
+    return [z.to(dtype) for z in (x, dt, bm, cm)] + [a, h0]
+
+
+def scan_label(case, dtype) -> str:
+    b, t, di, n = case
+    return f"B={b} T={t} Di={di} N={n} {str(dtype).split('.')[-1]}"
+
+
+def scan_bound(case, elem_bytes: int):
+    """(ms, by, {part: ms}) for one selective_scan call, the largest of
+    three times: the bytes (x, dt, B and C read once in their type; a,
+    h0 read and hT written once in fp32; y written in fp32) over the
+    memory rate; 6 fp32 operations per (b, t, d, n) (dt a, da h, dtx B,
+    their sum, h C, its sum) and 1 per (b, t, d) (dt x) over the fp32
+    peak; one exp per (b, t, d, n) over the SFU's rate, counted as
+    operations."""
+    b, t, di, n = case
+    n_bytes = (2 * b * t * di + 2 * b * t * n) * elem_bytes + (
+        di * n + 2 * b * di * n + b * t * di) * 4
+    parts = {"bytes": n_bytes / HBM_BYTES_PER_S * 1e3,
+             "fp32": (6 * b * t * di * n + b * t * di)
+             / FP32_FLOP_PER_S * 1e3,
+             "exp": b * t * di * n / SFU_EXP_PER_S * 1e3}
+    top = max(parts, key=parts.get)
+    return (parts[top], "bytes" if top == "bytes" else "operations",
+            parts)
+
+
+def scan_checks(dev) -> float:
+    """selective_scan against its plain version at every case, fp32 and
+    bf16 inputs: both compute in fp32 from the same operands, so y and
+    hT within 1e-5 of their largest magnitude (sums in another order,
+    FMA); a second launch equal bit for bit.  Returns the max abs error
+    of y at the serving shape in bf16."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.selective_scan import selective_scan_cuda
+    err_serve = None
+    for case in SCAN_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            args = scan_inputs(case, dtype, dev)
+            y, h_t = selective_scan_cuda(*args)
+            y2, h_t2 = selective_scan_cuda(*args)
+            want_y, want_h = ref.selective_scan_ref(*args)
+            torch.cuda.synchronize()
+            e_y, e_h = scaled_err(y, want_y), scaled_err(h_t, want_h)
+            same = torch.equal(y, y2) and torch.equal(h_t, h_t2)
+            ok = (e_y <= 1e-5 and e_h <= 1e-5 and same
+                  and bool(torch.isfinite(y).all()))
+            if case == SCAN_CASES[0] and dtype == torch.bfloat16:
+                err_serve = float((y - want_y).abs().max())
+            log(f"[check] selective_scan {scan_label(case, dtype)}: y max "
+                f"err / scale {e_y:.3g} (scale "
+                f"{float(want_y.abs().max()):.4g}), hT {e_h:.3g} (tol "
+                f"1e-5); bit-repeatable {same} {'OK' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"selective_scan {case} {dtype} "
+                                     f"disagrees")
+            del args, y, y2, h_t, h_t2, want_y, want_h
+    return err_serve
+
+
+def scan_times(dev):
+    """selective_scan and its plain version in bf16 at the serving shape
+    and the long prompt, each with its bound.  Returns (ms, plain ms,
+    bound ms, bound by) at the serving shape."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.selective_scan import selective_scan_cuda
+    rows = []
+    for case, iters, plain_iters in ((SCAN_CASES[0], 200, 20),
+                                     (SCAN_CASES[1], 20, 2)):
+        args = scan_inputs(case, torch.bfloat16, dev, seed=2)
+        ms = time_ms(lambda: selective_scan_cuda(*args), iters)
+        plain_ms = time_ms(lambda: ref.selective_scan_ref(*args),
+                           plain_iters, warmup=1)
+        b_ms, b_by, parts = scan_bound(case, 2)
+        log(f"[time] selective_scan {scan_label(case, torch.bfloat16)}: "
+            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+            f"{b_ms:.6f} ms ({b_by}; " + ", ".join(
+                f"{k} {v:.6f} ms" for k, v in parts.items()) + ")")
+        rows.append((ms, plain_ms, b_ms, b_by))
+        del args
+    return rows[0]
+
+
+def model_check(arch: str, dev, cache_keys, exact=(), changes=None) -> None:
+    """``arch`` with 2 layers at full width (or as ``changes`` set it):
+    the card against the port's CPU path on the same weights (drawn on
+    the card from seed 0, cast once to bf16 where the forward computes
+    in bf16), teacher-forced on the CPU's greedy tokens for 8 steps (the
+    prefill and 7 decodes).  Logits and each cache's ``cache_keys`` (of
+    the layers that have them) within MODEL_TOL of their largest
+    magnitude, its ``exact`` keys equal; the card's argmax equal to the
+    CPU's wherever the CPU's top-2 gap exceeds twice that bound.  With
+    MoE layers, a batch row is held until the card and the CPU send one
+    of its tokens to other experts, which they may do only on a near-tie
+    of the router (ROADMAP C3); at least one row is held to the end."""
+    import torch
+    import torch.nn.functional as F
     from repro_torch.configs import get_arch
-    from repro_torch.models import registry
+    from repro_torch.models import moe, registry
     t0 = time.perf_counter()
-    cfg2 = dataclasses.replace(get_arch(arch), num_layers=2)
+    cfg2 = dataclasses.replace(get_arch(arch), **(changes or {"num_layers": 2}))
     p_dev = registry.serving_params(registry.init_params(
         torch.Generator(device=dev).manual_seed(0), cfg2))
     p_cpu = tree_to(p_dev, "cpu")
@@ -354,47 +493,102 @@ def model_check(arch: str, dev, cache_keys, exact=()) -> None:
                          generator=torch.Generator().manual_seed(1))
     prefill2, decode2 = (registry.prefill_fn(cfg2),
                          registry.decode_fn(cfg2, 72))
-    lg_c, c_c = prefill2(p_cpu, {"tokens": toks}, context=72)
-    lg_d, c_d = prefill2(p_dev, {"tokens": toks.to(dev)}, context=72)
+    routes = {"cpu": [], "card": []}
+    cpu_moe = {id(lp["moe"]) for lp in p_cpu["blocks"] if "moe" in lp}
+    apply_moe = moe.apply_moe
+
+    def recording(cfg_, p_, x_):
+        """``moe.apply_moe``, recording the router's probabilities."""
+        logits = F.linear(x_.reshape(-1, x_.shape[-1]),
+                          p_["router"].to(x_.dtype)).float()
+        routes["cpu" if id(p_) in cpu_moe else "card"].append(
+            torch.softmax(logits, -1).cpu())
+        return apply_moe(cfg_, p_, x_)
+
+    def rerouted() -> "torch.Tensor":
+        """Rows with a token that the two sides sent to other experts in
+        the calls since the last look; each such choice must sit on a
+        near-tie of the CPU's router (its k-th and (k+1)-th
+        probabilities within MODEL_TOL of the k-th)."""
+        k = cfg2.experts_per_token
+        rows = torch.zeros(2, dtype=torch.bool)
+        assert len(routes["cpu"]) == len(routes["card"])
+        for pc, pd in zip(routes["cpu"], routes["card"]):
+            top = lambda pr: pr.sort(dim=-1, descending=True, stable=True
+                                     ).indices[:, :k].sort(-1).values
+            moved = (top(pc) != top(pd)).any(-1)
+            srt = pc.sort(-1, descending=True).values
+            gap = (srt[:, k - 1] - srt[:, k]) / srt[:, k - 1]
+            if bool((gap[moved] > MODEL_TOL).any()):
+                raise AssertionError(f"{arch}: a token routed elsewhere on "
+                                     f"the card at gap {gap[moved]}")
+            rows |= moved.reshape(2, -1).any(-1)
+        routes["cpu"].clear()
+        routes["card"].clear()
+        return rows
+
     errs = dict.fromkeys(("logits",) + tuple(cache_keys), 0.0)
+    seen = set()
     decisive = flipped = 0
     equal = True
-    for i in range(8):
-        errs["logits"] = max(errs["logits"], scaled_err(lg_d, lg_c))
-        for a, b in zip(c_d["layers"], c_c["layers"]):
-            for key in cache_keys:
-                errs[key] = max(errs[key], scaled_err(a[key], b[key]))
-            equal = equal and all(torch.equal(a[key].cpu(), b[key])
-                                  for key in exact)
-        last = lg_c[:, -1]
-        top2 = last.topk(2, dim=-1).values
-        sure = top2[:, 0] - top2[:, 1] > 2 * MODEL_TOL * last.abs().max()
-        tok = last.argmax(-1)
-        decisive += int(sure.sum())
-        flipped += int((lg_d[:, -1].argmax(-1).cpu() != tok)[sure].sum())
-        if i < 7:
-            lg_c, c_c = decode2(p_cpu, c_c, tok[:, None])
-            lg_d, c_d = decode2(p_dev, c_d, tok[:, None].to(dev))
+    held = torch.ones(2, dtype=torch.bool)
+    moe.apply_moe = recording
+    try:
+        lg_c, c_c = prefill2(p_cpu, {"tokens": toks}, context=72)
+        lg_d, c_d = prefill2(p_dev, {"tokens": toks.to(dev)}, context=72)
+        for i in range(8):
+            held &= ~rerouted()
+            if not held.any():
+                break
+            errs["logits"] = max(errs["logits"],
+                                 scaled_err(lg_d[held.to(dev)], lg_c[held]))
+            for a, b in zip(c_d["layers"], c_c["layers"]):
+                seen.update(k for k in a if k in b)
+                for key in cache_keys:
+                    if key in a:
+                        errs[key] = max(errs[key], scaled_err(
+                            a[key][held.to(dev)], b[key][held]))
+                equal = equal and all(torch.equal(a[key].cpu(), b[key])
+                                      for key in exact if key in a)
+            last = lg_c[:, -1]
+            top2 = last.topk(2, dim=-1).values
+            sure = (top2[:, 0] - top2[:, 1]
+                    > 2 * MODEL_TOL * last.abs().max()) & held
+            tok = last.argmax(-1)
+            decisive += int(sure.sum())
+            flipped += int((lg_d[:, -1].argmax(-1).cpu() != tok)[sure].sum())
+            if i < 7:
+                lg_c, c_c = decode2(p_cpu, c_c, tok[:, None])
+                lg_d, c_d = decode2(p_dev, c_d, tok[:, None].to(dev))
+    finally:
+        moe.apply_moe = apply_moe
+    unseen = sorted((set(cache_keys) | set(exact)) - seen)
     ok = (max(errs.values()) <= MODEL_TOL and flipped == 0 and equal
+          and not unseen and bool(held.any())
           and bool(torch.isfinite(lg_d).all()))
     same = f"; {', '.join(exact)} equal {equal}" if exact else ""
-    log(f"[check] {arch} 2 layers at full width, cuda vs cpu (bf16, B=2, "
-        f"T=64, 8 steps): max err / scale {json.dumps(errs)} (tol "
-        f"{MODEL_TOL}){same}; argmax equal on {decisive - flipped} of "
-        f"{decisive} decisive steps of 16; {time.perf_counter() - t0:.1f}s "
-        f"{'OK' if ok else 'FAIL'}")
+    same += f"; in no layer's cache: {unseen}" if unseen else ""
+    rows = (f"; rows held to the end {int(held.sum())} of 2"
+            if cfg2.is_moe else "")
+    log(f"[check] {arch} {cfg2.num_layers} layers at full width, cuda vs "
+        f"cpu (bf16, B=2, T=64, 8 steps): max err / scale "
+        f"{json.dumps(errs)} (tol {MODEL_TOL}){same}{rows}; argmax equal "
+        f"on {decisive - flipped} of {decisive} decisive steps of 16; "
+        f"{time.perf_counter() - t0:.1f}s {'OK' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"{arch} on the card disagrees with the CPU")
     del p_dev, p_cpu, c_d, lg_d
     torch.cuda.empty_cache()
 
 
-def serve_path(argv, arch: str, kernel: str, dev):
-    """``python -m repro_torch.launch.serve`` at full width, its launch
-    counts reset just before and read just after: ``kernel`` launched
-    once per layer at prefill and never in decode, no other kernel
-    launched.  Its peak device memory includes what the earlier phases
-    still hold.  Returns the launch counts."""
+def serve_path(arch: str, expected, dev, argv=None, cfg=None, **serve_kw):
+    """Serving ``arch`` at full width, through ``python -m
+    repro_torch.launch.serve``'s ``main(argv)``, or its ``serve(cfg,
+    **serve_kw)`` for a config the CLI does not name (fewer layers); the
+    launch counts reset just before and read just after must be
+    ``expected`` (kernel -> launches at prefill; none in decode), and no
+    other kernel launched.  Its peak device memory includes what the
+    earlier phases still hold.  Returns the launch counts."""
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.kernels import build
@@ -403,7 +597,11 @@ def serve_path(argv, arch: str, kernel: str, dev):
     build.reset_launches()
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
-        rc = serve_cli.main(argv)
+        if cfg is None:
+            rc = serve_cli.main(argv)
+        else:
+            serve_cli.serve(cfg, device=dev, **serve_kw)
+            rc = 0
     served = dict(build.LAUNCHES)
     lines = out.getvalue().strip().splitlines()
     for line in lines:
@@ -411,16 +609,16 @@ def serve_path(argv, arch: str, kernel: str, dev):
     stats = json.loads(lines[-1])
     first = json.loads(next(line for line in lines if line.startswith(
         "[serve] first sequence:")).split(":", 1)[1])
-    cfg = get_arch(arch)
-    log(f"[serve path] {arch} launches {served}; {stats['params']} params; "
-        f"peak device memory {stats['peak_mem_bytes'] / 1e9:.2f} GB (of "
-        f"which {held / 1e9:.2f} GB held by earlier phases); prefill "
+    cfg = cfg or get_arch(arch)
+    log(f"[serve path] {arch} ({cfg.num_layers} layers) launches {served}; "
+        f"{stats['params']} params; peak device memory "
+        f"{stats['peak_mem_bytes'] / 1e9:.2f} GB (of which "
+        f"{held / 1e9:.2f} GB held by earlier phases); prefill "
         f"{stats['prefill_s']:.4f} s, decode {stats['decode_s']:.4f} s for "
         f"{stats['max_new']} steps ({stats['decode_tok_s']:.1f} tok/s)")
     if (rc != 0 or not stats["device"].startswith("cuda")
-            or stats["arch"] != arch
-            or served[kernel] != cfg.num_layers
-            or any(n for k, n in served.items() if k != kernel)
+            or stats["arch"] != arch or stats["layers"] != cfg.num_layers
+            or served != {k: expected.get(k, 0) for k in served}
             or not all(0 <= t < cfg.vocab_size for t in first)
             or len(first) != 16
             or not (math.isfinite(stats["prefill_s"])
@@ -439,6 +637,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
 
+    from repro_torch.configs import get_arch
     from repro_torch.core.elect import auto_window
     from repro_torch.core.rules import build_rule_table
     from repro_torch.device import fp32_strict
@@ -939,7 +1138,8 @@ def main() -> int:
     # rwkv6-3b with 2 layers at full width: the card against the port's
     # CPU path, then the serving path through its CLI at full width
     model_check("rwkv6-3b", dev, ("S", "x_tm", "x_cm"))
-    served = serve_path(SERVE_ARGV, "rwkv6-3b", "wkv6", dev)
+    served = serve_path("rwkv6-3b", {"wkv6": get_arch("rwkv6-3b").num_layers},
+                        dev, argv=SERVE_ARGV)
 
     # -- 5b. the dense family: flash_attention, then gemma-2b ----------------
     gc.collect()                      # the rwkv6 weights are gone
@@ -947,15 +1147,34 @@ def main() -> int:
     err_flash = flash_checks(dev)
     flash_timing = flash_times(dev)
     model_check("gemma-2b", dev, ("k", "v"), exact=("pos", "idx"))
-    served_dense = serve_path(GEMMA_SERVE_ARGV, "gemma-2b",
-                              "flash_attention", dev)
+    served_dense = serve_path(
+        "gemma-2b", {"flash_attention": get_arch("gemma-2b").num_layers},
+        dev, argv=GEMMA_SERVE_ARGV)
+
+    # -- 5c. the hybrid family: selective_scan, then jamba-v0.1-52b --------
+    gc.collect()                      # the gemma-2b weights are gone
+    torch.cuda.empty_cache()
+    err_scan = scan_checks(dev)
+    scan_timing = scan_times(dev)
+    model_check(JAMBA, dev, ("k", "v", "conv", "h"), exact=("pos", "idx"),
+                changes=JAMBA_CHECK)
+    jamba = get_arch(JAMBA)
+    jamba16 = dataclasses.replace(
+        jamba, num_layers=JAMBA_GROUPS * jamba.attn_layer_period)
+    kinds = [jamba16.layer_kind(i % jamba16.attn_layer_period)
+             for i in range(jamba16.num_layers)]
+    served_hybrid = serve_path(
+        JAMBA, {"selective_scan": kinds.count("mamba"),
+                "flash_attention": kinds.count("attn")}, dev, cfg=jamba16,
+        **JAMBA_SERVE)
 
     launches = {"probe_fuzzy": fused["probe_fuzzy"],
                 "neighbor_elect": fused["neighbor_elect"],
                 "fuzzy_eval": unfused["fuzzy_eval"],
                 "windowed_counts": windowed["windowed_counts"],
                 "wkv6": served["wkv6"],
-                "flash_attention": served_dense["flash_attention"]}
+                "flash_attention": served_dense["flash_attention"],
+                "selective_scan": served_hybrid["selective_scan"]}
     if (min(launches.values()) <= 0 or unfused["neighbor_elect"] <= 0
             or windowed["probe_fuzzy"] != 2 + n_over):
         raise AssertionError(f"a kernel of the path never ran: {launches}")
@@ -975,8 +1194,12 @@ def main() -> int:
         "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                             "src/repro/kernels/flash_attention.py:79",
                             err_flash),
+        "selective_scan": ("src/repro_torch/csrc/selective_scan.cu",
+                           "src/repro/kernels/selective_scan.py:68",
+                           err_scan),
     }
     timings["flash_attention"] = flash_timing[:4]
+    timings["selective_scan"] = scan_timing
     library = {"flash_attention": flash_timing[4]}
     kernels = []
     for name in build.KERNELS:

@@ -14,6 +14,7 @@ from repro_torch.configs.base import ArchConfig, ShapeConfig, scaled_down
 _ARCH_MODULES: Dict[str, str] = {
     "rwkv6-3b": "rwkv6_3b",
     "gemma-2b": "gemma_2b",
+    "jamba-v0.1-52b": "jamba_v0_1_52b",
 }
 
 ARCH_IDS: List[str] = list(_ARCH_MODULES)

@@ -77,6 +77,18 @@ class ArchConfig:
     def is_moe(self) -> bool:
         return self.num_experts > 0
 
+    def layer_kind(self, i: int) -> str:
+        """'attn' or 'mamba' body for decoder layer i (hybrid interleave)."""
+        if self.family != "hybrid" or self.attn_layer_period == 0:
+            return "mamba" if self.name.startswith("rwkv") else "attn"
+        return ("attn" if i % self.attn_layer_period == self.attn_layer_offset
+                else "mamba")
+
+    def layer_is_moe(self, i: int) -> bool:
+        if not self.is_moe:
+            return False
+        return i % self.moe_layer_period == self.moe_layer_offset
+
 
 @dataclass(frozen=True)
 class ShapeConfig:

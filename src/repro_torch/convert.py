@@ -5,8 +5,8 @@ For the CNN the reference stores ``{"conv1": {"w": HWIO, "b"}, ...,
 PyTorch's layout (conv OIHW, dense ``(out, in)``).  The fc1 ``in`` axis
 keeps the NHWC flatten order on both sides — ``cnn_forward`` permutes
 its activation to NHWC before flattening, so no row of fc1 is permuted
-here.  For the LM zoo see ``rwkv_params_from_jax`` and
-``dense_params_from_jax``.
+here.  For the LM zoo see ``rwkv_params_from_jax``,
+``dense_params_from_jax`` and ``hybrid_params_from_jax``.
 """
 from __future__ import annotations
 
@@ -44,27 +44,39 @@ def params_to_numpy(params: Mapping[str, torch.Tensor]) -> Dict:
 
 
 # dense weights of the LM blocks: (in, out) in the reference, (out, in)
-# here, by block group
+# here, by block group (the MoE's expert stacks keep (E, in, out))
 RWKV_DENSE = ("wr", "wk", "wv", "wg", "wo", "wA", "wB", "ck", "cv")
 _LM_DENSE = {"rwkv": RWKV_DENSE, "attn": ("wq", "wk", "wv", "wo"),
-             "mlp": ("wi", "wg", "wo")}
+             "mlp": ("wi", "wg", "wo"),
+             "mamba": ("in_proj", "x_proj", "dt_proj", "out_proj"),
+             "moe": ("router",)}
 
 
-def _lm_params_from_jax(tree: Mapping, device=None) -> Dict:
-    def t(a):
-        return torch.tensor(np.ascontiguousarray(a), device=device)
+def _t(a, device) -> torch.Tensor:
+    return torch.tensor(np.ascontiguousarray(a), device=device)
 
-    blocks = tree["blocks"]
-    out = {"embed": t(tree["embed"]),
-           "final_norm": {k: t(v) for k, v in tree["final_norm"].items()},
-           "blocks": []}
+
+def _block_from_jax(blocks: Mapping, i: int, device=None) -> Dict:
+    """Entry ``i`` of a stacked block tree, dense weights transposed."""
+    return {group: {k: _t(np.asarray(v)[i].T if k in _LM_DENSE.get(group, ())
+                          else np.asarray(v)[i], device)
+                    for k, v in leaves.items()}
+            for group, leaves in blocks.items()}
+
+
+def _lm_params_from_jax(tree: Mapping, device=None, blocks=None) -> Dict:
+    """The embedding, head and final norm, and ``blocks`` (default: one
+    per entry of the reference's layer-stacked ``blocks``)."""
+    out = {"embed": _t(tree["embed"], device),
+           "final_norm": {k: _t(v, device)
+                          for k, v in tree["final_norm"].items()}}
     if "lm_head" in tree:
-        out["lm_head"] = t(np.asarray(tree["lm_head"]).T)
-    for i in range(np.asarray(blocks["n1"]["w"]).shape[0]):
-        out["blocks"].append({
-            group: {k: t(np.asarray(v)[i].T if k in _LM_DENSE.get(group, ())
-                         else np.asarray(v)[i]) for k, v in leaves.items()}
-            for group, leaves in blocks.items()})
+        out["lm_head"] = _t(np.asarray(tree["lm_head"]).T, device)
+    if blocks is None:
+        stacked = tree["blocks"]
+        blocks = [_block_from_jax(stacked, i, device) for i in
+                  range(np.asarray(stacked["n1"]["w"]).shape[0])]
+    out["blocks"] = blocks
     return out
 
 
@@ -83,3 +95,18 @@ def dense_params_from_jax(tree: Mapping, device=None) -> Dict:
     and the head ``(out, in)``.  Norm weights (and qk norms) are copied
     as stored (weight - 1)."""
     return _lm_params_from_jax(tree, device)
+
+
+def hybrid_params_from_jax(tree: Mapping, device=None) -> Dict:
+    """The reference's hybrid-family parameter tree (``blocks`` a tuple
+    of ``attn_layer_period`` layer dicts, each stacked on a leading group
+    axis) -> the port's per-layer list in layer order (layer ``g *
+    period + i`` is entry ``i`` of group ``g``), dense weights and the
+    head ``(out, in)``, the router ``(E, D)``, the expert stacks as
+    stored (E, in, out).  Norm weights are copied as stored (weight -
+    1); ``A_log`` and ``conv_w`` (width, Di) as stored."""
+    period = tree["blocks"]
+    groups = np.asarray(period[0]["n1"]["w"]).shape[0]
+    blocks = [_block_from_jax(period[i], g, device)
+              for g in range(groups) for i in range(len(period))]
+    return _lm_params_from_jax(tree, device, blocks)

@@ -27,7 +27,7 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 KERNELS = ("probe_fuzzy", "fuzzy_eval", "neighbor_elect", "windowed_counts",
-           "wkv6", "flash_attention")
+           "wkv6", "flash_attention", "selective_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
               "-lineinfo")
@@ -42,6 +42,7 @@ _SIGNATURES = {
     "windowed_counts": {"windowed_counts_launch": "pppiiiffipp"},
     "wkv6": {"wkv6_launch": "ppppppiiiiippp"},
     "flash_attention": {"flash_attention_launch": "ppppiiiiiiiiiifp"},
+    "selective_scan": {"selective_scan_launch": "ppppppiiiiippp"},
 }
 _CTYPE = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
 

@@ -115,6 +115,20 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return y.to(r.dtype), s_t
 
 
+
+def selective_scan(x: torch.Tensor, dt: torch.Tensor, bmat: torch.Tensor,
+                   cmat: torch.Tensor, a: torch.Tensor, h0: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The Mamba-1 selective scan over a sequence: x, dt (B, T, Di),
+    bmat, cmat (B, T, N), a (Di, N) fp32, h0 (B, Di, N) fp32 -> ``(y
+    (B, T, Di) in x's dtype, hT (B, Di, N) fp32)``."""
+    if _on_cuda(x):
+        from repro_torch.kernels.selective_scan import selective_scan_cuda
+        y, h_t = selective_scan_cuda(x, dt, bmat, cmat, a, h0)
+    else:
+        y, h_t = ref.selective_scan_ref(x, dt, bmat, cmat, a, h0)
+    return y.to(x.dtype), h_t
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
                     prefix_len: int = 0) -> torch.Tensor:

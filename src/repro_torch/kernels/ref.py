@@ -180,6 +180,33 @@ def wkv6_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return y, s
 
 
+
+def selective_scan_ref(x: torch.Tensor, dt: torch.Tensor,
+                       bmat: torch.Tensor, cmat: torch.Tensor,
+                       a: torch.Tensor, h0: torch.Tensor
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The Mamba-1 selective scan, one step at a time, in fp32.
+
+    x, dt: (B, T, Di); bmat, cmat: (B, T, N), of any float dtype; a:
+    (Di, N); h0: (B, Di, N).  Per step ``h = exp(dt_t a) h + (dt_t x_t)
+    (x) B_t`` and ``y_t = h . C_t``, with dt and x cast to fp32 before
+    their product, as the model's scan (``repro/models/mamba.py:68-76``)
+    and ``selective_scan_pallas`` do (the reference's own oracle,
+    ``repro/kernels/ref.py::selective_scan_ref``, multiplies them in the
+    input dtype first).  Returns ``(y (B, T, Di) fp32, hT (B, Di, N)
+    fp32)``."""
+    dtf = dt.float()
+    dtx = dtf * x.float()
+    bf, cf = bmat.float(), cmat.float()
+    a, h = a.float(), h0.float()
+    ys = []
+    for t in range(x.shape[1]):
+        h = (torch.exp(dtf[:, t, :, None] * a) * h
+             + dtx[:, t, :, None] * bf[:, t, None, :])
+        ys.append(torch.einsum("bdn,bn->bd", h, cf[:, t]))
+    y = torch.stack(ys, dim=1) if ys else torch.zeros_like(dtx)
+    return y, h
+
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = True, window: int = 0,
                         prefix_len: int = 0) -> torch.Tensor:

@@ -4,14 +4,17 @@
 Usage:
   python -m repro_torch.launch.serve --batch 4 --prompt-len 64 --max-new 32
   python -m repro_torch.launch.serve --arch rwkv6-3b
+  python -m repro_torch.launch.serve --arch jamba-v0.1-52b --reduced --device cpu
   python -m repro_torch.launch.serve --reduced --device cpu
 
 ``--arch`` defaults to gemma-2b, as the reference's does; the port also
-serves rwkv6-3b.  Weights are random, drawn from ``--seed`` on the
-device; after init they are cast once to bf16 where the forward
-computes in bf16 (``registry.serving_params``).  The last line is a
-JSON object with the prefill and decode seconds, tokens per second
-and, on the card, the peak device memory.
+serves rwkv6-3b and jamba-v0.1-52b (whose 32 layers, ~103 GB in bf16,
+do not fit one 80 GB card: ``serve(cfg)`` serves fewer layer groups).
+Weights are random, drawn from ``--seed`` on the device, each layer
+cast to bf16 where the forward computes in bf16 before the next is
+drawn (``registry.init_serving_params``).  The last line is a JSON
+object with the prefill and decode seconds, tokens per second and, on
+the card, the peak device memory.
 """
 from __future__ import annotations
 
@@ -33,6 +36,40 @@ def _numel(tree) -> int:
                    tree.values() if isinstance(tree, dict) else tree))
 
 
+def serve(cfg, *, batch: int = 4, prompt_len: int = 64, max_new: int = 32,
+          temperature: float = 0.0, seed: int = 0, device=None) -> dict:
+    """Serve ``cfg`` once: random weights from ``seed`` (cast to bf16 as
+    they are drawn, ``registry.init_serving_params``), ``batch`` random
+    prompts of ``prompt_len`` tokens, ``max_new`` new tokens each.
+    Prints the run and, last, its stats as JSON, and returns them."""
+    dev = resolve_device(device)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    params = registry.init_serving_params(g, cfg)
+    prompts = {"tokens": torch.randint(0, cfg.vocab_size,
+                                       (batch, prompt_len), generator=g,
+                                       device=dev)}
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+
+    toks, info = generate(cfg, params, prompts, max_new,
+                          temperature=temperature, generator=g)
+    dt = info["prefill_s"] + info["decode_s"]
+    n_tok = batch * max_new
+    print(f"[serve] {cfg.name}: generated {tuple(toks.shape)} in "
+          f"{dt:.2f}s ({n_tok / dt:.1f} tok/s)")
+    print(f"[serve] first sequence: {toks[0][:16].tolist()}")
+    stats = {"device": str(dev), "arch": cfg.name,
+             "layers": cfg.num_layers, "d_model": cfg.d_model,
+             "params": _numel(params), "batch": batch,
+             "prompt_len": prompt_len, "max_new": max_new,
+             "prefill_s": info["prefill_s"], "decode_s": info["decode_s"],
+             "decode_tok_s": n_tok / info["decode_s"]}
+    if dev.type == "cuda":
+        stats["peak_mem_bytes"] = torch.cuda.max_memory_allocated(dev)
+    print(json.dumps(stats), flush=True)
+    return stats
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", choices=ARCH_IDS, default="gemma-2b")
@@ -48,34 +85,12 @@ def main(argv=None) -> int:
                          "plain versions)")
     args = ap.parse_args(argv)
 
-    dev = resolve_device(args.device)
     cfg = get_arch(args.arch)
     if args.reduced:
         cfg = scaled_down(cfg)
-    g = torch.Generator(device=dev).manual_seed(args.seed)
-    params = registry.serving_params(registry.init_params(g, cfg))
-    batch = {"tokens": torch.randint(0, cfg.vocab_size,
-                                     (args.batch, args.prompt_len),
-                                     generator=g, device=dev)}
-    if dev.type == "cuda":
-        torch.cuda.reset_peak_memory_stats(dev)
-
-    toks, info = generate(cfg, params, batch, args.max_new,
-                          temperature=args.temperature, generator=g)
-    dt = info["prefill_s"] + info["decode_s"]
-    n_tok = args.batch * args.max_new
-    print(f"[serve] {cfg.name}: generated {tuple(toks.shape)} in "
-          f"{dt:.2f}s ({n_tok / dt:.1f} tok/s)")
-    print(f"[serve] first sequence: {toks[0][:16].tolist()}")
-    stats = {"device": str(dev), "arch": cfg.name,
-             "layers": cfg.num_layers, "d_model": cfg.d_model,
-             "params": _numel(params), "batch": args.batch,
-             "prompt_len": args.prompt_len, "max_new": args.max_new,
-             "prefill_s": info["prefill_s"], "decode_s": info["decode_s"],
-             "decode_tok_s": n_tok / info["decode_s"]}
-    if dev.type == "cuda":
-        stats["peak_mem_bytes"] = torch.cuda.max_memory_allocated(dev)
-    print(json.dumps(stats), flush=True)
+    serve(cfg, batch=args.batch, prompt_len=args.prompt_len,
+          max_new=args.max_new, temperature=args.temperature,
+          seed=args.seed, device=args.device)
     return 0
 
 

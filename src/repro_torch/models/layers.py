@@ -109,6 +109,12 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
 # MLP (gated and plain)
 # --------------------------------------------------------------------------
 
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.silu`` (``x * sigmoid(x)``) step by step in x's dtype, as
+    XLA computes it: bit-equal in bf16, where ``F.silu`` rounds once."""
+    return x * torch.reciprocal(1 + torch.exp(-x))
+
+
 def init_mlp(g: torch.Generator, cfg, d: int, d_ff: int) -> Params:
     p = {"wi": dense_init(g, d, d_ff)}
     if cfg.hidden_act in ("silu", "geglu"):
@@ -121,7 +127,7 @@ def apply_mlp(cfg, p: Params, x: torch.Tensor) -> torch.Tensor:
     dt = x.dtype
     h = F.linear(x, p["wi"].to(dt))
     if cfg.hidden_act == "silu":
-        h = F.silu(h) * F.linear(x, p["wg"].to(dt))
+        h = silu(h) * F.linear(x, p["wg"].to(dt))
     elif cfg.hidden_act == "geglu":
         h = F.gelu(h, approximate="tanh") * F.linear(x, p["wg"].to(dt))
     elif cfg.hidden_act == "gelu":

@@ -1,39 +1,57 @@
 """Model assembly (``repro.models.transformer``), for the families the
-port serves: the attention-free ``ssm`` family (RWKV-6) and the ``dense``
-family (gemma-2b).
+port serves: the attention-free ``ssm`` family (RWKV-6), the ``dense``
+family (gemma-2b) and the ``hybrid`` family (jamba: mamba and attention
+layers, MoE on every other one).
 
 Parameters are a nested dict: ``embed`` (V, D), ``final_norm``,
 ``lm_head`` (V, D) unless tied, and ``blocks``, a list with one dict
-per layer (the reference stacks layers on a leading axis and scans
-over it; the port loops).  The decode cache is ``{"layers": [one
-entry per layer]}``: an RWKV state, or a dense layer's slot cache
-(``attention.make_kv_cache``).  The other families raise
-``NotImplementedError`` (ROADMAP A13b).
+per layer in layer order (the reference stacks layers, or jamba's
+groups of ``attn_layer_period`` layers, on a leading axis and scans
+over it; the port loops).  The decode cache is ``{"layers": [one entry
+per layer]}``: an RWKV state, an attention layer's slot cache
+(``attention.make_kv_cache``) or a mamba layer's ``{conv, h}``.  The
+moe, audio and vlm families raise ``NotImplementedError`` (ROADMAP
+A13b).
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import mamba as mam
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv6 as rwkv
 from repro_torch.models.layers import (COMPUTE_DTYPE, Params, apply_mlp,
                                        apply_norm, dense_init, embed_init,
                                        init_mlp, init_norm, weak_scalar)
 
-PORTED_FAMILIES = ("ssm", "dense")
+PORTED_FAMILIES = ("ssm", "dense", "hybrid")
 
 
 def _require_ported(cfg: ArchConfig) -> None:
-    if cfg.family not in PORTED_FAMILIES or cfg.is_moe:
+    if cfg.family not in PORTED_FAMILIES or (cfg.is_moe
+                                             and cfg.family != "hybrid"):
         raise NotImplementedError(
             f"family {cfg.family!r} ({cfg.name}) is not ported yet: the "
-            f"port serves the ssm (rwkv6) and dense (gemma) families; "
-            f"MoE, hybrid, audio and vlm come with ROADMAP A13b")
+            f"port serves the ssm (rwkv6), dense (gemma) and hybrid "
+            f"(jamba) families; moe, audio and vlm come with ROADMAP A13b")
+
+
+def _layer_body(cfg: ArchConfig, i: int) -> Tuple[str, bool]:
+    """(mixer, is_moe) of layer ``i``: 'rwkv', 'attn' or 'mamba'; a
+    hybrid layer takes the kind of its place in its group, as the
+    reference's group body does."""
+    if cfg.family == "ssm":
+        return "rwkv", False
+    if cfg.family == "hybrid":
+        j = i % cfg.attn_layer_period
+        return cfg.layer_kind(j), cfg.layer_is_moe(j)
+    return "attn", False
 
 
 # ==========================================================================
@@ -46,24 +64,43 @@ def _init_rwkv_layer(g: torch.Generator, cfg: ArchConfig) -> Params:
             "rwkv": rwkv.init_rwkv_layer(g, cfg)}
 
 
-def _init_dense_layer(g: torch.Generator, cfg: ArchConfig) -> Params:
-    return {"n1": init_norm(cfg, cfg.d_model, g.device),
-            "n2": init_norm(cfg, cfg.d_model, g.device),
-            "attn": attn.init_attention(g, cfg, cfg.d_model),
-            "mlp": init_mlp(g, cfg, cfg.d_model, cfg.d_ff)}
+def _init_layer(g: torch.Generator, cfg: ArchConfig, i: int) -> Params:
+    """Layer ``i``: norms, its mixer (attention or mamba), then its MLP
+    or MoE."""
+    mixer, is_moe = _layer_body(cfg, i)
+    if mixer == "rwkv":
+        return _init_rwkv_layer(g, cfg)
+    p = {"n1": init_norm(cfg, cfg.d_model, g.device),
+         "n2": init_norm(cfg, cfg.d_model, g.device)}
+    if mixer == "attn":
+        p["attn"] = attn.init_attention(g, cfg, cfg.d_model)
+    else:
+        p["mamba"] = mam.init_mamba_layer(g, cfg)
+    if is_moe:
+        p["moe"] = moe_mod.init_moe(g, cfg, cfg.d_model)
+    else:
+        p["mlp"] = init_mlp(g, cfg, cfg.d_model, cfg.d_ff)
+    return p
 
 
-def init_params(g: torch.Generator, cfg: ArchConfig) -> Params:
-    """The full parameter tree (fp32), drawn from ``g`` on its device."""
+def init_params(g: torch.Generator, cfg: ArchConfig,
+                finish: Optional[Callable[[Params], Params]] = None
+                ) -> Params:
+    """The full parameter tree (fp32), drawn from ``g`` on its device.
+    ``finish`` (default: none) is applied to the top-level dict before
+    the first layer is drawn, and to each layer's dict before the next
+    one is drawn (``registry.init_serving_params`` casts there)."""
     _require_ported(cfg)
+    finish = finish or (lambda p: p)
     params: Params = {
         "embed": embed_init(g, cfg.vocab_size, cfg.d_model),
         "final_norm": init_norm(cfg, cfg.d_model, g.device),
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = dense_init(g, cfg.d_model, cfg.vocab_size)
-    init_layer = _init_rwkv_layer if cfg.family == "ssm" else _init_dense_layer
-    params["blocks"] = [init_layer(g, cfg) for _ in range(cfg.num_layers)]
+    params = finish(params)
+    params["blocks"] = [finish(_init_layer(g, cfg, i))
+                        for i in range(cfg.num_layers)]
     return params
 
 
@@ -77,17 +114,23 @@ def decode_window(cfg: ArchConfig, context: int) -> int:
 
 def init_cache(cfg: ArchConfig, batch: int, context: int,
                device=None) -> Params:
-    """Decode cache, one entry per layer: a zero RWKV state (``context``
-    unused), or an empty slot cache of ``context`` positions, only the
-    window's (a ring) once the context exceeds the window."""
+    """Decode cache, one entry per layer: a zero RWKV or mamba state
+    (``context`` unused), or an empty slot cache of ``context``
+    positions, only the window's (a ring) once the context exceeds the
+    window."""
     _require_ported(cfg)
-    if cfg.family == "ssm":
-        return {"layers": [rwkv.init_rwkv_state(cfg, batch, device=device)
-                           for _ in range(cfg.num_layers)]}
     slots = decode_window(cfg, context) or context
-    return {"layers": [attn.make_kv_cache(batch, slots, cfg.num_kv_heads,
-                                          cfg.head_dim, device=device)
-                       for _ in range(cfg.num_layers)]}
+    layers = []
+    for i in range(cfg.num_layers):
+        mixer = _layer_body(cfg, i)[0]
+        if mixer == "rwkv":
+            layers.append(rwkv.init_rwkv_state(cfg, batch, device=device))
+        elif mixer == "mamba":
+            layers.append(mam.init_mamba_state(cfg, batch, device=device))
+        else:
+            layers.append(attn.make_kv_cache(batch, slots, cfg.num_kv_heads,
+                                             cfg.head_dim, device=device))
+    return {"layers": layers}
 
 
 # ==========================================================================
@@ -100,7 +143,11 @@ def _residual(cfg: ArchConfig, x: torch.Tensor, y: torch.Tensor
 
 
 def _ffn(cfg: ArchConfig, lp: Params, x: torch.Tensor) -> torch.Tensor:
-    return apply_mlp(cfg, lp["mlp"], apply_norm(cfg, lp["n2"], x))
+    """The layer's MLP, or its MoE (whose aux losses serving drops)."""
+    h = apply_norm(cfg, lp["n2"], x)
+    if "moe" in lp:
+        return moe_mod.apply_moe(cfg, lp["moe"], h)[0]
+    return apply_mlp(cfg, lp["mlp"], h)
 
 
 def _dense_layer_full(cfg, lp, x, positions, *, window=0, prefix_len=0):
@@ -138,6 +185,38 @@ def _run_dense_stack(cfg, params, x, positions, *, mode, cache=None,
                                   prefix_len=prefix_len)
         kvs.append(kv)
     return x, _kvs_to_cache(cfg, kvs, positions, context)
+
+
+def _mamba_layer(cfg, lp, x, state):
+    """Pre-norm mamba then MLP or MoE; returns (x, the mamba state)."""
+    y, state = mam.mamba_apply(cfg, lp["mamba"], apply_norm(cfg, lp["n1"], x),
+                               state)
+    x = _residual(cfg, x, y)
+    return _residual(cfg, x, _ffn(cfg, lp, x)), state
+
+
+def _run_hybrid_stack(cfg, params, x, positions, *, mode, cache=None,
+                      window=0, context=0):
+    """Every layer in order, each by the kind of its place in its group;
+    returns (x, the new cache): attention layers' slot caches, mamba
+    layers' states."""
+    layers, attn_at, kvs = [], [], []
+    for i, lp in enumerate(params["blocks"]):
+        c = cache["layers"][i] if mode == "decode" else None
+        if _layer_body(cfg, i)[0] == "mamba":
+            x, c = _mamba_layer(cfg, lp, x, c)
+        elif mode == "decode":
+            x, c = _dense_layer_decode(cfg, lp, x, c, window=window)
+        else:
+            x, kv = _dense_layer_full(cfg, lp, x, positions, window=window)
+            attn_at.append(i)
+            kvs.append(kv)
+        layers.append(c)
+    if kvs:
+        for i, c in zip(attn_at, _kvs_to_cache(cfg, kvs, positions,
+                                              context)["layers"]):
+            layers[i] = c
+    return x, {"layers": layers}
 
 
 def _kvs_to_cache(cfg, kvs: List[Tuple[torch.Tensor, torch.Tensor]],
@@ -213,9 +292,10 @@ def forward(cfg: ArchConfig, params: Params,
         x, cache = _run_rwkv_stack(cfg, params, x, mode=mode, cache=cache)
     else:
         positions = torch.arange(x.shape[1], device=x.device)
-        x, cache = _run_dense_stack(cfg, params, x, positions, mode=mode,
-                                    cache=cache, window=window,
-                                    context=context)
+        run = (_run_hybrid_stack if cfg.family == "hybrid"
+               else _run_dense_stack)
+        x, cache = run(cfg, params, x, positions, mode=mode, cache=cache,
+                       window=window, context=context)
     return apply_norm(cfg, params["final_norm"], x), cache
 
 

@@ -345,3 +345,104 @@ def test_gemma_prefill_launches_flash_attention_once_per_layer(cuda):
     got, _ = engine.generate(cfg, on(params, cuda),
                              {"tokens": toks.to(cuda)}, 4)
     assert got.shape == (2, 4) and got.device.type == "cuda"
+
+
+# the selective scan at chip_smoke.py's shapes: (B, T, Di, N); the first
+# is jamba's serving prefill (Di = 2 x 4096), the second a long prompt,
+# the last an odd Di and T with N under the template's 16
+SCAN_CASES = [(4, 64, 8192, 16), (1, 4096, 8192, 16), (3, 77, 300, 7)]
+
+
+def _scan_inputs(b, t, di, n, dtype, device, seed=0):
+    """Model-like scan operands: unit-scale x, B and C, dt a softplus of
+    small values, negative a, a nonzero initial state."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(b, t, di, generator=g)
+    dt = torch.nn.functional.softplus(torch.randn(b, t, di, generator=g) - 4)
+    bm, cm = (torch.randn(b, t, n, generator=g) for _ in range(2))
+    a = -torch.exp(0.5 * torch.randn(di, n, generator=g))
+    h0 = 0.1 * torch.randn(b, di, n, generator=g)
+    return [z.to(dtype).to(device) for z in (x, dt, bm, cm)] + \
+        [a.to(device), h0.to(device)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,t,di,n", SCAN_CASES)
+def test_selective_scan_kernel_matches_plain(cuda, b, t, di, n, dtype):
+    """Both compute in fp32 from the same operands (bf16 inputs
+    converted once): y and hT within 1e-5 of their largest magnitude
+    (sums in another order, FMA)."""
+    from repro_torch.kernels.selective_scan import selective_scan_cuda
+    args = _scan_inputs(b, t, di, n, dtype, cuda)
+    before = build.LAUNCHES["selective_scan"]
+    y, h_t = selective_scan_cuda(*args)
+    assert build.LAUNCHES["selective_scan"] == before + 1
+    want_y, want_h = ref.selective_scan_ref(*args)
+    torch.cuda.synchronize()
+    assert y.dtype == h_t.dtype == torch.float32
+    assert bool(torch.isfinite(y).all())
+    assert _scaled_err(y, want_y) <= 1e-5
+    assert _scaled_err(h_t, want_h) <= 1e-5
+    # the op: the same kernel, y in x's dtype
+    y_op, h_op = ops.selective_scan(*args)
+    assert y_op.dtype == dtype
+    assert torch.equal(y_op, y.to(dtype)) and torch.equal(h_op, h_t)
+
+
+def test_selective_scan_kernel_is_bit_repeatable(cuda):
+    from repro_torch.kernels.selective_scan import selective_scan_cuda
+    args = _scan_inputs(4, 64, 8192, 16, torch.bfloat16, cuda, seed=1)
+    (y1, h1), (y2, h2) = selective_scan_cuda(*args), selective_scan_cuda(*args)
+    assert torch.equal(y1, y2) and torch.equal(h1, h2)
+
+
+def test_selective_scan_kernel_refuses_what_it_was_not_built_for(cuda):
+    from repro_torch.kernels.selective_scan import selective_scan_cuda
+    with pytest.raises(ValueError, match="N = 40"):
+        selective_scan_cuda(*_scan_inputs(1, 8, 64, 40, torch.float32, cuda))
+    x, dt, bm, cm, a, h0 = _scan_inputs(1, 8, 64, 16, torch.float32, cuda)
+    with pytest.raises(ValueError, match="dt"):
+        selective_scan_cuda(x, dt.to(torch.bfloat16), bm, cm, a, h0)
+    with pytest.raises(ValueError, match="bmat"):
+        selective_scan_cuda(x, dt, bm.to(torch.bfloat16), cm, a, h0)
+
+
+def test_jamba_prefill_launches_selective_scan_once_per_mamba_layer(
+        cuda, monkeypatch):
+    """Scaled-down jamba with 4 groups (8 layers: attention + MLP, mamba
+    + MoE) on the card: one selective_scan launch per mamba layer and one
+    flash_attention launch per attention layer at prefill, none in
+    decode; logits and caches within 2^-5 of the CPU's.  The model
+    computes in fp32 here (the compute dtype monkeypatched): in bf16 a
+    router near-tie may send a token to another expert on one side
+    (ROADMAP C3)."""
+    from repro_torch.models import transformer
+    monkeypatch.setattr(transformer, "COMPUTE_DTYPE", torch.float32)
+    cfg = scaled_down(get_arch("jamba-v0.1-52b"), layers=8)
+    params = registry.init_params(torch.Generator().manual_seed(0), cfg)
+    on = lambda tree, dev: (tree.to(dev) if torch.is_tensor(tree) else
+                            {k: on(v, dev) for k, v in tree.items()}
+                            if isinstance(tree, dict) else
+                            [on(v, dev) for v in tree])
+    toks = torch.randint(0, cfg.vocab_size, (2, 64),
+                         generator=torch.Generator().manual_seed(1))
+    prefill = registry.prefill_fn(cfg)
+    want_lg, want_cache = prefill(params, {"tokens": toks}, context=72)
+    build.reset_launches()
+    got_lg, cache = prefill(on(params, cuda), {"tokens": toks.to(cuda)},
+                            context=72)
+    assert build.LAUNCHES["selective_scan"] == 4
+    assert build.LAUNCHES["flash_attention"] == 4
+    assert sum(build.LAUNCHES.values()) == 8
+    assert _scaled_err(got_lg.cpu(), want_lg) <= 2 ** -5
+    for a, b in zip(cache["layers"], want_cache["layers"]):
+        for key in ("k", "h"):
+            if key in a:
+                assert _scaled_err(a[key].float().cpu(),
+                                   b[key].float()) <= 2 ** -5
+    registry.decode_fn(cfg, 72)(on(params, cuda), cache,
+                                toks[:, :1].to(cuda))
+    assert sum(build.LAUNCHES.values()) == 8
+    got, _ = engine.generate(cfg, on(params, cuda),
+                             {"tokens": toks.to(cuda)}, 4)
+    assert got.shape == (2, 4) and got.device.type == "cuda"

@@ -243,7 +243,9 @@ def test_port_imports_neither_jax_nor_repro():
             "repro_torch.convert, repro_torch.kernels.wkv6, "
             "repro_torch.launch.serve, repro_torch.serve.engine, "
             "repro_torch.kernels.flash_attention, "
-            "repro_torch.models.attention\n"
+            "repro_torch.models.attention, "
+            "repro_torch.kernels.selective_scan, repro_torch.models.mamba, "
+            "repro_torch.models.moe, repro_torch.configs.jamba_v0_1_52b\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "
             "m.startswith('repro.')]\n"
