@@ -6,7 +6,7 @@
 Phases (any failure exits non-zero; no phase's exception is caught):
 
 1. the card: name, device count, ``nvidia-smi`` name and power limit;
-2. build all seven CUDA kernels from ``src/repro_torch/csrc`` (one
+2. build all eight CUDA kernels from ``src/repro_torch/csrc`` (one
    ``nvcc`` per source, all started together) and print ptxas' register
    / shared-memory report; build the two simulations of the paths (the
    fast profile, 30 vehicles; the large fleet, 4096 vehicles at 1 per
@@ -69,6 +69,29 @@ Phases (any failure exits non-zero; no phase's exception is caught):
    new tokens), which must launch ``selective_scan`` once per mamba
    layer (14) and ``flash_attention`` once per attention layer (2) at
    prefill and nothing else;
+5d. the client mesh (``--mesh clients=K``) with ``probe_loss``:
+   ``probe_loss`` against its plain version (within 1e-5 of the largest
+   loss, bit-repeatable) at the fast profile's whole pack, at ranks 1
+   and 3's regions of the large fleet's 4-way pack and at an odd S and
+   N; its LF bit-equal to ``probe_fuzzy``'s on the same pack, and each
+   region's LF bit-equal to the whole pack's (the same rows at another
+   offset); timed at the region and the whole pack beside its plain
+   version, with its bound; ``selection_prefix_sharded`` through a
+   one-rank NCCL group, bit-equal to the single-device prefix
+   (``probe_loss`` and ``fuzzy_eval`` launch once, ``probe_fuzzy``
+   never); ``python -m repro_torch.launch.fl_sim --scheme dcs --rounds 2
+   --mesh clients=2``: 2 ranks on the card over gloo,
+   each launching ``neighbor_elect`` (the gather seam), round 0's row
+   bit-equal to the single-device run's; 2 spawned ranks for round 0,
+   whose masks equal the single-device round's and whose training half
+   and FedAvg land within 1e-6 of it in fp64 under deterministic
+   algorithms (fp32: a reading, as phase 5's); then the large
+   fleet on 4 ranks of the card for 1 round through ``elect="auto"``
+   (the ring halo): each rank launches ``probe_loss``, ``fuzzy_eval``
+   and ``windowed_counts`` once and ``probe_fuzzy`` never, and the
+   masks and evals equal phase 5's single-device round 0; each rank's
+   ``probe_loss`` time, the round's wall time and the host-staged
+   collective bytes are printed (readings: four ranks share one card);
 6. ``{"kernels": [...]}`` on the line before the last;
 7. ``{"ok": true, "device": {...}}`` as the last line.
 """
@@ -628,6 +651,330 @@ def serve_path(arch: str, expected, dev, argv=None, cfg=None, **serve_kw):
     return served
 
 
+def probe_bound(s_rows: int, n: int, params) -> tuple:
+    """(ms, by) for the packed probe over ``s_rows`` samples: images,
+    labels, seg read, (N,) counts read and losses written, the CNN's
+    weights read once; its multiply-adds as fp32 operations."""
+    param_bytes = sum(t.numel() * 4 for t in params.values())
+    return bound(s_rows * (28 * 28 * 4 + 8) + n * 8 + param_bytes,
+                 s_rows * PROBE_FLOP_PER_SAMPLE)
+
+
+def probe_loss_phase(dev, big, big_probe, bfeats0, main_probe, feats_main):
+    """``probe_loss`` against its plain version at the fast profile's
+    whole pack, ranks 1 and 3's regions of the large fleet's 4-way pack
+    and an odd S and N: within 1e-5 of the largest loss (fp32 sums in
+    another order) and bit-repeatable.  Its LF equals ``probe_fuzzy``'s
+    on the same pack bit for bit (shared phases 1-4, the same mean), and
+    a region's LF equals the whole pack's for the region's clients, also
+    behind 77 more padding rows (phase 4 sums a client's rows in an
+    order set by its rows alone).  Timed at rank 1's region (the mesh
+    path's shape) and the whole pack.  Returns ((ms, plain ms, bound
+    ms, by) at the region, the max abs error at the region)."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    params = big_probe[0]
+    n_big = big.n
+    counts = big_probe[4]
+    regions = {d: big.probe_region(4, d) for d in (1, 3)}
+    g = torch.Generator(device=dev).manual_seed(17)
+    n_odd, s_odd = 7, 1001
+    seg_odd = torch.randint(0, n_odd + 1, (s_odd,), device=dev, generator=g,
+                            dtype=torch.int32).sort().values
+    odd = (main_probe[0],
+           torch.randn(s_odd, 28, 28, 1, device=dev, generator=g),
+           torch.randint(0, 10, (s_odd,), device=dev, generator=g,
+                         dtype=torch.int32), seg_odd,
+           torch.bincount(seg_odd, minlength=n_odd + 1)[:n_odd].int())
+    cases = [("fast profile whole pack", main_probe[:5], main_probe[4].shape[0]),
+             ("large fleet 4-way rank 1 region",
+              (params, *regions[1], counts), n_big),
+             ("large fleet 4-way rank 3 region",
+              (params, *regions[3], counts), n_big),
+             (f"odd S={s_odd} N={n_odd}", odd, n_odd)]
+    err_region = None
+    lfs = {}
+    for label, inputs, n in cases:
+        lf = ops.probe_loss(*inputs, n_clients=n)
+        again = ops.probe_loss(*inputs, n_clients=n)
+        want = ref.probe_loss_ref(*inputs, n)
+        torch.cuda.synchronize()
+        err = scaled_err(lf, want)
+        same = torch.equal(lf, again)
+        ok = err <= 1e-5 and same and bool(torch.isfinite(lf).all())
+        if label.endswith("rank 1 region"):
+            err_region = float((lf - want).abs().max())
+        lfs[label] = lf
+        log(f"[check] probe_loss {label} S={inputs[1].shape[0]} N={n}: max "
+            f"err / scale {err:.3g} (scale {float(want.abs().max()):.4g}, "
+            f"tol 1e-5), bit-repeatable {same} {'OK' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"probe_loss {label} disagrees")
+    same_fused = torch.equal(lfs["fast profile whole pack"], feats_main[:, 3])
+    region_same = {}
+    for d in (1, 3):
+        ids = list(range(d * (-(-n_big // 4)),
+                         min((d + 1) * (-(-n_big // 4)), n_big)))
+        lf = lfs[f"large fleet 4-way rank {d} region"]
+        region_same[d] = torch.equal(lf[ids], bfeats0[ids, 3])
+    ims, lbs, seg = regions[1]
+    lead = 77
+    shifted = ops.probe_loss(
+        params, torch.cat([torch.zeros(lead, 28, 28, 1, device=dev), ims]),
+        torch.cat([torch.zeros(lead, dtype=torch.int32, device=dev), lbs]),
+        torch.cat([torch.full((lead,), n_big, dtype=torch.int32,
+                              device=dev), seg]), counts, n_clients=n_big)
+    same_shift = torch.equal(shifted,
+                             lfs["large fleet 4-way rank 1 region"])
+    ok = same_fused and all(region_same.values()) and same_shift
+    log(f"[check] probe_loss LF bit-equal to probe_fuzzy's on the fast "
+        f"pack {same_fused}; each region's LF bit-equal to the whole "
+        f"large-fleet pack's (probe_fuzzy) for its clients {region_same}; "
+        f"rank 1's region behind {lead} more rows bit-equal {same_shift} "
+        f"{'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("probe_loss is not offset-invariant or "
+                             "disagrees with probe_fuzzy's LF")
+    rows = []
+    for label, inputs, n, iters in (
+            ("large fleet 4-way rank 1 region", cases[1][1], n_big, 5),
+            ("fast profile whole pack", cases[0][1], cases[0][2], 20)):
+        ms = time_ms(lambda: ops.probe_loss(*inputs, n_clients=n), iters)
+        plain_ms = time_ms(lambda: ref.probe_loss_ref(*inputs, n), iters,
+                           warmup=1)
+        b_ms, b_by = probe_bound(inputs[1].shape[0], n, params)
+        log(f"[time] probe_loss {label} S={inputs[1].shape[0]} N={n}: "
+            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+            f"{b_ms:.6f} ms ({b_by})")
+        rows.append((ms, plain_ms, b_ms, b_by))
+    return rows[0], err_region
+
+
+def nccl_world_one(dev, sim, params0, fields0, fast0) -> None:
+    """``selection_prefix_sharded`` through a one-rank NCCL group (the
+    gather seam) on the fast profile's round 0: pos, evals and mask
+    bit-equal to the single-device prefix on the card; ``probe_loss``,
+    ``fuzzy_eval`` and ``neighbor_elect`` launch once each and
+    ``probe_fuzzy`` never."""
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from repro_torch.fl import pipeline
+    from repro_torch.kernels import build
+    from repro_torch.launch.mesh import ClientMesh
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/store",
+                                world_size=1, rank=0)
+        try:
+            mesh = ClientMesh(0, 1, dev, "nccl")
+            build.reset_launches()
+            got = pipeline.selection_prefix_sharded(
+                sim.statics, params0, 0, fields0, cfg=sim.stage_cfg,
+                mesh=mesh)
+            torch.cuda.synchronize()
+            counts = dict(build.LAUNCHES)
+        finally:
+            dist.destroy_process_group()
+    same = {k: torch.equal(got[k], fast0[k])
+            for k in ("pos", "feats", "evals", "mask", "survivors",
+                      "n_selected", "mean_eval_selected")}
+    want = {"probe_loss": 1, "fuzzy_eval": 1, "neighbor_elect": 1}
+    ok = all(same.values()) and counts == {k: want.get(k, 0) for k in counts}
+    log(f"[check] NCCL world size 1, fast profile round 0: bit-equal to the "
+        f"single-device prefix {same}; launches {counts} "
+        f"{'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the one-rank NCCL prefix differs")
+
+
+def round0_training(sim, mesh=None):
+    """Round 0's mask and training half (cohort gather, local SGD,
+    FedAvg) from the simulation's initial params, in fp32 and in fp64
+    (images and params cast; FedAvg sums in fp32 either way), on the
+    mesh's sharded trainer when ``mesh`` is given."""
+    import numpy as np
+    import torch
+    from repro_torch.fl import pipeline
+    fields = sim.round_fields(0)
+    host = sim._host(sim.selection_state(0, fields))
+    out = {"mask0": host["mask"]}
+    c = sim.cfg
+    kw = dict(epochs=c.local_epochs, batch_size=c.batch_size, lr=c.lr)
+    for dtype, np_dtype in ((torch.float32, np.float32),
+                            (torch.float64, np.float64)):
+        params = {k: v.to(dtype) for k, v in sim.params.items()}
+        groups = [dataclasses.replace(g, images=g.images.astype(np_dtype))
+                  for g in sim.groups]
+        perms = lambda i: fields.perms[i]
+        if mesh is None:
+            new = pipeline.aggregate(params, pipeline.train_groups(
+                params, groups, sim._group_steps, host["survivors"], perms,
+                **kw))
+        else:
+            new = pipeline.aggregate_sharded(
+                params, pipeline.train_groups_sharded(
+                    params, groups, sim._group_steps, host["survivors"],
+                    perms, mesh, **kw))
+        out.update({f"{np_dtype.__name__}.{k}": v.cpu().numpy()
+                    for k, v in new.items()})
+    return out
+
+
+def fast_round0_rank(mesh):
+    """One rank of the fast profile's 2-way mesh: ``round0_training``
+    under deterministic algorithms."""
+    import torch
+    from repro_torch.fl.rounds import FLSimulation
+    from repro_torch.fl.runconfig import RunConfig
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cudnn.deterministic = True
+    sim = FLSimulation(fast_config_dcs(1),
+                       run=RunConfig(mesh=f"clients={mesh.size}"), mesh=mesh)
+    return round0_training(sim, mesh)
+
+
+def mesh_fast(dev) -> None:
+    """The fast profile on 2 ranks of the one card (gloo, collectives
+    staged through host memory).  The CLI for 2 rounds: its banner names
+    gloo, each rank launches
+    ``probe_loss``, ``fuzzy_eval`` and ``neighbor_elect`` (the gather
+    seam) and never ``probe_fuzzy``, and round 0's row equals the
+    single-device run's on every count and ``mean_eval_selected`` bit
+    for bit (round 1 starts from params that FedAvg summed in another
+    order: a reading).  Then 2 spawned ranks for round 0: masks equal
+    the single-device round's, and the sharded training half and FedAvg
+    land within 1e-6 of the single-device one in fp64, where no ReLU or
+    max-pool kink flips (the fp32 gap is a reading: a one-ulp nudge of
+    the start moves round 0's fp32 params by ~4e-3, phase 5)."""
+    import numpy as np
+    import torch
+    from repro_torch.fl.rounds import FLSimulation
+    from repro_torch.fl.runconfig import RunConfig
+    from repro_torch.launch.mesh import spawn_ranks
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.fl_sim", "--scheme", "dcs",
+         "--rounds", "2", "--mesh", "clients=2"],
+        cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+        capture_output=True, text=True, timeout=600, check=True).stdout
+    cli_s = time.perf_counter() - t0
+    for line in out.strip().splitlines():
+        log(f"[mesh cli] {line}")
+    rows = [json.loads(line) for line in out.splitlines()
+            if line.startswith("{")]
+    ranks = [json.loads(line.split("launches ", 1)[1].split(
+        ", host-staged")[0]) for line in out.splitlines()
+        if line.startswith("[fl_sim] rank ")]
+
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cudnn.deterministic = True
+    try:
+        single = FLSimulation(fast_config_dcs(2), run=RunConfig(), device=dev)
+        want0 = round0_training(single)
+        want = [single.run_round(r) for r in range(2)]
+        t0 = time.perf_counter()
+        ranks2 = spawn_ranks(fast_round0_rank, 2, dev.type)
+        spawn_s = time.perf_counter() - t0
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic = False
+    keys = ("n_selected", "n_aggregated", "n_straggler", "mean_eval_selected")
+    row0 = all(rows[0][k] == want[0][k] for k in keys)
+    masks = all(bool((r["mask0"] == want0["mask0"]).all()) for r in ranks2)
+
+    def gap(res, dtype):
+        return max(float(np.abs(res[f"{dtype}.{k}"]
+                                - want0[f"{dtype}.{k}"]).max())
+                   for k in single.params)
+    gap64 = max(gap(r, "float64") for r in ranks2)
+    gap32 = max(gap(r, "float32") for r in ranks2)
+    launch_ok = len(ranks) == 2 and all(
+        c["probe_fuzzy"] == 0 and c["probe_loss"] == 2
+        and c["fuzzy_eval"] == 2 and c["neighbor_elect"] >= 2 for c in ranks)
+    ok = ("backend gloo" in out and row0 and masks and gap64 <= 1e-6
+          and launch_ok and len(rows) == 2)
+    log(f"[check] mesh clients=2 fast profile: CLI {cli_s:.1f}s; round 0 "
+        f"row bit-equal to single-device {row0}; round 1 counts (a reading: "
+        f"params differ after FedAvg) {[rows[1][k] for k in keys]} / "
+        f"{[want[1][k] for k in keys]}; 2 spawned ranks ({spawn_s:.1f}s): "
+        f"round 0 masks bit-equal {masks}, training + FedAvg params max abs "
+        f"gap fp64 {gap64:.3g} (tol 1e-6), fp32 {gap32:.3g} (a reading) "
+        f"{'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the 2-rank mesh differs from one device")
+
+
+def fast_config_dcs(n_rounds: int):
+    from repro_torch.launch.fl_sim import fast_config
+    return fast_config("dcs", n_rounds=n_rounds)
+
+
+def large_fleet_rank(mesh, cfg, run):
+    """One rank of the large fleet's 4-way mesh: round 0 with the launch
+    counts reset just before and read just after, then ``probe_loss``
+    timed on the rank's region while the other ranks time theirs."""
+    from repro_torch.fl.rounds import FLSimulation
+    from repro_torch.kernels import ops
+    from repro_torch.launch import fl_sim
+    sim = FLSimulation(cfg, run=run, mesh=mesh)
+    out = fl_sim.drive_rounds(sim, 1)
+    st = sim.statics
+    probe = (sim.params, st.probe_images, st.probe_labels, st.probe_seg,
+             st.probe_counts)
+    out["probe_loss_ms"] = time_ms(
+        lambda: ops.probe_loss(*probe, n_clients=sim.n), 5)
+    out["region_rows"] = int(st.probe_images.shape[0])
+    return out
+
+
+def mesh_large_fleet(dev, big0):
+    """The large fleet on 4 ranks of the one card for round 0 through
+    ``elect="auto"`` (the ring halo: one hop, 2h + 1 = 3 <= 4).  Each
+    rank launches ``probe_loss``, ``fuzzy_eval`` and ``windowed_counts``
+    once and ``probe_fuzzy`` never; unless a rank flags overflow, the
+    round's masks and the ranks' evals equal phase 5's single-device
+    round 0 bit for bit (an overflowed round re-runs through the gather
+    seam, whose masks are the dense election's too).  Returns the
+    launches summed over the ranks."""
+    import numpy as np
+    from repro_torch.fl.runconfig import RunConfig
+    from repro_torch.launch.mesh import spawn_ranks
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(large_fleet_rank, 4, dev.type, args=(
+        large_fleet_config("uniform"), RunConfig(mesh="clients=4")))
+    spawn_s = time.perf_counter() - t0
+    n = big0["mask"].shape[0]
+    evals = np.concatenate([r["evals0"] for r in ranks])[:n]
+    flags = [r["overflow0"] for r in ranks]
+    masks = all(bool((r["mask0"] == big0["mask"].numpy()).all())
+                for r in ranks)
+    same_evals = bool((evals == big0["evals"].numpy()).all())
+    for r, res in enumerate(ranks):
+        log(f"[mesh large fleet] rank {r}: region S={res['region_rows']}, "
+            f"launches {json.dumps(res['launches'])}, probe_loss "
+            f"{res['probe_loss_ms']:.4f} ms (4 ranks share the card), "
+            f"prefix {res['prefix_s'][0]:.4f} s, round {res['round_s'][0]:.4f}"
+            f" s, host-staged {json.dumps(res['staged'])}")
+    over = max(flags)
+    want = ({"probe_loss": 1, "fuzzy_eval": 1, "windowed_counts": 1}
+            if not over else
+            {"probe_loss": 2, "fuzzy_eval": 2, "windowed_counts": 1,
+             "neighbor_elect": 1})
+    launch_ok = all(r["launches"] == {k: want.get(k, 0)
+                                      for k in r["launches"]} for r in ranks)
+    ok = masks and same_evals and launch_ok and ranks[0]["rows"][0][
+        "n_selected"] > 0
+    log(f"[check] mesh clients=4 large fleet round 0 ({spawn_s:.1f}s with "
+        f"start-up): overflow flags {flags}, masks bit-equal to the "
+        f"single-device round {masks}, evals bit-equal {same_evals}, "
+        f"launches per rank as expected {launch_ok}; row "
+        f"{json.dumps(ranks[0]['rows'][0])} {'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the 4-rank large fleet differs from one device")
+    return {k: sum(r["launches"][k] for r in ranks)
+            for k in ranks[0]["launches"]}
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -736,7 +1083,7 @@ def main() -> int:
 
     feats_main, evals0, err_probe = check_probe(
         f"S={s_main} N={n_main}", main_probe, n_main)
-    _, bevals0, err_probe_big = check_probe(
+    bfeats0, bevals0, err_probe_big = check_probe(
         f"S={s_big4k} N={big.n} (large fleet)", big_probe, big.n)
     err_probe = max(err_probe, err_probe_big)
     # the Eq. 8 seam with external column maxima
@@ -971,7 +1318,7 @@ def main() -> int:
     cpu_sim = FLSimulation(fast_config("dcs", n_rounds=3), run=RunConfig(),
                            device="cpu")
     cpu_sim.params = {k: v.cpu() for k, v in sim.params.items()}
-    got = sim.selection_state(0)
+    got = sim.selection_state(0, fields0)
     want = cpu_sim.selection_state(0)
     ev_err = float((got["evals"].cpu() - want["evals"]).abs().max())
     same_mask = torch.equal(got["mask"].cpu(), want["mask"])
@@ -980,6 +1327,7 @@ def main() -> int:
     if ev_err > 1e-3 or not same_mask:
         raise AssertionError("the card's prefix disagrees with the CPU's")
     del cpu_sim
+    fast0 = got
 
     def drive(s, n_rounds, label):
         build.reset_launches()
@@ -1105,6 +1453,8 @@ def main() -> int:
         f"selected")
     if flag0 < int(oracle0) or (flag0 == 0 and not same):
         raise AssertionError("large fleet: windowed election is wrong")
+    big0 = {"mask": state_g["mask"].cpu(), "evals": state_w["evals"].cpu(),
+            "pos": state_w["pos"].cpu()}
     del state_w, state_g
     windowed, rows_w = drive(big, 2, "large fleet uniform")
     n_over = sum(row["elect_overflow"] for row in rows_w)
@@ -1168,13 +1518,23 @@ def main() -> int:
                 "flash_attention": kinds.count("attn")}, dev, cfg=jamba16,
         **JAMBA_SERVE)
 
+    # -- 5d. the client mesh, with probe_loss -------------------------------
+    gc.collect()                      # the jamba weights are gone
+    torch.cuda.empty_cache()
+    loss_timing, err_loss = probe_loss_phase(
+        dev, big, big_probe, bfeats0, main_probe, feats_main)
+    nccl_world_one(dev, sim, params0, fields0, fast0)
+    mesh_fast(dev)
+    mesh_launches = mesh_large_fleet(dev, big0)
+
     launches = {"probe_fuzzy": fused["probe_fuzzy"],
                 "neighbor_elect": fused["neighbor_elect"],
                 "fuzzy_eval": unfused["fuzzy_eval"],
                 "windowed_counts": windowed["windowed_counts"],
                 "wkv6": served["wkv6"],
                 "flash_attention": served_dense["flash_attention"],
-                "selective_scan": served_hybrid["selective_scan"]}
+                "selective_scan": served_hybrid["selective_scan"],
+                "probe_loss": mesh_launches["probe_loss"]}
     if (min(launches.values()) <= 0 or unfused["neighbor_elect"] <= 0
             or windowed["probe_fuzzy"] != 2 + n_over):
         raise AssertionError(f"a kernel of the path never ran: {launches}")
@@ -1197,9 +1557,12 @@ def main() -> int:
         "selective_scan": ("src/repro_torch/csrc/selective_scan.cu",
                            "src/repro/kernels/selective_scan.py:68",
                            err_scan),
+        "probe_loss": ("src/repro_torch/csrc/probe_loss.cu",
+                       "src/repro/kernels/probe_fuzzy.py:203", err_loss),
     }
     timings["flash_attention"] = flash_timing[:4]
     timings["selective_scan"] = scan_timing
+    timings["probe_loss"] = loss_timing
     library = {"flash_attention": flash_timing[4]}
     kernels = []
     for name in build.KERNELS:

@@ -62,6 +62,21 @@ def client_quantities(cfg: PartitionConfig) -> np.ndarray:
     return q
 
 
+def shard_client_range(n_clients: int, n_shards: int, shard: int) -> range:
+    """The global client indices owned by shard ``shard`` of the client
+    mesh: clients are padded to a multiple of ``n_shards`` and split into
+    runs of ``ceil(n / K)``, so shard ``d`` owns ``[d*w, min((d+1)*w,
+    n))``.  The last shards of an ``n % K != 0`` fleet own fewer
+    (possibly zero) real clients; the sharded prefix pads them with
+    invalid slots."""
+    if n_shards < 1:
+        raise ValueError(f"n_shards must be >= 1: {n_shards}")
+    if not 0 <= shard < n_shards:
+        raise ValueError(f"shard {shard} out of range [0, {n_shards})")
+    width = -(-n_clients // n_shards)        # ceil(n / K)
+    return range(shard * width, min((shard + 1) * width, n_clients))
+
+
 def group_capacity(quantity: int, batch_size: int) -> int:
     """Smallest whole number of batches covering ``quantity`` samples —
     always >= ``batch_size``, so every capacity group takes at least one

@@ -20,11 +20,29 @@ back through the dense election (``FLSimulation.finish_round``).
 
 Every random draw of a round enters as a ``RoundFields`` tensor, so a
 round is deterministic in ``(statics, params, rnd, fields)``.
+
+The ``*_sharded`` stages are one rank's body on the client mesh
+(``launch/mesh.py``): the rank owns ``shard_n = ceil(N / K)`` clients,
+padded with invalid dummies to a multiple of K, and only a few steps are
+global, each an explicit collective:
+
+- the Eq. 7 losses: each rank probes its own region of the probe pack
+  (``probe_loss``) and an all-reduce sums the (N,) lanes; a client's
+  rows live in one region only, so the others add exact zeros;
+- the Eq. 8 column maxima: an all-reduce with max (exact);
+- the election: the ring-halo election or the hierarchical top-k
+  (``select_sharded``), or the gather seam: all-gather the (N,) evals
+  and positions and run ``select`` on every rank;
+- the counts of the round and the FedAvg sums: all-reduces.
+
+Every rank draws the round's global ``RoundFields`` and slices its own
+clients, so K ranks see the draws of one device.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
+import math
 from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
@@ -32,17 +50,18 @@ import torch
 
 from repro_torch.core.rules import build_rule_table
 from repro_torch.core.selection import selection_stats
-from repro_torch.fl.aggregation import fedavg_masked
+from repro_torch.fl.aggregation import fedavg_masked, fedavg_sums
 from repro_torch.fl.client import dataset_loss_packed, local_train_batch
 from repro_torch.fl.mobility import positions as mobility_positions
 from repro_torch.fl.network import (NetworkConfig,
                                     predicted_throughput_from_fields,
                                     upload_time_s_from_shadow)
 from repro_torch.fl.partition import ClientGroup
-from repro_torch.fl.schemes import get_scheme
+from repro_torch.fl.schemes import ShardCtx, get_scheme
 from repro_torch.fl.timing import (TimingConfig, completes_before_deadline,
                                    training_time_s)
 from repro_torch.kernels import ops as kops
+from repro_torch.launch.mesh import ClientMesh, all_gather, pmax, psum
 
 Params = Dict[str, torch.Tensor]
 
@@ -97,6 +116,7 @@ class StageConfig:
     # RunConfig resolves "auto"
     elect: str
     elect_window: int             # sorted neighbours per side (0 = auto)
+    elect_capacity: int           # rank -> segment bucket slots (0 = auto)
 
 
 @functools.lru_cache(maxsize=None)
@@ -249,3 +269,189 @@ def aggregate(params: Params,
     if trained is None:
         return params
     return fedavg_masked(*trained)
+
+
+# -- the client mesh: one rank's body ---------------------------------------
+
+def mesh_client_shards(mesh: Optional[ClientMesh]) -> int:
+    """The client-axis partition factor of ``mesh`` (1 without one)."""
+    return 1 if mesh is None else mesh.size
+
+
+def pad_to_shards(n: int, shards: int) -> int:
+    """Client count padded up to a multiple of the shards (masked dummy
+    clients, never a silent replicate)."""
+    return -(-n // shards) * shards
+
+
+def selection_prefix_sharded(st: RoundStatics, params: Params, rnd: int,
+                             fields: RoundFields, *, cfg: StageConfig,
+                             mesh: ClientMesh) -> Dict[str, torch.Tensor]:
+    """``selection_prefix`` on one rank of the client mesh.
+
+    ``st`` holds the global (N,) statics and this rank's probe region
+    (``FLSimulation`` builds it on a rank); ``fields`` the round's
+    global draws.  Returns the rank's (shard_n,) shard of ``pos``,
+    ``feats``, ``evals``, ``mask`` and ``survivors`` (padding slots
+    last), and the all-reduced ``n_selected``, ``n_straggler``,
+    ``n_survivor``, ``mean_eval_selected`` and ``elect_overflow``.  With
+    the same draws the masks are ``selection_prefix``'s."""
+    k, i = mesh.size, mesh.rank
+    n = cfg.n_clients
+    shard_n = pad_to_shards(n, k) // k
+    dev = st.x0.device
+    gid = i * shard_n + torch.arange(shard_n, device=dev)
+    valid = gid < n                          # False on dummy pad clients
+    ctx = ShardCtx(mesh=mesh, n=n, n_shards=k, shard_n=shard_n,
+                   pad=k * shard_n - n, gid=gid, valid=valid)
+    mine = ctx.mine
+
+    t_s = torch.tensor(float(rnd), dtype=torch.float32,
+                       device=dev) * cfg.timing.deadline_s
+    slowdown, n_valid = mine(st.slowdown, 1.0), mine(st.n_valid)
+    with torch.no_grad():
+        pos = mobility_positions(
+            mine(st.x0), mine(st.speeds), mine(st.jitter_phase), t_s,
+            road_length_m=cfg.road_length_m, speed_jitter=cfg.speed_jitter)
+        ta = predicted_throughput_from_fields(
+            cfg.network, pos, mine(fields.channel_shadow),
+            mine(fields.loss_u))
+        # Eq. 7 over this rank's region; the all-reduce adds exact zeros
+        # from the ranks that do not own a client
+        probe = (params, st.probe_images, st.probe_labels, st.probe_seg,
+                 st.probe_counts)
+        if cfg.fused_probe:
+            lf_part = kops.probe_loss(*probe, n_clients=n)
+        else:
+            lf_part = dataset_loss_packed(*probe, n_clients=n)
+        lf = mine(psum(mesh, lf_part))
+        feats = torch.stack([n_valid, ta, 1.0 / slowdown, lf], dim=1).float()
+
+        # Eq. 8 against the fleet's maxima, all-reduced with max
+        col_max = pmax(mesh, torch.where(
+            valid[:, None], feats, torch.full_like(feats, -math.inf)
+        ).max(dim=0).values)
+        table, levels = _rules()
+        evals = kops.fuzzy_eval(feats, st.means, st.sigmas, table, levels,
+                                st.level_centers, normalize=True,
+                                col_maxima=col_max)
+        evals = torch.where(valid, evals, torch.zeros_like(evals))
+
+        # selection: the scheme's sharded form under elect="windowed",
+        # else the gather seam (also the fallback of an overflowed round)
+        scheme = get_scheme(cfg.scheme)
+        sharded = None
+        if cfg.elect == "windowed" and scheme.select_sharded is not None:
+            sharded = scheme.select_sharded(cfg, ctx, pos, evals, fields)
+        if sharded is not None:
+            mask, ovf = sharded
+            mask = torch.where(valid, mask, torch.zeros_like(mask))
+            elect_overflow = pmax(mesh, ovf.to(torch.int32))
+            n_sel = psum(mesh, mask.sum())
+            mean_ev_sel = torch.where(
+                n_sel > 0, psum(mesh, (evals * mask).sum())
+                / torch.clamp(n_sel, min=1), torch.zeros((), device=dev))
+        else:
+            ev_g = all_gather(mesh, evals)[:n]
+            pos_g = all_gather(mesh, pos)[:n]
+            mask_g = select(cfg, pos_g, ev_g, fields)
+            mask = mine(mask_g)
+            elect_overflow = torch.zeros((), dtype=torch.int32, device=dev)
+            stats = selection_stats(mask_g, ev_g)
+            n_sel, mean_ev_sel = (stats["n_selected"],
+                                  stats["mean_eval_selected"])
+
+        # Eq. 6 deadline, on this rank's clients
+        train_t = training_time_s(cfg.timing, slowdown, n_valid)
+        upload_t = upload_time_s_from_shadow(
+            cfg.network, pos, cfg.model_bytes, mine(fields.upload_shadow))
+        ok = completes_before_deadline(cfg.timing, train_t, upload_t)
+        selected = mask > 0
+        survivors = selected & ok & valid
+        n_straggler, n_survivor = psum(mesh, torch.stack([
+            (selected & ~ok & valid).sum(), survivors.sum()]))
+    return {"pos": pos, "feats": feats, "evals": evals, "mask": mask,
+            "survivors": survivors, "n_straggler": n_straggler,
+            "n_selected": n_sel, "n_survivor": n_survivor,
+            "mean_eval_selected": mean_ev_sel,
+            "elect_overflow": elect_overflow}
+
+
+def cohort_bucket_sharded(k: int, shards: int) -> int:
+    """``cohort_bucket`` rounded up to a multiple of the shards, so every
+    rank trains an equal slice of a group's cohort (padding duplicates
+    at weight zero, as in the unsharded bucket)."""
+    return pad_to_shards(cohort_bucket(k), shards)
+
+
+def train_group_cohort_sharded(params: Params, group: ClientGroup,
+                               steps_per_epoch: int, idx: np.ndarray,
+                               weights: np.ndarray,
+                               perms: Callable[[int], torch.Tensor],
+                               mesh: ClientMesh, *, epochs: int,
+                               batch_size: int, lr: float
+                               ) -> Tuple[Params, torch.Tensor]:
+    """One capacity group's cohort ``idx`` (group-local rows, a multiple
+    of the shards long) on the mesh: this rank trains its equal slice
+    and the weighted model sum finishes with an all-reduce
+    (``fedavg_sums``).  Returns ``(sum_i w_i model_i, sum_i w_i)``."""
+    per = len(idx) // mesh.size
+    part = slice(mesh.rank * per, (mesh.rank + 1) * per)
+    idx = idx[part]
+    dev = next(iter(params.values())).device
+    stacked, _ = local_train_batch(
+        params, torch.as_tensor(group.images[idx], device=dev),
+        torch.as_tensor(group.labels[idx], device=dev),
+        torch.as_tensor(group.n_valid[idx], device=dev),
+        torch.stack([torch.as_tensor(perms(int(i)))
+                     for i in group.client_ids[idx]], 1),
+        epochs=epochs, batch_size=batch_size,
+        steps_per_epoch=steps_per_epoch, lr=lr)
+    return fedavg_sums(stacked, torch.as_tensor(weights[part], device=dev),
+                       mesh)
+
+
+def train_groups_sharded(params: Params, groups: Sequence[ClientGroup],
+                         group_steps: Sequence[int], survivors: np.ndarray,
+                         perms: Callable[[int], torch.Tensor],
+                         mesh: ClientMesh, *, epochs: int, batch_size: int,
+                         lr: float) -> Optional[Tuple[Params, torch.Tensor]]:
+    """``train_groups`` on the client mesh: per capacity group, each rank
+    trains its slice of the surviving cohort; the Eq. 2 numerator and
+    denominator add across ranks (all-reduce in ``fedavg_sums``) and
+    across groups.  ``survivors`` is the round's global (N,) mask, the
+    same on every rank.  Returns ``(sum_i w_i model_i, sum_i w_i)``, or
+    None for an empty round."""
+    if not survivors.any():
+        return None
+    num_tot, den_tot = None, None
+    for gi, g in enumerate(groups):
+        cohort = np.where(survivors[g.client_ids])[0]       # group-local
+        k = len(cohort)
+        if k == 0:
+            continue                         # empty cohort: skip group
+        bucket = cohort_bucket_sharded(k, mesh.size)
+        idx = np.concatenate([cohort, np.full(bucket - k, cohort[0])])
+        w = g.n_valid[idx].astype(np.float32)
+        w[k:] = 0.0                          # padding duplicates drop out
+        num, den = train_group_cohort_sharded(
+            params, g, group_steps[gi], idx, w, perms, mesh, epochs=epochs,
+            batch_size=batch_size, lr=lr)
+        if num_tot is None:
+            num_tot, den_tot = num, den
+        else:
+            num_tot = {key: num_tot[key] + num[key] for key in num}
+            den_tot = den_tot + den
+    return num_tot, den_tot
+
+
+def aggregate_sharded(params: Params,
+                      trained: Optional[Tuple[Params, torch.Tensor]]
+                      ) -> Params:
+    """Finish Eq. 2 from the sharded trainer's all-reduced sums; an empty
+    round returns the global model unchanged."""
+    if trained is None:
+        return params
+    num, den = trained
+    inv = 1.0 / torch.clamp(den, min=1e-9)
+    return {key: (num[key] * inv).to(p.dtype) for key, p in params.items()}

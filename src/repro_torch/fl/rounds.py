@@ -10,6 +10,15 @@ batched local-SGD call; masked FedAvg and the test accuracy close it.
 A round whose windowed election overflowed re-runs its prefix through
 the dense election on the same draws before the gather.
 
+Built on a rank of the client mesh (``mesh=``, ``launch/mesh.py``), the
+simulation runs the round's client axis over the K ranks, as the
+reference's does under ``--mesh clients=K``: the rank keeps its own
+region of the probe pack on its device, runs the sharded prefix
+(``pipeline.selection_prefix_sharded``), gathers the round's (N,) mask
+and survivors once, trains its slice of each capacity group's cohort
+and closes FedAvg with an all-reduce (``train_groups_sharded``).  Every
+rank ends the round with the same global model and row.
+
 The batched engine and the serial driver are ported.  Randomness comes
 from ``torch.Generator``s seeded from ``FLSimConfig.seed``, or from an
 injected ``fields(rnd) -> RoundFields`` (the parity tests feed the
@@ -18,7 +27,7 @@ reference's draws through it).
 from __future__ import annotations
 
 from dataclasses import dataclass, field, replace
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -33,9 +42,11 @@ from repro_torch.fl.mobility import FreewayMobility, MobilityConfig
 from repro_torch.fl.network import (NetworkConfig, draw_round_fields,
                                     pinned_channel_shadow)
 from repro_torch.fl.partition import (PartitionConfig, partition,
-                                      stack_clients, steps_per_epoch)
+                                      shard_client_range, stack_clients,
+                                      steps_per_epoch)
 from repro_torch.fl.runconfig import RunConfig
 from repro_torch.fl.schemes import get_scheme
+from repro_torch.launch.mesh import ClientMesh, all_gather, mesh_clients
 from repro_torch.models.cnn import init_cnn
 
 
@@ -65,12 +76,25 @@ class FLSimulation:
     def __init__(self, cfg: FLSimConfig, run: Optional[RunConfig] = None,
                  *, device=None,
                  fields: Optional[Callable[[int],
-                                           pipeline.RoundFields]] = None):
+                                           pipeline.RoundFields]] = None,
+                 mesh: Optional[ClientMesh] = None):
         get_scheme(cfg.scheme)               # unknown schemes raise here
         self.cfg = cfg
         self.n = cfg.partition.n_clients
         self.run_cfg = (run or RunConfig()).resolved()
-        self.device = resolve_device(device)
+        k = mesh_clients(self.run_cfg.mesh)
+        if (mesh.size if mesh is not None else 1) != k:
+            raise ValueError(
+                f"RunConfig.mesh={self.run_cfg.mesh!r} wants {k} rank(s); "
+                f"got a mesh of {mesh.size if mesh else 'none'}: build the "
+                f"simulation on each rank of launch.mesh.spawn_ranks")
+        # a mesh of one rank is the single-device path, as in the
+        # reference (a client axis needs more than one shard)
+        self.mesh = mesh if k > 1 else None
+        self.n_shards = pipeline.mesh_client_shards(self.mesh)
+        self.shard = self.mesh.rank if self.mesh is not None else 0
+        self.device = resolve_device(mesh.device if self.mesh is not None
+                                     else device)
         fp32_strict()
         self._fields = fields
         rng = np.random.default_rng(cfg.seed)
@@ -124,37 +148,57 @@ class FLSimulation:
             sigmas=f32(self.fuzzy_cfg.sigmas),
             level_centers=default_level_centers(self.device))
 
-    def _build_packed_probe(self) -> None:
-        """Pack every client's first ``probe_samples`` valid samples into
-        one flat tensor.  ``fused_probe`` packs tight; otherwise each
-        client is padded to whole probe batches with sentinel rows (seg
-        == N, the overflow lane), as the reference's aligned pack."""
+    def _probe_take(self) -> np.ndarray:
+        """Probe samples per client: its first ``probe_samples`` valid."""
         probe = min(self.cfg.probe_samples, self.cap)
-        take = np.minimum(self.n_valid, probe).astype(np.int64)
+        return np.minimum(self.n_valid, probe).astype(np.int64)
+
+    def probe_region(self, n_shards: int, shard: int
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """Shard ``shard``'s region of the probe pack for a mesh of
+        ``n_shards``: ``(images, labels, seg)`` on the run's device, the
+        probe samples of the shard's clients in client order.
+        ``fused_probe`` packs tight; otherwise each client is padded to
+        whole probe batches with sentinel rows (seg == N, the overflow
+        lane), as the reference's aligned pack.  Every region is padded
+        with sentinel rows to the longest region's length, which the
+        counts alone give: region d is rows ``[d * length, (d + 1) *
+        length)`` of the reference's pack under an ``n_shards``-way
+        mesh, and the whole pack for one shard."""
+        take = self._probe_take()
         batch = PROBE_BATCH
         align = 1 if self.run_cfg.fused_probe else batch
+        aligned = take + (-take) % align
+        length = max(batch, max(
+            int(aligned[list(shard_client_range(self.n, n_shards, d))]
+                .sum()) for d in range(n_shards)))
         im_shape = self.groups[0].images.shape[2:]
         ims, lbs, segs = [], [], []
-        for i in range(self.n):
+        for i in shard_client_range(self.n, n_shards, shard):
             gi, li = self._slot[i]
             g, t = self.groups[gi], int(take[i])
             pad = (-t) % align
             ims += [g.images[li, :t], np.zeros((pad,) + im_shape, np.float32)]
             lbs += [g.labels[li, :t], np.zeros(pad, np.int32)]
             segs += [np.full(t, i), np.full(pad, self.n)]
-        used = sum(len(s) for s in segs)
-        pad = max(batch, used) - used
+        pad = length - sum(len(s) for s in segs)
         ims.append(np.zeros((pad,) + im_shape, np.float32))
         lbs.append(np.zeros(pad, np.int32))
         segs.append(np.full(pad, self.n))
         dev = self.device
-        self._probe_images = torch.as_tensor(np.concatenate(ims), device=dev)
-        self._probe_labels = torch.as_tensor(
-            np.concatenate(lbs).astype(np.int32), device=dev)
-        self._probe_seg = torch.as_tensor(
-            np.concatenate(segs).astype(np.int32), device=dev)
-        self._probe_counts = torch.as_tensor(take.astype(np.int32),
-                                             device=dev)
+        return (torch.as_tensor(np.concatenate(ims), device=dev),
+                torch.as_tensor(np.concatenate(lbs).astype(np.int32),
+                                device=dev),
+                torch.as_tensor(np.concatenate(segs).astype(np.int32),
+                                device=dev))
+
+    def _build_packed_probe(self) -> None:
+        """This rank's region of the probe pack (the whole pack without
+        a mesh), kept on its device, and every client's probe count."""
+        (self._probe_images, self._probe_labels,
+         self._probe_seg) = self.probe_region(self.n_shards, self.shard)
+        self._probe_counts = torch.as_tensor(
+            self._probe_take().astype(np.int32), device=self.device)
 
     # -- randomness ------------------------------------------------------
     def round_fields(self, rnd: int) -> pipeline.RoundFields:
@@ -186,8 +230,24 @@ class FLSimulation:
         cfg = self.stage_cfg
         if elect is not None and elect != cfg.elect:
             cfg = replace(cfg, elect=elect)
+        if self.mesh is not None:
+            return pipeline.selection_prefix_sharded(
+                self.statics, self.params, rnd, fields, cfg=cfg,
+                mesh=self.mesh)
         return pipeline.selection_prefix(self.statics, self.params, rnd,
                                          fields, cfg=cfg)
+
+    def _host(self, state: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+        """The prefix's outputs on the host.  On a mesh, the round's mask
+        and survivors first cross the ranks in one all-gather: the cohort
+        gather and the row need the whole fleet's."""
+        host = {k: v.cpu().numpy() for k, v in state.items()}
+        if self.mesh is not None:
+            both = all_gather(self.mesh, torch.stack(
+                [state["mask"], state["survivors"].to(torch.int32)], 1))
+            both = both[:self.n].cpu().numpy()
+            host["mask"], host["survivors"] = both[:, 0], both[:, 1] > 0
+        return host
 
     def resolve_elect_overflow(self, rnd: int, host: Dict[str, np.ndarray],
                                fields: pipeline.RoundFields
@@ -200,8 +260,7 @@ class FLSimulation:
         dense election's."""
         if int(host["elect_overflow"]) == 0:
             return host
-        state = self.selection_state(rnd, fields, elect="gather")
-        return {k: v.cpu().numpy() for k, v in state.items()}
+        return self._host(self.selection_state(rnd, fields, elect="gather"))
 
     def run_round(self, rnd: int) -> Dict[str, float]:
         fields = self.round_fields(rnd)
@@ -214,16 +273,22 @@ class FLSimulation:
         election's overflow flag among them, cross to the host here,
         once, for the cohort gather (twice on an overflow round, whose
         dense re-run crosses too)."""
-        host = self.resolve_elect_overflow(
-            rnd, {k: v.cpu().numpy() for k, v in state.items()}, fields)
+        host = self.resolve_elect_overflow(rnd, self._host(state), fields)
         survivors = host["survivors"]
         self.last_mask = host["mask"]
         cfg = self.cfg
-        trained = pipeline.train_groups(
-            self.params, self.groups, self._group_steps, survivors,
-            lambda i: fields.perms[i], epochs=cfg.local_epochs,
-            batch_size=cfg.batch_size, lr=cfg.lr)
-        self.params = pipeline.aggregate(self.params, trained)
+        train = dict(epochs=cfg.local_epochs, batch_size=cfg.batch_size,
+                     lr=cfg.lr)
+        if self.mesh is not None:
+            trained = pipeline.train_groups_sharded(
+                self.params, self.groups, self._group_steps, survivors,
+                lambda i: fields.perms[i], self.mesh, **train)
+            self.params = pipeline.aggregate_sharded(self.params, trained)
+        else:
+            trained = pipeline.train_groups(
+                self.params, self.groups, self._group_steps, survivors,
+                lambda i: fields.perms[i], **train)
+            self.params = pipeline.aggregate(self.params, trained)
         acc = evaluate_accuracy(self.params, self.test_images,
                                 self.test_labels, batch=256)
         return {"round": rnd, "accuracy": acc,

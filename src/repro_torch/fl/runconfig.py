@@ -11,6 +11,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
+from repro_torch.launch.mesh import mesh_clients
+
 ELECT_MODES = ("auto", "gather", "windowed")
 
 # fleets at or above this size get the windowed election under "auto"
@@ -26,7 +28,10 @@ class RunConfig:
     engine: str = "batched"              # batched | loop (loop: unported)
     fused_probe: bool = True             # fused probe->evaluate kernel
     overlap_rounds: bool = False         # round-ahead scheduler (unported)
-    mesh: Optional[str] = None           # client mesh (unported)
+    # "clients=K": K ranks of the client mesh (launch/mesh.py) on one
+    # host; multihost > 0 (processes over several hosts) is unported
+    mesh: Optional[str] = None
+    multihost: int = 0
     server: str = "sync"                 # sync | event (event: unported)
     churn_rate: float = 0.0
     staleness: str = "drop"
@@ -38,6 +43,8 @@ class RunConfig:
     # the dense election's either way)
     elect: str = "auto"
     elect_window: int = 0                # sorted window per side (0 = auto)
+    # ring-halo election on the mesh: rank -> segment slots (0 = auto)
+    elect_capacity: int = 0
     checkpoint_dir: Optional[str] = None
     resume: bool = False
 
@@ -48,8 +55,10 @@ class RunConfig:
             raise _unported("engine='loop'", "A6 (loop engine)")
         if self.engine != "batched":
             raise ValueError(f"engine must be 'batched': {self.engine!r}")
-        if self.mesh is not None:
-            raise _unported("the client mesh (--mesh / --multihost)", "A11")
+        if self.multihost:
+            raise _unported("--multihost (torchrun over several hosts, "
+                            "launch/multihost.py, faults.py)", "A11 (rest)")
+        mesh_clients(self.mesh)              # a bad spec raises here
         if (self.server != "sync" or self.churn_rate != 0.0
                 or self.staleness != "drop" or self.staleness_lambda != 0.0
                 or self.agg_cadence_s is not None):
@@ -65,6 +74,9 @@ class RunConfig:
         if self.elect_window < 0:
             raise ValueError(f"elect_window must be >= 0: "
                              f"{self.elect_window}")
+        if self.elect_capacity < 0:
+            raise ValueError(f"elect_capacity must be >= 0: "
+                             f"{self.elect_capacity}")
         return self
 
     def to_stage_config(self, cfg, *, n_clients: int):
@@ -85,4 +97,5 @@ class RunConfig:
             timing=TimingConfig(cfg.local_epochs, cfg.batch_size,
                                 deadline_s=cfg.deadline_s),
             network=cfg.network, fused_probe=self.fused_probe,
-            elect=elect, elect_window=self.elect_window)
+            elect=elect, elect_window=self.elect_window,
+            elect_capacity=self.elect_capacity)

@@ -27,7 +27,7 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 KERNELS = ("probe_fuzzy", "fuzzy_eval", "neighbor_elect", "windowed_counts",
-           "wkv6", "flash_attention", "selective_scan")
+           "wkv6", "flash_attention", "selective_scan", "probe_loss")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
               "-lineinfo")
@@ -35,7 +35,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # C signatures: argument kinds in order (p = pointer/stream, i = int,
 # f = float); every function returns a cudaError_t as int
 _SIGNATURES = {
-    "probe_fuzzy": {"probe_fuzzy_launch": "pppipppippppppppppppippppppp"},
+    "probe_fuzzy": {"probe_fuzzy_launch": "pppipppippppppppppppipppppppp"},
     "fuzzy_eval": {"fuzzy_eval_launch": "piipppppipp",
                    "fuzzy_eval_scratch_floats": "i"},
     "neighbor_elect": {"neighbor_elect_launch": "ppiffipp"},
@@ -43,6 +43,7 @@ _SIGNATURES = {
     "wkv6": {"wkv6_launch": "ppppppiiiiippp"},
     "flash_attention": {"flash_attention_launch": "ppppiiiiiiiiiifp"},
     "selective_scan": {"selective_scan_launch": "ppppppiiiiippp"},
+    "probe_loss": {"probe_loss_launch": "pppipippppppppppppppp"},
 }
 _CTYPE = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
 

@@ -30,10 +30,20 @@ def _rules_on(t: torch.Tensor, rule_table, rule_levels):
 
 def fuzzy_eval(x: torch.Tensor, means: torch.Tensor, sigmas: torch.Tensor,
                rule_table: np.ndarray, rule_levels: np.ndarray,
-               level_centers: torch.Tensor,
-               normalize: bool = False) -> torch.Tensor:
+               level_centers: torch.Tensor, normalize: bool = False,
+               col_maxima: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Mamdani evaluation (P, 4) -> (P,); ``normalize=True`` takes raw
-    columns and applies Eq. 8 first."""
+    columns and applies Eq. 8 first.
+
+    ``col_maxima`` (4,), with ``normalize=True``, gives the Eq. 8 maxima
+    instead of the batch's own: the client mesh's sharded prefix passes
+    the all-reduced global maxima, so each rank normalizes against the
+    whole fleet.  The scaling divides and then clips, as the fused
+    kernel's finish does, so with the same maxima the evaluations are
+    the fused kernel's bit for bit."""
+    if normalize and col_maxima is not None:
+        x = torch.clamp(x / torch.clamp(col_maxima, min=1e-9), 0.0, 1.0)
+        normalize = False
     if _on_cuda(x):
         from repro_torch.kernels.fuzzy_eval import fuzzy_eval_cuda
         return fuzzy_eval_cuda(x, means, sigmas, rule_table, rule_levels,
@@ -61,6 +71,20 @@ def probe_fuzzy(params, images, labels, seg, counts, aux, means, sigmas,
                                *_rules_on(images, rule_table, rule_levels),
                                level_centers, n_clients=n_clients,
                                col_maxima=col_maxima)
+
+
+def probe_loss(params, images, labels, seg, counts, *,
+               n_clients: int) -> torch.Tensor:
+    """The fused fast path's probe half alone: packed Eq. 7 probe
+    samples -> (N,) per-client mean losses.  The client mesh runs it on
+    each rank's probe region; the all-reduce that merges the ranks'
+    loss lanes stays outside the kernel."""
+    if _on_cuda(images):
+        from repro_torch.kernels.probe_loss import probe_loss_cuda
+        return probe_loss_cuda(params, images, labels, seg, counts,
+                               n_clients=n_clients)
+    return ref.probe_loss_ref(params, images, labels, seg, counts,
+                              n_clients)
 
 
 def neighbor_elect(pos: torch.Tensor, evals: torch.Tensor, *,

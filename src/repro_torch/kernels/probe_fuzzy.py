@@ -2,9 +2,9 @@
 ``repro/kernels/probe_fuzzy.py::probe_fuzzy_pallas``).
 
 ``probe_fuzzy_cuda`` launches the five phases of ``csrc/probe_fuzzy.cu``
+(the first four shared with ``probe_loss`` in ``csrc/probe_phases.cuh``)
 on one stream; its plain version is ``kernels/ref.py::probe_fuzzy_ref``.
-The wrapper allocates the phases' scratch: the (S, 3136) activation,
-the (S, 512) hidden layer, (S,) losses and (N,) per-client sums.
+The wrapper allocates the phases' scratch (``probe_scratch``).
 """
 from __future__ import annotations
 
@@ -23,6 +23,34 @@ PARAM_SHAPES = {"conv1.w": (32, 1, 5, 5), "conv1.b": (32,),
                 "fc2.w": (10, 512), "fc2.b": (10,)}
 
 
+def check_probe_operands(params, images, labels, seg, counts,
+                         n_clients: int) -> None:
+    """The probe's contract, shared by ``probe_fuzzy`` and
+    ``probe_loss``: images (S, 28, 28, 1) fp32; labels, seg (S,) int32
+    (seg == n_clients marks padding rows); counts (N,) int32; the CNN's
+    fp32 weights."""
+    s = images.shape[0]
+    build.require(images, "images", (None, 28, 28, 1), torch.float32)
+    build.require(labels, "labels", (s,), torch.int32)
+    build.require(seg, "seg", (s,), torch.int32)
+    build.require(counts, "counts", (n_clients,), torch.int32)
+    for name, shape in PARAM_SHAPES.items():
+        build.require(params[name], name, shape, torch.float32)
+    if s == 0 or n_clients == 0:
+        raise ValueError("the probe needs at least one sample and client")
+
+
+def probe_scratch(s: int, n: int, dev) -> Tuple[torch.Tensor, ...]:
+    """Scratch of phases 1-4: the (S, 3136) activation, the (S, 512)
+    hidden layer, (S,) losses, each client's first and last row (2N,)
+    int32 and (N,) per-client sums."""
+    f32 = dict(dtype=torch.float32, device=dev)
+    return (torch.empty(s, 3136, **f32), torch.empty(s, 512, **f32),
+            torch.empty(s, **f32),
+            torch.empty(2 * n, dtype=torch.int32, device=dev),
+            torch.empty(n, **f32))
+
+
 def probe_fuzzy_cuda(params, images: torch.Tensor, labels: torch.Tensor,
                      seg: torch.Tensor, counts: torch.Tensor,
                      aux: torch.Tensor, means: torch.Tensor,
@@ -37,24 +65,14 @@ def probe_fuzzy_cuda(params, images: torch.Tensor, labels: torch.Tensor,
     n_clients marks padding rows); counts (N,) int32; aux (N, 3) raw
     [SQ, TA, CC]; col_maxima optional (4,) external Eq. 8 maxima."""
     s, n = images.shape[0], n_clients
-    build.require(images, "images", (None, 28, 28, 1), torch.float32)
-    build.require(labels, "labels", (s,), torch.int32)
-    build.require(seg, "seg", (s,), torch.int32)
-    build.require(counts, "counts", (n,), torch.int32)
+    check_probe_operands(params, images, labels, seg, counts, n)
     build.require(aux, "aux", (n, 3), torch.float32)
-    for name, shape in PARAM_SHAPES.items():
-        build.require(params[name], name, shape, torch.float32)
     if col_maxima is not None:
         build.require(col_maxima, "col_maxima", (4,), torch.float32)
-    if s == 0 or n == 0:
-        raise ValueError("probe_fuzzy needs at least one sample and client")
     dev = images.device
     rules = mamdani_operands(means, sigmas, level_centers, rule_table,
                              rule_levels, dev)
-    act = torch.empty(s, 3136, dtype=torch.float32, device=dev)
-    hidden = torch.empty(s, 512, dtype=torch.float32, device=dev)
-    losses = torch.empty(s, dtype=torch.float32, device=dev)
-    sums = torch.empty(n, dtype=torch.float32, device=dev)
+    scratch = probe_scratch(s, n, dev)
     feats = torch.empty(n, 4, dtype=torch.float32, device=dev)
     evals = torch.empty(n, dtype=torch.float32, device=dev)
     lib = build.load("probe_fuzzy")
@@ -64,8 +82,8 @@ def probe_fuzzy_cuda(params, images: torch.Tensor, labels: torch.Tensor,
         counts.data_ptr(), aux.data_ptr(),
         col_maxima.data_ptr() if col_maxima is not None else None, n,
         *p, means.data_ptr(), sigmas.data_ptr(), level_centers.data_ptr(),
-        rules.data_ptr(), rules.shape[0], act.data_ptr(), hidden.data_ptr(),
-        losses.data_ptr(), sums.data_ptr(), feats.data_ptr(),
-        evals.data_ptr(), build.stream_ptr(images)), "probe_fuzzy")
+        rules.data_ptr(), rules.shape[0], *(t.data_ptr() for t in scratch),
+        feats.data_ptr(), evals.data_ptr(), build.stream_ptr(images)),
+        "probe_fuzzy")
     build.LAUNCHES["probe_fuzzy"] += 1
     return feats, evals

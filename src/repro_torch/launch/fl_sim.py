@@ -7,23 +7,37 @@ Usage:
   python -m repro_torch.launch.fl_sim --compat-aligned-pack --device cpu
   python -m repro_torch.launch.fl_sim --elect windowed --elect-window 2 \
       --distribution extreme
+  python -m repro_torch.launch.fl_sim --mesh clients=2 --device cpu
 
 ``--compat-aligned-pack`` runs the unfused prefix (plain probe + the
 standalone Mamdani kernel) over the batch-aligned probe pack.
 ``--elect``/``--elect-window`` pick the DCS election (auto: windowed
 from 512 vehicles on); ``--distribution extreme`` crowds each half of
-the fleet into 150 m at one end of the road.
+the fleet into 150 m at one end of the road.  ``--mesh clients=K``
+spawns K ranks of the client mesh (``launch/mesh.py``): each owns
+``ceil(N / K)`` clients and the round's few global steps are
+collectives; rank 0 prints the mesh banner and the rows, then the
+launcher prints each rank's kernel launches and host-staged
+collectives.
 """
 from __future__ import annotations
 
 import argparse
 import json
 import time
+from typing import Dict, Optional
 
+import numpy as np
+import torch
+
+from repro_torch.fl import pipeline
 from repro_torch.fl.mobility import MobilityConfig
 from repro_torch.fl.partition import PartitionConfig
 from repro_torch.fl.rounds import FLSimConfig, FLSimulation
 from repro_torch.fl.runconfig import ELECT_MODES, RunConfig
+from repro_torch.kernels import build
+from repro_torch.launch.mesh import (ClientMesh, describe, mesh_clients,
+                                     spawn_ranks)
 
 SCHEMES = ("dcs", "ccs-fuzzy", "random")
 
@@ -38,6 +52,70 @@ def fast_config(scheme: str, **kw) -> FLSimConfig:
                        samples_per_class=kw.pop("samples_per_class", 600),
                        local_epochs=kw.pop("local_epochs", 1),
                        n_rounds=kw.pop("n_rounds", 10), **kw)
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def sim_rank(mesh: ClientMesh, cfg: FLSimConfig, run: RunConfig,
+             n_rounds: int, *,
+             fields: Optional[Dict[int, pipeline.RoundFields]] = None,
+             params: Optional[Dict[str, np.ndarray]] = None,
+             print_rows: bool = False) -> Dict[str, object]:
+    """One rank of the client mesh: ``n_rounds`` rounds of ``cfg``, from
+    ``params`` and on the injected ``fields`` where given
+    (``drive_rounds`` says what comes back).  Rank 0 prints the mesh
+    banner and each row when ``print_rows``."""
+    if print_rows and mesh.rank == 0:
+        print(f"[fl_sim] {describe(mesh.size, mesh.device.type)}",
+              flush=True)
+    sim = FLSimulation(cfg, run=run, mesh=mesh,
+                       fields=fields.__getitem__ if fields else None)
+    if params is not None:
+        sim.params = {k: torch.as_tensor(v, device=sim.device)
+                      for k, v in params.items()}
+    return drive_rounds(sim, n_rounds,
+                        print_rows=print_rows and mesh.rank == 0)
+
+
+def drive_rounds(sim: FLSimulation, n_rounds: int, *,
+                 print_rows: bool = False) -> Dict[str, object]:
+    """``n_rounds`` rounds of ``sim``, the launch counts reset just before.
+
+    Returns the rows; per round r this rank's shard of the prefix
+    (``pos{r}``, ``feats{r}``, ``evals{r}``), the round's global
+    ``mask{r}`` and ``overflow{r}``; the prefix and round wall times
+    (host clock, device synchronised); the final params
+    (``param.<name>``); the kernel launches and, on a mesh, the
+    host-staged collectives of the rounds."""
+    out: Dict[str, object] = {}
+    rows, prefix_s, round_s = [], [], []
+    build.reset_launches()
+    for r in range(n_rounds):
+        f = sim.round_fields(r)
+        _sync(sim.device)
+        t0 = time.perf_counter()
+        state = sim.selection_state(r, f)
+        _sync(sim.device)
+        t1 = time.perf_counter()
+        row = sim.finish_round(r, state, f)
+        _sync(sim.device)
+        prefix_s.append(t1 - t0)
+        round_s.append(time.perf_counter() - t0)
+        for key in ("pos", "feats", "evals"):
+            out[f"{key}{r}"] = state[key].cpu().numpy()
+        out[f"mask{r}"] = sim.last_mask
+        out[f"overflow{r}"] = int(state["elect_overflow"])
+        rows.append(row)
+        if print_rows:
+            print(json.dumps(row), flush=True)
+    out.update(rows=rows, prefix_s=prefix_s, round_s=round_s,
+               launches=dict(build.LAUNCHES), device=str(sim.device),
+               staged=dict(sim.mesh.staged) if sim.mesh else {})
+    out.update({f"param.{k}": v.cpu().numpy() for k, v in sim.params.items()})
+    return out
 
 
 def main(argv=None) -> int:
@@ -55,6 +133,16 @@ def main(argv=None) -> int:
     ap.add_argument("--elect-window", type=int, default=0,
                     help="windowed election: sorted neighbours per side "
                          "(0 = auto-size from fleet density)")
+    ap.add_argument("--elect-capacity", type=int, default=0,
+                    help="ring-halo election on the mesh: bucket slots "
+                         "per (rank, road segment) (0 = auto)")
+    ap.add_argument("--mesh", default=None, metavar="clients=K",
+                    help="partition the in-round client axis over K ranks "
+                         "of torch.distributed on this host (gloo when "
+                         "ranks share a card or run on the CPU)")
+    ap.add_argument("--multihost", type=int, default=0,
+                    help="processes over several hosts (not ported: "
+                         "raises)")
     ap.add_argument("--compat-aligned-pack", action="store_true",
                     help="aligned probe pack + unfused prefix")
     ap.add_argument("--device", default=None,
@@ -64,22 +152,38 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
 
     run = RunConfig(fused_probe=not args.compat_aligned_pack,
-                    elect=args.elect, elect_window=args.elect_window)
+                    elect=args.elect, elect_window=args.elect_window,
+                    elect_capacity=args.elect_capacity, mesh=args.mesh,
+                    multihost=args.multihost).resolved()
+    k = mesh_clients(run.mesh)
     for scheme in (SCHEMES if args.scheme == "all" else (args.scheme,)):
         cfg = fast_config(scheme, n_rounds=args.rounds,
                           classes_per_client=args.classes_per_client,
                           seed=args.seed)
         cfg.mobility = MobilityConfig(distribution=args.distribution,
                                       seed=args.seed)
-        sim = FLSimulation(cfg, run=run, device=args.device)
         t0 = time.perf_counter()
-        rows = sim.run(args.rounds)
+        if k > 1:
+            ranks = spawn_ranks(
+                sim_rank, k, args.device,
+                args=(cfg, run, args.rounds),
+                kwargs=dict(print_rows=True))
+            rows, where = ranks[0]["rows"], f"{k} ranks"
+            for r, res in enumerate(ranks):
+                print(f"[fl_sim] rank {r} on {res['device']}: launches "
+                      f"{json.dumps(res['launches'])}, host-staged "
+                      f"collectives {json.dumps(res['staged'])}",
+                      flush=True)
+        else:
+            sim = FLSimulation(cfg, run=run, device=args.device)
+            rows, where = [], str(sim.device)
+            for r in range(args.rounds):
+                rows.append(sim.run_round(r))
+                print(json.dumps(rows[-1]), flush=True)
         dt = time.perf_counter() - t0
-        for row in rows:
-            print(json.dumps(row), flush=True)
         accs = [r["accuracy"] for r in rows]
         nsel = sum(r["n_selected"] for r in rows) / len(rows)
-        print(f"[fl_sim] {scheme} on {sim.device}: final acc "
+        print(f"[fl_sim] {scheme} on {where}: final acc "
               f"{accs[-1]:.3f} (best {max(accs):.3f}), avg selected "
               f"{nsel:.2f}, {dt:.1f}s", flush=True)
     return 0

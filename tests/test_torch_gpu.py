@@ -86,6 +86,85 @@ def test_probe_fuzzy_kernel_is_run_to_run_bit_identical(cuda):
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
 
 
+def _probe_loss(fx, device, **over):
+    fx = dict(fx, **over)
+    params = {k: v.to(device) for k, v in fx["params"].items()}
+    return ops.probe_loss(params, *(fx[k].to(device) for k in (
+        "images", "labels", "seg", "counts")), n_clients=fx["n"])
+
+
+@pytest.mark.parametrize("counts", [(24, 7, 40, 13, 1, 30),
+                                    (300, 0, 1, 500, 77)])
+def test_probe_loss_kernel_matches_plain(cuda, counts):
+    """(N,) Eq. 7 means within 1e-5 of their largest magnitude: fp32
+    sums in another order (conv and GEMM tiling, per-client sums); a
+    client with no row gets 0; bit-repeatable."""
+    fx = _probe_inputs(cuda, counts=counts)
+    before = build.LAUNCHES["probe_loss"]
+    got, again = _probe_loss(fx, cuda), _probe_loss(fx, cuda)
+    assert build.LAUNCHES["probe_loss"] == before + 2
+    want = _probe_loss(fx, "cpu")
+    err = float((got.cpu() - want).abs().max() / want.abs().max())
+    assert err <= 1e-5, err
+    assert torch.equal(got, again)
+    assert (got.cpu()[torch.tensor(counts) == 0] == 0).all()
+
+
+def test_probe_loss_lf_is_probe_fuzzy_lf_bit_for_bit(cuda):
+    """The two kernels share phases 1-4 and the Eq. 7 mean's arithmetic:
+    the probe alone gives the fused kernel's LF column bit for bit."""
+    fx = _probe_inputs(cuda, counts=(300, 200, 1, 500, 64))
+    assert torch.equal(_probe_loss(fx, cuda), _probe(fx, cuda)[0][:, 3])
+
+
+def test_probe_loss_is_offset_invariant(cuda):
+    """A client's sum depends on its own rows alone: the same pack behind
+    37 padding rows (a shard region's offset), or with another client's
+    rows in front, gives the same LF bits."""
+    fx = _probe_inputs(cuda, counts=(300, 45, 1, 45, 130))
+    n = fx["n"]
+    base = _probe_loss(fx, cuda)
+    lead = 37
+    shifted = _probe_loss(fx, cuda, **{
+        "images": torch.cat([torch.zeros(lead, 28, 28, 1, device=cuda),
+                             fx["images"]]),
+        "labels": torch.cat([torch.zeros(lead, dtype=torch.int32,
+                                         device=cuda), fx["labels"]]),
+        "seg": torch.cat([torch.full((lead,), n, dtype=torch.int32,
+                                     device=cuda), fx["seg"]])})
+    assert torch.equal(base, shifted)
+    # client 0's span of rows (its padding rows with it) moved behind
+    # client 4's: every client keeps its rows' layout, and its bits
+    seg = fx["seg"]
+    span = int(torch.nonzero(seg == 0).max()) + 1
+    perm = torch.cat([torch.arange(span, seg.shape[0]),
+                      torch.arange(span)]).to(cuda)
+    moved = _probe_loss(fx, cuda, images=fx["images"][perm],
+                        labels=fx["labels"][perm], seg=seg[perm])
+    assert torch.equal(base, moved)
+
+
+def test_probe_loss_kernel_refuses_what_it_was_not_built_for(cuda):
+    from repro_torch.kernels.probe_loss import probe_loss_cuda
+    fx = _probe_inputs(cuda)
+    params = {k: v.to(cuda) for k, v in fx["params"].items()}
+    ok = {k: fx[k] for k in ("images", "labels", "seg", "counts")}
+    bad = [dict(images=fx["images"].double()),
+           dict(labels=fx["labels"].long()),
+           dict(seg=fx["seg"][:-1]),
+           dict(counts=fx["counts"][:-1]),
+           dict(images=fx["images"].cpu()),
+           dict(images=fx["images"][:, :27])]
+    for over in bad:
+        args = dict(ok, **over)
+        with pytest.raises(ValueError):
+            probe_loss_cuda(params, args["images"], args["labels"],
+                            args["seg"], args["counts"], n_clients=fx["n"])
+    with pytest.raises(ValueError):
+        probe_loss_cuda(dict(params, **{"fc1.w": params["fc1.w"][:, :-1]}),
+                        *ok.values(), n_clients=fx["n"])
+
+
 @pytest.mark.parametrize("normalize", [False, True])
 @pytest.mark.parametrize("p", [30, 70_000])
 def test_fuzzy_eval_kernel_matches_plain(cuda, normalize, p):

@@ -245,7 +245,8 @@ def test_port_imports_neither_jax_nor_repro():
             "repro_torch.kernels.flash_attention, "
             "repro_torch.models.attention, "
             "repro_torch.kernels.selective_scan, repro_torch.models.mamba, "
-            "repro_torch.models.moe, repro_torch.configs.jamba_v0_1_52b\n"
+            "repro_torch.models.moe, repro_torch.configs.jamba_v0_1_52b, "
+            "repro_torch.launch.mesh, repro_torch.kernels.probe_loss\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "
             "m.startswith('repro.')]\n"
@@ -272,7 +273,8 @@ def test_cli_without_cuda_raises():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(engine="loop"), dict(mesh="clients=4"), dict(server="event"),
+    dict(engine="loop"), dict(mesh="clients=4", multihost=2),
+    dict(server="event"),
     dict(churn_rate=0.3), dict(staleness="weighted"),
     dict(agg_cadence_s=10.0), dict(checkpoint_dir="ckpt"),
     dict(resume=True), dict(overlap_rounds=True)])
