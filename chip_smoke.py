@@ -21,9 +21,11 @@ Phases (any failure exits non-zero; no phase's exception is caught):
    T=4096, and bit-repeatable;
 4. time each kernel and its plain version with CUDA events and print its
    bound (the larger of bytes over 3.35 TB/s and operations over the
-   fp32 peak of 67 TFLOP/s); time the whole windowed election against
-   the dense kernel at 4096, 16,384 and 65,536 vehicles; ``wkv6`` at its
-   two shapes;
+   fp32 peak of 67 TFLOP/s; for the probe, whose conv2 and fc1 run as 3
+   TF32 passes on the tensor cores, those passes at 495 TFLOP/s and the
+   rest at the fp32 peak, beside its all-fp32 bound); time the whole
+   windowed election against the dense kernel at 4096, 16,384 and
+   65,536 vehicles; ``wkv6`` at its two shapes;
 5. the paths, each with the launch counters reset just before and read
    just after: the round-0 selection prefix on the card against the
    port's CPU plain path, then ``FLSimulation`` (fast profile, ``dcs``)
@@ -45,9 +47,10 @@ Phases (any failure exits non-zero; no phase's exception is caught):
    to 2^-7 of the largest |out|, bit-repeatable) at gemma-2b's serving
    prefill (B=4, S=64, 8 q heads over 1 kv head of 256), at S=8192, a
    window (S=4096, window 1024), prefix_len 64, Sq=96 / Skv=160 without
-   a mask, and Dh 64 and 128 with groups of 1 and 4; timed in bf16 at
-   the serving shape and at S=8192 beside its plain version and the
-   library's ``scaled_dot_product_attention``, with its bound (bf16
+   a mask, and Dh 64 and 128 with groups of 1 and 4; timed in bf16 (the
+   tensor-core kernel) at the serving shape, at S=8192 and at jamba's
+   serving shape beside the fp32 CUDA-core kernel, its plain version and
+   the library's ``scaled_dot_product_attention``, with its bound (bf16
    operations at 989 TFLOP/s); gemma-2b with 2 layers at full width,
    the card against the CPU; then ``python -m repro_torch.launch.serve``
    with its default arch, gemma-2b, at full width (18 layers, B=4,
@@ -92,7 +95,11 @@ Phases (any failure exits non-zero; no phase's exception is caught):
    masks and evals equal phase 5's single-device round 0; each rank's
    ``probe_loss`` time, the round's wall time and the host-staged
    collective bytes are printed (readings: four ranks share one card);
-6. ``{"kernels": [...]}`` on the line before the last;
+6. the probe's time split by phase (conv, fc1, fc2 + NLL, the client
+   sums) with ``torch.profiler`` at the fast profile's and the large
+   fleet's packs, last, since launches cost more in a process once the
+   profiler has run; then ``{"kernels": [...]}`` on the line before the
+   last;
 7. ``{"ok": true, "device": {...}}`` as the last line.
 """
 from __future__ import annotations
@@ -119,10 +126,22 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 FP32_FLOP_PER_S = 67e12            # non-tensor-core fp32 peak
 BF16_FLOP_PER_S = 989e12           # dense bf16 tensor-core peak
+TF32_FLOP_PER_S = 495e12           # dense TF32 tensor-core peak
 
-# CNN work per probe sample (conv1, conv2, fc1, fc2 multiply-adds x 2)
-PROBE_FLOP_PER_SAMPLE = 2 * (28 * 28 * 32 * 25 + 14 * 14 * 64 * 32 * 25
-                             + 3136 * 512 + 512 * 10)
+# CNN work per probe sample (multiply-adds x 2): conv2 and fc1, which the
+# kernel runs on the tensor cores as 3 TF32 passes, and conv1 and fc2,
+# which it runs in fp32 on CUDA cores
+PROBE_TC_FLOP = 2 * (14 * 14 * 64 * 32 * 25 + 3136 * 512)
+PROBE_CC_FLOP = 2 * (28 * 28 * 32 * 25 + 512 * 10)
+PROBE_FLOP_PER_SAMPLE = PROBE_TC_FLOP + PROBE_CC_FLOP
+# the probe's phases by kernel name (phase 4: the client sums)
+PROBE_PHASES = (("split", ("split_weights_kernel",)),
+                ("conv", ("probe_conv_kernel",)),
+                ("fc1", ("fc1_kernel",)),
+                ("fc2 + NLL", ("fc2_nll_kernel",)),
+                ("client sums", ("client_span_kernel", "client_sum_kernel",
+                                 "Memset")),
+                ("finish", ("finish_kernel", "client_mean_kernel")))
 # Mamdani per participant: 12 memberships x 5 ops, 81 rules x (3 min +
 # 1 max), the COG's 9 x 3 ops + 1 division; Eq. 8 adds 4 maxima, 4
 # multiplies and 8 clip ops
@@ -360,11 +379,12 @@ def flash_checks(dev) -> float:
 
 
 def flash_times(dev):
-    """flash_attention, its plain version and the library's
-    ``scaled_dot_product_attention`` (causal, GQA) in bf16 at gemma's
-    serving shape, the long prompt and jamba's serving shape, each with
-    its bound.  Returns (ms,
-    plain ms, bound ms, bound by, library ms) at the serving shape."""
+    """flash_attention (bf16: the tensor-core kernel), its plain version
+    and the library's ``scaled_dot_product_attention`` (causal, GQA) in
+    bf16 at gemma's serving shape, the long prompt and jamba's serving
+    shape, each with its bound, beside the fp32 CUDA-core kernel on the
+    same values in fp32.  Returns (ms, plain ms, bound ms, bound by,
+    library ms) at the serving shape."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ref
@@ -383,13 +403,17 @@ def flash_times(dev):
         ms = time_ms(lambda: flash_attention_cuda(q, k, v), iters)
         plain_ms = time_ms(lambda: ref.flash_attention_ref(q, k, v), iters)
         lib_ms = time_ms(library, iters)
+        qf, kf, vf = (t.float() for t in (q, k, v))
+        fp32_ms = time_ms(lambda: flash_attention_cuda(qf, kf, vf), iters)
         b_ms, b_by = flash_bound(case, 2)
         log(f"[time] flash_attention {flash_label(case, torch.bfloat16)}: "
-            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
-            f"(scaled_dot_product_attention; max err / scale against plain "
-            f"{lib_err:.3g}) {lib_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by})")
+            f"kernel {ms:.4f} ms (tensor cores), fp32 kernel {fp32_ms:.4f} "
+            f"ms (CUDA cores, fp32 inputs), plain {plain_ms:.4f} ms, "
+            f"library (scaled_dot_product_attention; max err / scale "
+            f"against plain {lib_err:.3g}) {lib_ms:.4f} ms, bound "
+            f"{b_ms:.6f} ms ({b_by})")
         rows.append((ms, plain_ms, b_ms, b_by, lib_ms))
-        del q, k, v, qt, kt, vt
+        del q, k, v, qt, kt, vt, qf, kf, vf
     return rows[0]
 
 
@@ -651,13 +675,58 @@ def serve_path(arch: str, expected, dev, argv=None, cfg=None, **serve_kw):
     return served
 
 
+def probe_bounds(n_bytes: float, s_rows: int) -> tuple:
+    """((ms, by) of the kernel's design, (ms, by) as fp32) for the
+    packed probe over ``s_rows`` samples moving ``n_bytes``.  The design:
+    conv2 and fc1 as 3 TF32 passes at the TF32 tensor-core peak, conv1
+    and fc2 at the fp32 peak; the kernel is measured against it.  As
+    fp32: every multiply-add at the fp32 CUDA-core peak."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S
+    t_ops = s_rows * (3 * PROBE_TC_FLOP / TF32_FLOP_PER_S
+                      + PROBE_CC_FLOP / FP32_FLOP_PER_S)
+    design = (max(t_bytes, t_ops) * 1e3,
+              "bytes" if t_bytes >= t_ops else "operations")
+    return design, bound(n_bytes, s_rows * PROBE_FLOP_PER_SAMPLE)
+
+
 def probe_bound(s_rows: int, n: int, params) -> tuple:
-    """(ms, by) for the packed probe over ``s_rows`` samples: images,
-    labels, seg read, (N,) counts read and losses written, the CNN's
-    weights read once; its multiply-adds as fp32 operations."""
+    """``probe_bounds`` for the packed probe alone: images, labels, seg
+    read, (N,) counts read and losses written, the CNN's weights read
+    once."""
     param_bytes = sum(t.numel() * 4 for t in params.values())
-    return bound(s_rows * (28 * 28 * 4 + 8) + n * 8 + param_bytes,
-                 s_rows * PROBE_FLOP_PER_SAMPLE)
+    return probe_bounds(s_rows * (28 * 28 * 4 + 8) + n * 8 + param_bytes,
+                        s_rows)
+
+
+def probe_phase_ms(fn) -> dict:
+    """Device ms of each probe phase in one call of ``fn``, summed by
+    kernel name from ``torch.profiler``'s CUDA activity."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = dict.fromkeys((name for name, _ in PROBE_PHASES), 0.0)
+    for ev in prof.key_averages():
+        t = getattr(ev, "device_time_total", None)
+        if t is None:
+            t = getattr(ev, "cuda_time_total", 0.0)
+        for name, keys in PROBE_PHASES:
+            if ev.key.startswith(keys):
+                out[name] += t / 1e3
+    if not any(out.values()):
+        raise AssertionError("torch.profiler saw no device time")
+    return out
+
+
+def log_probe_phases(label: str, fn) -> None:
+    ms = probe_phase_ms(fn)
+    total = sum(ms.values())
+    log(f"[profile] {label}: " + ", ".join(
+        f"{k} {v:.4f} ms ({100 * v / total:.1f}%)" for k, v in ms.items())
+        + f"; total {total:.4f} ms")
 
 
 def probe_loss_phase(dev, big, big_probe, bfeats0, main_probe, feats_main):
@@ -665,7 +734,7 @@ def probe_loss_phase(dev, big, big_probe, bfeats0, main_probe, feats_main):
     whole pack, ranks 1 and 3's regions of the large fleet's 4-way pack
     and an odd S and N: within 1e-5 of the largest loss (fp32 sums in
     another order) and bit-repeatable.  Its LF equals ``probe_fuzzy``'s
-    on the same pack bit for bit (shared phases 1-4, the same mean), and
+    on the same pack bit for bit (shared phases 0-4, the same mean), and
     a region's LF equals the whole pack's for the region's clients, also
     behind 77 more padding rows (phase 4 sums a client's rows in an
     order set by its rows alone).  Timed at rank 1's region (the mesh
@@ -742,10 +811,12 @@ def probe_loss_phase(dev, big, big_probe, bfeats0, main_probe, feats_main):
         ms = time_ms(lambda: ops.probe_loss(*inputs, n_clients=n), iters)
         plain_ms = time_ms(lambda: ref.probe_loss_ref(*inputs, n), iters,
                            warmup=1)
-        b_ms, b_by = probe_bound(inputs[1].shape[0], n, params)
+        (b_ms, b_by), (f_ms, f_by) = probe_bound(inputs[1].shape[0], n,
+                                                 params)
         log(f"[time] probe_loss {label} S={inputs[1].shape[0]} N={n}: "
             f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-            f"{b_ms:.6f} ms ({b_by})")
+            f"{b_ms:.6f} ms ({b_by}; 3xTF32 design), fp32 bound "
+            f"{f_ms:.6f} ms ({f_by})")
         rows.append((ms, plain_ms, b_ms, b_by))
     return rows[0], err_region
 
@@ -1014,7 +1085,7 @@ def main() -> int:
     log(f"[build] {len(paths)} kernels in {time.perf_counter() - t0:.1f}s")
     for name in build.KERNELS:
         for line in build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
+            if any(w in line for w in ("registers", "spill", "wgmma")):
                 log(f"[build] {name}: {line.strip()}")
 
     table, levels = build_rule_table()
@@ -1252,7 +1323,7 @@ def main() -> int:
          lambda: ops.probe_fuzzy(*main_probe, *mam, n_clients=n_main),
          lambda: ref.probe_fuzzy_ref(*main_probe, *mam_ref,
                                      n_clients=n_main), 20,
-         bound(probe_bytes, s_main * PROBE_FLOP_PER_SAMPLE)),
+         probe_bounds(probe_bytes, s_main)[0]),
         ("fuzzy_eval", f"P={n_main} normalize=True",
          lambda: ops.fuzzy_eval(feats_main, *mam, normalize=True),
          lambda: ref.fuzzy_eval_ref(feats_main, *mam_ref, normalize=True),
@@ -1265,8 +1336,8 @@ def main() -> int:
          lambda: ops.probe_fuzzy(*big_probe, *mam, n_clients=big.n),
          lambda: ref.probe_fuzzy_ref(*big_probe, *mam_ref,
                                      n_clients=big.n), 3,
-         bound(s_big4k * (28 * 28 * 4 + 8) + big.n * 36 + param_bytes,
-               s_big4k * PROBE_FLOP_PER_SAMPLE)),
+         probe_bounds(s_big4k * (28 * 28 * 4 + 8) + big.n * 36
+                      + param_bytes, s_big4k)[0]),
         ("windowed_counts", f"M={big.n} window {window_big}",
          lambda: ops.windowed_counts(sp_b, se_b, sg_b, **wkw_b),
          lambda: ref.windowed_counts_ref(sp_b, se_b, sg_b, **wkw_b), 200,
@@ -1298,6 +1369,17 @@ def main() -> int:
         timings.setdefault(name, (ms, plain_ms, b_ms, b_by))
         log(f"[time] {name} {shape}: kernel {ms:.4f} ms, plain "
             f"{plain_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by})")
+    # the probe's two bounds (its time by phase comes last: see there)
+    probe_packs = (
+        (f"S={s_main} N={n_main}", s_main, probe_bytes, main_probe, n_main),
+        (f"S={s_big4k} N={big.n} (large fleet)", s_big4k,
+         s_big4k * (28 * 28 * 4 + 8) + big.n * 36 + param_bytes, big_probe,
+         big.n))
+    for label, s_rows, n_bytes, _, _ in probe_packs:
+        (d_ms, d_by), (f_ms, f_by) = probe_bounds(n_bytes, s_rows)
+        log(f"[bound] probe_fuzzy {label}: {d_ms:.6f} ms ({d_by}; 3xTF32 "
+            f"design, the one measured against), fp32 {f_ms:.6f} ms "
+            f"({f_by})")
 
     # the whole windowed election (sort, counts, coverage, scatter)
     # against the dense kernel, at 1 vehicle per metre
@@ -1538,6 +1620,13 @@ def main() -> int:
     if (min(launches.values()) <= 0 or unfused["neighbor_elect"] <= 0
             or windowed["probe_fuzzy"] != 2 + n_over):
         raise AssertionError(f"a kernel of the path never ran: {launches}")
+
+    # the probe's time split by phase, after every other timing: once
+    # torch.profiler has run, launches in this process cost more (host-
+    # timed launch loops read ~0.015-0.025 ms slower)
+    for label, _, _, inputs, n in probe_packs:
+        log_probe_phases(f"probe_fuzzy {label}", functools.partial(
+            ops.probe_fuzzy, *inputs, *mam, n_clients=n))
 
     # -- 6. the kernels line ---------------------------------------------------
     meta = {

@@ -1,9 +1,9 @@
 // Fused Eq. 7 probe -> Eq. 8 -> Mamdani evaluation for Hopper.
 //
 // Replaces repro/kernels/probe_fuzzy.py::probe_fuzzy_pallas (pallas_call
-// at :254; body `_fused_kernel` :103).  Phases 1-4 (conv, fc1, fc2 + NLL,
-// the per-client loss sums) are probe_phases.cuh, shared with the probe
-// alone (probe_loss.cu); this file adds the fifth:
+// at :254; body `_fused_kernel` :103).  Phases 0-4 (weight split, conv,
+// fc1, fc2 + NLL, the per-client loss sums) are probe_phases.cuh, shared
+// with the probe alone (probe_loss.cu); this file adds the sixth:
 //
 //   5. finish: one block: Eq. 7 mean over max(count, 1), the raw
 //              features [SQ, TA, CC, LF], Eq. 8 maxima over the real
@@ -11,7 +11,8 @@
 //              1e-9) clipped to [0, 1] -- a division, as probe_fuzzy.py:134
 //              divides -- and the shared Mamdani device function.
 //
-// Bound: the probe's fp32 operations (probe_phases.cuh).
+// Bound: the probe's operations, conv2 and fc1 as 3 TF32 passes on the
+// tensor cores (probe_phases.cuh).
 #include "probe_phases.cuh"
 #include "mamdani.cuh"
 
@@ -71,14 +72,15 @@ extern "C" int probe_fuzzy_launch(
     const void* w1, const void* b1, const void* w2, const void* b2,
     const void* f1w, const void* f1b, const void* f2w, const void* f2b,
     const void* means, const void* sigmas, const void* centers,
-    const void* rules, int n_rules, void* act, void* hidden, void* losses,
+    const void* rules, int n_rules, void* wsplit, void* act, void* hidden,
+    void* losses,
     void* span, void* sums, void* feats, void* evals, void* stream) {
   if (s_rows <= 0 || n_clients <= 0 || n_rules <= 0 ||
       n_rules > MAMDANI_MAX_RULES)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   int err = probe_phases_run(images, labels, seg, s_rows, n_clients, w1, b1,
-                             w2, b2, f1w, f1b, f2w, f2b, act, hidden,
+                             w2, b2, f1w, f1b, f2w, f2b, wsplit, act, hidden,
                              losses, span, sums, st);
   if (err != 0) return err;
   finish_kernel<<<1, FIN_THREADS, 0, st>>>(

@@ -4,15 +4,16 @@
 // at :213; body `_loss_kernel` :140).  The client mesh's sharded prefix
 // runs it on each rank's probe region; the all-reduce that merges the
 // ranks' loss lanes stays outside the kernel, as the TPU's psum did.
-// Phases 1-4 are probe_phases.cuh, shared with the fused kernel
+// Phases 0-4 are probe_phases.cuh, shared with the fused kernel
 // (probe_fuzzy.cu), so its per-client sums are the fused kernel's bit for
 // bit; phase 5 here is the Eq. 7 mean alone, with the fused kernel's
 // arithmetic (sum / max(count, 1)), so the two give the same LF bits.
 // Phase 4 sums each client's rows in an order set by its rows alone, so
 // a client's LF is the same wherever its rows sit in a region.
 //
-// Bound: the probe's fp32 operations, ~24.5 MFLOP per sample against
-// ~3 KB of input (probe_phases.cuh).
+// Bound: the probe's operations, ~24.5 MFLOP per sample against ~3 KB of
+// input, conv2 and fc1 as 3 TF32 passes on the tensor cores
+// (probe_phases.cuh).
 #include "probe_phases.cuh"
 
 __global__ void __launch_bounds__(256)
@@ -27,12 +28,13 @@ extern "C" int probe_loss_launch(
     const void* images, const void* labels, const void* seg, int s_rows,
     const void* counts, int n_clients, const void* w1, const void* b1,
     const void* w2, const void* b2, const void* f1w, const void* f1b,
-    const void* f2w, const void* f2b, void* act, void* hidden,
+    const void* f2w, const void* f2b, void* wsplit, void* act,
+    void* hidden,
     void* losses, void* span, void* sums, void* lf, void* stream) {
   if (s_rows <= 0 || n_clients <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   int err = probe_phases_run(images, labels, seg, s_rows, n_clients, w1, b1,
-                             w2, b2, f1w, f1b, f2w, f2b, act, hidden,
+                             w2, b2, f1w, f1b, f2w, f2b, wsplit, act, hidden,
                              losses, span, sums, st);
   if (err != 0) return err;
   client_mean_kernel<<<(n_clients + 255) / 256, 256, 0, st>>>(

@@ -35,7 +35,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # C signatures: argument kinds in order (p = pointer/stream, i = int,
 # f = float); every function returns a cudaError_t as int
 _SIGNATURES = {
-    "probe_fuzzy": {"probe_fuzzy_launch": "pppipppippppppppppppipppppppp"},
+    "probe_fuzzy": {"probe_fuzzy_launch": "pppipppippppppppppppippppppppp"},
     "fuzzy_eval": {"fuzzy_eval_launch": "piipppppipp",
                    "fuzzy_eval_scratch_floats": "i"},
     "neighbor_elect": {"neighbor_elect_launch": "ppiffipp"},
@@ -43,7 +43,7 @@ _SIGNATURES = {
     "wkv6": {"wkv6_launch": "ppppppiiiiippp"},
     "flash_attention": {"flash_attention_launch": "ppppiiiiiiiiiifp"},
     "selective_scan": {"selective_scan_launch": "ppppppiiiiippp"},
-    "probe_loss": {"probe_loss_launch": "pppipippppppppppppppp"},
+    "probe_loss": {"probe_loss_launch": "pppipipppppppppppppppp"},
 }
 _CTYPE = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
 

@@ -1,9 +1,11 @@
 """Flash attention on the card (replaces
 ``repro/kernels/flash_attention.py::flash_attention_pallas``).
 
-``flash_attention_cuda`` launches ``csrc/flash_attention.cu``; its plain
-version is ``kernels/ref.py::flash_attention_ref``.  Both compute in
-fp32 and return q's dtype, as ``flash_attention_pallas`` does.
+``flash_attention_cuda`` launches ``csrc/flash_attention.cu``: bf16 on
+the tensor cores (P rounded to bf16 for P V, as the reference's jnp
+attention does), fp32 on CUDA cores.  Its plain version is
+``kernels/ref.py::flash_attention_ref``, which computes in fp32; all
+return q's dtype, as ``flash_attention_pallas`` does.
 """
 from __future__ import annotations
 
@@ -40,10 +42,9 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if window < 0 or prefix_len < 0:
         raise ValueError("flash_attention: window and prefix_len must be "
                          ">= 0")
-    align = 16 if q.dtype == torch.float32 else 4      # float4 / bf16x2
-    if any(t.data_ptr() % align for t in (q, k, v)):
-        raise ValueError(f"flash_attention: operands must be {align}-byte "
-                         f"aligned")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):      # float4 / cp.async
+        raise ValueError("flash_attention: operands must be 16-byte "
+                         "aligned")
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out

@@ -1,8 +1,9 @@
 """Fused Eq. 7 probe -> Eq. 8 -> Mamdani on the card (replaces
 ``repro/kernels/probe_fuzzy.py::probe_fuzzy_pallas``).
 
-``probe_fuzzy_cuda`` launches the five phases of ``csrc/probe_fuzzy.cu``
-(the first four shared with ``probe_loss`` in ``csrc/probe_phases.cuh``)
+``probe_fuzzy_cuda`` launches the six phases of ``csrc/probe_fuzzy.cu``
+(the first five shared with ``probe_loss`` in ``csrc/probe_phases.cuh``;
+conv2 and fc1 as split-precision TF32 products on the tensor cores)
 on one stream; its plain version is ``kernels/ref.py::probe_fuzzy_ref``.
 The wrapper allocates the phases' scratch (``probe_scratch``).
 """
@@ -40,12 +41,17 @@ def check_probe_operands(params, images, labels, seg, counts,
         raise ValueError("the probe needs at least one sample and client")
 
 
+# conv2's and fc1's weights split into TF32 hi and lo parts (phase 0)
+WSPLIT_FLOATS = 2 * 64 * 800 + 2 * 512 * 3136
+
+
 def probe_scratch(s: int, n: int, dev) -> Tuple[torch.Tensor, ...]:
-    """Scratch of phases 1-4: the (S, 3136) activation, the (S, 512)
-    hidden layer, (S,) losses, each client's first and last row (2N,)
-    int32 and (N,) per-client sums."""
+    """Scratch of phases 0-4: the split weights, the (S, 3136)
+    activation, the (S, 512) hidden layer, (S,) losses, each client's
+    first and last row (2N,) int32 and (N,) per-client sums."""
     f32 = dict(dtype=torch.float32, device=dev)
-    return (torch.empty(s, 3136, **f32), torch.empty(s, 512, **f32),
+    return (torch.empty(WSPLIT_FLOATS, **f32), torch.empty(s, 3136, **f32),
+            torch.empty(s, 512, **f32),
             torch.empty(s, **f32),
             torch.empty(2 * n, dtype=torch.int32, device=dev),
             torch.empty(n, **f32))

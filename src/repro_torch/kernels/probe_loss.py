@@ -1,7 +1,7 @@
 """The packed Eq. 7 probe alone on the card (replaces
 ``repro/kernels/probe_fuzzy.py::probe_loss_pallas``).
 
-``probe_loss_cuda`` launches ``csrc/probe_loss.cu``: phases 1-4 of the
+``probe_loss_cuda`` launches ``csrc/probe_loss.cu``: phases 0-4 of the
 fused kernel (``csrc/probe_phases.cuh``), then the Eq. 7 mean.  Its
 plain version is ``kernels/ref.py::probe_loss_ref``.  The client mesh's
 sharded prefix runs it on each rank's probe region

@@ -111,7 +111,7 @@ def test_probe_loss_kernel_matches_plain(cuda, counts):
 
 
 def test_probe_loss_lf_is_probe_fuzzy_lf_bit_for_bit(cuda):
-    """The two kernels share phases 1-4 and the Eq. 7 mean's arithmetic:
+    """The two kernels share phases 0-4 and the Eq. 7 mean's arithmetic:
     the probe alone gives the fused kernel's LF column bit for bit."""
     fx = _probe_inputs(cuda, counts=(300, 200, 1, 500, 64))
     assert torch.equal(_probe_loss(fx, cuda), _probe(fx, cuda)[0][:, 3])
@@ -142,6 +142,31 @@ def test_probe_loss_is_offset_invariant(cuda):
     moved = _probe_loss(fx, cuda, images=fx["images"][perm],
                         labels=fx["labels"][perm], seg=seg[perm])
     assert torch.equal(base, moved)
+
+
+def test_probe_loss_ragged_pack_and_client_across_tiles(cuda):
+    """S = 1001, a multiple of neither the conv kernel's 2 samples a
+    block nor fc1's 128-row tile, and client 2's 260 rows straddling fc1
+    tiles and many conv blocks: within 1e-5 of scale of the plain
+    version, bit-repeatable, the fused kernel's LF bit for bit, and the
+    same bits one row later (every sample in another slot of its block
+    and tile)."""
+    fx = _probe_inputs(cuda, counts=(127, 3, 260, 1, 99, 400, 111))
+    assert fx["images"].shape[0] == 1001
+    n = fx["n"]
+    got, again = _probe_loss(fx, cuda), _probe_loss(fx, cuda)
+    want = _probe_loss(fx, "cpu")
+    assert float((got.cpu() - want).abs().max() / want.abs().max()) <= 1e-5
+    assert torch.equal(got, again)
+    assert torch.equal(got, _probe(fx, cuda)[0][:, 3])
+    shifted = _probe_loss(fx, cuda, **{
+        "images": torch.cat([torch.zeros(1, 28, 28, 1, device=cuda),
+                             fx["images"]]),
+        "labels": torch.cat([torch.zeros(1, dtype=torch.int32, device=cuda),
+                             fx["labels"]]),
+        "seg": torch.cat([torch.full((1,), n, dtype=torch.int32,
+                                     device=cuda), fx["seg"]])})
+    assert torch.equal(got, shifted)
 
 
 def test_probe_loss_kernel_refuses_what_it_was_not_built_for(cuda):
@@ -374,6 +399,26 @@ def test_flash_attention_kernel_matches_plain(cuda, b, sq, skv, hq, hkv, dh,
     assert _scaled_err(out.float(), want.float()) <= (
         1e-5 if dtype == torch.float32 else 2 ** -7)
     assert torch.equal(ops.flash_attention(q, k, v, **kw), out)
+
+
+@pytest.mark.parametrize("b,sq,skv,hq,hkv,dh,causal", [
+    (3, 1, 100, 8, 2, 128, True),        # Sq = 1: position 0 keeps kv 0
+    (2, 1, 77, 6, 3, 64, False),         # Sq = 1 over all of Skv
+    (2, 130, 131, 3, 1, 256, True),      # Skv one past 2 kv tiles
+    (1, 200, 333, 4, 2, 128, False),     # Skv not a multiple of 64
+])
+def test_flash_attention_bf16_edge_shapes(cuda, b, sq, skv, hq, hkv, dh,
+                                          causal):
+    """The tensor-core kernel at Sq = 1 and at ragged Skv (the kv tile's
+    zero-filled rows masked): 2^-7 of the largest |out|, bit-repeatable."""
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    q, k, v = _flash_inputs(b, sq, skv, hq, hkv, dh, torch.bfloat16, cuda)
+    out = flash_attention_cuda(q, k, v, causal=causal)
+    want = ref.flash_attention_ref(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(out).all())
+    assert _scaled_err(out.float(), want.float()) <= 2 ** -7
+    assert torch.equal(out, flash_attention_cuda(q, k, v, causal=causal))
 
 
 def test_flash_attention_kernel_is_bit_repeatable(cuda):
