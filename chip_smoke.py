@@ -18,14 +18,17 @@ Phases (any failure exits non-zero; no phase's exception is caught):
    to ``neighbor_elect``'s wherever its flag is 0, and flagged wherever
    the rank-distance oracle flags; ``wkv6`` at the serving prefill's
    shape (B=4, T=64, H=40, N=64, bf16 r/k/v, fp32 w) and at B=1,
-   T=4096, and bit-repeatable;
+   T=4096, then about its time chunk (T = 64, 65, 129 and 4096; B*H 40
+   and 160) with decays of exactly 0, 1e-31 and 1 - 2^-24, each within
+   1e-5 of scale and bit-repeatable;
 4. time each kernel and its plain version with CUDA events and print its
    bound (the larger of bytes over 3.35 TB/s and operations over the
    fp32 peak of 67 TFLOP/s; for the probe, whose conv2 and fc1 run as 3
    TF32 passes on the tensor cores, those passes at 495 TFLOP/s and the
    rest at the fp32 peak, beside its all-fp32 bound); time the whole
    windowed election against the dense kernel at 4096, 16,384 and
-   65,536 vehicles; ``wkv6`` at its two shapes;
+   65,536 vehicles; ``wkv6`` at its two shapes, with the bound of its
+   chunked design's own work beside the function's;
 5. the paths, each with the launch counters reset just before and read
    just after: the round-0 selection prefix on the card against the
    port's CPU plain path, then ``FLSimulation`` (fast profile, ``dcs``)
@@ -41,7 +44,9 @@ Phases (any failure exits non-zero; no phase's exception is caught):
    teacher-forced steps; then the serving path: ``python -m
    repro_torch.launch.serve`` at full width (32 layers, B=4, prompt 64,
    32 new tokens, greedy, random weights from seed 0), which must
-   launch ``wkv6`` once per layer at prefill and never in decode;
+   launch ``wkv6`` once per layer at prefill and never in decode; then
+   the same CLI with one 4096-token prompt and 4 new tokens (32
+   ``wkv6`` launches, each past one time chunk);
 5b. the dense family, after the rwkv6 weights are freed:
    ``flash_attention`` against its plain version (fp32 to 1e-5 and bf16
    to 2^-7 of the largest |out|, bit-repeatable) at gemma-2b's serving
@@ -59,8 +64,10 @@ Phases (any failure exits non-zero; no phase's exception is caught):
 5c. the hybrid family, after the gemma-2b weights are freed:
    ``selective_scan`` against its plain version (fp32 and bf16 inputs,
    y and hT to 1e-5 of their largest magnitude, bit-repeatable) at
-   jamba's serving prefill (B=4, T=64, Di=8192, N=16), at B=1, T=4096
-   and at an odd Di and T; timed in bf16 at the first two beside its
+   jamba's serving prefill (B=4, T=64, Di=8192, N=16), at B=1, T=4096,
+   at an odd Di and T with N=7, at N=32 and T=4096 and at a Di that is
+   no multiple of a block's 16 channels; timed in bf16 at the first two
+   beside its
    plain version, with its bound (bytes, fp32 operations, or the exp
    count over the SFU's 16 per SM per clock); jamba-v0.1-52b with 2
    layers at full width (mamba + MoE, then attention + MLP; 4 experts
@@ -71,7 +78,8 @@ Phases (any failure exits non-zero; no phase's exception is caught):
    weights: 32 layers do not fit one 80 GB card; B=4, prompt 64, 32
    new tokens), which must launch ``selective_scan`` once per mamba
    layer (14) and ``flash_attention`` once per attention layer (2) at
-   prefill and nothing else;
+   prefill and nothing else; then ``serve()`` again with one 4096-token
+   prompt and 4 new tokens (the same launches);
 5d. the client mesh (``--mesh clients=K``) with ``probe_loss``:
    ``probe_loss`` against its plain version (within 1e-5 of the largest
    loss, bit-repeatable) at the fast profile's whole pack, at ranks 1
@@ -98,7 +106,9 @@ Phases (any failure exits non-zero; no phase's exception is caught):
 6. the probe's time split by phase (conv, fc1, fc2 + NLL, the client
    sums) with ``torch.profiler`` at the fast profile's and the large
    fleet's packs, last, since launches cost more in a process once the
-   profiler has run; then ``{"kernels": [...]}`` on the line before the
+   profiler has run; ``wkv6``'s device time per launch by phase (A, B,
+   C) and ``selective_scan``'s at their two shapes, beside their
+   CUDA-event times; then ``{"kernels": [...]}`` on the line before the
    last;
 7. ``{"ok": true, "device": {...}}`` as the last line.
 """
@@ -112,6 +122,7 @@ import io
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -142,6 +153,10 @@ PROBE_PHASES = (("split", ("split_weights_kernel",)),
                 ("client sums", ("client_span_kernel", "client_sum_kernel",
                                  "Memset")),
                 ("finish", ("finish_kernel", "client_mean_kernel")))
+# wkv6's phases and selective_scan by kernel name
+WKV_PHASES = (("A", ("wkv6_chunk_kernel",)), ("B", ("wkv6_carry_kernel",)),
+              ("C", ("wkv6_cross_kernel",)))
+SCAN_PHASES = (("scan", ("selective_scan_kernel",)),)
 # Mamdani per participant: 12 memberships x 5 ops, 81 rules x (3 min +
 # 1 max), the COG's 9 x 3 ops + 1 division; Eq. 8 adds 4 maxima, 4
 # multiplies and 8 clip ops
@@ -154,6 +169,16 @@ LARGE_FLEET = 4096                 # vehicles of the large-fleet path
 SERVE_ARGV = ["--arch", "rwkv6-3b", "--batch", "4", "--prompt-len", "64",
               "--max-new", "32"]
 WKV_B, WKV_T, WKV_H, WKV_N = 4, 64, 40, 64
+# wkv6's edge cases beside those two shapes, (B, T, H): T about the
+# kernel's time chunk (C = 64: one chunk, C + 1, 2C + 1) and a long
+# prompt, B * H 40 and 160, decays with exact zeros, values under 1e-30
+# and 1 - 2^-24 (``wkv_inputs(edge=True)``), a nonzero s0
+WKV_EDGE = [(1, 64, 40), (1, 65, 40), (1, 129, 40), (4, 129, 40),
+            (1, 4096, 40), (4, 4096, 40)]
+# the long-prompt serving paths: one 4096-token prompt, 4 new tokens
+LONG_PROMPT = 4096
+LONG_SERVE_ARGV = ["--arch", "rwkv6-3b", "--batch", "1", "--prompt-len",
+                   str(LONG_PROMPT), "--max-new", "4"]
 # bf16 tolerance of the model check, relative to each tensor's largest
 # magnitude: the card and the CPU round bf16 at other places (cuBLAS
 # against oneDNN, FMA), a few bf16 ulps (2^-8) through the blocks
@@ -187,10 +212,14 @@ JAMBA_SERVE = dict(batch=4, prompt_len=64, max_new=32, temperature=0.0,
                    seed=0)
 JAMBA_CHECK = dict(num_layers=2, attn_layer_period=2, attn_layer_offset=1,
                    moe_layer_offset=0, num_experts=4)
+JAMBA_LONG_SERVE = dict(JAMBA_SERVE, batch=1, prompt_len=LONG_PROMPT,
+                        max_new=4)
 # selective_scan's shapes: (B, T, Di, N); the first is jamba's serving
 # prefill (Di = 2 x 4096), the second a long prompt, the third an odd Di
-# and T with N under the template's 16
-SCAN_CASES = [(4, 64, 8192, 16), (1, 4096, 8192, 16), (3, 77, 300, 7)]
+# and T with N under 8 (padded), then N = 32 (4 states a lane) at the
+# long prompt and a Di that is no multiple of a block's 16 channels
+SCAN_CASES = [(4, 64, 8192, 16), (1, 4096, 8192, 16), (3, 77, 300, 7),
+              (1, 4096, 8192, 32), (2, 100, 8200, 16)]
 # exp (one MUFU.EX2 each) per second: 16 per SM per clock, 132 SMs at
 # the H100 SXM's 1.98 GHz boost clock
 SFU_EXP_PER_S = 16 * 132 * 1.98e9
@@ -208,6 +237,19 @@ def bound(n_bytes: float, n_ops: float, flop_per_s: float = FP32_FLOP_PER_S):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+def ptxas_function(line: str):
+    """The kernel a ``ptxas info : Compiling entry function`` line names:
+    its name, with its template arguments as mangled; else None."""
+    m = re.search(r"entry function '_Z(\d+)(\w+)'", line)
+    if not m:
+        return None
+    n, rest = int(m.group(1)), m.group(2)
+    name, rest = rest[:n], rest[n:]
+    if rest.startswith("I") and "E" in rest:
+        name += f"<{rest[1:rest.index('E')]}>"
+    return name
+
+
 def visited_pairs(m: int, block: int, window: int) -> int:
     """Row-candidate pairs that ``windowed_counts`` compares on (M,)
     arrays: row block ib sweeps blocks [ib - hops, ib + hops] clipped
@@ -217,15 +259,20 @@ def visited_pairs(m: int, block: int, window: int) -> int:
                for ib in range(nb)) * block * block
 
 
-def wkv_inputs(b, t, h, g, device):
+def wkv_inputs(b, t, h, g, device, edge=False):
     """Model-like WKV operands: unit-scale bf16 r, k, v, fp32 decays
     over (0.37, 0.9975) (``exp(-exp(w0 + lora))`` with w0 = -6 gives
-    0.9975), bonus u ~ 0.5 N(0, 1), a nonzero fp32 initial state."""
+    0.9975), bonus u ~ 0.5 N(0, 1), a nonzero fp32 initial state.
+    ``edge``: every 7th decay exactly 0, every 11th 1e-31, every 13th
+    1 - 2^-24 (the largest fp32 below 1)."""
     import torch
     r, k, v = (torch.randn(b, t, h, WKV_N, generator=g, device=device)
                .to(torch.bfloat16) for _ in range(3))
     w = torch.exp(-torch.exp(torch.rand(b, t, h, WKV_N, generator=g,
                                         device=device) * 6 - 6))
+    if edge:
+        flat = w.view(-1)
+        flat[::7], flat[3::11], flat[5::13] = 0.0, 1e-31, 1 - 2 ** -24
     u = 0.5 * torch.randn(h, WKV_N, generator=g, device=device)
     s0 = torch.randn(b, h, WKV_N, WKV_N, generator=g, device=device)
     return r, k, v, w, u, s0
@@ -238,6 +285,27 @@ def wkv_bound(b, t, h):
     n_bytes = (b * t * h * WKV_N * (3 * 2 + 4 + 4) + h * WKV_N * 4
                + 2 * b * h * WKV_N * WKV_N * 4)
     return bound(n_bytes, 6 * WKV_N * WKV_N * b * h * t)
+
+
+def wkv_design_bound(b, t, h):
+    """(ms, by) for the work ``csrc/wkv6.cu``'s design does: phase A ~5
+    N^2 fp32 operations per (b, h, t) (the bonus term out of the inner
+    loop); past one chunk, phase C's 2 N^2 per (b, h, t) after the first
+    chunk and phase B's 2 N^2 per chunk, and beside the function's
+    bytes, phase C's second read of r and w and its read and write of y,
+    and the chunks' end states (written by A, read and written by B,
+    read by C) and decay products."""
+    from repro_torch.kernels.wkv6 import CHUNK
+    n_bytes = (b * t * h * WKV_N * (3 * 2 + 4 + 4) + h * WKV_N * 4
+               + 2 * b * h * WKV_N * WKV_N * 4)
+    n_ops = 5 * WKV_N * WKV_N * b * h * t
+    chunks = -(-t // CHUNK)
+    if chunks > 1:
+        later = b * h * (t - CHUNK)
+        n_ops += 2 * WKV_N * WKV_N * (later + b * h * (chunks - 1))
+        n_bytes += (later * WKV_N * (2 + 4 + 8)
+                    + b * h * chunks * (4 * WKV_N * WKV_N + 2 * WKV_N) * 4)
+    return bound(n_bytes, n_ops)
 
 
 def tree_to(tree, device):
@@ -494,7 +562,7 @@ def scan_checks(dev) -> float:
 def scan_times(dev):
     """selective_scan and its plain version in bf16 at the serving shape
     and the long prompt, each with its bound.  Returns (ms, plain ms,
-    bound ms, bound by) at the serving shape."""
+    bound ms, bound by) at the serving shape and {case: ms} at both."""
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels.selective_scan import selective_scan_cuda
@@ -512,7 +580,7 @@ def scan_times(dev):
                 f"{k} {v:.6f} ms" for k, v in parts.items()) + ")")
         rows.append((ms, plain_ms, b_ms, b_by))
         del args
-    return rows[0]
+    return rows[0], {c: r[0] for c, r in zip(SCAN_CASES[:2], rows)}
 
 
 def model_check(arch: str, dev, cache_keys, exact=(), changes=None) -> None:
@@ -641,6 +709,7 @@ def serve_path(arch: str, expected, dev, argv=None, cfg=None, **serve_kw):
     from repro_torch.kernels import build
     from repro_torch.launch import serve as serve_cli
     held = torch.cuda.memory_allocated(dev)
+    t_wall = time.perf_counter()
     build.reset_launches()
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
@@ -650,6 +719,7 @@ def serve_path(arch: str, expected, dev, argv=None, cfg=None, **serve_kw):
             serve_cli.serve(cfg, device=dev, **serve_kw)
             rc = 0
     served = dict(build.LAUNCHES)
+    t_wall = time.perf_counter() - t_wall
     lines = out.getvalue().strip().splitlines()
     for line in lines:
         log(f"[serve path] {line}")
@@ -657,17 +727,19 @@ def serve_path(arch: str, expected, dev, argv=None, cfg=None, **serve_kw):
     first = json.loads(next(line for line in lines if line.startswith(
         "[serve] first sequence:")).split(":", 1)[1])
     cfg = cfg or get_arch(arch)
-    log(f"[serve path] {arch} ({cfg.num_layers} layers) launches {served}; "
+    log(f"[serve path] {arch} ({cfg.num_layers} layers, B={stats['batch']}, "
+        f"prompt {stats['prompt_len']}) launches {served}; "
         f"{stats['params']} params; peak device memory "
         f"{stats['peak_mem_bytes'] / 1e9:.2f} GB (of which "
         f"{held / 1e9:.2f} GB held by earlier phases); prefill "
         f"{stats['prefill_s']:.4f} s, decode {stats['decode_s']:.4f} s for "
-        f"{stats['max_new']} steps ({stats['decode_tok_s']:.1f} tok/s)")
+        f"{stats['max_new']} steps ({stats['decode_tok_s']:.1f} tok/s); "
+        f"{t_wall:.1f}s with the weights' draw")
     if (rc != 0 or not stats["device"].startswith("cuda")
             or stats["arch"] != arch or stats["layers"] != cfg.num_layers
             or served != {k: expected.get(k, 0) for k in served}
             or not all(0 <= t < cfg.vocab_size for t in first)
-            or len(first) != 16
+            or len(first) != min(16, stats["max_new"])
             or not (math.isfinite(stats["prefill_s"])
                     and math.isfinite(stats["decode_s"]))):
         raise AssertionError(f"serving path {arch}: rc {rc}, launches "
@@ -698,31 +770,34 @@ def probe_bound(s_rows: int, n: int, params) -> tuple:
                         s_rows)
 
 
-def probe_phase_ms(fn) -> dict:
-    """Device ms of each probe phase in one call of ``fn``, summed by
-    kernel name from ``torch.profiler``'s CUDA activity."""
+def phase_ms(fn, phases, calls: int = 1) -> dict:
+    """Device ms of each phase per call of ``fn`` (mean over ``calls``
+    calls), summed by kernel name from ``torch.profiler``'s CUDA
+    activity; ``phases`` is ((phase, kernel name prefixes), ...)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
+        for _ in range(calls):
+            fn()
         torch.cuda.synchronize()
-    out = dict.fromkeys((name for name, _ in PROBE_PHASES), 0.0)
+    out = dict.fromkeys((name for name, _ in phases), 0.0)
     for ev in prof.key_averages():
         t = getattr(ev, "device_time_total", None)
         if t is None:
             t = getattr(ev, "cuda_time_total", 0.0)
-        for name, keys in PROBE_PHASES:
-            if ev.key.startswith(keys):
-                out[name] += t / 1e3
+        key = ev.key[5:] if ev.key.startswith("void ") else ev.key
+        for name, keys in phases:
+            if key.startswith(keys):
+                out[name] += t / 1e3 / calls
     if not any(out.values()):
         raise AssertionError("torch.profiler saw no device time")
     return out
 
 
 def log_probe_phases(label: str, fn) -> None:
-    ms = probe_phase_ms(fn)
+    ms = phase_ms(fn, PROBE_PHASES)
     total = sum(ms.values())
     log(f"[profile] {label}: " + ", ".join(
         f"{k} {v:.4f} ms ({100 * v / total:.1f}%)" for k, v in ms.items())
@@ -1084,9 +1159,11 @@ def main() -> int:
     paths = build.build_all()
     log(f"[build] {len(paths)} kernels in {time.perf_counter() - t0:.1f}s")
     for name in build.KERNELS:
+        fn = ""
         for line in build.build_log(name).splitlines():
+            fn = ptxas_function(line) or fn
             if any(w in line for w in ("registers", "spill", "wgmma")):
-                log(f"[build] {name}: {line.strip()}")
+                log(f"[build] {name} {fn}: {line.strip()}")
 
     table, levels = build_rule_table()
 
@@ -1285,9 +1362,13 @@ def main() -> int:
     from repro_torch.kernels.wkv6 import wkv6_cuda
     wkv_cases = {}
     err_wkv = 0.0
-    for b, t in ((WKV_B, WKV_T), (1, 4096)):
-        args = wkv_inputs(b, t, WKV_H, g, dev)
-        wkv_cases[(b, t)] = args
+    g_edge = torch.Generator(device=dev).manual_seed(19)
+    for b, t, h, edge in ([(WKV_B, WKV_T, WKV_H, False),
+                           (1, 4096, WKV_H, False)]
+                          + [(*c, True) for c in WKV_EDGE]):
+        args = wkv_inputs(b, t, h, g_edge if edge else g, dev, edge=edge)
+        if not edge:
+            wkv_cases[(b, t)] = args
         y, s_t = wkv6_cuda(*args)
         y2, s_t2 = wkv6_cuda(*args)
         want_y, want_s = ref.wkv6_ref(*args)
@@ -1296,14 +1377,17 @@ def main() -> int:
         same = torch.equal(y, y2) and torch.equal(s_t, s_t2)
         ok = (e_y <= 1e-5 and e_s <= 1e-5 and same
               and bool(torch.isfinite(y).all()))
-        if (b, t) == (WKV_B, WKV_T):
+        if (b, t, edge) == (WKV_B, WKV_T, False):
             err_wkv = float((y - want_y).abs().max())
-        log(f"[check] wkv6 B={b} T={t} H={WKV_H} N={WKV_N} bf16 r/k/v: y "
-            f"max err / scale {e_y:.3g} (scale {float(want_y.abs().max()):.4g}"
-            f"), sT {e_s:.3g} (tol 1e-5); bit-repeatable {same} "
+        log(f"[check] wkv6 B={b} T={t} H={h} N={WKV_N} bf16 r/k/v"
+            f"{', edge decays' if edge else ''}: y max err / scale "
+            f"{e_y:.3g} (scale {float(want_y.abs().max()):.4g}), sT "
+            f"{e_s:.3g} (tol 1e-5); bit-repeatable {same} "
             f"{'OK' if ok else 'FAIL'}")
         if not ok:
-            raise AssertionError(f"wkv6 B={b} T={t} disagrees")
+            raise AssertionError(f"wkv6 B={b} T={t} H={h} edge={edge} "
+                                 f"disagrees")
+        del args, y, y2, s_t, s_t2, want_y, want_s
 
     # -- 4. timing -----------------------------------------------------------
     param_bytes = sum(t.numel() * 4 for t in sim.params.values())
@@ -1363,12 +1447,19 @@ def main() -> int:
             functools.partial(wkv6_cuda, *args),
             functools.partial(ref.wkv6_ref, *args),
             200 if t <= WKV_T else 5, wkv_bound(b, t, WKV_H)))
-    timings = {}
+    timings, event_ms = {}, {}
     for name, shape, fn, plain, iters, (b_ms, b_by) in cases:
         ms, plain_ms = time_ms(fn, iters), time_ms(plain, iters)
         timings.setdefault(name, (ms, plain_ms, b_ms, b_by))
+        event_ms[(name, shape)] = ms
         log(f"[time] {name} {shape}: kernel {ms:.4f} ms, plain "
             f"{plain_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by})")
+    for (b, t) in wkv_cases:
+        d_ms, d_by = wkv_design_bound(b, t, WKV_H)
+        f_ms, f_by = wkv_bound(b, t, WKV_H)
+        log(f"[bound] wkv6 B={b} T={t} H={WKV_H} N={WKV_N}: function "
+            f"{f_ms:.6f} ms ({f_by}); the chunked design's own work "
+            f"{d_ms:.6f} ms ({d_by})")
     # the probe's two bounds (its time by phase comes last: see there)
     probe_packs = (
         (f"S={s_main} N={n_main}", s_main, probe_bytes, main_probe, n_main),
@@ -1572,6 +1663,11 @@ def main() -> int:
     model_check("rwkv6-3b", dev, ("S", "x_tm", "x_cm"))
     served = serve_path("rwkv6-3b", {"wkv6": get_arch("rwkv6-3b").num_layers},
                         dev, argv=SERVE_ARGV)
+    # the same CLI with one 4096-token prompt: wkv6 past one time chunk
+    gc.collect()
+    torch.cuda.empty_cache()
+    serve_path("rwkv6-3b", {"wkv6": get_arch("rwkv6-3b").num_layers}, dev,
+               argv=LONG_SERVE_ARGV)
 
     # -- 5b. the dense family: flash_attention, then gemma-2b ----------------
     gc.collect()                      # the rwkv6 weights are gone
@@ -1587,7 +1683,7 @@ def main() -> int:
     gc.collect()                      # the gemma-2b weights are gone
     torch.cuda.empty_cache()
     err_scan = scan_checks(dev)
-    scan_timing = scan_times(dev)
+    scan_timing, scan_event_ms = scan_times(dev)
     model_check(JAMBA, dev, ("k", "v", "conv", "h"), exact=("pos", "idx"),
                 changes=JAMBA_CHECK)
     jamba = get_arch(JAMBA)
@@ -1599,6 +1695,13 @@ def main() -> int:
         JAMBA, {"selective_scan": kinds.count("mamba"),
                 "flash_attention": kinds.count("attn")}, dev, cfg=jamba16,
         **JAMBA_SERVE)
+    # serve() again with one 4096-token prompt (it draws its weights
+    # anew: the first serve's are freed when it returns)
+    gc.collect()
+    torch.cuda.empty_cache()
+    serve_path(JAMBA, {"selective_scan": kinds.count("mamba"),
+                       "flash_attention": kinds.count("attn")}, dev,
+               cfg=jamba16, **JAMBA_LONG_SERVE)
 
     # -- 5d. the client mesh, with probe_loss -------------------------------
     gc.collect()                      # the jamba weights are gone
@@ -1627,6 +1730,25 @@ def main() -> int:
     for label, _, _, inputs, n in probe_packs:
         log_probe_phases(f"probe_fuzzy {label}", functools.partial(
             ops.probe_fuzzy, *inputs, *mam, n_clients=n))
+    # wkv6 by phase and selective_scan, device time per launch at both
+    # shapes, beside the CUDA-event time of back-to-back wrapper calls
+    for (b, t), args in wkv_cases.items():
+        shape = f"B={b} T={t} H={WKV_H} N={WKV_N} bf16"
+        ms = phase_ms(functools.partial(wkv6_cuda, *args), WKV_PHASES,
+                      calls=5)
+        log(f"[profile] wkv6 {shape}: " + ", ".join(
+            f"phase {k} {v:.4f} ms" for k, v in ms.items())
+            + f"; device {sum(ms.values()):.4f} ms a launch; CUDA events "
+            f"over back-to-back wrapper calls "
+            f"{event_ms[('wkv6', shape)]:.4f} ms")
+    from repro_torch.kernels.selective_scan import selective_scan_cuda
+    for case, ev_ms in scan_event_ms.items():
+        args = scan_inputs(case, torch.bfloat16, dev, seed=2)
+        ms = phase_ms(functools.partial(selective_scan_cuda, *args),
+                      SCAN_PHASES, calls=5)
+        log(f"[profile] selective_scan {scan_label(case, torch.bfloat16)}"
+            f": device {ms['scan']:.4f} ms a launch; CUDA events over "
+            f"back-to-back wrapper calls {ev_ms:.4f} ms")
 
     # -- 6. the kernels line ---------------------------------------------------
     meta = {

@@ -9,8 +9,10 @@ sources and flags, so an edited source never loads a stale library.
 compiled at import time.
 
 ``LAUNCHES`` counts the kernel launches of each wrapper: a wrapper adds
-one where it launches its kernel and nowhere else, so a run can show
-that its main path went through the kernels.
+one where it launches its kernel and nowhere else (one per call, also
+where a call runs more than one CUDA kernel, as ``wkv6`` past one time
+chunk does), so a run can show that its main path went through the
+kernels.
 """
 from __future__ import annotations
 
@@ -40,7 +42,7 @@ _SIGNATURES = {
                    "fuzzy_eval_scratch_floats": "i"},
     "neighbor_elect": {"neighbor_elect_launch": "ppiffipp"},
     "windowed_counts": {"windowed_counts_launch": "pppiiiffipp"},
-    "wkv6": {"wkv6_launch": "ppppppiiiiippp"},
+    "wkv6": {"wkv6_launch": "ppppppiiiiipppp"},
     "flash_attention": {"flash_attention_launch": "ppppiiiiiiiiiifp"},
     "selective_scan": {"selective_scan_launch": "ppppppiiiiippp"},
     "probe_loss": {"probe_loss_launch": "pppipipppppppppppppppp"},

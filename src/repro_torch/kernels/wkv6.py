@@ -15,6 +15,7 @@ import torch
 from repro_torch.kernels import build
 
 HEAD_SIZE = 64            # WKV_N in csrc/wkv6.cu: one thread per column
+CHUNK = 64                # WKV_C in csrc/wkv6.cu: steps per time chunk
 _TYPES = (torch.float32, torch.bfloat16)
 
 
@@ -41,11 +42,16 @@ def wkv6_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if b == 0 or h == 0:
         return y, s0.clone()
     s_t = torch.empty((b, h, n, n), dtype=torch.float32, device=r.device)
+    # past one chunk: each chunk's end state and decay product (phases A-C)
+    chunks = -(-t // CHUNK) if t > CHUNK else 0
+    scratch = torch.empty(b * h * chunks * (n * n + n), dtype=torch.float32,
+                          device=r.device)
     lib = build.load("wkv6")
     build.check(lib.wkv6_launch(
         r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
         u.data_ptr(), s0.data_ptr(), b, t, h,
         int(r.dtype == torch.bfloat16), int(w.dtype == torch.bfloat16),
-        y.data_ptr(), s_t.data_ptr(), build.stream_ptr(r)), "wkv6")
+        y.data_ptr(), s_t.data_ptr(), scratch.data_ptr(),
+        build.stream_ptr(r)), "wkv6")
     build.LAUNCHES["wkv6"] += 1
     return y, s_t

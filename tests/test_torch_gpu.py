@@ -278,13 +278,17 @@ def test_windowed_election_equals_dense_kernel_unless_flagged(cuda, kind):
     assert flags == ([1, 0] if kind == "uniform" else [1, 1])
 
 
-def _wkv_inputs(b, t, h, dtype, w_dtype, device, seed=0):
+def _wkv_inputs(b, t, h, dtype, w_dtype, device, seed=0, edge=False):
     """Model-like WKV operands: unit-scale r, k, v, decays over
-    (0.37, 0.9975), a nonzero initial state."""
+    (0.37, 0.9975), a nonzero initial state.  ``edge``: every 7th decay
+    exactly 0, every 11th 1e-31, every 13th 1 - 2^-24."""
     g = torch.Generator().manual_seed(seed)
     r, k, v = (torch.randn(b, t, h, 64, generator=g).to(dtype)
                for _ in range(3))
     w = torch.exp(-torch.exp(torch.rand(b, t, h, 64, generator=g) * 6 - 6))
+    if edge:
+        flat = w.view(-1)
+        flat[::7], flat[3::11], flat[5::13] = 0.0, 1e-31, 1 - 2 ** -24
     u = 0.5 * torch.randn(h, 64, generator=g)
     s0 = torch.randn(b, h, 64, 64, generator=g)
     return [z.to(device) for z in (r, k, v, w.to(w_dtype), u, s0)]
@@ -329,6 +333,30 @@ def test_wkv6_kernel_is_bit_repeatable(cuda):
     assert torch.equal(y1, y2) and torch.equal(s1, s2)
     y0, _ = ref.wkv6_ref(*args)
     assert _scaled_err(y1, y0) <= 1e-5
+
+
+@pytest.mark.parametrize("b,t,h", [
+    (1, 64, 40),       # one time chunk (C = 64): phase A alone
+    (1, 65, 40),       # C + 1: phases B and C over a one-step chunk
+    (1, 129, 40),      # 2C + 1
+    (4, 129, 40),      # B * H = 160
+    (1, 4096, 40)])    # the long prompt, 64 chunks
+def test_wkv6_kernel_edge_cases_match_plain_and_repeat(cuda, b, t, h):
+    """About the kernel's time chunk, with decays of exactly 0, 1e-31
+    and 1 - 2^-24 and a nonzero s0: y and sT within 1e-5 of scale, one
+    launch counted per call, and a second call equal bit for bit."""
+    from repro_torch.kernels.wkv6 import wkv6_cuda
+    args = _wkv_inputs(b, t, h, torch.bfloat16, torch.float32, cuda,
+                       seed=t + b, edge=True)
+    before = build.LAUNCHES["wkv6"]
+    (y, s_t), (y2, s_t2) = wkv6_cuda(*args), wkv6_cuda(*args)
+    assert build.LAUNCHES["wkv6"] == before + 2
+    want_y, want_s = ref.wkv6_ref(*args)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(y).all())
+    assert _scaled_err(y, want_y) <= 1e-5
+    assert _scaled_err(s_t, want_s) <= 1e-5
+    assert torch.equal(y, y2) and torch.equal(s_t, s_t2)
 
 
 def test_rwkv_prefill_launches_wkv6_once_per_layer(cuda):
@@ -473,8 +501,11 @@ def test_gemma_prefill_launches_flash_attention_once_per_layer(cuda):
 
 # the selective scan at chip_smoke.py's shapes: (B, T, Di, N); the first
 # is jamba's serving prefill (Di = 2 x 4096), the second a long prompt,
-# the last an odd Di and T with N under the template's 16
-SCAN_CASES = [(4, 64, 8192, 16), (1, 4096, 8192, 16), (3, 77, 300, 7)]
+# the third an odd Di and T with N under 8 (padded), then N = 32 (4
+# states a lane) at the long prompt and a Di that is no multiple of a
+# block's 16 channels
+SCAN_CASES = [(4, 64, 8192, 16), (1, 4096, 8192, 16), (3, 77, 300, 7),
+              (1, 4096, 8192, 32), (2, 100, 8200, 16)]
 
 
 def _scan_inputs(b, t, di, n, dtype, device, seed=0):
@@ -516,6 +547,16 @@ def test_selective_scan_kernel_matches_plain(cuda, b, t, di, n, dtype):
 def test_selective_scan_kernel_is_bit_repeatable(cuda):
     from repro_torch.kernels.selective_scan import selective_scan_cuda
     args = _scan_inputs(4, 64, 8192, 16, torch.bfloat16, cuda, seed=1)
+    (y1, h1), (y2, h2) = selective_scan_cuda(*args), selective_scan_cuda(*args)
+    assert torch.equal(y1, y2) and torch.equal(h1, h2)
+
+
+@pytest.mark.parametrize("b,t,di,n", SCAN_CASES)
+def test_selective_scan_kernel_repeats_at_every_case(cuda, b, t, di, n):
+    """bf16 inputs: a second call equal bit for bit (the lanes' partial
+    sums meet in a fixed shuffle tree; no atomics)."""
+    from repro_torch.kernels.selective_scan import selective_scan_cuda
+    args = _scan_inputs(b, t, di, n, torch.bfloat16, cuda, seed=2)
     (y1, h1), (y2, h2) = selective_scan_cuda(*args), selective_scan_cuda(*args)
     assert torch.equal(y1, y2) and torch.equal(h1, h2)
 
