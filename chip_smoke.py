@@ -103,13 +103,37 @@ Phases (any failure exits non-zero; no phase's exception is caught):
    masks and evals equal phase 5's single-device round 0; each rank's
    ``probe_loss`` time, the round's wall time and the host-staged
    collective bytes are printed (readings: four ranks share one card);
+5e. the paper's profile (``paper_config("dcs")``: Table 3's 30 local
+   epochs, a 20 s deadline, 12 clients of 4500 samples and 18 of 45),
+   round 0 through ``drive_rounds`` at the full 30 epochs (the Eq. 6
+   deadline drops every 4500-sample client, so only the 60-cap cohort
+   trains: 90 local-SGD steps): ``probe_fuzzy`` and ``neighbor_elect``
+   launch once each and nothing else, the prefix's masks equal the
+   port's CPU plain path on the same fields (evals within 1e-3, a
+   mismatch only at a near-tie, C3), the row carries the reference's
+   14 keys in order and its comm columns equal ``core/overhead.py``
+   computed here (==); prefix s, round s, steps per group and ms per
+   local-SGD step (the training half timed alone) are printed; then the
+   fast profile's round 0 under deterministic algorithms: the loop
+   engine against the batched one (masks, counts and comm columns
+   equal; fp64 training halves within 1e-6, the fp32 gap a reading)
+   and FedProx (mu 0.01), the card against the CPU in fp64 within
+   1e-6; then ``python -m repro_torch.launch.fl_sim --scheme all
+   --rounds 1 --out`` and ``--paper-profile --scheme dcs --rounds 1
+   --out``: rc 0, every scheme's rows with the reference's keys in
+   order, the paper CLI's launch line ``probe_fuzzy`` 1 and
+   ``neighbor_elect`` 1, its comm columns == ``core/overhead.py``, no
+   temporary file left;
 6. the probe's time split by phase (conv, fc1, fc2 + NLL, the client
    sums) with ``torch.profiler`` at the fast profile's and the large
    fleet's packs, last, since launches cost more in a process once the
    profiler has run; ``wkv6``'s device time per launch by phase (A, B,
    C) and ``selective_scan``'s at their two shapes, beside their
-   CUDA-event times; then ``{"kernels": [...]}`` on the line before the
-   last;
+   CUDA-event times; the device time per launch of ``fuzzy_eval`` (P =
+   30), ``neighbor_elect`` (N = 30) and ``windowed_counts`` (M = 4096
+   and 65,536) beside their CUDA-event times and a one-element in-place
+   add's, the card's launch floor; then ``{"kernels": [...]}`` on the
+   line before the last;
 7. ``{"ok": true, "device": {...}}`` as the last line.
 """
 from __future__ import annotations
@@ -220,6 +244,16 @@ JAMBA_LONG_SERVE = dict(JAMBA_SERVE, batch=1, prompt_len=LONG_PROMPT,
 # long prompt and a Di that is no multiple of a block's 16 channels
 SCAN_CASES = [(4, 64, 8192, 16), (1, 4096, 8192, 16), (3, 77, 300, 7),
               (1, 4096, 8192, 32), (2, 100, 8200, 16)]
+# the keys of the reference's rows, in its order
+# (``repro.fl.rounds.FLSimulation._round_row``)
+ROW_KEYS = ["round", "accuracy", "n_selected", "n_aggregated",
+            "n_straggler", "n_active", "stale_frac", "n_effective",
+            "rounds_behind_hist", "mean_eval_selected", "state_bytes",
+            "upload_bytes", "state_time_s", "comm_time_s"]
+# the §4.2 accumulated-time model of each scheme (core/overhead.py keys)
+OVERHEAD_KEYS = {"dcs": "dcs", "ccs-fuzzy": "ccs-fuzzy", "random": "cfl"}
+# FedProx's mu in phase 5e's check
+PROX_MU = 0.01
 # exp (one MUFU.EX2 each) per second: 16 per SM per clock, 132 SMs at
 # the H100 SXM's 1.98 GHz boost clock
 SFU_EXP_PER_S = 16 * 132 * 1.98e9
@@ -1055,6 +1089,244 @@ def fast_config_dcs(n_rounds: int):
     return fast_config("dcs", n_rounds=n_rounds)
 
 
+def eval_margin(evals, e_tau: float) -> float:
+    """Smallest gap between two evaluations or to E_tau: how close the
+    round came to a tie that fp32 rounding could flip (ROADMAP C3)."""
+    import numpy as np
+    e = np.sort(np.asarray(evals, np.float64))
+    gaps = np.diff(e)
+    return float(min(np.abs(e - e_tau).min(),
+                     gaps.min() if gaps.size else math.inf))
+
+
+def comm_columns(cfg, n: int, n_selected: int) -> dict:
+    """A row's §4.2 columns, computed here from ``core/overhead.py``."""
+    from repro_torch.core import overhead as oh
+    key = OVERHEAD_KEYS[cfg.scheme]
+    p = oh.IoVParams(n_participants=n, clients_per_round=n_selected,
+                     round_period_s=cfg.deadline_s,
+                     model_bytes=cfg.model_bytes,
+                     state_bytes_cfl=cfg.state_bytes,
+                     state_bytes_ccs_fuzzy=cfg.eval_bytes,
+                     eval_bytes_dcs=cfg.eval_bytes,
+                     uplink_bps_best=cfg.network.best_rate_bps,
+                     uplink_bps_worst=cfg.network.worst_rate_bps)
+    comm = oh.accumulated_time_s(key, cfg.state_interval_s, p)
+    return {"state_bytes": oh.state_maintenance_bytes(
+                n, cfg.state_bytes if key == "cfl" else cfg.eval_bytes,
+                cfg.deadline_s, cfg.state_interval_s),
+            "upload_bytes": oh.model_upload_bytes(n_selected,
+                                                  cfg.model_bytes),
+            "state_time_s": comm - oh.accumulated_time_s(
+                "model-only", cfg.state_interval_s, p),
+            "comm_time_s": comm}
+
+
+def paper_round(dev) -> dict:
+    """Phase 5e's main path: ``paper_config("dcs")`` round 0 on the card
+    through ``drive_rounds`` (the counts reset just before, read just
+    after), the full 30 local epochs.  Round 0's prefix against the
+    port's CPU plain path on the same fields (evals within 1e-3; masks
+    equal unless the CPU's evals hold a near-tie within the gap, C3);
+    the launches exactly ``probe_fuzzy`` 1 and ``neighbor_elect`` 1;
+    the row's keys the reference's, in order, and its comm columns ==
+    ``comm_columns``.  Then the training half alone from the same params
+    and survivors, timed, for the ms per local-SGD step.  Returns the
+    launches."""
+    import numpy as np
+    import torch
+    from repro_torch.fl import pipeline
+    from repro_torch.fl.rounds import FLSimulation
+    from repro_torch.fl.runconfig import RunConfig
+    from repro_torch.launch.fl_sim import drive_rounds, paper_config
+    t0 = time.perf_counter()
+    sim = FLSimulation(paper_config("dcs"), run=RunConfig(), device=dev)
+    cpu = FLSimulation(paper_config("dcs"), run=RunConfig(), device="cpu")
+    build_s = time.perf_counter() - t0
+    params0 = {k: v.clone() for k, v in sim.params.items()}
+    cpu.params = {k: v.cpu() for k, v in params0.items()}
+    fields = sim.round_fields(0)
+    got, want = sim.selection_state(0, fields), cpu.selection_state(0, fields)
+    ev_err = float((got["evals"].cpu() - want["evals"]).abs().max())
+    margin = eval_margin(want["evals"].numpy(), sim.cfg.e_tau)
+    survivors = got["survivors"].cpu().numpy()
+
+    res = drive_rounds(sim, 1)
+    row, launches = res["rows"][0], res["launches"]
+    same = bool(np.array_equal(res["mask0"], want["mask"].numpy()))
+    cols = comm_columns(sim.cfg, sim.n, row["n_selected"])
+    cols_ok = list(row) == ROW_KEYS and all(row[k] == v
+                                            for k, v in cols.items())
+    launch_ok = launches == {k: int(k in ("probe_fuzzy", "neighbor_elect"))
+                             for k in launches}
+
+    c = sim.cfg
+    steps = {g.cap: sim._group_steps[gi] * c.local_epochs
+             for gi, g in enumerate(sim.groups)
+             if survivors[g.client_ids].any()}
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    trained = pipeline.aggregate(params0, pipeline.train_groups(
+        params0, sim.groups, sim._group_steps, survivors,
+        lambda i: fields.perms[i], epochs=c.local_epochs,
+        batch_size=c.batch_size, lr=c.lr))
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t
+    n_steps = sum(steps.values())
+    per_step = (f"{1e3 * train_s / n_steps:.4f} ms a local-SGD step"
+                if n_steps else "no local-SGD step")
+    finite = all(bool(torch.isfinite(v).all()) for v in trained.values())
+    log(f"[paper] dcs round 0 (paper_config: {c.local_epochs} local "
+        f"epochs, deadline {c.deadline_s} s, caps "
+        f"{[g.cap for g in sim.groups]}): {int(survivors.sum())} "
+        f"survivor(s); prefix {res['prefix_s'][0]:.4f} s, round "
+        f"{res['round_s'][0]:.4f} s; training half alone {train_s:.4f} s "
+        f"over {n_steps} steps (by group cap: {steps}), {per_step}; "
+        f"simulations built in {build_s:.1f}s (card and CPU)")
+    log(f"[paper] row {json.dumps(row)}")
+    ok = (ev_err <= 1e-3 and (same or margin <= 2 * ev_err) and cols_ok
+          and launch_ok and finite and 0.0 <= row["accuracy"] <= 1.0)
+    log(f"[check] paper round 0: prefix cuda vs cpu eval max abs err "
+        f"{ev_err:.3g} (tol 1e-3), masks equal {same} (smallest eval "
+        f"margin {margin:.3g}); row keys and comm columns == "
+        f"core/overhead.py {cols_ok}; launches {launches} "
+        f"{'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the paper profile's round 0 is wrong")
+    return launches
+
+
+def engines_and_prox(dev) -> None:
+    """Phase 5e on the fast profile's round 0, under deterministic
+    algorithms: the loop engine against the batched one (fp32 rounds
+    through ``run_round``: masks and integer and comm columns equal,
+    the params' gap a reading; fp64 training halves from the same params
+    and survivors: within 1e-6), then FedProx (``prox_mu`` = PROX_MU),
+    the card's fp64 training half against the CPU's, within 1e-6."""
+    import numpy as np
+    import torch
+    from repro_torch.fl import pipeline
+    from repro_torch.fl.rounds import FLSimulation
+    from repro_torch.fl.runconfig import RunConfig
+
+    def gap(a, b):
+        return max(float((a[k].cpu() - b[k].cpu()).abs().max()) for k in a)
+
+    def fp64(sim, device):
+        return ({k: v.to(device, torch.float64)
+                 for k, v in sim.params.items()},
+                [dataclasses.replace(g, images=g.images.astype(np.float64))
+                 for g in sim.groups])
+
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cudnn.deterministic = True
+    try:
+        sims = {e: FLSimulation(fast_config_dcs(1), run=RunConfig(engine=e),
+                                device=dev) for e in ("batched", "loop")}
+        start = {e: fp64(s, dev) for e, s in sims.items()}
+        fields = sims["loop"].round_fields(0)
+        survivors = sims["loop"]._host(
+            sims["loop"].selection_state(0, fields))["survivors"]
+        perms = lambda i: fields.perms[i]
+        rows = {e: s.run_round(0) for e, s in sims.items()}
+        same_mask = bool(np.array_equal(sims["loop"].last_mask,
+                                        sims["batched"].last_mask))
+        keys = [k for k in ROW_KEYS if k not in ("accuracy",
+                                                 "mean_eval_selected")]
+        same_rows = all(rows["loop"][k] == rows["batched"][k] for k in keys)
+        gap32 = gap(sims["loop"].params, sims["batched"].params)
+        for e, s in sims.items():
+            s.params, s.groups = start[e]
+        sims["batched"]._train_batched(survivors, perms)
+        sims["loop"]._train_loop(survivors, perms)
+        gap64 = gap(sims["loop"].params, sims["batched"].params)
+
+        sim, (params64, groups64) = sims["batched"], start["batched"]
+        c = sim.cfg
+
+        def prox_half(device, mu):
+            params = {k: v.to(device) for k, v in params64.items()}
+            return pipeline.aggregate(params, pipeline.train_groups(
+                params, groups64, sim._group_steps, survivors, perms,
+                epochs=c.local_epochs, batch_size=c.batch_size, lr=c.lr,
+                prox_mu=mu))
+        prox_card = prox_half(dev, PROX_MU)
+        prox_gap = gap(prox_card, prox_half("cpu", PROX_MU))
+        pull = gap(prox_card, prox_half(dev, 0.0))
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic = False
+    ok = (same_mask and same_rows and gap64 <= 1e-6 and prox_gap <= 1e-6
+          and pull > 0.0 and int(survivors.sum()) > 0)
+    log(f"[check] loop vs batched engine, fast round 0 (deterministic): "
+        f"masks equal {same_mask}, counts and comm columns equal "
+        f"{same_rows}, accuracy {rows['loop']['accuracy']:.4f} / "
+        f"{rows['batched']['accuracy']:.4f}; params max abs gap fp64 "
+        f"{gap64:.3g} (tol 1e-6), fp32 {gap32:.3g} (a reading); FedProx mu "
+        f"{PROX_MU} fp64 cuda vs cpu {prox_gap:.3g} (tol 1e-6), its pull "
+        f"from mu = 0 {pull:.3g} {'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the loop engine or FedProx is wrong")
+
+
+def fl_sim_cli(args, out_path) -> tuple:
+    """``python -m repro_torch.launch.fl_sim ARGS --out OUT_PATH`` from
+    the checkout: (seconds, stdout lines, the JSON it wrote); the rows
+    of every scheme carry the reference's keys in order."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.fl_sim", *args, "--out",
+         str(out_path)], cwd=ROOT,
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+        capture_output=True, text=True, timeout=600)
+    secs = time.perf_counter() - t0
+    lines = proc.stdout.strip().splitlines()
+    for line in lines:
+        log(f"[cli] {line}")
+    if proc.returncode != 0:
+        log(proc.stderr[-4000:])
+        raise AssertionError(f"fl_sim {args} exited {proc.returncode}")
+    results = json.loads(Path(out_path).read_text())
+    if not results or any(not rows or any(list(r) != ROW_KEYS for r in rows)
+                          for rows in results.values()):
+        raise AssertionError(f"fl_sim {args} wrote rows without the "
+                             f"reference's keys")
+    return secs, lines, results
+
+
+def paper_clis() -> None:
+    """The CLI with ``--out``: the fast profile, every scheme, 1 round;
+    then ``--paper-profile --scheme dcs --rounds 1``, whose launch line
+    must read ``probe_fuzzy`` 1 and ``neighbor_elect`` 1 and whose row's
+    comm columns == ``comm_columns``."""
+    import tempfile
+    from repro_torch.launch.fl_sim import paper_config
+    with tempfile.TemporaryDirectory() as tmp:
+        fast_s, _, fast = fl_sim_cli(
+            ["--scheme", "all", "--rounds", "1"], Path(tmp) / "fl.json")
+        paper_s, lines, paper = fl_sim_cli(
+            ["--paper-profile", "--scheme", "dcs", "--rounds", "1"],
+            Path(tmp) / "paper.json")
+        left = sorted(os.listdir(tmp))
+    launches = json.loads(next(line for line in lines
+                               if line.startswith("[fl_sim] launches "))
+                          .split("launches ", 1)[1])
+    row = paper["dcs"][0]
+    cols = comm_columns(paper_config("dcs"), 30, row["n_selected"])
+    ok = (sorted(fast) == sorted(OVERHEAD_KEYS) and list(paper) == ["dcs"]
+          and all(row[k] == v for k, v in cols.items())
+          and launches == {k: int(k in ("probe_fuzzy", "neighbor_elect"))
+                           for k in launches}
+          and left == ["fl.json", "paper.json"])
+    log(f"[check] fl_sim --out: --scheme all --rounds 1 ({fast_s:.1f}s) "
+        f"wrote {sorted(fast)} with the reference's keys; --paper-profile "
+        f"--scheme dcs --rounds 1 ({paper_s:.1f}s): launches {launches}, "
+        f"comm columns == core/overhead.py, files left {left} "
+        f"{'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("fl_sim --out is wrong")
+
+
 def large_fleet_rank(mesh, cfg, run):
     """One rank of the large fleet's 4-way mesh: round 0 with the launch
     counts reset just before and read just after, then ``probe_loss``
@@ -1119,6 +1391,14 @@ def mesh_large_fleet(dev, big0):
         raise AssertionError("the 4-rank large fleet differs from one device")
     return {k: sum(r["launches"][k] for r in ranks)
             for k in ranks[0]["launches"]}
+
+
+# phase 6's small kernels: the CUDA kernels each wrapper launches
+SMALL_KERNEL_NAMES = {"fuzzy_eval": ("colmax_partial_kernel",
+                                     "colmax_fold_kernel",
+                                     "fuzzy_eval_kernel"),
+                      "neighbor_elect": ("neighbor_elect_kernel",),
+                      "windowed_counts": ("windowed_counts_kernel",)}
 
 
 def main() -> int:
@@ -1712,6 +1992,13 @@ def main() -> int:
     mesh_fast(dev)
     mesh_launches = mesh_large_fleet(dev, big0)
 
+    # -- 5e. the paper's profile, the loop engine, FedProx, --out -----------
+    gc.collect()
+    torch.cuda.empty_cache()
+    paper_launches = paper_round(dev)
+    engines_and_prox(dev)
+    paper_clis()
+
     launches = {"probe_fuzzy": fused["probe_fuzzy"],
                 "neighbor_elect": fused["neighbor_elect"],
                 "fuzzy_eval": unfused["fuzzy_eval"],
@@ -1721,7 +2008,8 @@ def main() -> int:
                 "selective_scan": served_hybrid["selective_scan"],
                 "probe_loss": mesh_launches["probe_loss"]}
     if (min(launches.values()) <= 0 or unfused["neighbor_elect"] <= 0
-            or windowed["probe_fuzzy"] != 2 + n_over):
+            or windowed["probe_fuzzy"] != 2 + n_over
+            or paper_launches["probe_fuzzy"] != 1):
         raise AssertionError(f"a kernel of the path never ran: {launches}")
 
     # the probe's time split by phase, after every other timing: once
@@ -1749,6 +2037,27 @@ def main() -> int:
         log(f"[profile] selective_scan {scan_label(case, torch.bfloat16)}"
             f": device {ms['scan']:.4f} ms a launch; CUDA events over "
             f"back-to-back wrapper calls {ev_ms:.4f} ms")
+
+    # the three small kernels not redesigned (PERF.md: launch-bound):
+    # device time per launch beside the CUDA-event time of back-to-back
+    # wrapper calls, and a one-element in-place add, the card's launch
+    # floor
+    one = torch.zeros(1, device=dev)
+    floor_ms = phase_ms(lambda: one.add_(1.0),
+                        (("add", ("at::native::",)),), calls=200)["add"]
+    log(f"[profile] launch floor: a one-element in-place add, device "
+        f"{floor_ms:.4f} ms a launch")
+    small = {("fuzzy_eval", f"P={n_main} normalize=True"),
+             ("neighbor_elect", f"N={n_main}"),
+             ("windowed_counts", f"M={big.n} window {window_big}"),
+             ("windowed_counts", f"M=65536 window {window_h}")}
+    for name, shape, fn, _, _, _ in cases:
+        if (name, shape) not in small:
+            continue
+        ms = phase_ms(fn, ((name, SMALL_KERNEL_NAMES[name]),), calls=200)
+        log(f"[profile] {name} {shape}: device {ms[name]:.4f} ms a launch "
+            f"({ms[name] / floor_ms:.2f}x the floor); CUDA events over "
+            f"back-to-back wrapper calls {event_ms[(name, shape)]:.4f} ms")
 
     # -- 6. the kernels line ---------------------------------------------------
     meta = {

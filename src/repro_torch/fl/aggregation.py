@@ -1,14 +1,18 @@
-"""Model aggregation (paper Eq. 2).
+"""Model aggregation (paper Eq. 2) and FedProx's proximal gradient.
 
 FedAvg: w_g = sum_i (|D_i|/|D|) w_i over the models that arrived before
-the deadline.  With a ``mesh`` (``launch/mesh.py``), the leading client
-axis holds only this rank's share of the cohort, and the sums finish
-with an all-reduce over the ranks, so the average lands on every rank
-without the ranks' model stacks ever being gathered.
+the deadline.  FedProx (cited as [17]) adds mu/2 * ||w - w_g||^2 to the
+local objective, which the local trainer takes as the gradient term
+``prox_grad``.  ``fedavg`` averages a list of models (the loop engine);
+``fedavg_masked`` a leading client axis (the batched engine).  With a
+``mesh`` (``launch/mesh.py``), the leading client axis holds only this
+rank's share of the cohort, and the sums finish with an all-reduce over
+the ranks, so the average lands on every rank without the ranks' model
+stacks ever being gathered.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -27,6 +31,24 @@ def _psum_flat(mesh: ClientMesh, parts: Dict[str, torch.Tensor]
         out[key] = flat[at:at + v.numel()].reshape(v.shape)
         at += v.numel()
     return out
+
+
+def fedavg(models: Sequence[Params], weights: Sequence[float]) -> Params:
+    """Eq. 2 over a list of models: the sample-quantity-weighted
+    average, each leaf summed in fp32 in list order."""
+    first = models[0]
+    w = torch.as_tensor(weights, dtype=torch.float32,
+                        device=next(iter(first.values())).device)
+    w = w / torch.clamp(w.sum(), min=1e-9)
+    return {k: torch.tensordot(w, torch.stack([m[k] for m in models])
+                               .float(), dims=1).to(leaf.dtype)
+            for k, leaf in first.items()}
+
+
+def prox_grad(params: Params, global_params: Params, mu: float) -> Params:
+    """FedProx's proximal gradient: mu * (w - w_g), leaf by leaf (a
+    leading client axis on ``params`` broadcasts against w_g's)."""
+    return {k: mu * (p - global_params[k]) for k, p in params.items()}
 
 
 def fedavg_masked(stacked_models: Params, weights: torch.Tensor,

@@ -7,7 +7,10 @@
   grouped convolution, and one backward pass over the sum of the
   clients' losses gives each client its own gradient.  The per-epoch
   sample permutations are an input (``perms``), so the port and the
-  reference can train on the same batches;
+  reference can train on the same batches.  ``prox_mu > 0`` adds
+  FedProx's proximal gradient mu * (w - w_g) to every step;
+- ``local_train``: one client's Eq. 1 loop (the loop engine's), a
+  cohort of one;
 - ``evaluate_accuracy``: test-set accuracy of the global model.
 """
 from __future__ import annotations
@@ -16,6 +19,7 @@ from typing import Dict, Tuple
 
 import torch
 
+from repro_torch.fl.aggregation import prox_grad
 from repro_torch.models.cnn import (cnn_forward, cnn_forward_stacked,
                                     cnn_sample_losses, sample_nll)
 from repro_torch.train.optim import sgd_update
@@ -57,17 +61,21 @@ def _sample_nll(logits: torch.Tensor, labels: torch.Tensor,
 def local_train_batch(params: Params, images: torch.Tensor,
                       labels: torch.Tensor, n_valid: torch.Tensor,
                       perms: torch.Tensor, *, epochs: int, batch_size: int,
-                      steps_per_epoch: int,
-                      lr: float = 0.05) -> Tuple[Params, torch.Tensor]:
+                      steps_per_epoch: int, lr: float = 0.05,
+                      prox_mu: float = 0.0) -> Tuple[Params, torch.Tensor]:
     """Eq. 1 local SGD for a cohort of C clients from the shared global
     ``params``.  images (C, cap, 28, 28, 1), labels (C, cap), n_valid
-    (C,), perms (epochs, C, cap) int64 sample orders.  Returns (stacked
-    params with a leading client axis, (C,) mean last-epoch losses)."""
+    (C,), perms (epochs, C, cap) int64 sample orders.  ``prox_mu > 0``
+    adds ``prox_grad(w, w_g, prox_mu)`` to each step's gradient, w_g the
+    global params broadcast over the cohort; at 0 the term is skipped,
+    not added as zeros.  Returns (stacked params with a leading client
+    axis, (C,) mean last-epoch losses)."""
     c, cap = images.shape[:2]
     batch_size = min(batch_size, cap)
     steps_per_epoch = max(1, steps_per_epoch)
     p = {k: v.detach()[None].expand(c, *v.shape).clone()
          for k, v in params.items()}
+    global_stacked = {k: v.detach()[None] for k, v in params.items()}
     rows = torch.arange(c, device=images.device)[:, None]
     last = torch.zeros(c, device=images.device)
     for e in range(epochs):
@@ -80,12 +88,31 @@ def local_train_batch(params: Params, images: torch.Tensor,
             leaves = {k: v.requires_grad_(True) for k, v in p.items()}
             loss = _sample_nll(cnn_forward_stacked(leaves, ep_images[:, sl]),
                                ep_labels[:, sl], ep_mask[:, sl])
-            g = torch.autograd.grad(loss.sum(), list(leaves.values()))
+            g = dict(zip(leaves, torch.autograd.grad(
+                loss.sum(), list(leaves.values()))))
             with torch.no_grad():
-                p = sgd_update(p, dict(zip(leaves, g)), lr)
+                if prox_mu > 0.0:
+                    pg = prox_grad(p, global_stacked, prox_mu)
+                    g = {k: g[k] + pg[k] for k in g}
+                p = sgd_update(p, g, lr)
             losses.append(loss.detach())
         last = torch.stack(losses).mean(dim=0)
     return p, last
+
+
+def local_train(params: Params, images: torch.Tensor, labels: torch.Tensor,
+                n_valid: torch.Tensor, perms: torch.Tensor, *, epochs: int,
+                batch_size: int, steps_per_epoch: int, lr: float = 0.05,
+                prox_mu: float = 0.0) -> Tuple[Params, torch.Tensor]:
+    """One client's Eq. 1 local SGD (the loop engine's call): images
+    (cap, 28, 28, 1), labels (cap,), n_valid a scalar, perms (epochs,
+    cap), trained as a cohort of one.  Returns (params, mean last-epoch
+    loss)."""
+    p, loss = local_train_batch(
+        params, images[None], labels[None], n_valid.reshape(1),
+        perms[:, None], epochs=epochs, batch_size=batch_size,
+        steps_per_epoch=steps_per_epoch, lr=lr, prox_mu=prox_mu)
+    return {k: v[0] for k, v in p.items()}, loss[0]
 
 
 @torch.no_grad()

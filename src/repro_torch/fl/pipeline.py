@@ -227,7 +227,7 @@ def cohort_bucket(k: int) -> int:
 def train_groups(params: Params, groups: Sequence[ClientGroup],
                  group_steps: Sequence[int], survivors: np.ndarray,
                  perms: Callable[[int], torch.Tensor], *, epochs: int,
-                 batch_size: int, lr: float
+                 batch_size: int, lr: float, prox_mu: float = 0.0
                  ) -> Optional[Tuple[Params, torch.Tensor]]:
     """Local-training stage (Eq. 1): one ``local_train_batch`` per
     capacity group over that group's surviving cohort.
@@ -254,7 +254,7 @@ def train_groups(params: Params, groups: Sequence[ClientGroup],
             torch.as_tensor(g.n_valid[idx], device=dev),
             torch.stack([torch.as_tensor(perms(int(i))) for i in ids], 1),
             epochs=epochs, batch_size=batch_size,
-            steps_per_epoch=group_steps[gi], lr=lr)
+            steps_per_epoch=group_steps[gi], lr=lr, prox_mu=prox_mu)
         w = g.n_valid[idx].astype(np.float32)
         w[k:] = 0.0                          # padding duplicates drop out
         stacks.append(stacked)
@@ -389,7 +389,8 @@ def train_group_cohort_sharded(params: Params, group: ClientGroup,
                                weights: np.ndarray,
                                perms: Callable[[int], torch.Tensor],
                                mesh: ClientMesh, *, epochs: int,
-                               batch_size: int, lr: float
+                               batch_size: int, lr: float,
+                               prox_mu: float = 0.0
                                ) -> Tuple[Params, torch.Tensor]:
     """One capacity group's cohort ``idx`` (group-local rows, a multiple
     of the shards long) on the mesh: this rank trains its equal slice
@@ -406,7 +407,7 @@ def train_group_cohort_sharded(params: Params, group: ClientGroup,
         torch.stack([torch.as_tensor(perms(int(i)))
                      for i in group.client_ids[idx]], 1),
         epochs=epochs, batch_size=batch_size,
-        steps_per_epoch=steps_per_epoch, lr=lr)
+        steps_per_epoch=steps_per_epoch, lr=lr, prox_mu=prox_mu)
     return fedavg_sums(stacked, torch.as_tensor(weights[part], device=dev),
                        mesh)
 
@@ -415,7 +416,8 @@ def train_groups_sharded(params: Params, groups: Sequence[ClientGroup],
                          group_steps: Sequence[int], survivors: np.ndarray,
                          perms: Callable[[int], torch.Tensor],
                          mesh: ClientMesh, *, epochs: int, batch_size: int,
-                         lr: float) -> Optional[Tuple[Params, torch.Tensor]]:
+                         lr: float, prox_mu: float = 0.0
+                         ) -> Optional[Tuple[Params, torch.Tensor]]:
     """``train_groups`` on the client mesh: per capacity group, each rank
     trains its slice of the surviving cohort; the Eq. 2 numerator and
     denominator add across ranks (all-reduce in ``fedavg_sums``) and
@@ -436,7 +438,7 @@ def train_groups_sharded(params: Params, groups: Sequence[ClientGroup],
         w[k:] = 0.0                          # padding duplicates drop out
         num, den = train_group_cohort_sharded(
             params, g, group_steps[gi], idx, w, perms, mesh, epochs=epochs,
-            batch_size=batch_size, lr=lr)
+            batch_size=batch_size, lr=lr, prox_mu=prox_mu)
         if num_tot is None:
             num_tot, den_tot = num, den
         else:

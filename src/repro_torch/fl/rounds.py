@@ -5,10 +5,20 @@ mobility, the Reno throughput predictor, the Eq. 6 timing model, the
 fuzzy evaluator and one of the three selection schemes.  Each round:
 the selection prefix (probe -> evaluate -> select -> deadline) runs on
 the device (``fl/pipeline.py``); the survivors cross to the host once,
-at the cohort gather; each capacity group's cohort trains with one
-batched local-SGD call; masked FedAvg and the test accuracy close it.
-A round whose windowed election overflowed re-runs its prefix through
-the dense election on the same draws before the gather.
+at the cohort gather; then one of two engines trains and aggregates:
+
+- ``engine="batched"`` (default): each capacity group's cohort trains
+  with one batched local-SGD call, and masked FedAvg folds the groups;
+- ``engine="loop"``: each survivor trains alone (``client.local_train``)
+  at its group's cap and steps, on the same permutations, and the list
+  ``fedavg`` averages them, in client order (the reference's loop).
+
+An empty round is a no-op broadcast in both.  The test accuracy and
+the row close the round; the row carries the reference's columns,
+the synchronous server's async columns and the §4.2 communication
+accounting (``_comm_accounting``, ``core/overhead.py``).  A round whose
+windowed election overflowed re-runs its prefix through the dense
+election on the same draws before the gather.
 
 Built on a rank of the client mesh (``mesh=``, ``launch/mesh.py``), the
 simulation runs the round's client axis over the K ranks, as the
@@ -16,10 +26,12 @@ reference's does under ``--mesh clients=K``: the rank keeps its own
 region of the probe pack on its device, runs the sharded prefix
 (``pipeline.selection_prefix_sharded``), gathers the round's (N,) mask
 and survivors once, trains its slice of each capacity group's cohort
-and closes FedAvg with an all-reduce (``train_groups_sharded``).  Every
-rank ends the round with the same global model and row.
+and closes FedAvg with an all-reduce (``train_groups_sharded``); the
+loop engine trains every survivor on every rank, as the reference's
+does on its mesh.  Every rank ends the round with the same global model
+and row.
 
-The batched engine and the serial driver are ported.  Randomness comes
+Both engines and the serial driver are ported.  Randomness comes
 from ``torch.Generator``s seeded from ``FLSimConfig.seed``, or from an
 injected ``fields(rnd) -> RoundFields`` (the parity tests feed the
 reference's draws through it).
@@ -34,10 +46,14 @@ import torch
 
 from repro_torch.configs.mnist_cnn import CONFIG as CNN_CFG
 from repro_torch.core.fuzzy import FuzzyEvaluatorConfig, default_level_centers
+from repro_torch.core.overhead import (IoVParams, accumulated_time_s,
+                                       model_upload_bytes,
+                                       state_maintenance_bytes)
 from repro_torch.data.synthetic import make_dataset, train_test_split
 from repro_torch.device import fp32_strict, resolve_device
 from repro_torch.fl import pipeline
-from repro_torch.fl.client import PROBE_BATCH, evaluate_accuracy
+from repro_torch.fl.aggregation import fedavg
+from repro_torch.fl.client import PROBE_BATCH, evaluate_accuracy, local_train
 from repro_torch.fl.mobility import FreewayMobility, MobilityConfig
 from repro_torch.fl.network import (NetworkConfig, draw_round_fields,
                                     pinned_channel_shadow)
@@ -61,11 +77,16 @@ class FLSimConfig:
     local_epochs: int = 2
     batch_size: int = 20
     lr: float = 0.05
+    prox_mu: float = 0.0                 # >0 enables FedProx
     deadline_s: float = 60.0
     model_bytes: float = 5.2e6
+    state_bytes: float = 100.0           # §4.2 state message (CFL)
+    eval_bytes: float = 30.0             # §4.2 evaluation message
+    state_interval_s: float = 1.0        # §4.2 state-update interval tau
     slowdown_range: tuple = (1.0, 4.0)   # C_i heterogeneity
     probe_samples: int = 256             # Eq. 7 subsample
     samples_per_class: int = 6600
+    uniform_capacity: bool = False       # True: one max-cap group
     seed: int = 0
     partition: PartitionConfig = field(default_factory=PartitionConfig)
     mobility: MobilityConfig = field(default_factory=MobilityConfig)
@@ -105,7 +126,8 @@ class FLSimulation:
         self.test_labels = torch.as_tensor(te_l, device=self.device)
 
         parts = partition(tr_i, tr_l, cfg.partition)
-        self.groups = stack_clients(parts, batch_size=cfg.batch_size)
+        self.groups = stack_clients(parts, batch_size=cfg.batch_size,
+                                    uniform=cfg.uniform_capacity)
         self.cap = max(g.cap for g in self.groups)
         self._group_steps = [steps_per_epoch(g.cap, cfg.batch_size)
                              for g in self.groups]
@@ -262,13 +284,13 @@ class FLSimulation:
             return host
         return self._host(self.selection_state(rnd, fields, elect="gather"))
 
-    def run_round(self, rnd: int) -> Dict[str, float]:
+    def run_round(self, rnd: int) -> Dict[str, object]:
         fields = self.round_fields(rnd)
         return self.finish_round(rnd, self.selection_state(rnd, fields),
                                  fields)
 
     def finish_round(self, rnd: int, state: Dict[str, torch.Tensor],
-                     fields: pipeline.RoundFields) -> Dict[str, float]:
+                     fields: pipeline.RoundFields) -> Dict[str, object]:
         """Steps 5 + 7 and the row: the prefix's outputs, the windowed
         election's overflow flag among them, cross to the host here,
         once, for the cohort gather (twice on an overflow round, whose
@@ -276,29 +298,108 @@ class FLSimulation:
         host = self.resolve_elect_overflow(rnd, self._host(state), fields)
         survivors = host["survivors"]
         self.last_mask = host["mask"]
+        perms = lambda i: fields.perms[i]
+        if self.run_cfg.engine == "loop":
+            self._train_loop(survivors, perms)
+        else:
+            self._train_batched(survivors, perms)
+        acc = evaluate_accuracy(self.params, self.test_images,
+                                self.test_labels, batch=256)
+        return self._round_row(rnd, host, acc)
+
+    def _train_args(self) -> Dict[str, float]:
         cfg = self.cfg
-        train = dict(epochs=cfg.local_epochs, batch_size=cfg.batch_size,
-                     lr=cfg.lr)
+        return dict(epochs=cfg.local_epochs, batch_size=cfg.batch_size,
+                    lr=cfg.lr, prox_mu=cfg.prox_mu)
+
+    def _train_batched(self, survivors: np.ndarray,
+                       perms: Callable[[int], torch.Tensor]) -> None:
+        """One ``local_train_batch`` per capacity group over its surviving
+        cohort, the groups folded into one masked FedAvg (on the mesh:
+        each rank's slice, the sums all-reduced).  An empty round or
+        group cohort is skipped."""
         if self.mesh is not None:
             trained = pipeline.train_groups_sharded(
                 self.params, self.groups, self._group_steps, survivors,
-                lambda i: fields.perms[i], self.mesh, **train)
+                perms, self.mesh, **self._train_args())
             self.params = pipeline.aggregate_sharded(self.params, trained)
         else:
             trained = pipeline.train_groups(
                 self.params, self.groups, self._group_steps, survivors,
-                lambda i: fields.perms[i], **train)
+                perms, **self._train_args())
             self.params = pipeline.aggregate(self.params, trained)
-        acc = evaluate_accuracy(self.params, self.test_images,
-                                self.test_labels, batch=256)
-        return {"round": rnd, "accuracy": acc,
-                "n_selected": int(host["n_selected"]),
-                "n_aggregated": int(survivors.sum()),
-                "n_straggler": int(host["n_straggler"]),
-                "n_active": self.n,
-                "mean_eval_selected": float(host["mean_eval_selected"])}
 
-    def run(self, n_rounds: Optional[int] = None) -> List[Dict[str, float]]:
+    def _train_loop(self, survivors: np.ndarray,
+                    perms: Callable[[int], torch.Tensor]) -> None:
+        """The reference's loop engine: each survivor, in client order,
+        trains alone at its own group's cap and steps per epoch, on the
+        permutations the batched engine reads; the list ``fedavg``
+        averages the models.  An empty round is a no-op broadcast."""
+        dev = self.device
+        models, weights = [], []
+        for i in np.where(survivors)[0]:
+            gi, li = self._slot[i]
+            g = self.groups[gi]
+            p_i, _ = local_train(
+                self.params, torch.as_tensor(g.images[li], device=dev),
+                torch.as_tensor(g.labels[li], device=dev),
+                torch.as_tensor(g.n_valid[li], device=dev),
+                torch.as_tensor(perms(int(i))),
+                steps_per_epoch=self._group_steps[gi], **self._train_args())
+            models.append(p_i)
+            weights.append(float(self.n_valid[i]))
+        if models:                                  # Eq. 2
+            self.params = fedavg(models, weights)
+
+    def _comm_accounting(self, n_selected: int) -> Dict[str, float]:
+        """The round's §4.2 communication (bytes and time, Fig. 9) through
+        ``core/overhead.py``, as the reference's: the scheme's
+        ``overhead_key`` picks the accumulated-time model, ``"cfl"``
+        schemes keep classical full state, the others exchange
+        evaluations (cloud or DSRC).  Host float arithmetic in the
+        reference's order, so the columns equal its bit for bit."""
+        cfg = self.cfg
+        key = get_scheme(cfg.scheme).overhead_key
+        state_bytes = (cfg.state_bytes if key == "cfl" else cfg.eval_bytes)
+        p = IoVParams(n_participants=self.n, clients_per_round=n_selected,
+                      round_period_s=cfg.deadline_s,
+                      model_bytes=cfg.model_bytes,
+                      state_bytes_cfl=cfg.state_bytes,
+                      state_bytes_ccs_fuzzy=cfg.eval_bytes,
+                      eval_bytes_dcs=cfg.eval_bytes,
+                      uplink_bps_best=cfg.network.best_rate_bps,
+                      uplink_bps_worst=cfg.network.worst_rate_bps)
+        comm_t = accumulated_time_s(key, cfg.state_interval_s, p)
+        upload_t = accumulated_time_s("model-only", cfg.state_interval_s, p)
+        return {"state_bytes": state_maintenance_bytes(
+                    self.n, state_bytes, cfg.deadline_s,
+                    cfg.state_interval_s),
+                "upload_bytes": model_upload_bytes(n_selected,
+                                                   cfg.model_bytes),
+                "state_time_s": comm_t - upload_t,
+                "comm_time_s": comm_t}
+
+    def _round_row(self, rnd: int, host: Dict[str, np.ndarray],
+                   accuracy: float) -> Dict[str, object]:
+        """The round's row in the reference's key order, Python scalars
+        only (``json.dumps`` takes it).  The async columns hold the
+        synchronous server's values: the whole fleet active, every
+        aggregated update on time."""
+        n_selected = int(host["n_selected"])
+        n_agg = int(host["survivors"].sum())
+        row = {"round": rnd, "accuracy": accuracy,
+               "n_selected": n_selected,
+               "n_aggregated": n_agg,
+               "n_straggler": int(host["n_straggler"]),
+               "n_active": self.n,
+               "stale_frac": 0.0,
+               "n_effective": float(n_agg),
+               "rounds_behind_hist": f"{n_agg}/0/0/0",
+               "mean_eval_selected": float(host["mean_eval_selected"])}
+        row.update(self._comm_accounting(n_selected))
+        return row
+
+    def run(self, n_rounds: Optional[int] = None) -> List[Dict[str, object]]:
         """Drive ``n_rounds`` rounds serially."""
         return [self.run_round(r)
                 for r in range(n_rounds or self.cfg.n_rounds)]

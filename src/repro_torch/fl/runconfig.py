@@ -13,6 +13,7 @@ from typing import Optional
 
 from repro_torch.launch.mesh import mesh_clients
 
+ENGINES = ("batched", "loop")
 ELECT_MODES = ("auto", "gather", "windowed")
 
 # fleets at or above this size get the windowed election under "auto"
@@ -25,7 +26,11 @@ def _unported(what: str, item: str) -> NotImplementedError:
 
 @dataclasses.dataclass(frozen=True)
 class RunConfig:
-    engine: str = "batched"              # batched | loop (loop: unported)
+    # batched: one local_train_batch per capacity group; loop: one
+    # local_train per survivor and the list FedAvg (the reference path).
+    # On the client mesh the loop engine trains every survivor on every
+    # rank, as the reference's does on its mesh
+    engine: str = "batched"
     fused_probe: bool = True             # fused probe->evaluate kernel
     overlap_rounds: bool = False         # round-ahead scheduler (unported)
     # "clients=K": K ranks of the client mesh (launch/mesh.py) on one
@@ -51,10 +56,9 @@ class RunConfig:
     def resolved(self) -> "RunConfig":
         """Validate; every unported knob raises here, before any work is
         done."""
-        if self.engine == "loop":
-            raise _unported("engine='loop'", "A6 (loop engine)")
-        if self.engine != "batched":
-            raise ValueError(f"engine must be 'batched': {self.engine!r}")
+        if self.engine not in ENGINES:
+            raise ValueError(f"engine must be one of {ENGINES}: "
+                             f"{self.engine!r}")
         if self.multihost:
             raise _unported("--multihost (torchrun over several hosts, "
                             "launch/multihost.py, faults.py)", "A11 (rest)")

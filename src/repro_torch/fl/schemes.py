@@ -3,8 +3,10 @@
 A scheme is a name bound to a selection function ``(cfg: StageConfig,
 pos (N,), evals (N,), fields: RoundFields) -> (N,) int32 mask``.
 ``fields`` carries the round's random draws (``random_idx`` for the
-uniform scheme).  The §4.2 communication-accounting key of
-``repro.fl.schemes`` comes with the accounting (ROADMAP A12).
+uniform scheme).  ``overhead_key`` names the scheme's §4.2
+accumulated-time model in ``core/overhead.py`` (``"cfl"``: classical
+full state to the cloud; ``"ccs-fuzzy"``: evaluations to the cloud;
+``"dcs"``: evaluations to neighbours over DSRC).
 
 ``select_windowed(cfg, pos, evals, fields) -> (mask, overflow)`` is a
 scheme's optional O(N * W) position-sorted form (``core/elect.py``);
@@ -64,6 +66,7 @@ class Scheme:
     """One registered selection scheme."""
     name: str
     select: SelectFn
+    overhead_key: str             # core/overhead.py accumulated-time key
     select_windowed: Optional[WindowedFn] = None
     select_sharded: Optional[ShardedFn] = None
 
@@ -72,6 +75,7 @@ _REGISTRY: Dict[str, Scheme] = {}
 
 
 def register_scheme(name: str, fn: SelectFn, *,
+                    overhead_key: str = "ccs-fuzzy",
                     select_windowed: Optional[WindowedFn] = None,
                     select_sharded: Optional[ShardedFn] = None) -> Scheme:
     """Register ``fn`` as selection scheme ``name``; re-registering an
@@ -80,7 +84,8 @@ def register_scheme(name: str, fn: SelectFn, *,
         raise ValueError(f"scheme name must be a non-empty str: {name!r}")
     if name in _REGISTRY:
         raise ValueError(f"scheme {name!r} is already registered")
-    scheme = Scheme(name=name, select=fn, select_windowed=select_windowed,
+    scheme = Scheme(name=name, select=fn, overhead_key=overhead_key,
+                    select_windowed=select_windowed,
                     select_sharded=select_sharded)
     _REGISTRY[name] = scheme
     return scheme
@@ -162,7 +167,9 @@ def _ccs_random_sharded(cfg, ctx, pos, evals, fields):
     return mask, torch.zeros((), dtype=torch.int32, device=evals.device)
 
 
-register_scheme("dcs", _dcs, select_windowed=_dcs_windowed,
-                select_sharded=_dcs_sharded)
-register_scheme("ccs-fuzzy", _ccs_fuzzy, select_sharded=_ccs_fuzzy_sharded)
-register_scheme("random", _ccs_random, select_sharded=_ccs_random_sharded)
+register_scheme("dcs", _dcs, overhead_key="dcs",
+                select_windowed=_dcs_windowed, select_sharded=_dcs_sharded)
+register_scheme("ccs-fuzzy", _ccs_fuzzy, overhead_key="ccs-fuzzy",
+                select_sharded=_ccs_fuzzy_sharded)
+register_scheme("random", _ccs_random, overhead_key="cfl",
+                select_sharded=_ccs_random_sharded)

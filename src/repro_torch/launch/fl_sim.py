@@ -4,11 +4,16 @@ the IoV model, on the card unless ``--device cpu`` is given.
 Usage:
   python -m repro_torch.launch.fl_sim --scheme dcs --rounds 3
   python -m repro_torch.launch.fl_sim --scheme all --rounds 2
+  python -m repro_torch.launch.fl_sim --paper-profile --scheme all \
+      --rounds 2 --out results.json
   python -m repro_torch.launch.fl_sim --compat-aligned-pack --device cpu
   python -m repro_torch.launch.fl_sim --elect windowed --elect-window 2 \
       --distribution extreme
   python -m repro_torch.launch.fl_sim --mesh clients=2 --device cpu
 
+``--paper-profile`` runs Table 3's profile (``paper_config``: 30 local
+epochs, a 20 s deadline, the 4500-sample clients) for ``--rounds``
+rounds; ``--out PATH`` writes ``{scheme: rows}`` as JSON, atomically.
 ``--compat-aligned-pack`` runs the unfused prefix (plain probe + the
 standalone Mamdani kernel) over the batch-aligned probe pack.
 ``--elect``/``--elect-window`` pick the DCS election (auto: windowed
@@ -18,7 +23,10 @@ spawns K ranks of the client mesh (``launch/mesh.py``): each owns
 ``ceil(N / K)`` clients and the round's few global steps are
 collectives; rank 0 prints the mesh banner and the rows, then the
 launcher prints each rank's kernel launches and host-staged
-collectives.
+collectives (``--out`` writes rank 0's rows).  On one device the CLI
+prints the rows, then the kernel launches of the scheme's rounds.
+Every scheme ends with its prefix and round seconds (host clock,
+device synchronised) and a summary line.
 """
 from __future__ import annotations
 
@@ -35,6 +43,7 @@ from repro_torch.fl.mobility import MobilityConfig
 from repro_torch.fl.partition import PartitionConfig
 from repro_torch.fl.rounds import FLSimConfig, FLSimulation
 from repro_torch.fl.runconfig import ELECT_MODES, RunConfig
+from repro_torch.ioutil import write_atomic_json
 from repro_torch.kernels import build
 from repro_torch.launch.mesh import (ClientMesh, describe, mesh_clients,
                                      spawn_ranks)
@@ -52,6 +61,14 @@ def fast_config(scheme: str, **kw) -> FLSimConfig:
                        samples_per_class=kw.pop("samples_per_class", 600),
                        local_epochs=kw.pop("local_epochs", 1),
                        n_rounds=kw.pop("n_rounds", 10), **kw)
+
+
+def paper_config(scheme: str, **kw) -> FLSimConfig:
+    """The paper's Table 3 profile: 30 local epochs, 50 rounds, a 20 s
+    deadline, the default partition (12 clients of 4500 samples, 18 of
+    45) over 6600 samples a class."""
+    return FLSimConfig(scheme=scheme, local_epochs=30, n_rounds=50,
+                       deadline_s=20.0, **kw)
 
 
 def _sync(dev: torch.device) -> None:
@@ -118,10 +135,17 @@ def drive_rounds(sim: FLSimulation, n_rounds: int, *,
     return out
 
 
+def _seconds(values) -> str:
+    return "[" + ", ".join(f"{v:.4f}" for v in values) + "]"
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--scheme", choices=SCHEMES + ("all",), default="dcs")
     ap.add_argument("--rounds", type=int, default=10)
+    ap.add_argument("--paper-profile", action="store_true",
+                    help="Table 3's profile (paper_config); "
+                         "--classes-per-client does not apply")
     ap.add_argument("--classes-per-client", type=int, default=9)
     ap.add_argument("--distribution", choices=("uniform", "extreme"),
                     default="uniform")
@@ -143,11 +167,15 @@ def main(argv=None) -> int:
     ap.add_argument("--multihost", type=int, default=0,
                     help="processes over several hosts (not ported: "
                          "raises)")
+    ap.add_argument("--fused-probe", action="store_true",
+                    help="no-op: the fused probe is the default")
     ap.add_argument("--compat-aligned-pack", action="store_true",
                     help="aligned probe pack + unfused prefix")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; cpu runs the "
                          "plain versions)")
+    ap.add_argument("--out", default=None,
+                    help="write {scheme: rows} to this JSON file")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
@@ -156,10 +184,14 @@ def main(argv=None) -> int:
                     elect_capacity=args.elect_capacity, mesh=args.mesh,
                     multihost=args.multihost).resolved()
     k = mesh_clients(run.mesh)
+    results = {}
     for scheme in (SCHEMES if args.scheme == "all" else (args.scheme,)):
-        cfg = fast_config(scheme, n_rounds=args.rounds,
-                          classes_per_client=args.classes_per_client,
-                          seed=args.seed)
+        if args.paper_profile:
+            cfg = paper_config(scheme, seed=args.seed)
+        else:
+            cfg = fast_config(scheme, n_rounds=args.rounds,
+                              classes_per_client=args.classes_per_client,
+                              seed=args.seed)
         cfg.mobility = MobilityConfig(distribution=args.distribution,
                                       seed=args.seed)
         t0 = time.perf_counter()
@@ -168,24 +200,32 @@ def main(argv=None) -> int:
                 sim_rank, k, args.device,
                 args=(cfg, run, args.rounds),
                 kwargs=dict(print_rows=True))
-            rows, where = ranks[0]["rows"], f"{k} ranks"
-            for r, res in enumerate(ranks):
-                print(f"[fl_sim] rank {r} on {res['device']}: launches "
-                      f"{json.dumps(res['launches'])}, host-staged "
-                      f"collectives {json.dumps(res['staged'])}",
+            res, where = ranks[0], f"{k} ranks"
+            for r, rank in enumerate(ranks):
+                print(f"[fl_sim] rank {r} on {rank['device']}: launches "
+                      f"{json.dumps(rank['launches'])}, host-staged "
+                      f"collectives {json.dumps(rank['staged'])}",
                       flush=True)
         else:
             sim = FLSimulation(cfg, run=run, device=args.device)
-            rows, where = [], str(sim.device)
-            for r in range(args.rounds):
-                rows.append(sim.run_round(r))
-                print(json.dumps(rows[-1]), flush=True)
+            res = drive_rounds(sim, args.rounds, print_rows=True)
+            where = str(sim.device)
+            print(f"[fl_sim] launches {json.dumps(res['launches'])}",
+                  flush=True)
         dt = time.perf_counter() - t0
+        rows = res["rows"]
+        print(f"[fl_sim] {scheme} seconds a round (host clock, synchronised"
+              f"): prefix {_seconds(res['prefix_s'])}, round "
+              f"{_seconds(res['round_s'])}", flush=True)
         accs = [r["accuracy"] for r in rows]
         nsel = sum(r["n_selected"] for r in rows) / len(rows)
         print(f"[fl_sim] {scheme} on {where}: final acc "
               f"{accs[-1]:.3f} (best {max(accs):.3f}), avg selected "
               f"{nsel:.2f}, {dt:.1f}s", flush=True)
+        results[scheme] = rows
+    if args.out:
+        write_atomic_json(args.out, results, indent=1)
+        print(f"[fl_sim] wrote {args.out}", flush=True)
     return 0
 
 

@@ -198,7 +198,8 @@ def _ref_init(seed):
 
 def _check_round(ref, port, rnd):
     """One whole round in both packages: integer row fields and masks
-    equal, accuracy within 0.01 (four of the 390 test images)."""
+    equal, accuracy within 0.01 (four of the 390 test images).  Returns
+    the two rows (reference, port)."""
     want, got = ref.run_round(rnd), port.run_round(rnd)
     for key in ("round", "n_selected", "n_aggregated", "n_straggler",
                 "n_active"):
@@ -207,6 +208,7 @@ def _check_round(ref, port, rnd):
     assert abs(got["accuracy"] - want["accuracy"]) <= 0.01
     assert abs(got["mean_eval_selected"]
                - want["mean_eval_selected"]) <= 1e-3
+    return want, got
 
 
 @pytest.mark.parametrize("fused", [True, False])
@@ -246,7 +248,8 @@ def test_port_imports_neither_jax_nor_repro():
             "repro_torch.models.attention, "
             "repro_torch.kernels.selective_scan, repro_torch.models.mamba, "
             "repro_torch.models.moe, repro_torch.configs.jamba_v0_1_52b, "
-            "repro_torch.launch.mesh, repro_torch.kernels.probe_loss\n"
+            "repro_torch.launch.mesh, repro_torch.kernels.probe_loss, "
+            "repro_torch.ioutil, repro_torch.core.overhead\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "
             "m.startswith('repro.')]\n"
@@ -273,7 +276,7 @@ def test_cli_without_cuda_raises():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(engine="loop"), dict(mesh="clients=4", multihost=2),
+    dict(mesh="clients=4", multihost=2),
     dict(server="event"),
     dict(churn_rate=0.3), dict(staleness="weighted"),
     dict(agg_cadence_s=10.0), dict(checkpoint_dir="ckpt"),
