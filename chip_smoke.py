@@ -12,9 +12,11 @@ Phases (any failure exits non-zero; no phase's exception is caught):
    fast profile, 30 vehicles; the large fleet, 4096 vehicles at 1 per
    metre, whose uniform and extreme placements share one dataset);
 3. hold each kernel against its plain PyTorch version on the card, TF32
-   off, at the paths' shapes and at larger ones: ``windowed_counts``
-   bit-equal at the large fleet's sorted round-0 arrays, at 65,536
-   vehicles and on a clustered fleet; the windowed election's mask equal
+   off, at the paths' shapes and at larger ones: ``fuzzy_eval`` (one
+   launch, Eq. 8 inside) within 1e-4 and bit-repeatable at P = 30, 4096
+   (the large fleet on the mesh) and 3,090,000 (the paper's Tokyo
+   fleet); ``windowed_counts`` bit-equal at the large fleet's sorted
+   round-0 arrays, at 65,536 vehicles and on a clustered fleet; the windowed election's mask equal
    to ``neighbor_elect``'s wherever its flag is 0, and flagged wherever
    the rank-distance oracle flags; ``wkv6`` at the serving prefill's
    shape (B=4, T=64, H=40, N=64, bf16 r/k/v, fp32 w) and at B=1,
@@ -25,7 +27,10 @@ Phases (any failure exits non-zero; no phase's exception is caught):
    bound (the larger of bytes over 3.35 TB/s and operations over the
    fp32 peak of 67 TFLOP/s; for the probe, whose conv2 and fc1 run as 3
    TF32 passes on the tensor cores, those passes at 495 TFLOP/s and the
-   rest at the fp32 peak, beside its all-fp32 bound); time the whole
+   rest at the fp32 peak, beside its all-fp32 bound; for
+   ``windowed_counts`` the pairs in DSRC range, which its data needs,
+   beside every pair its window visits); ``fuzzy_eval`` at P = 30, 4096
+   and 3,090,000; time the whole
    windowed election against the dense kernel at 4096, 16,384 and
    65,536 vehicles; ``wkv6`` at its two shapes, with the bound of its
    chunked design's own work beside the function's;
@@ -116,11 +121,15 @@ Phases (any failure exits non-zero; no phase's exception is caught):
    local-SGD step (the training half timed alone) are printed; then the
    fast profile's round 0 under deterministic algorithms: the loop
    engine against the batched one (masks, counts and comm columns
-   equal; fp64 training halves within 1e-6, the fp32 gap a reading)
-   and FedProx (mu 0.01), the card against the CPU in fp64 within
-   1e-6; then ``python -m repro_torch.launch.fl_sim --scheme all
-   --rounds 1 --out`` and ``--paper-profile --scheme dcs --rounds 1
-   --out``: rc 0, every scheme's rows with the reference's keys in
+   equal; fp32 accuracy and params within 1e-5, ROADMAP C8, rounds 1-2
+   after it a reading; fp64 training halves within 1e-6) and FedProx
+   (mu 0.01), the card against the CPU in fp64 within 1e-6; C8 op by
+   op: one local-SGD step alone and in the cohort of four, every op and
+   gradient within 1e-5 of scale in the card's GEMM form, beside
+   cuDNN's grouped convolution (a reading) and the convolution kernels
+   the profiler sees in each; then ``python -m
+   repro_torch.launch.fl_sim --scheme all --rounds 1 --out`` and
+   ``--paper-profile --scheme dcs --rounds 1 --out``: rc 0, every scheme's rows with the reference's keys in
    order, the paper CLI's launch line ``probe_fuzzy`` 1 and
    ``neighbor_elect`` 1, its comm columns == ``core/overhead.py``, no
    temporary file left;
@@ -130,10 +139,10 @@ Phases (any failure exits non-zero; no phase's exception is caught):
    profiler has run; ``wkv6``'s device time per launch by phase (A, B,
    C) and ``selective_scan``'s at their two shapes, beside their
    CUDA-event times; the device time per launch of ``fuzzy_eval`` (P =
-   30), ``neighbor_elect`` (N = 30) and ``windowed_counts`` (M = 4096
-   and 65,536) beside their CUDA-event times and a one-element in-place
-   add's, the card's launch floor; then ``{"kernels": [...]}`` on the
-   line before the last;
+   30 and 4096), ``neighbor_elect`` (N = 30) and ``windowed_counts`` (M
+   = 4096 and 65,536) beside their bounds, their CUDA-event times and a
+   one-element in-place add's, the card's launch floor; then
+   ``{"kernels": [...]}`` on the line before the last;
 7. ``{"ok": true, "device": {...}}`` as the last line.
 """
 from __future__ import annotations
@@ -188,6 +197,9 @@ MAMDANI_OPS = 12 * 5 + 81 * 4 + 9 * 3 + 1
 EQ8_OPS = 16
 ELECT_OPS_PER_PAIR = 8             # sub, abs, 4 compares, and/or, add
 LARGE_FLEET = 4096                 # vehicles of the large-fleet path
+# fuzzy_eval's bulk case: the paper's Tokyo fleet
+# (src/repro/kernels/fuzzy_eval.py:5-6), (P, 4) fp32, ~50 MB
+TOKYO_FLEET = 3_090_000
 # the serving path: rwkv6-3b at full width, 4 prompts of 64 tokens, 32
 # new tokens each; its WKV shape
 SERVE_ARGV = ["--arch", "rwkv6-3b", "--batch", "4", "--prompt-len", "64",
@@ -291,6 +303,23 @@ def visited_pairs(m: int, block: int, window: int) -> int:
     nb, hops = m // block, -(-window // block)
     return sum(min(ib + hops, nb - 1) - max(ib - hops, 0) + 1
                for ib in range(nb)) * block * block
+
+
+def in_range_pairs(sp, block: int, window: int, comm_range: float) -> int:
+    """Those of ``visited_pairs`` whose positions lie within
+    ``comm_range`` on the sorted (M,) positions ``sp``: the pair tests
+    this run's data needs, since a pair out of range never counts (the
+    kernel skips sub-chunks wholly out of range)."""
+    import torch
+    m = sp.shape[0]
+    nb, hops = m // block, -(-window // block)
+    ib = torch.arange(m, device=sp.device) // block
+    c0 = (ib - hops).clamp(min=0) * block
+    c1 = ((ib + hops).clamp(max=nb - 1) + 1) * block
+    lo = torch.searchsorted(sp, sp - comm_range)
+    hi = torch.searchsorted(sp, sp + comm_range, right=True)
+    return int((torch.minimum(hi, c1) - torch.maximum(lo, c0))
+               .clamp(min=0).sum())
 
 
 def wkv_inputs(b, t, h, g, device, edge=False):
@@ -1200,9 +1229,10 @@ def engines_and_prox(dev) -> None:
     """Phase 5e on the fast profile's round 0, under deterministic
     algorithms: the loop engine against the batched one (fp32 rounds
     through ``run_round``: masks and integer and comm columns equal,
-    the params' gap a reading; fp64 training halves from the same params
-    and survivors: within 1e-6), then FedProx (``prox_mu`` = PROX_MU),
-    the card's fp64 training half against the CPU's, within 1e-6."""
+    accuracy and params within 1e-5, ROADMAP C8; rounds 1 and 2 after
+    it, a reading; fp64 training halves from the same params and
+    survivors: within 1e-6), then FedProx (``prox_mu`` = PROX_MU), the
+    card's fp64 training half against the CPU's, within 1e-6."""
     import numpy as np
     import torch
     from repro_torch.fl import pipeline
@@ -1221,7 +1251,7 @@ def engines_and_prox(dev) -> None:
     torch.use_deterministic_algorithms(True)
     torch.backends.cudnn.deterministic = True
     try:
-        sims = {e: FLSimulation(fast_config_dcs(1), run=RunConfig(engine=e),
+        sims = {e: FLSimulation(fast_config_dcs(3), run=RunConfig(engine=e),
                                 device=dev) for e in ("batched", "loop")}
         start = {e: fp64(s, dev) for e, s in sims.items()}
         fields = sims["loop"].round_fields(0)
@@ -1235,6 +1265,13 @@ def engines_and_prox(dev) -> None:
                                                  "mean_eval_selected")]
         same_rows = all(rows["loop"][k] == rows["batched"][k] for k in keys)
         gap32 = gap(sims["loop"].params, sims["batched"].params)
+        acc32 = abs(rows["loop"]["accuracy"] - rows["batched"]["accuracy"])
+        # later rounds: fp32 SGD carries the engines' remaining gap on
+        later = []
+        for rnd in (1, 2):
+            r = {e: s.run_round(rnd) for e, s in sims.items()}
+            later.append((gap(sims["loop"].params, sims["batched"].params),
+                          r["loop"]["accuracy"], r["batched"]["accuracy"]))
         for e, s in sims.items():
             s.params, s.groups = start[e]
         sims["batched"]._train_batched(survivors, perms)
@@ -1256,17 +1293,114 @@ def engines_and_prox(dev) -> None:
     finally:
         torch.use_deterministic_algorithms(False)
         torch.backends.cudnn.deterministic = False
-    ok = (same_mask and same_rows and gap64 <= 1e-6 and prox_gap <= 1e-6
-          and pull > 0.0 and int(survivors.sum()) > 0)
+    ok = (same_mask and same_rows and gap64 <= 1e-6 and gap32 <= 1e-5
+          and acc32 <= 1e-5 and prox_gap <= 1e-6 and pull > 0.0
+          and int(survivors.sum()) > 0)
     log(f"[check] loop vs batched engine, fast round 0 (deterministic): "
         f"masks equal {same_mask}, counts and comm columns equal "
         f"{same_rows}, accuracy {rows['loop']['accuracy']:.4f} / "
-        f"{rows['batched']['accuracy']:.4f}; params max abs gap fp64 "
-        f"{gap64:.3g} (tol 1e-6), fp32 {gap32:.3g} (a reading); FedProx mu "
-        f"{PROX_MU} fp64 cuda vs cpu {prox_gap:.3g} (tol 1e-6), its pull "
+        f"{rows['batched']['accuracy']:.4f} (tol 1e-5); params max abs gap "
+        f"fp32 {gap32:.3g} (tol 1e-5), fp64 {gap64:.3g} (tol 1e-6); FedProx "
+        f"mu {PROX_MU} fp64 cuda vs cpu {prox_gap:.3g} (tol 1e-6), its pull "
         f"from mu = 0 {pull:.3g} {'OK' if ok else 'FAIL'}")
+    log("[reading] loop vs batched engine, fp32, rounds 1-2: " + "; ".join(
+        f"round {i + 1} params gap {g:.3g}, accuracy {a:.4f} / {b:.4f}"
+        for i, (g, a, b) in enumerate(later)))
     if not ok:
         raise AssertionError("the loop engine or FedProx is wrong")
+
+
+def c8_step_check(dev) -> None:
+    """Phase 5e, ROADMAP C8 op by op: one local-SGD step of the fast
+    profile's first round-0 survivor trained alone (the loop engine's
+    cohort of one) and in its cohort of four (the batched engine's),
+    under deterministic algorithms, with the stacked convolutions in the
+    card's GEMM form (the port's; every op and gradient within 1e-5 of
+    its scale) and as cuDNN's grouped convolution (the CPU's form; a
+    reading, since cuDNN picks its algorithms by the group count); for
+    each form the convolution kernels the profiler sees in the step
+    alone and in the cohort, and the step's device time."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.fl.pipeline import cohort_bucket
+    from repro_torch.fl.rounds import FLSimulation
+    from repro_torch.fl.runconfig import RunConfig
+    from repro_torch.models import cnn
+
+    def grouped(x, w, b):
+        return F.conv2d(x, w.reshape(-1, *w.shape[2:]), b.reshape(-1),
+                        padding=w.shape[-1] // 2, groups=w.shape[0])
+
+    sim = FLSimulation(fast_config_dcs(1), run=RunConfig(), device=dev)
+    fields = sim.round_fields(0)
+    surv = sim._host(sim.selection_state(0, fields))["survivors"]
+    g = sim.groups[0]
+    cohort = np.where(surv[g.client_ids])[0]
+    idx = np.concatenate([cohort, np.full(
+        cohort_bucket(len(cohort)) - len(cohort), cohort[0])])
+    b = sim.cfg.batch_size
+
+    def step(c_idx):
+        perm = torch.stack([fields.perms[int(g.client_ids[i])][0]
+                            for i in c_idx]).to(dev)
+        rows = torch.arange(len(c_idx), device=dev)[:, None]
+        images = torch.as_tensor(g.images[c_idx], device=dev)[rows, perm]
+        labels = torch.as_tensor(g.labels[c_idx], device=dev)[rows, perm]
+        p = {k: v[None].expand(len(c_idx), *v.shape).clone()
+             .requires_grad_(True) for k, v in sim.params.items()}
+        logits = cnn.cnn_forward_stacked(p, images[:, :b])
+        loss = cnn.sample_nll(logits, labels[:, :b]).mean(-1)
+        grads = torch.autograd.grad(loss.sum(), list(p.values()))
+        out = {"logits": logits, "loss": loss}
+        out.update({"grad " + k: v for k, v in zip(p, grads)})
+        return {k: v.detach()[0] for k, v in out.items()}
+
+    def conv_kernels(c_idx):
+        step(c_idx)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            step(c_idx)
+            torch.cuda.synchronize()
+        names, total = set(), 0.0
+        for ev in prof.key_averages():
+            t = getattr(ev, "device_time_total", None)
+            t = getattr(ev, "cuda_time_total", 0.0) if t is None else t
+            total += t
+            key = ev.key[5:] if ev.key.startswith("void ") else ev.key
+            key = key.replace("(anonymous namespace)::", "")
+            if any(w in key for w in ("conv", "grad", "winograd", "fprop",
+                                      "im2col", "unfold")):
+                names.add(re.split(r"[<(]", key)[0][:56])
+        return sorted(names), total / 1e3
+
+    gemm = cnn._stacked_conv_gemm
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cudnn.deterministic = True
+    errs = {}
+    try:
+        for form, fn in (("gemm", gemm), ("grouped cuDNN", grouped)):
+            cnn._stacked_conv_gemm = fn
+            alone, in_cohort = step(idx[:1]), step(idx)
+            errs[form] = {k: float((alone[k] - want).abs().max()
+                                   / want.abs().max().clamp(min=1e-30))
+                          for k, want in in_cohort.items()}
+            for label, c_idx in (("alone", idx[:1]), ("cohort", idx)):
+                names, ms = conv_kernels(c_idx)
+                log(f"[c8] {form} step {label} (C={len(c_idx)}): device "
+                    f"{ms:.4f} ms; convolution kernels {names}")
+    finally:
+        cnn._stacked_conv_gemm = gemm
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic = False
+    for form, e in errs.items():
+        worst = max(e, key=e.get)
+        log(f"[c8] {form}: one step alone vs in the cohort of {len(idx)}, "
+            f"worst scaled gap {e[worst]:.3g} ({worst})"
+            + (" (tol 1e-5)" if form == "gemm" else " (a reading)"))
+    if len(idx) < 2 or max(errs["gemm"].values()) > 1e-5:
+        raise AssertionError(f"C8: a cohort of one drifts: {errs['gemm']}")
 
 
 def fl_sim_cli(args, out_path) -> tuple:
@@ -1394,9 +1528,7 @@ def mesh_large_fleet(dev, big0):
 
 
 # phase 6's small kernels: the CUDA kernels each wrapper launches
-SMALL_KERNEL_NAMES = {"fuzzy_eval": ("colmax_partial_kernel",
-                                     "colmax_fold_kernel",
-                                     "fuzzy_eval_kernel"),
+SMALL_KERNEL_NAMES = {"fuzzy_eval": ("fuzzy_eval_kernel",),
                       "neighbor_elect": ("neighbor_elect_kernel",),
                       "windowed_counts": ("windowed_counts_kernel",)}
 
@@ -1533,22 +1665,28 @@ def main() -> int:
         torch.rand(n_big, 3, device=dev, generator=g)
         * torch.tensor([4500.0, 3e6, 1.0], device=dev)), n_big)
 
-    x_big = torch.rand(1 << 20, 4, device=dev, generator=g) * torch.tensor(
+    x_big = torch.rand(TOKYO_FLEET, 4, device=dev, generator=g) * torch.tensor(
         [4500.0, 3e6, 1.0, 3.0], device=dev)
+    x_mesh = x_big[:LARGE_FLEET].contiguous()
     err_fuzzy = 0.0
     for label, x in ((f"P={n_main}", feats_main),
-                     (f"P={x_big.shape[0]}", x_big)):
+                     (f"P={LARGE_FLEET}", x_mesh),
+                     (f"P={TOKYO_FLEET}", x_big)):
         for normalize in (False, True):
             xin = x if normalize else (x / x.max(dim=0).values)
             got = ops.fuzzy_eval(xin, *mam, normalize=normalize)
+            again = ops.fuzzy_eval(xin, *mam, normalize=normalize)
             want = ref.fuzzy_eval_ref(xin, *mam_ref, normalize=normalize)
             torch.cuda.synchronize()
             err = float((got - want).abs().max())
+            same = torch.equal(got, again)
             if x is feats_main:
                 err_fuzzy = max(err_fuzzy, err)
+            ok = err <= 1e-4 and same
             log(f"[check] fuzzy_eval {label} normalize={normalize}: max abs "
-                f"err {err:.3g} (tol 1e-4) {'OK' if err <= 1e-4 else 'FAIL'}")
-            if err > 1e-4:
+                f"err {err:.3g} (tol 1e-4), bit-repeatable {same} "
+                f"{'OK' if ok else 'FAIL'}")
+            if not ok:
                 raise AssertionError(f"fuzzy_eval {label} disagrees")
 
     cfg = sim.stage_cfg
@@ -1680,6 +1818,7 @@ def main() -> int:
     wkw_b = dict(count_kw, n_valid=big.n, window=window_big, block=128)
     window_h = auto_window(65536, 200.0, 65536.0)
     wkw_h = dict(count_kw, n_valid=65536, window=window_h, block=128)
+    cr_big = big_cfg.comm_range_m
     # name -> (shape, kernel call, plain call, iterations, (bound, by));
     # the first row of each kernel is its path's shape
     cases = [
@@ -1705,13 +1844,17 @@ def main() -> int:
         ("windowed_counts", f"M={big.n} window {window_big}",
          lambda: ops.windowed_counts(sp_b, se_b, sg_b, **wkw_b),
          lambda: ref.windowed_counts_ref(sp_b, se_b, sg_b, **wkw_b), 200,
-         bound(big.n * 16, visited_pairs(big.n, 128, window_big)
+         bound(big.n * 16, in_range_pairs(sp_b, 128, window_big, cr_big)
                * ELECT_OPS_PER_PAIR)),
         ("windowed_counts", f"M=65536 window {window_h}",
          lambda: ops.windowed_counts(sp_h, se_h, sg_h, **wkw_h),
-         lambda: ref.windowed_counts_ref(sp_h, se_h, sg_h, **wkw_h), 50,
-         bound(65536 * 16, visited_pairs(65536, 128, window_h)
+         lambda: ref.windowed_counts_ref(sp_h, se_h, sg_h, **wkw_h), 200,
+         bound(65536 * 16, in_range_pairs(sp_h, 128, window_h, cr_big)
                * ELECT_OPS_PER_PAIR)),
+        ("fuzzy_eval", f"P={LARGE_FLEET} normalize=True",
+         lambda: ops.fuzzy_eval(x_mesh, *mam, normalize=True),
+         lambda: ref.fuzzy_eval_ref(x_mesh, *mam_ref, normalize=True), 200,
+         bound(LARGE_FLEET * 20, LARGE_FLEET * (MAMDANI_OPS + EQ8_OPS))),
         ("fuzzy_eval", f"P={p_big} normalize=True",
          lambda: ops.fuzzy_eval(x_big, *mam, normalize=True),
          lambda: ref.fuzzy_eval_ref(x_big, *mam_ref, normalize=True), 20,
@@ -1740,6 +1883,17 @@ def main() -> int:
         log(f"[bound] wkv6 B={b} T={t} H={WKV_H} N={WKV_N}: function "
             f"{f_ms:.6f} ms ({f_by}); the chunked design's own work "
             f"{d_ms:.6f} ms ({d_by})")
+    # windowed_counts: the bound of the pairs in range (the JSON's) beside
+    # that of every pair its window visits, the Pallas kernel's work
+    for (m, window, sp_w) in ((big.n, window_big, sp_b),
+                              (65536, window_h, sp_h)):
+        n_in = in_range_pairs(sp_w, 128, window, cr_big)
+        n_vis = visited_pairs(m, 128, window)
+        (i_ms, i_by), (v_ms, v_by) = (
+            bound(m * 16, n * ELECT_OPS_PER_PAIR) for n in (n_in, n_vis))
+        log(f"[bound] windowed_counts M={m} window {window}: pairs in range "
+            f"{n_in} ({i_ms:.6f} ms, {i_by}), pairs visited {n_vis} "
+            f"({v_ms:.6f} ms, {v_by})")
     # the probe's two bounds (its time by phase comes last: see there)
     probe_packs = (
         (f"S={s_main} N={n_main}", s_main, probe_bytes, main_probe, n_main),
@@ -1997,6 +2151,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     paper_launches = paper_round(dev)
     engines_and_prox(dev)
+    c8_step_check(dev)
     paper_clis()
 
     launches = {"probe_fuzzy": fused["probe_fuzzy"],
@@ -2038,26 +2193,27 @@ def main() -> int:
             f": device {ms['scan']:.4f} ms a launch; CUDA events over "
             f"back-to-back wrapper calls {ev_ms:.4f} ms")
 
-    # the three small kernels not redesigned (PERF.md: launch-bound):
-    # device time per launch beside the CUDA-event time of back-to-back
-    # wrapper calls, and a one-element in-place add, the card's launch
-    # floor
+    # the small kernels: device time per launch beside the CUDA-event
+    # time of back-to-back wrapper calls (host-bound at these sizes) and
+    # a one-element in-place add, the card's launch floor
     one = torch.zeros(1, device=dev)
     floor_ms = phase_ms(lambda: one.add_(1.0),
                         (("add", ("at::native::",)),), calls=200)["add"]
     log(f"[profile] launch floor: a one-element in-place add, device "
         f"{floor_ms:.4f} ms a launch")
     small = {("fuzzy_eval", f"P={n_main} normalize=True"),
+             ("fuzzy_eval", f"P={LARGE_FLEET} normalize=True"),
              ("neighbor_elect", f"N={n_main}"),
              ("windowed_counts", f"M={big.n} window {window_big}"),
              ("windowed_counts", f"M=65536 window {window_h}")}
-    for name, shape, fn, _, _, _ in cases:
+    for name, shape, fn, _, _, (b_ms, b_by) in cases:
         if (name, shape) not in small:
             continue
         ms = phase_ms(fn, ((name, SMALL_KERNEL_NAMES[name]),), calls=200)
         log(f"[profile] {name} {shape}: device {ms[name]:.4f} ms a launch "
-            f"({ms[name] / floor_ms:.2f}x the floor); CUDA events over "
-            f"back-to-back wrapper calls {event_ms[(name, shape)]:.4f} ms")
+            f"({ms[name] / floor_ms:.2f}x the floor, bound {b_ms:.6f} ms "
+            f"{b_by}); CUDA events over back-to-back wrapper calls "
+            f"{event_ms[(name, shape)]:.4f} ms")
 
     # -- 6. the kernels line ---------------------------------------------------
     meta = {

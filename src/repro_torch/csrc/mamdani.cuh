@@ -46,11 +46,16 @@ __device__ inline float mamdani_pick(const float m[MAMDANI_LEVELS], int i) {
   return i == 0 ? m[0] : (i == 1 ? m[1] : m[2]);
 }
 
-// x: normalized [SQ, TA, CC, LF] in [0, 1] -> evaluation on the scale of
-// the level centers.
-__device__ inline float mamdani_eval(const float x[MAMDANI_VARS],
-                                     const MamdaniTables& t) {
-  float mu[MAMDANI_VARS][MAMDANI_LEVELS];
+// The first and last steps of one participant's inference on their own,
+// for the standalone kernel, which folds the rules its own way: the
+// level maxima are exact in any order, so any fold of the same firing
+// strengths gives mamdani_eval's beta bit for bit.
+
+// x: normalized [SQ, TA, CC, LF] in [0, 1] -> the 12 memberships
+__device__ inline void mamdani_memberships(const float x[MAMDANI_VARS],
+                                           const MamdaniTables& t,
+                                           float mu[MAMDANI_VARS]
+                                                   [MAMDANI_LEVELS]) {
 #pragma unroll
   for (int v = 0; v < MAMDANI_VARS; ++v) {
 #pragma unroll
@@ -60,6 +65,27 @@ __device__ inline float mamdani_eval(const float x[MAMDANI_VARS],
       mu[v][l] = expf(-0.5f * d * d);
     }
   }
+}
+
+// centre of gravity, summed in level order without FMA contraction ->
+// evaluation on the scale of the level centers
+__device__ inline float mamdani_cog(const float beta[MAMDANI_OUT],
+                                    const MamdaniTables& t) {
+  float num = 0.0f, den = 0.0f;
+#pragma unroll
+  for (int j = 0; j < MAMDANI_OUT; ++j) {
+    num = __fadd_rn(num, __fmul_rn(t.centers[j], beta[j]));
+    den = __fadd_rn(den, beta[j]);
+  }
+  return num / fmaxf(den, 1e-9f);
+}
+
+// x: normalized [SQ, TA, CC, LF] in [0, 1] -> evaluation on the scale of
+// the level centers.
+__device__ inline float mamdani_eval(const float x[MAMDANI_VARS],
+                                     const MamdaniTables& t) {
+  float mu[MAMDANI_VARS][MAMDANI_LEVELS];
+  mamdani_memberships(x, t, mu);
   // firing strengths are >= 0, so 0 is the identity of the level max
   float beta[MAMDANI_OUT];
 #pragma unroll
@@ -75,12 +101,5 @@ __device__ inline float mamdani_eval(const float x[MAMDANI_VARS],
     for (int j = 0; j < MAMDANI_OUT; ++j)
       if (j == lv) beta[j] = fmaxf(beta[j], f);
   }
-  // centre of gravity, summed in level order without FMA contraction
-  float num = 0.0f, den = 0.0f;
-#pragma unroll
-  for (int j = 0; j < MAMDANI_OUT; ++j) {
-    num = __fadd_rn(num, __fmul_rn(t.centers[j], beta[j]));
-    den = __fadd_rn(den, beta[j]);
-  }
-  return num / fmaxf(den, 1e-9f);
+  return mamdani_cog(beta, t);
 }

@@ -1,10 +1,13 @@
 """How a simulation executes (vs ``FLSimConfig``: what it simulates).
 
-The fields mirror ``repro.fl.runconfig.RunConfig``.  The knobs this
-slice of the port does not implement raise ``NotImplementedError``
-naming the ROADMAP item that brings them; none is silently ignored.
-``overlap_rounds`` defaults to False here: the reference pins its
-round-ahead rows bit-identical to the serial ones, so rows do not move.
+The fields mirror ``repro.fl.runconfig.RunConfig``, and
+``add_run_arguments`` / ``RunConfig.from_args`` its CLI flags, with the
+reference's defaults and ``dest`` names, so a command line parses the
+same way in both packages.  The knobs this slice of the port does not
+implement raise ``NotImplementedError`` naming the ROADMAP item that
+brings them; none is silently ignored.  ``overlap_rounds`` defaults to
+False here: the reference pins its round-ahead rows bit-identical to
+the serial ones, so rows do not move.
 """
 from __future__ import annotations
 
@@ -15,6 +18,8 @@ from repro_torch.launch.mesh import mesh_clients
 
 ENGINES = ("batched", "loop")
 ELECT_MODES = ("auto", "gather", "windowed")
+SERVERS = ("sync", "event")
+STALENESS_MODES = ("drop", "weighted")
 
 # fleets at or above this size get the windowed election under "auto"
 AUTO_WINDOWED_MIN_CLIENTS = 512
@@ -51,6 +56,7 @@ class RunConfig:
     # ring-halo election on the mesh: rank -> segment slots (0 = auto)
     elect_capacity: int = 0
     checkpoint_dir: Optional[str] = None
+    checkpoint_every: int = 1
     resume: bool = False
 
     def resolved(self) -> "RunConfig":
@@ -68,8 +74,10 @@ class RunConfig:
                 or self.agg_cadence_s is not None):
             raise _unported("the event-driven server (server='event', "
                             "churn, staleness, cadence)", "A9")
-        if self.checkpoint_dir is not None or self.resume:
-            raise _unported("checkpoint_dir / resume", "A10")
+        if (self.checkpoint_dir is not None or self.checkpoint_every != 1
+                or self.resume):
+            raise _unported("checkpoint_dir / checkpoint_every / resume",
+                            "A10")
         if self.overlap_rounds:
             raise _unported("overlap_rounds=True", "A7")
         if self.elect not in ELECT_MODES:
@@ -103,3 +111,95 @@ class RunConfig:
             network=cfg.network, fused_probe=self.fused_probe,
             elect=elect, elect_window=self.elect_window,
             elect_capacity=self.elect_capacity)
+
+    @classmethod
+    def from_args(cls, args, base: Optional["RunConfig"] = None
+                  ) -> "RunConfig":
+        """Build from an argparse namespace (``add_run_arguments``), as
+        the reference's: absent attributes keep the ``base`` (default)
+        values, ``--compat-aligned-pack`` wins over ``--fused-probe``,
+        ``--no-overlap-rounds`` over ``--overlap-rounds``, and an
+        ``--agg-cadence`` of 0 is the round period.  Resolved, so every
+        unported knob raises here; so does ``--jit-cache-dir``, which the
+        reference keeps beside its ``RunConfig``."""
+        if getattr(args, "jit_cache_dir", None) is not None:
+            raise _unported("--jit-cache-dir (the persistent compilation "
+                            "cache)", "A14")
+        run = base or cls()
+        kw = {}
+        fused = run.fused_probe or bool(getattr(args, "fused_probe", False))
+        if getattr(args, "compat_aligned_pack", False):
+            fused = False
+        kw["fused_probe"] = fused
+        overlap = run.overlap_rounds or bool(getattr(args, "overlap_rounds",
+                                                     False))
+        if getattr(args, "no_overlap_rounds", False):
+            overlap = False
+        kw["overlap_rounds"] = overlap
+        for attr, field in (("engine", "engine"), ("mesh", "mesh"),
+                            ("multihost", "multihost"),
+                            ("server", "server"),
+                            ("staleness", "staleness"),
+                            ("churn_rate", "churn_rate"),
+                            ("staleness_lambda", "staleness_lambda"),
+                            ("agg_cadence", "agg_cadence_s"),
+                            ("elect", "elect"),
+                            ("elect_window", "elect_window"),
+                            ("elect_capacity", "elect_capacity"),
+                            ("checkpoint_dir", "checkpoint_dir"),
+                            ("checkpoint_every", "checkpoint_every")):
+            v = getattr(args, attr, None)
+            if v is not None:
+                kw[field] = v
+        if getattr(args, "resume", False):
+            kw["resume"] = True
+        if kw.get("agg_cadence_s") == 0.0:       # CLI "0" = round period
+            kw["agg_cadence_s"] = None
+        return dataclasses.replace(run, **kw).resolved()
+
+
+def add_run_arguments(ap) -> None:
+    """Install the reference's ``RunConfig`` flags on an argparse parser
+    (consumed by ``RunConfig.from_args``): the same names, defaults and
+    ``dest``s as ``repro.fl.runconfig.add_run_arguments``."""
+    ap.add_argument("--mesh", default=None, metavar="clients=K",
+                    help="partition the in-round client axis over K ranks "
+                         "of torch.distributed on this host (gloo when "
+                         "ranks share a card or run on the CPU)")
+    ap.add_argument("--fused-probe", action="store_true",
+                    help="no-op: the fused probe is the default")
+    ap.add_argument("--compat-aligned-pack", action="store_true",
+                    help="aligned probe pack + unfused prefix")
+    ap.add_argument("--overlap-rounds", action="store_true",
+                    help="the round-ahead scheduler (not ported: raises)")
+    ap.add_argument("--no-overlap-rounds", action="store_true",
+                    help="no-op: serial round dispatch is the port's")
+    ap.add_argument("--server", choices=SERVERS, default=None,
+                    help="sync round barrier (default) or the event-driven "
+                         "server (not ported: raises)")
+    ap.add_argument("--churn-rate", type=float, default=None,
+                    help="coverage-window churn rate (not ported: raises "
+                         "unless 0)")
+    ap.add_argument("--staleness", choices=STALENESS_MODES, default=None,
+                    help="straggler policy (weighted: not ported, raises)")
+    ap.add_argument("--staleness-lambda", type=float, default=None,
+                    help="staleness decay (not ported: raises unless 0)")
+    ap.add_argument("--agg-cadence", type=float, default=None,
+                    help="aggregation cadence in simulated seconds (0 = the "
+                         "round period; others not ported: raise)")
+    ap.add_argument("--elect", choices=ELECT_MODES, default=None,
+                    help="DCS election: auto (windowed for fleets of 512 or "
+                         "more), gather (dense O(N^2)), windowed (O(N*W) "
+                         "sorted window; overflow rounds re-run through "
+                         "gather)")
+    ap.add_argument("--elect-window", type=int, default=None,
+                    help="windowed election: sorted neighbours per side "
+                         "(0 = auto-size from fleet density)")
+    ap.add_argument("--checkpoint-dir", default=None,
+                    help="per-round state snapshots (not ported: raises)")
+    ap.add_argument("--checkpoint-every", type=int, default=None,
+                    help="snapshot cadence in rounds (not ported: raises "
+                         "unless 1)")
+    ap.add_argument("--resume", action="store_true",
+                    help="restore the latest checkpoint (not ported: "
+                         "raises)")

@@ -38,8 +38,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # f = float); every function returns a cudaError_t as int
 _SIGNATURES = {
     "probe_fuzzy": {"probe_fuzzy_launch": "pppipppippppppppppppippppppppp"},
-    "fuzzy_eval": {"fuzzy_eval_launch": "piipppppipp",
-                   "fuzzy_eval_scratch_floats": "i"},
+    "fuzzy_eval": {"fuzzy_eval_launch": "piippp",
+                   "fuzzy_eval_scratch_floats": ""},
     "neighbor_elect": {"neighbor_elect_launch": "ppiffipp"},
     "windowed_counts": {"windowed_counts_launch": "pppiiiffipp"},
     "wkv6": {"wkv6_launch": "ppppppiiiiipppp"},
@@ -138,7 +138,10 @@ def check(rc: int, what: str) -> None:
 
 
 def stream_ptr(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """PyTorch's current stream on ``t``'s card, as the raw handle (the
+    query ``torch.cuda.current_stream`` wraps, without building a Stream
+    object each call)."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 def require(t: torch.Tensor, name: str, shape: tuple, dtype: torch.dtype

@@ -42,7 +42,7 @@ from repro_torch.fl import pipeline
 from repro_torch.fl.mobility import MobilityConfig
 from repro_torch.fl.partition import PartitionConfig
 from repro_torch.fl.rounds import FLSimConfig, FLSimulation
-from repro_torch.fl.runconfig import ELECT_MODES, RunConfig
+from repro_torch.fl.runconfig import RunConfig, add_run_arguments
 from repro_torch.ioutil import write_atomic_json
 from repro_torch.kernels import build
 from repro_torch.launch.mesh import (ClientMesh, describe, mesh_clients,
@@ -143,34 +143,25 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--scheme", choices=SCHEMES + ("all",), default="dcs")
     ap.add_argument("--rounds", type=int, default=10)
+    ap.add_argument("--fast", action="store_true", default=True,
+                    help="no-op, as in the reference: the fast profile is "
+                         "the default without --paper-profile")
     ap.add_argument("--paper-profile", action="store_true",
                     help="Table 3's profile (paper_config); "
                          "--classes-per-client does not apply")
     ap.add_argument("--classes-per-client", type=int, default=9)
     ap.add_argument("--distribution", choices=("uniform", "extreme"),
                     default="uniform")
-    ap.add_argument("--elect", choices=ELECT_MODES, default="auto",
-                    help="DCS election: auto (windowed for fleets of "
-                         "512 or more), gather (dense O(N^2)), windowed "
-                         "(O(N*W) sorted window; overflow rounds re-run "
-                         "through gather)")
-    ap.add_argument("--elect-window", type=int, default=0,
-                    help="windowed election: sorted neighbours per side "
-                         "(0 = auto-size from fleet density)")
-    ap.add_argument("--elect-capacity", type=int, default=0,
+    add_run_arguments(ap)
+    ap.add_argument("--elect-capacity", type=int, default=None,
                     help="ring-halo election on the mesh: bucket slots "
                          "per (rank, road segment) (0 = auto)")
-    ap.add_argument("--mesh", default=None, metavar="clients=K",
-                    help="partition the in-round client axis over K ranks "
-                         "of torch.distributed on this host (gloo when "
-                         "ranks share a card or run on the CPU)")
     ap.add_argument("--multihost", type=int, default=0,
                     help="processes over several hosts (not ported: "
                          "raises)")
-    ap.add_argument("--fused-probe", action="store_true",
-                    help="no-op: the fused probe is the default")
-    ap.add_argument("--compat-aligned-pack", action="store_true",
-                    help="aligned probe pack + unfused prefix")
+    ap.add_argument("--jit-cache-dir", default=None, metavar="DIR",
+                    help="the reference's persistent jit cache (not "
+                         "ported: raises)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; cpu runs the "
                          "plain versions)")
@@ -179,10 +170,7 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
-    run = RunConfig(fused_probe=not args.compat_aligned_pack,
-                    elect=args.elect, elect_window=args.elect_window,
-                    elect_capacity=args.elect_capacity, mesh=args.mesh,
-                    multihost=args.multihost).resolved()
+    run = RunConfig.from_args(args)
     k = mesh_clients(run.mesh)
     results = {}
     for scheme in (SCHEMES if args.scheme == "all" else (args.scheme,)):

@@ -72,7 +72,10 @@ def serve(cfg, *, batch: int = 4, prompt_len: int = 64, max_new: int = 32,
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", choices=ARCH_IDS, default="gemma-2b")
+    # no `choices`: an arch the port does not serve yet reaches get_arch,
+    # which names the ROADMAP item that brings it
+    ap.add_argument("--arch", default="gemma-2b",
+                    help=f"one of {', '.join(ARCH_IDS)}")
     ap.add_argument("--reduced", action="store_true",
                     help="the scaled-down variant (2 layers, d_model 256)")
     ap.add_argument("--batch", type=int, default=4)

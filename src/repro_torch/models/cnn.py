@@ -59,18 +59,79 @@ def cnn_forward(params: Params, images: torch.Tensor) -> torch.Tensor:
     return F.linear(x, params["fc2.w"], params["fc2.b"])
 
 
+class _StackedConvGemm(torch.autograd.Function):
+    """A cohort's same-padded convolution as patches times weights: x (B,
+    C*I, H, W) client-major channels, w (C, O, I, k, k), b (C, O) -> (B,
+    C*O, H, W).  One batched GEMM over the (sample, client) pairs, each
+    an fp32 product of a sample's patches and its client's weights (the
+    weights copied over the batch), so the output needs no permute.  The
+    backward is written out: the weight gradient is GEMMs of K = H*W
+    summed over the batch (a GEMM over the clients alone would have K =
+    B*H*W, which cuBLAS runs without split-K), the input gradient GEMMs
+    and ``fold``'s fixed-order sums, with fewer host-side ops than
+    autograd's trace of the same form.  A client's result does not
+    depend on how many clients share the call beyond the order of those
+    sums.  The patches are strided views of the padded input gathered by
+    one copy (``F.unfold`` on CUDA launches a kernel per sample)."""
+
+    @staticmethod
+    def forward(ctx, x, w, b):
+        bsz, h, wd = x.shape[0], x.shape[2], x.shape[3]
+        c, o, i, k = w.shape[:4]
+        win = F.pad(x, (k // 2,) * 4).unfold(2, k, 1).unfold(3, k, 1)
+        cols = win.reshape(bsz, c, i, h, wd, k, k).permute(
+            0, 1, 2, 5, 6, 3, 4).reshape(bsz * c, i * k * k, h * wd)
+        wb = w.reshape(1, c, o, i * k * k).expand(
+            bsz, c, o, i * k * k).reshape(bsz * c, o, i * k * k)
+        out = torch.bmm(wb, cols).view(bsz, c, o, h * wd) + b[None, :, :,
+                                                              None]
+        ctx.save_for_backward(cols, wb)
+        ctx.shape = (bsz, c, o, i, k, h, wd)
+        return out.view(bsz, c * o, h, wd)
+
+    @staticmethod
+    def backward(ctx, gy):
+        cols, wb = ctx.saved_tensors
+        bsz, c, o, i, k, h, wd = ctx.shape
+        g = gy.reshape(bsz * c, o, h * wd)
+        gw = torch.bmm(g, cols.transpose(1, 2)).view(
+            bsz, c, o, i * k * k).sum(0).view(c, o, i, k, k)
+        gb = g.view(bsz, c, o, h * wd).sum((0, 3))
+        gx = None
+        if ctx.needs_input_grad[0]:
+            gcols = torch.bmm(wb.transpose(1, 2), g)
+            gx = F.fold(gcols.view(bsz, c * i * k * k, h * wd), (h, wd), k,
+                        padding=k // 2)
+        return gx, gw, gb
+
+
+def _stacked_conv_gemm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor
+                       ) -> torch.Tensor:
+    """``_StackedConvGemm``: the card's form of the stacked convolution."""
+    return _StackedConvGemm.apply(x, w, b)
+
+
 def cnn_forward_stacked(params: Params, images: torch.Tensor
                         ) -> torch.Tensor:
     """A cohort of models at once: every leaf carries a leading client
-    axis C, images are (C, B, 28, 28, 1) -> logits (C, B, 10).  The
-    convolutions run as one grouped convolution (group = client)."""
+    axis C, images are (C, B, 28, 28, 1) -> logits (C, B, 10).
+
+    On the CPU the convolutions run as one grouped convolution (group =
+    client).  On the card they run as ``_stacked_conv_gemm``: cuDNN picks
+    its algorithm by the group count, and at one group it computes
+    conv2's weight gradient with Winograd, whose fp32 rounding error
+    (~1e-4 in that gradient) made a client trained alone (the loop
+    engine) drift from the same client in a cohort (ROADMAP C8)."""
     c, b = images.shape[:2]
     x = images.permute(1, 0, 4, 2, 3).reshape(b, -1, *images.shape[2:4])
     for name in ("conv1", "conv2"):
         w = params[name + ".w"]                          # (C, O, I, k, k)
-        x = F.conv2d(x, w.reshape(-1, *w.shape[2:]),
-                     params[name + ".b"].reshape(-1),
-                     padding=w.shape[-1] // 2, groups=c)
+        if x.is_cuda:
+            x = _stacked_conv_gemm(x, w, params[name + ".b"])
+        else:
+            x = F.conv2d(x, w.reshape(-1, *w.shape[2:]),
+                         params[name + ".b"].reshape(-1),
+                         padding=w.shape[-1] // 2, groups=c)
         x = F.max_pool2d(F.relu(x), 2)
     h, wd = x.shape[-2:]
     x = x.reshape(b, c, -1, h, wd).permute(1, 0, 3, 4, 2).reshape(c, b, -1)

@@ -1,0 +1,122 @@
+"""The port's CLIs take the reference's command lines.
+
+Each command line is parsed by the reference's parser and the port's
+(``argparse`` stopped right after ``parse_args``), and every option
+both parsers know must come out with the same value.  Then the port's
+CLI runs it: the reference's no-ops (``--fast``, ``--no-overlap-rounds``)
+run (the simulation stubbed: no dataset, no round), and every knob the
+port has not ported raises ``NotImplementedError`` naming its ROADMAP
+item before any work is done.  ``launch/serve.py --arch`` with an arch
+the reference serves and the port does not yet names A13b.
+"""
+import argparse
+
+import pytest
+
+from repro.configs import ARCH_IDS as REF_ARCH_IDS
+from repro.launch import fl_sim as ref_fl_sim
+from repro.launch import serve as ref_serve
+from repro_torch.configs import ARCH_IDS
+from repro_torch.fl.runconfig import RunConfig
+from repro_torch.launch import fl_sim, serve
+
+# options one parser has and the other has not: the reference's hidden
+# --multihost child flags; the port's device and ring-halo capacity
+REF_ONLY = {"_mh_coord", "_mh_procs", "_mh_proc_id"}
+PORT_ONLY = {"device", "elect_capacity"}
+
+
+class _Parsed(Exception):
+    pass
+
+
+def _parsed(main, argv):
+    """The namespace ``main``'s parser gives ``argv``, as a dict."""
+    seen = []
+    parse = argparse.ArgumentParser.parse_args
+
+    def stop(self, args=None, namespace=None):
+        seen.append(parse(self, args, namespace))
+        raise _Parsed
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(argparse.ArgumentParser, "parse_args", stop)
+        with pytest.raises(_Parsed):
+            main(argv)
+    return vars(seen[0])
+
+
+def _runs(monkeypatch, argv):
+    """Run the port's CLI on ``argv`` with the simulation stubbed: the
+    ``RunConfig`` it built."""
+    runs = []
+
+    class Stub:
+        device = "cpu"
+
+        def __init__(self, cfg, run, **kw):
+            runs.append(run)
+
+    def drive(sim, n, **kw):
+        rows = [{"accuracy": 0.0, "n_selected": 0}] * n
+        return {"rows": rows, "launches": {}, "prefix_s": [0.0] * n,
+                "round_s": [0.0] * n}
+
+    monkeypatch.setattr(fl_sim, "FLSimulation", Stub)
+    monkeypatch.setattr(fl_sim, "drive_rounds", drive)
+    assert fl_sim.main(argv + ["--device", "cpu"]) == 0
+    return runs
+
+
+# (flags, ROADMAP item it raises naming, or None: a no-op that runs)
+FL_SIM_CASES = [
+    (["--fast"], None),
+    (["--no-overlap-rounds"], None),
+    (["--fast", "--no-overlap-rounds", "--elect", "windowed",
+      "--elect-window", "4"], None),
+    (["--overlap-rounds"], "A7"),
+    (["--server", "event"], "A9"),
+    (["--churn-rate", "0.3"], "A9"),
+    (["--staleness", "weighted"], "A9"),
+    (["--staleness-lambda", "1"], "A9"),
+    (["--agg-cadence", "20"], "A9"),
+    (["--checkpoint-dir", "ckpt"], "A10"),
+    (["--checkpoint-every", "5"], "A10"),
+    (["--resume"], "A10"),
+    (["--jit-cache-dir", "none"], "A14"),
+    (["--multihost", "2"], "A11"),
+]
+
+
+@pytest.mark.parametrize("flags,item", FL_SIM_CASES,
+                         ids=[" ".join(f) for f, _ in FL_SIM_CASES])
+def test_fl_sim_takes_the_references_command_line(monkeypatch, flags, item):
+    argv = ["--scheme", "dcs", "--rounds", "1", *flags]
+    theirs = _parsed(ref_fl_sim.main, argv)
+    mine = _parsed(fl_sim.main, argv)
+    assert set(theirs) - set(mine) == REF_ONLY
+    assert set(mine) - set(theirs) == PORT_ONLY
+    for dest in set(theirs) & set(mine):
+        assert mine[dest] == theirs[dest], dest
+    if item is None:
+        want = RunConfig().resolved()
+        if "--elect" in flags:
+            want = RunConfig(elect="windowed", elect_window=4).resolved()
+        assert _runs(monkeypatch, argv) == [want]
+    else:
+        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+            fl_sim.main(argv + ["--device", "cpu"])
+
+
+UNPORTED_ARCHS = [a for a in REF_ARCH_IDS if a not in ARCH_IDS]
+
+
+@pytest.mark.parametrize("arch", UNPORTED_ARCHS)
+def test_serve_names_a13b_for_an_arch_not_yet_ported(arch):
+    argv = ["--arch", arch, "--batch", "2", "--max-new", "3"]
+    theirs = _parsed(ref_serve.main, argv)
+    mine = _parsed(serve.main, argv)
+    assert set(mine) - set(theirs) == {"device"}
+    assert all(mine[k] == v for k, v in theirs.items())
+    with pytest.raises(KeyError, match="A13b"):
+        serve.main(argv + ["--device", "cpu"])

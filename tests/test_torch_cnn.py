@@ -2,6 +2,7 @@
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from repro.configs.mnist_cnn import CONFIG as REF_CFG
@@ -10,9 +11,9 @@ from repro.models.cnn import cnn_sample_losses as ref_losses
 from repro.models.cnn import init_cnn as ref_init
 from repro_torch.configs.mnist_cnn import CONFIG
 from repro_torch.convert import params_from_jax, params_to_numpy
-from repro_torch.models.cnn import (cnn_forward, cnn_forward_stacked,
-                                    cnn_sample_losses, count_params,
-                                    init_cnn)
+from repro_torch.models.cnn import (_stacked_conv_gemm, cnn_forward,
+                                    cnn_forward_stacked, cnn_sample_losses,
+                                    count_params, init_cnn)
 
 
 def _ref_params(seed=0):
@@ -79,3 +80,30 @@ def test_stacked_forward_equals_per_model_forward():
         np.testing.assert_allclose(got[c].numpy(),
                                    cnn_forward(ps[c], x[c]).detach().numpy(),
                                    rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("clients,in_ch,out_ch", [(1, 1, 32), (4, 1, 32),
+                                                  (3, 32, 64)])
+def test_card_conv_form_equals_grouped_conv(clients, in_ch, out_ch):
+    """The stacked forward's convolution on the card, patches times
+    weights, against the grouped convolution the CPU runs: values and
+    all three gradients in fp64 (to 1e-12), the two summing in other
+    orders."""
+    g = torch.Generator().manual_seed(clients)
+    x = torch.randn(5, clients * in_ch, 14, 14, generator=g,
+                    dtype=torch.float64, requires_grad=True)
+    w = torch.randn(clients, out_ch, in_ch, 5, 5, generator=g,
+                    dtype=torch.float64, requires_grad=True)
+    b = torch.randn(clients, out_ch, generator=g, dtype=torch.float64,
+                    requires_grad=True)
+    want = torch.nn.functional.conv2d(
+        x, w.reshape(-1, in_ch, 5, 5), b.reshape(-1), padding=2,
+        groups=clients)
+    got = _stacked_conv_gemm(x, w, b)
+    np.testing.assert_allclose(got.detach().numpy(), want.detach().numpy(),
+                               rtol=0, atol=1e-12)
+    up = torch.randn(want.shape, generator=g, dtype=torch.float64)
+    for gw, gg in zip(torch.autograd.grad((want * up).sum(), [x, w, b]),
+                      torch.autograd.grad((got * up).sum(), [x, w, b])):
+        np.testing.assert_allclose(gg.numpy(), gw.numpy(), rtol=0,
+                                   atol=1e-12 * float(gw.abs().max()))

@@ -191,8 +191,11 @@ def test_probe_loss_kernel_refuses_what_it_was_not_built_for(cuda):
 
 
 @pytest.mark.parametrize("normalize", [False, True])
-@pytest.mark.parametrize("p", [30, 70_000])
+@pytest.mark.parametrize("p", [30, 4096, 70_000, 3_090_000])
 def test_fuzzy_eval_kernel_matches_plain(cuda, normalize, p):
+    """One launch a call (a cooperative grid past one CTA with
+    normalize), within 1e-4 of the plain version on [0, 100] and bit
+    for bit from call to call."""
     x = torch.rand(p, 4, generator=torch.Generator().manual_seed(0))
     if normalize:
         x = x * torch.tensor([4500., 3e6, 1., 3.])
@@ -200,10 +203,36 @@ def test_fuzzy_eval_kernel_matches_plain(cuda, normalize, p):
     want = ops.fuzzy_eval(x, *_mamdani("cpu")[:2], table, levels,
                           _mamdani("cpu")[2], normalize=normalize)
     m = _mamdani(cuda)
+    before = build.LAUNCHES["fuzzy_eval"]
     got = ops.fuzzy_eval(x.to(cuda), m[0], m[1], table, levels, m[2],
                          normalize=normalize)
+    assert build.LAUNCHES["fuzzy_eval"] == before + 1
     np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=0,
                                atol=1e-4)
+    assert torch.equal(ops.fuzzy_eval(x.to(cuda), m[0], m[1], table,
+                                      levels, m[2], normalize=normalize),
+                       got)
+
+
+def test_fuzzy_eval_caches_each_rule_tables_packing_apart(cuda):
+    """Two rule bases in turn through the one wrapper: each call packs
+    (or finds) its own table's rules, and each matches the plain version
+    of its own table."""
+    x = torch.rand(500, 4, generator=torch.Generator().manual_seed(1))
+    table, levels = build_rule_table()
+    other = levels[::-1].copy()            # every level keeps a rule
+    mc, mg = _mamdani("cpu"), _mamdani(cuda)
+    got = {}
+    for _ in range(2):
+        for name, lv in (("paper", levels), ("shifted", other)):
+            got.setdefault(name, []).append(ops.fuzzy_eval(
+                x.to(cuda), mg[0], mg[1], table, lv, mg[2]).cpu())
+    for name, lv in (("paper", levels), ("shifted", other)):
+        want = ops.fuzzy_eval(x, mc[0], mc[1], table, lv, mc[2])
+        assert torch.equal(got[name][0], got[name][1])
+        np.testing.assert_allclose(got[name][0].numpy(), want.numpy(),
+                                   rtol=0, atol=1e-4)
+    assert not torch.equal(got["paper"][0], got["shifted"][0])
 
 
 @pytest.mark.parametrize("n", [30, 257, 4096])
@@ -253,6 +282,37 @@ def test_windowed_counts_kernel_bit_equal(cuda, n, window):
     assert build.LAUNCHES["windowed_counts"] == before + 1
     want = ref.windowed_counts_ref(sp, se, sg, **kw)
     assert torch.equal(got, want)
+    assert torch.equal(ops.windowed_counts(sp, se, sg, **kw), got)
+
+
+# (fleet, block, window, kind, offset): R = 1 (M = 4096) and R = 4 (M =
+# 65,536) CTAs, clustered fleets, blocks of 96 and 32 under 128-row CTAs,
+# and arrays 4 bytes off 16-byte alignment (4-byte staging)
+PARTITION_CASES = [(4096, 128, 616, "clustered", 0),
+                   (65536, 128, 616, "clustered", 0),
+                   (33792, 96, 616, "uniform", 0),
+                   (9600, 32, 100, "uniform", 0),
+                   (4096, 128, 616, "uniform", 1),
+                   (65536, 128, 616, "uniform", 1)]
+
+
+@pytest.mark.parametrize("n,block,window,kind,offset", PARTITION_CASES)
+def test_windowed_counts_kernel_partitions_bit_equal(cuda, n, block, window,
+                                                     kind, offset):
+    sp, se, sg, _ = _sorted_fleet(n, n + block, float(n), cuda)
+    if kind == "clustered":
+        sp[n // 2:] = torch.sort(torch.rand(
+            n - n // 2, device=cuda,
+            generator=torch.Generator(device=cuda).manual_seed(n)) * 150.0
+        ).values + sp[n // 2 - 1]
+    if offset:
+        sp, se, sg = (torch.cat([t[:1], t])[1:] for t in (sp, se, sg))
+        assert sp.data_ptr() % 16 != 0
+    kw = dict(comm_range=200.0, e_tau=30.0, n_valid=n, window=window,
+              block=block)
+    got = ops.windowed_counts(sp, se, sg, **kw)
+    want = ref.windowed_counts_ref(sp, se, sg, **kw)
+    assert torch.equal(got, want) and int(want.sum()) > 0
     assert torch.equal(ops.windowed_counts(sp, se, sg, **kw), got)
 
 
@@ -611,3 +671,95 @@ def test_jamba_prefill_launches_selective_scan_once_per_mamba_layer(
     got, _ = engine.generate(cfg, on(params, cuda),
                              {"tokens": toks.to(cuda)}, 4)
     assert got.shape == (2, 4) and got.device.type == "cuda"
+
+
+# -- C8: the loop and batched engines in fp32 on the card --------------------
+
+
+def _engines_fixture(cuda):
+    from repro_torch.fl.rounds import FLSimulation
+    from repro_torch.fl.runconfig import RunConfig
+    from repro_torch.launch.fl_sim import fast_config
+    return {e: FLSimulation(fast_config("dcs", n_rounds=3),
+                            run=RunConfig(engine=e), device=cuda)
+            for e in ("loop", "batched")}
+
+
+@pytest.fixture
+def deterministic():
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cudnn.deterministic = True
+    yield
+    torch.use_deterministic_algorithms(False)
+    torch.backends.cudnn.deterministic = False
+
+
+def test_sgd_step_alone_and_in_a_cohort_agree_op_by_op(cuda, deterministic):
+    """One local-SGD step of a client trained alone (the loop engine's
+    cohort of one) and in its round-0 cohort of four (the batched
+    engine's), op by op: the stacked convolutions, the logits, the loss
+    and every gradient within 1e-5 of their scale.  With cuDNN's grouped
+    convolution, conv2's weight gradient at one group ran through
+    Winograd and missed this by ~10x (ROADMAP C8)."""
+    import torch.nn.functional as F
+    from repro_torch.fl.pipeline import cohort_bucket
+    from repro_torch.models.cnn import _stacked_conv_gemm, sample_nll
+    sim = _engines_fixture(cuda)["batched"]
+    fields = sim.round_fields(0)
+    surv = sim._host(sim.selection_state(0, fields))["survivors"]
+    g = sim.groups[0]
+    cohort = np.where(surv[g.client_ids])[0]
+    idx = np.concatenate([cohort, np.full(
+        cohort_bucket(len(cohort)) - len(cohort), cohort[0])])
+    b = sim.cfg.batch_size
+
+    def step(c_idx):
+        perm = torch.stack([fields.perms[int(g.client_ids[i])][0]
+                            for i in c_idx]).to(cuda)
+        rows = torch.arange(len(c_idx), device=cuda)[:, None]
+        images = torch.as_tensor(g.images[c_idx], device=cuda)[rows, perm][
+            :, :b]
+        labels = torch.as_tensor(g.labels[c_idx], device=cuda)[rows, perm][
+            :, :b]
+        p = {k: v[None].expand(len(c_idx), *v.shape).clone()
+             .requires_grad_(True) for k, v in sim.params.items()}
+        out = {}
+        c = len(c_idx)
+        x = images.permute(1, 0, 4, 2, 3).reshape(b, -1, 28, 28)
+        for name in ("conv1", "conv2"):
+            x = _stacked_conv_gemm(x, p[name + ".w"], p[name + ".b"])
+            out[name] = x.reshape(b, c, -1, *x.shape[-2:]).transpose(0, 1)
+            x = F.max_pool2d(F.relu(x), 2)
+        x = x.reshape(b, c, -1, 7, 7).permute(1, 0, 3, 4, 2).reshape(c, b, -1)
+        x = F.relu(torch.baddbmm(p["fc1.b"][:, None, :], x,
+                                 p["fc1.w"].transpose(1, 2)))
+        out["logits"] = torch.baddbmm(p["fc2.b"][:, None, :], x,
+                                      p["fc2.w"].transpose(1, 2))
+        out["loss"] = sample_nll(out["logits"], labels).mean(-1)
+        grads = torch.autograd.grad(out["loss"].sum(), list(p.values()))
+        out.update({"grad " + k: v for k, v in zip(p, grads)})
+        return {k: v.detach()[0] for k, v in out.items()}
+
+    alone, in_cohort = step(idx[:1]), step(idx)
+    assert len(idx) == 4
+    for k, want in in_cohort.items():
+        err = float((alone[k] - want).abs().max()
+                    / want.abs().max().clamp(min=1e-30))
+        assert err <= 1e-5, (k, err)
+
+
+def test_loop_and_batched_engines_agree_in_fp32(cuda, deterministic):
+    """Fast round 0 in both engines on the card, fp32: the masks and
+    integer columns equal, accuracy within the reference's 1e-5
+    (tests/test_engine_parity.py), the global params within 1e-5."""
+    sims = _engines_fixture(cuda)
+    rows = {e: s.run_round(0) for e, s in sims.items()}
+    assert np.array_equal(sims["loop"].last_mask, sims["batched"].last_mask)
+    for k in ("n_selected", "n_aggregated", "n_straggler"):
+        assert rows["loop"][k] == rows["batched"][k]
+    assert rows["loop"]["n_aggregated"] > 0
+    assert abs(rows["loop"]["accuracy"] - rows["batched"]["accuracy"]) <= 1e-5
+    gap = max(float((sims["loop"].params[k]
+                     - sims["batched"].params[k]).abs().max())
+              for k in sims["loop"].params)
+    assert gap <= 1e-5, gap
