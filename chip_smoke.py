@@ -133,6 +133,20 @@ Phases (any failure exits non-zero; no phase's exception is caught):
    order, the paper CLI's launch line ``probe_fuzzy`` 1 and
    ``neighbor_elect`` 1, its comm columns == ``core/overhead.py``, no
    temporary file left;
+5f. the multi-seed sweep (``launch/sweep.py``): for one ``dcs`` group
+   of 4 fast-cell seeds, the seed-batched ``probe_fuzzy`` and
+   ``neighbor_elect`` (one launch for the 4 seeds) bit-equal to 4 single
+   launches, within 1e-5 of scale of their plain seed versions,
+   bit-repeatable, Eq. 8 per seed (one seed's aux times 1024 moves no
+   bit of any seed), and the seed-batched prefix bit-equal to 4
+   single-seed prefixes; both kernels and the prefix timed against the
+   4 single forms; then ``python -m repro_torch.launch.sweep --fast
+   --seeds 4 --rounds 2 --schemes all`` through its ``main`` twice and
+   with ``--no-vmap`` (the CSVs byte-equal; one ``probe_fuzzy`` a round
+   a group and one ``neighbor_elect`` a round of the ``dcs`` group; 4
+   of each with ``--no-vmap``), ``--paper-profile --seeds 1 --rounds
+   1`` (Table 3's comm columns) and ``--paper-profile --seeds 2``, which
+   raises the reference's partition error (ROADMAP C10);
 6. the probe's time split by phase (conv, fc1, fc2 + NLL, the client
    sums) with ``torch.profiler`` at the fast profile's and the large
    fleet's packs, last, since launches cost more in a process once the
@@ -141,8 +155,12 @@ Phases (any failure exits non-zero; no phase's exception is caught):
    CUDA-event times; the device time per launch of ``fuzzy_eval`` (P =
    30 and 4096), ``neighbor_elect`` (N = 30) and ``windowed_counts`` (M
    = 4096 and 65,536) beside their bounds, their CUDA-event times and a
-   one-element in-place add's, the card's launch floor; then
-   ``{"kernels": [...]}`` on the line before the last;
+   one-element in-place add's, the card's launch floor; the two
+   seed-batched kernels' device time a launch against 4 single
+   launches; then ``{"kernels": [...]}`` on the line before the last,
+   ``probe_fuzzy``'s and ``neighbor_elect``'s entries with a ``seeds``
+   object (S, the fast sweep's launches, ms, the S single launches' ms,
+   device ms of both, the bound scaled by S);
 7. ``{"ok": true, "device": {...}}`` as the last line.
 """
 from __future__ import annotations
@@ -833,38 +851,90 @@ def probe_bound(s_rows: int, n: int, params) -> tuple:
                         s_rows)
 
 
-def phase_ms(fn, phases, calls: int = 1) -> dict:
+# the profiler's warm-up step and the idle pads of its measured step:
+# in a process that has run the earlier phases, a session's trace lacked
+# the kernels of its first ~70-80 ms (the large fleet's probe its split
+# and conv, 67 ms, also after a warm-up step; selective_scan's 5 calls
+# at T = 4096 all of them), so tracing runs PROFILE_WARMUP_S before the
+# measured step and the measured calls start and end PROFILE_PAD_S
+# inside it
+PROFILE_WARMUP_S = 0.5
+PROFILE_PAD_S = 0.25
+
+
+def phase_ms(fn, phases, calls: int = 1, *, optional=(),
+             busy: bool = False) -> dict:
     """Device ms of each phase per call of ``fn`` (mean over ``calls``
     calls), summed by kernel name from ``torch.profiler``'s CUDA
-    activity; ``phases`` is ((phase, kernel name prefixes), ...)."""
+    activity; ``phases`` is ((phase, kernel name prefixes), ...).  The
+    session traces a warm-up step of ``fn`` calls for at least
+    ``PROFILE_WARMUP_S`` (its events dropped), then the ``calls``
+    calls, padded by ``PROFILE_PAD_S`` of idle on each side, as its one
+    active step.
+
+    A trace counts only if every phase not named in ``optional`` shows
+    at least ``calls`` kernels (each call launches each phase's kernels;
+    a session that dropped part of its calls shows fewer) and, with
+    ``busy`` (kernels long enough to keep the card busy between
+    back-to-back calls), if the traced total is at least half the CUDA
+    events' time of the same calls.  A trace that fails is taken once
+    more, and a second failure raises."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    out = dict.fromkeys((name for name, _ in phases), 0.0)
-    for ev in prof.key_averages():
-        t = getattr(ev, "device_time_total", None)
-        if t is None:
-            t = getattr(ev, "cuda_time_total", 0.0)
-        key = ev.key[5:] if ev.key.startswith("void ") else ev.key
-        for name, keys in phases:
-            if key.startswith(keys):
-                out[name] += t / 1e3 / calls
-    if not any(out.values()):
-        raise AssertionError("torch.profiler saw no device time")
-    return out
+    for attempt in range(2):
+        traces = []
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
+                     on_trace_ready=lambda p: traces.append(p.key_averages())
+                     ) as prof:
+            t0 = time.perf_counter()
+            while time.perf_counter() - t0 < PROFILE_WARMUP_S:
+                fn()
+                torch.cuda.synchronize()
+            prof.step()
+            time.sleep(PROFILE_PAD_S)
+            start.record()
+            for _ in range(calls):
+                fn()
+            end.record()
+            torch.cuda.synchronize()
+            time.sleep(PROFILE_PAD_S)
+            prof.step()
+        event_ms = start.elapsed_time(end) / calls
+        out = dict.fromkeys((name for name, _ in phases), 0.0)
+        seen = dict.fromkeys(out, 0)
+        for ev in (traces[0] if traces else ()):
+            t = getattr(ev, "device_time_total", None)
+            if t is None:
+                t = getattr(ev, "cuda_time_total", 0.0)
+            key = ev.key[5:] if ev.key.startswith("void ") else ev.key
+            for name, keys in phases:
+                if key.startswith(keys):
+                    out[name] += t / 1e3 / calls
+                    seen[name] += ev.count
+        short = [name for name in out
+                 if name not in optional and seen[name] < calls]
+        total = sum(out.values())
+        if not short and not (busy and total < 0.5 * event_ms):
+            return out
+        log(f"[profile] attempt {attempt + 1}: torch.profiler saw "
+            f"{seen} kernels for {calls} calls (phases short: {short}), "
+            f"device {total:.4f} ms a call against CUDA events "
+            f"{event_ms:.4f} ms")
+    raise AssertionError("torch.profiler's trace missed kernels of "
+                         f"{[name for name, _ in phases]}")
 
 
-def log_probe_phases(label: str, fn) -> None:
-    ms = phase_ms(fn, PROBE_PHASES)
+def log_probe_phases(label: str, fn, event_ms: float) -> None:
+    ms = phase_ms(fn, PROBE_PHASES, busy=True)
     total = sum(ms.values())
     log(f"[profile] {label}: " + ", ".join(
         f"{k} {v:.4f} ms ({100 * v / total:.1f}%)" for k, v in ms.items())
-        + f"; total {total:.4f} ms")
+        + f"; total {total:.4f} ms; CUDA events over back-to-back calls "
+        f"{event_ms:.4f} ms")
 
 
 def probe_loss_phase(dev, big, big_probe, bfeats0, main_probe, feats_main):
@@ -1527,6 +1597,294 @@ def mesh_large_fleet(dev, big0):
             for k in ranks[0]["launches"]}
 
 
+# phase 5f: the multi-seed sweep (launch/sweep.py), its seeds a group
+SWEEP_SEEDS = 4
+SWEEP_FAST_ARGV = ["--fast", "--seeds", str(SWEEP_SEEDS), "--rounds", "2",
+                   "--schemes", "all"]
+# Table 3's partition (paper_cell_config) exhausts a class for every
+# seed but 0, in the reference as in the port (ROADMAP C10): the paper
+# profile's sweep runs seed 0, and 2 seeds must raise as the reference's
+SWEEP_PAPER_ARGV = ["--paper-profile", "--seeds", "1", "--rounds", "1"]
+SWEEP_PAPER_SEEDS_ARGV = ["--paper-profile", "--seeds", "2", "--rounds",
+                          "1"]
+# a scale of one seed's aux columns that Eq. 8 undoes exactly (a power
+# of 2): that seed's evals must not move, and no other seed's may
+EQ8_TRAP_SCALE = 1024.0
+
+
+def sweep_kernels(dev) -> dict:
+    """Phase 5f's kernels: one ``dcs`` group of ``SWEEP_SEEDS`` fast-cell
+    seeds (``fast_cell_config``), round 0.  The seed-batched
+    ``probe_fuzzy`` and ``neighbor_elect`` against S single launches on
+    the same seeds (feats, evals and masks bit-equal), against their
+    plain seed versions (LF within 1e-5 of the largest loss, evals 1e-3
+    on [0, 100], masks equal) and against themselves (bit-repeatable);
+    one seed's aux scaled by ``EQ8_TRAP_SCALE`` moves no bit of any seed
+    (Eq. 8 per seed, never over the union).  The seed-batched prefix
+    against S single-seed prefixes on the same simulations: every output
+    bit-equal.  Then CUDA-event times (batched against S singles, bounds
+    scaled by S) and the prefix's wall time a round.  Returns the
+    readings and the calls phase 6 profiles."""
+    import numpy as np
+    import torch
+    from repro_torch.core.rules import build_rule_table
+    from repro_torch.fl import pipeline
+    from repro_torch.fl.rounds import FLSimulation
+    from repro_torch.fl.runconfig import RunConfig
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch.sweep import fast_cell_config
+    n_s = SWEEP_SEEDS
+    sims = [FLSimulation(fast_cell_config("dcs", 9, "uniform", seed),
+                         run=RunConfig(), device=dev) for seed in range(n_s)]
+    cfg = sims[0].stage_cfg
+    n = cfg.n_clients
+    st = pipeline.stack_statics([s.statics for s in sims])
+    fields = [s.round_fields(0) for s in sims]
+    sf = pipeline.stack_fields(fields)
+    params = {k: torch.stack([s.params[k] for s in sims])
+              for k in sims[0].params}
+    pos = pipeline.positions(st, cfg, torch.zeros((), device=dev))
+    aux = pipeline.aux_features(st, cfg, pos, sf)
+    table, levels = build_rule_table()
+    mam = (st.means, st.sigmas, table, levels, st.level_centers)
+    mam_ref = (st.means, st.sigmas, torch.as_tensor(table, device=dev),
+               torch.as_tensor(levels, device=dev), st.level_centers)
+    s_rows = st.probe_images.shape[1]
+    log(f"[sweep kernels] {n_s} seeds of fast_cell_config('dcs', 9, "
+        f"'uniform'): probe S={s_rows} a seed, N={n}")
+
+    def batched_probe(a=aux):
+        return ops.probe_fuzzy(params, st.probe_images, st.probe_labels,
+                               st.probe_seg, st.probe_counts, a, *mam,
+                               n_clients=n)
+
+    def single_probe(i, a=aux):
+        si = sims[i].statics
+        return ops.probe_fuzzy(sims[i].params, si.probe_images,
+                               si.probe_labels, si.probe_seg,
+                               si.probe_counts, a[i].contiguous(), *mam,
+                               n_clients=n)
+
+    def single_probes():
+        return [single_probe(i) for i in range(n_s)]
+
+    f, e = batched_probe()
+    f2, e2 = batched_probe()
+    singles = single_probes()
+    f0, e0 = ref.probe_fuzzy_ref(
+        params, st.probe_images, st.probe_labels, st.probe_seg,
+        st.probe_counts, aux, *mam_ref, n_clients=n)
+    scaled = aux.clone()
+    scaled[1] *= EQ8_TRAP_SCALE
+    ft, et = batched_probe(scaled)
+    ft1, et1 = single_probe(1, scaled)
+    torch.cuda.synchronize()
+    bit = all(torch.equal(f[i], fi) and torch.equal(e[i], ei)
+              for i, (fi, ei) in enumerate(singles))
+    rep = torch.equal(f, f2) and torch.equal(e, e2)
+    lf_err = float((f[..., 3] - f0[..., 3]).abs().max()
+                   / f0[..., 3].abs().max())
+    ev_err = float((e - e0).abs().max())
+    trap = (torch.equal(et, e) and torch.equal(ft1, ft[1])
+            and torch.equal(et1, et[1])
+            and torch.equal(ft[[0, 2, 3]], f[[0, 2, 3]]))
+    ok = (bit and rep and lf_err <= 1e-5 and ev_err <= 1e-3 and trap
+          and torch.equal(f[..., :3], f0[..., :3])
+          and bool(torch.isfinite(e).all()))
+    log(f"[check] probe_fuzzy seeds S={n_s}: bit-equal to {n_s} single "
+        f"launches {bit}, bit-repeatable {rep}; against the plain seed "
+        f"version LF max err / scale {lf_err:.3g} (tol 1e-5), eval max "
+        f"abs err {ev_err:.3g} (tol 1e-3 on [0, 100]); seed 1's aux x "
+        f"{EQ8_TRAP_SCALE:g}: every seed's evals unchanged and seed 1 "
+        f"equal to its single launch {trap} {'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the seed-batched probe_fuzzy is wrong")
+
+    kw = dict(comm_range=cfg.comm_range_m, top_m=cfg.top_m, e_tau=cfg.e_tau)
+    ev_tie = e.clone()
+    ev_tie[:, 1::3] = ev_tie[:, 0::3][:, :ev_tie[:, 1::3].shape[1]]
+    for label, ev in (("round 0", e), ("tied evals", ev_tie)):
+        got = ops.neighbor_elect(pos, ev, **kw)
+        again = ops.neighbor_elect(pos, ev, **kw)
+        one = [ops.neighbor_elect(pos[i].contiguous(), ev[i].contiguous(),
+                                  **kw) for i in range(n_s)]
+        want = ref.neighbor_elect_ref(pos, ev, **kw)
+        torch.cuda.synchronize()
+        ok = (torch.equal(got, want) and torch.equal(got, again)
+              and all(torch.equal(got[i], m) for i, m in enumerate(one)))
+        log(f"[check] neighbor_elect seeds S={n_s} N={n} {label}: bit-equal "
+            f"to {n_s} single launches, the plain seed version and itself "
+            f"{ok}; selected {got.sum(dim=1).tolist()} "
+            f"{'OK' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("the seed-batched neighbor_elect is wrong")
+
+    def batched_prefix():
+        stacked = {k: torch.stack([s.params[k] for s in sims])
+                   for k in sims[0].params}
+        return pipeline.selection_prefix_seeds(
+            st, stacked, 0, pipeline.stack_fields(fields), cfg=cfg)
+
+    def single_prefixes():
+        return [s.selection_state(0, f) for s, f in zip(sims, fields)]
+
+    outs, one = batched_prefix(), single_prefixes()
+    torch.cuda.synchronize()
+    same = all(torch.equal(outs[k][i], v) for i, o in enumerate(one)
+               for k, v in o.items())
+    log(f"[check] selection_prefix_seeds S={n_s}: every output bit-equal "
+        f"to {n_s} single-seed prefixes {same} {'OK' if same else 'FAIL'}")
+    if not same:
+        raise AssertionError("the seed-batched prefix differs")
+
+    # wall time of one round's prefix, host clock, synchronised, the
+    # two forms in turns
+    walls = {"batched": [], "singles": []}
+    for _ in range(10):
+        for name, fn in (("batched", batched_prefix),
+                         ("singles", single_prefixes)):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls[name].append(1e3 * (time.perf_counter() - t))
+    med = {k: float(np.median(v)) for k, v in walls.items()}
+    log(f"[time] selection prefix a round, {n_s} seeds (host clock, "
+        f"synchronised, median of 10; min): seed-batched {med['batched']:.4f}"
+        f" ms ({min(walls['batched']):.4f}), {n_s} single-seed prefixes "
+        f"{med['singles']:.4f} ms ({min(walls['singles']):.4f}); ratio "
+        f"{med['batched'] / med['singles']:.3f}")
+
+    param_bytes = sum(t.numel() * 4 for t in sims[0].params.values())
+    probe_b = probe_bounds(s_rows * (28 * 28 * 4 + 8) + n * 36 + param_bytes,
+                           s_rows)[0]
+    elect_b = bound(n * 12, n * n * ELECT_OPS_PER_PAIR)
+    reading = {}
+    for name, fn, single_fn, iters, (b_ms, b_by) in (
+            ("probe_fuzzy", batched_probe, single_probes, 20, probe_b),
+            ("neighbor_elect",
+             lambda: ops.neighbor_elect(pos, e, **kw),
+             lambda: [ops.neighbor_elect(pos[i], e[i], **kw)
+                      for i in range(n_s)], 200, elect_b)):
+        ms, single_ms = time_ms(fn, iters), time_ms(single_fn, iters)
+        reading[name] = {"S": n_s, "ms": ms, f"single_x{n_s}_ms": single_ms,
+                         "bound_ms": n_s * b_ms, "bound_by": b_by,
+                         "calls": (fn, single_fn)}
+        log(f"[time] {name} seeds S={n_s}: one seed-batched launch "
+            f"{ms:.4f} ms, {n_s} single launches {single_ms:.4f} ms, "
+            f"bound {n_s} x {b_ms:.3g} = {n_s * b_ms:.3g} ms ({b_by})")
+    reading["prefix_ms"] = med
+    return reading
+
+
+def sweep_cli(argv, out_path) -> tuple:
+    """``launch/sweep.py``'s ``main(ARGV + ["--out", OUT_PATH])`` in this
+    process, its launch counts reset just before and read just after:
+    (seconds, launches, the CSV's text)."""
+    from repro_torch.kernels import build
+    from repro_torch.launch import sweep
+    buf = io.StringIO()
+    build.reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = sweep.main(list(argv) + ["--out", str(out_path)])
+    secs = time.perf_counter() - t0
+    launches = dict(build.LAUNCHES)
+    for line in buf.getvalue().strip().splitlines():
+        log(f"[sweep cli] {line}")
+    if rc != 0:
+        raise AssertionError(f"sweep {argv} returned {rc}")
+    return secs, launches, Path(out_path).read_text()
+
+
+def check_sweep_csv(label: str, text: str, n_rows: int, cfg_fn) -> None:
+    """The CSV has the reference's header, ``n_rows`` rows that re-emit
+    byte for byte through ``parse_csv_rows`` and ``rows_to_csv``, sane
+    counts, and comm columns that format as ``core/overhead.py``'s."""
+    from repro_torch.launch import sweep
+    rows = sweep.parse_csv_rows(text)
+    ok = rows is not None and len(rows) == n_rows \
+        and sweep.rows_to_csv(rows) == text
+    for row in rows or ():
+        cfg = cfg_fn(row["scheme"], row["classes_per_client"],
+                     row["distribution"], row["seed"])
+        cols = comm_columns(cfg, cfg.partition.n_clients, row["n_selected"])
+        ok = ok and all(sweep._FMT[k].format(v)
+                        == sweep._FMT[k].format(row[k])
+                        for k, v in cols.items())
+        ok = ok and (0.0 <= row["accuracy"] <= 1.0
+                     and math.isfinite(row["mean_eval_selected"])
+                     and 0 <= row["n_aggregated"] <= row["n_selected"]
+                     <= cfg.partition.n_clients)
+    log(f"[check] sweep {label}: {n_rows} rows, the reference's header, "
+        f"parse/format byte-stable, comm columns == core/overhead.py, "
+        f"counts sane {ok} {'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"sweep {label}: bad CSV")
+
+
+def sweep_phase(dev) -> dict:
+    """Phase 5f: ``sweep_kernels``, then the sweep through its CLI entry
+    point (``main``), on the card: ``SWEEP_FAST_ARGV`` twice, with
+    ``--no-vmap`` and with ``--workers 2`` (two spawned processes
+    sharing the card; the four CSVs byte-equal; the batched runs in this
+    process launch ``probe_fuzzy`` once a round a group and
+    ``neighbor_elect`` once a round of the ``dcs`` group, nothing else;
+    ``--no-vmap`` once a seed),
+    then ``SWEEP_PAPER_ARGV`` (one ``probe_fuzzy`` a group, one
+    ``neighbor_elect``; Table 3's comm columns) and
+    ``SWEEP_PAPER_SEEDS_ARGV``, which raises the reference's partition
+    error (C10).  Returns ``sweep_kernels``' readings with the batched
+    fast run's launches."""
+    import tempfile
+    from repro_torch.launch.sweep import fast_cell_config, paper_cell_config
+    reading = sweep_kernels(dev)
+    n_s, rounds, groups = SWEEP_SEEDS, 2, 3
+    want = {"probe_fuzzy": groups * rounds, "neighbor_elect": rounds}
+    with tempfile.TemporaryDirectory() as tmp:
+        runs = {}
+        for label, extra in (("default", []), ("default again", []),
+                             ("--no-vmap", ["--no-vmap"]),
+                             ("--workers 2", ["--workers", "2"])):
+            runs[label] = sweep_cli(SWEEP_FAST_ARGV + extra,
+                                    Path(tmp) / f"{len(runs)}.csv")
+        paper_s, paper_launches, paper_csv = sweep_cli(
+            SWEEP_PAPER_ARGV, Path(tmp) / "paper.csv")
+        try:
+            sweep_cli(SWEEP_PAPER_SEEDS_ARGV, Path(tmp) / "paper2.csv")
+            c10 = "ran"
+        except ValueError as err:
+            c10 = str(err)
+    texts = {label: r[2] for label, r in runs.items()}
+    launches = {label: r[1] for label, r in runs.items()}
+    check_sweep_csv("fast", texts["default"], groups * n_s * rounds,
+                    fast_cell_config)
+    check_sweep_csv("paper profile", paper_csv, groups,
+                    paper_cell_config)
+    same = len(set(texts.values())) == 1
+    full = lambda w: {k: w.get(k, 0) for k in launches["default"]}
+    ok = (same and all(launches[k] == full(want)
+                       for k in ("default", "default again"))
+          and launches["--no-vmap"] == full(
+              {k: n_s * v for k, v in want.items()})
+          and paper_launches == full({"probe_fuzzy": groups,
+                                      "neighbor_elect": 1})
+          and c10 == "class 7 exhausted for client 26: need 5, have 1")
+    log(f"[check] sweep {' '.join(SWEEP_FAST_ARGV)}: CSVs of the default "
+        f"run, a second default run, --no-vmap and --workers 2 byte-equal "
+        f"{same}; "
+        f"launches {launches['default']} (want {want}: one seed-batched "
+        f"launch a round a group), --no-vmap {launches['--no-vmap']}; "
+        + "; ".join(f"{k} {v[0]:.1f}s" for k, v in runs.items())
+        + f"; {' '.join(SWEEP_PAPER_ARGV)} {paper_s:.1f}s, launches "
+        f"{paper_launches}; {' '.join(SWEEP_PAPER_SEEDS_ARGV)}: {c10} (the "
+        f"reference's partition error, C10) {'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the sweep on the card is wrong")
+    reading["launches"] = launches["default"]
+    return reading
+
+
 # phase 6's small kernels: the CUDA kernels each wrapper launches
 SMALL_KERNEL_NAMES = {"fuzzy_eval": ("fuzzy_eval_kernel",),
                       "neighbor_elect": ("neighbor_elect_kernel",),
@@ -2154,6 +2512,11 @@ def main() -> int:
     c8_step_check(dev)
     paper_clis()
 
+    # -- 5f. the multi-seed sweep: seed-batched probe_fuzzy and election --
+    gc.collect()
+    torch.cuda.empty_cache()
+    sweep_reading = sweep_phase(dev)
+
     launches = {"probe_fuzzy": fused["probe_fuzzy"],
                 "neighbor_elect": fused["neighbor_elect"],
                 "fuzzy_eval": unfused["fuzzy_eval"],
@@ -2170,15 +2533,18 @@ def main() -> int:
     # the probe's time split by phase, after every other timing: once
     # torch.profiler has run, launches in this process cost more (host-
     # timed launch loops read ~0.015-0.025 ms slower)
+    gc.collect()
+    torch.cuda.empty_cache()
     for label, _, _, inputs, n in probe_packs:
         log_probe_phases(f"probe_fuzzy {label}", functools.partial(
-            ops.probe_fuzzy, *inputs, *mam, n_clients=n))
+            ops.probe_fuzzy, *inputs, *mam, n_clients=n),
+            event_ms[("probe_fuzzy", label)])
     # wkv6 by phase and selective_scan, device time per launch at both
     # shapes, beside the CUDA-event time of back-to-back wrapper calls
     for (b, t), args in wkv_cases.items():
         shape = f"B={b} T={t} H={WKV_H} N={WKV_N} bf16"
         ms = phase_ms(functools.partial(wkv6_cuda, *args), WKV_PHASES,
-                      calls=5)
+                      calls=5, optional=("B", "C") if t <= 64 else ())
         log(f"[profile] wkv6 {shape}: " + ", ".join(
             f"phase {k} {v:.4f} ms" for k, v in ms.items())
             + f"; device {sum(ms.values()):.4f} ms a launch; CUDA events "
@@ -2215,6 +2581,24 @@ def main() -> int:
             f"{b_by}); CUDA events over back-to-back wrapper calls "
             f"{event_ms[(name, shape)]:.4f} ms")
 
+    # the seed-batched kernels: device time of one launch for the sweep's
+    # S seeds against S single launches, beside the bound scaled by S
+    for name, phases in (
+            ("probe_fuzzy", PROBE_PHASES),
+            ("neighbor_elect",
+             (("elect", SMALL_KERNEL_NAMES["neighbor_elect"]),))):
+        rd = sweep_reading[name]
+        fn, single_fn = rd.pop("calls")
+        kw = (dict(calls=5, busy=True) if name == "probe_fuzzy"
+              else dict(calls=200))
+        single_key = f"single_x{rd['S']}_device_ms"
+        rd["device_ms"] = sum(phase_ms(fn, phases, **kw).values())
+        rd[single_key] = sum(phase_ms(single_fn, phases, **kw).values())
+        log(f"[profile] {name} seeds S={rd['S']}: device "
+            f"{rd['device_ms']:.4f} ms a seed-batched launch, "
+            f"{rd[single_key]:.4f} ms for {rd['S']} single launches; bound "
+            f"{rd['bound_ms']:.6f} ms ({rd['bound_by']})")
+
     # -- 6. the kernels line ---------------------------------------------------
     meta = {
         "probe_fuzzy": ("src/repro_torch/csrc/probe_fuzzy.cu",
@@ -2244,11 +2628,15 @@ def main() -> int:
     for name in build.KERNELS:
         src, replaces, err = meta[name]
         ms, plain_ms, b_ms, b_by = timings[name]
-        kernels.append({"name": name, "route": "cuda", "source": src,
-                        "replaces": replaces, "launches": launches[name],
-                        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                        "bound_ms": b_ms, "bound_by": b_by,
-                        "library_ms": library.get(name)})
+        entry = {"name": name, "route": "cuda", "source": src,
+                 "replaces": replaces, "launches": launches[name],
+                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                 "bound_ms": b_ms, "bound_by": b_by,
+                 "library_ms": library.get(name)}
+        if name in sweep_reading:        # the sweep's seed-batched launch
+            entry["seeds"] = dict(sweep_reading[name],
+                                  launches=sweep_reading["launches"][name])
+        kernels.append(entry)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                               "count": count}}), flush=True)

@@ -9,6 +9,10 @@
 - ``ccs_fuzzy_select``  — server-side global top-n on evaluations.
 - ``ccs_random_select`` — server-side uniform pick; the draw itself is
   an input (``idx``), so the port and the reference can share it.
+
+The multi-seed sweep selects S seeds at once: every scheme here takes
+leading axes, each seed's mask its own (``dcs_select`` elects (S, N)
+fleets in one kernel launch).
 """
 from __future__ import annotations
 
@@ -22,7 +26,8 @@ from repro_torch.kernels import ops as kops
 def dcs_select(pos: torch.Tensor, evals: torch.Tensor, *,
                comm_range: float = 200.0, top_m: int = 2,
                e_tau: float = 30.0) -> torch.Tensor:
-    """Distributed election -> int32 mask (N,), 1 = self-elected."""
+    """Distributed election -> int32 mask (..., N), 1 = self-elected;
+    each leading index (a seed) is a fleet of its own."""
     return kops.neighbor_elect(pos, evals, comm_range=comm_range,
                                top_m=top_m, e_tau=e_tau)
 
@@ -41,20 +46,24 @@ def dcs_select_windowed(pos: torch.Tensor, evals: torch.Tensor, *,
 
 
 def ccs_fuzzy_select(evals: torch.Tensor, n_clients: int) -> torch.Tensor:
-    """Server-side top-n -> int32 mask (N,).  Ties keep the lower index
-    (as ``jax.lax.top_k`` does): a stable sort on ``-eval``."""
-    n = evals.shape[0]
-    idx = torch.sort(-evals, stable=True).indices[:min(n_clients, n)]
-    mask = torch.zeros(n, dtype=torch.int32, device=evals.device)
-    return mask.index_fill_(0, idx, 1)
+    """Server-side top-n over the last axis -> int32 mask (..., N), each
+    leading slice (a seed) its own.  Ties keep the lower index (as
+    ``jax.lax.top_k`` does): a stable sort on ``-eval``, never
+    ``torch.topk``, whose order among ties is unspecified."""
+    n = evals.shape[-1]
+    idx = torch.sort(-evals, dim=-1, stable=True).indices[
+        ..., :min(n_clients, n)]
+    mask = torch.zeros(evals.shape, dtype=torch.int32, device=evals.device)
+    return mask.scatter_(-1, idx, 1)
 
 
 def ccs_random_select(idx: torch.Tensor, n_participants: int
                       ) -> torch.Tensor:
-    """Uniform server-side selection of the drawn indices ``idx`` (k,)
-    -> int32 mask (N,)."""
-    mask = torch.zeros(n_participants, dtype=torch.int32, device=idx.device)
-    return mask.index_fill_(0, idx.long(), 1)
+    """Uniform server-side selection of the drawn indices ``idx`` (..., k)
+    -> int32 mask (..., N)."""
+    mask = torch.zeros(idx.shape[:-1] + (n_participants,),
+                       dtype=torch.int32, device=idx.device)
+    return mask.scatter_(-1, idx.long(), 1)
 
 
 def selection_stats(mask: torch.Tensor, evals: torch.Tensor) -> dict:

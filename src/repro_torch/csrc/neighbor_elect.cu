@@ -14,6 +14,11 @@
 // thresholds, so the mask is bit-equal to the plain version, including
 // at d == comm_range and on tied evaluations (lower index wins).  The
 // predicate lives in elect_predicate.cuh, shared with the windowed counts.
+//
+// One launch elects n_seeds fleets of N (the multi-seed sweep's
+// seed-batched prefix, as the reference's vmap over seeds gives
+// neighbor_elect_pallas a leading grid axis): blockIdx.y is the seed, and
+// each seed's (N,) slice of pos, ev and out is a launch of one fleet.
 #include <cuda_runtime.h>
 
 #include "elect_predicate.cuh"
@@ -26,6 +31,10 @@ neighbor_elect_kernel(const float* __restrict__ pos,
                       float e_tau, int top_m, int* __restrict__ out) {
   __shared__ float sp[NE_TILE];
   __shared__ float se[NE_TILE];
+  const long z = blockIdx.y;                 // the seed
+  pos += z * n;
+  ev += z * n;
+  out += z * n;
   const int i = blockIdx.x * NE_TILE + threadIdx.x;
   const float pi = i < n ? pos[i] : 1e18f;
   const float ei = i < n ? ev[i] : -1e18f;
@@ -44,11 +53,13 @@ neighbor_elect_kernel(const float* __restrict__ pos,
   if (i < n) out[i] = (ei >= e_tau && count < top_m) ? 1 : 0;
 }
 
-extern "C" int neighbor_elect_launch(const void* pos, const void* ev, int n,
+extern "C" int neighbor_elect_launch(int n_seeds, const void* pos,
+                                     const void* ev, int n,
                                      float comm_range, float e_tau,
                                      int top_m, void* out, void* stream) {
-  if (n <= 0) return (int)cudaErrorInvalidValue;
-  const int grid = (n + NE_TILE - 1) / NE_TILE;
+  if (n <= 0 || n_seeds <= 0 || n_seeds > 65535)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((n + NE_TILE - 1) / NE_TILE, n_seeds);
   neighbor_elect_kernel<<<grid, NE_TILE, 0, (cudaStream_t)stream>>>(
       (const float*)pos, (const float*)ev, n, comm_range, e_tau, top_m,
       (int*)out);

@@ -33,7 +33,7 @@ extern "C" int probe_loss_launch(
     void* losses, void* span, void* sums, void* lf, void* stream) {
   if (s_rows <= 0 || n_clients <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  int err = probe_phases_run(images, labels, seg, s_rows, n_clients, w1, b1,
+  int err = probe_phases_run(1, images, labels, seg, s_rows, n_clients, w1, b1,
                              w2, b2, f1w, f1b, f2w, f2b, wsplit, act, hidden,
                              losses, span, sums, st);
   if (err != 0) return err;

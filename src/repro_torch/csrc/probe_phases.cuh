@@ -44,6 +44,14 @@
 //              seg is n_clients (the overflow lane: padding) reach no
 //              client.
 //
+// The seed axis.  A multi-seed sweep probes S seeds' packs at once, as
+// the reference's vmap over seeds gives its Pallas kernel a leading grid
+// axis: every phase takes blockIdx.z as the seed and offsets each operand
+// by the seed's stride (the pack's rows, the seed's weights, its scratch
+// and its clients); within a seed the blocks, their arithmetic and its
+// order are those of a launch of one seed, so each seed's results are
+// bit-equal to that launch's.  Seeds share the launches, not data.
+//
 // Precision.  The reference probe is fp32, and the checks hold the
 // kernels to fp32 results (losses within 1e-5 of scale): one TF32 pass
 // keeps ~3 decimal digits, too few.  conv2 and fc1 run as 3xTF32: x =
@@ -106,14 +114,24 @@
 #define CONV_SMEM (CONV_B2 + C2 * 4 + 1024)   // + slack for 1024 alignment
 
 // phase 0: w2s (2, 64, 800) with k = tap * 32 + in, then f1s (2, 512,
-// 3136); part 0 is hi, part 1 lo
+// 3136); part 0 is hi, part 1 lo; one such block a seed
 #define WSPLIT_FLOATS (2 * C2 * K2 + 2 * HID * FLAT)
+
+// a seed's stride in each weight of the CNN (stacked (S, ...) weights)
+#define W1_FLOATS (C1 * KS * KS)
+#define W2_FLOATS (C2 * K2)
+#define F1W_FLOATS ((long)HID * FLAT)
+#define F2W_FLOATS (NCLS * HID)
 
 __global__ void __launch_bounds__(256)
 split_weights_kernel(const float* __restrict__ w2,
                      const float* __restrict__ f1w,
                      float* __restrict__ wsplit) {
   const long n2 = (long)C2 * K2, n1 = (long)HID * FLAT;
+  const long z = blockIdx.z;                     // the seed
+  w2 += z * W2_FLOATS;
+  f1w += z * F1W_FLOATS;
+  wsplit += z * (long)WSPLIT_FLOATS;
   float* w2s = wsplit;
   float* f1s = wsplit + 2 * n2;
   for (long i = (long)blockIdx.x * blockDim.x + threadIdx.x; i < n2 + n1;
@@ -149,6 +167,13 @@ probe_conv_kernel(const float* __restrict__ images,
   float* b2s = (float*)(sm + CONV_B2);
   const int tid = threadIdx.x;
   const long s0 = (long)blockIdx.x * PROBE_NS;
+  const long z = blockIdx.z;                     // the seed
+  images += z * s_rows * (IMG * IMG);
+  w1 += z * W1_FLOATS;
+  b1 += z * C1;
+  w2s += z * (long)WSPLIT_FLOATS;
+  b2 += z * C2;
+  act += z * s_rows * FLAT;
 
   // one tap of the split conv2 weight: hi and lo, 64 rows x 32 fp32
   auto load_tap = [&](int tap, int stage) {
@@ -313,6 +338,11 @@ fc1_kernel(const float* __restrict__ a, const float* __restrict__ f1s,
   const int tid = threadIdx.x;
   const int n0 = blockIdx.x * FC_BN;
   const long m0 = (long)blockIdx.y * FC_BM;
+  const long z = blockIdx.z;                     // the seed
+  a += z * s_rows * FLAT;
+  f1s += z * (long)WSPLIT_FLOATS;
+  bias += z * HID;
+  h += z * s_rows * HID;
 
   auto load_chunk = [&](int kc, int stage) {
     const uint32_t st = ring + stage * FC_STAGE_BYTES;
@@ -403,6 +433,12 @@ fc2_nll_kernel(const float* __restrict__ h, const float* __restrict__ w,
   const int lane = threadIdx.x & 31;
   const long s = (long)blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32;
   if (s >= s_rows) return;
+  const long z = blockIdx.z;                     // the seed
+  h += z * s_rows * HID;
+  w += z * F2W_FLOATS;
+  bias += z * NCLS;
+  labels += z * s_rows;
+  losses += z * s_rows;
   float part[NCLS];
 #pragma unroll
   for (int c = 0; c < NCLS; ++c) part[c] = 0.0f;
@@ -442,7 +478,10 @@ client_span_kernel(const int* __restrict__ seg, int s_rows, int n_clients,
                    int* __restrict__ first, int* __restrict__ last) {
   const int s = blockIdx.x * blockDim.x + threadIdx.x;
   if (s >= s_rows) return;
-  const int c = seg[s];
+  const long z = blockIdx.z;                     // the seed
+  const int c = seg[z * s_rows + s];
+  first += z * n_clients;
+  last += z * n_clients;
   if (c < 0 || c >= n_clients) return;        // padding: the overflow lane
   atomicMin(first + c, s);
   atomicMax(last + c, s);
@@ -452,34 +491,44 @@ client_span_kernel(const int* __restrict__ seg, int s_rows, int n_clients,
 // client's rows first + j + 32 i
 __global__ void __launch_bounds__(256)
 client_sum_kernel(const float* __restrict__ losses,
-                  const int* __restrict__ seg, int n_clients,
+                  const int* __restrict__ seg, int s_rows, int n_clients,
                   const int* __restrict__ first,
                   const int* __restrict__ last, float* __restrict__ sums) {
   const int lane = threadIdx.x & 31;
   const int c = blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32;
   if (c >= n_clients) return;
-  const int lo = first[c], hi = last[c];
+  const long z = blockIdx.z;                     // the seed
+  losses += z * s_rows;
+  seg += z * s_rows;
+  const int lo = first[z * n_clients + c], hi = last[z * n_clients + c];
   float acc = 0.0f;
   for (int s = lo + lane; s <= hi; s += 32)
     if (seg[s] == c) acc += losses[s];
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
     acc += __shfl_xor_sync(0xffffffffu, acc, off);
-  if (lane == 0) sums[c] = acc;
+  if (lane == 0) sums[z * n_clients + c] = acc;
 }
 
-// Phases 0-4 on one stream: packed samples in, (N,) per-client loss sums
-// out.  Scratch: wsplit (WSPLIT_FLOATS), act (S, 3136), hidden (S, 512),
-// losses (S,), span (2N,) int32.  Returns a cudaError_t.
-static int probe_phases_run(const void* images, const void* labels,
-                            const void* seg, int s_rows, int n_clients,
+// Phases 0-4 on one stream for n_seeds seeds: each seed's packed samples
+// in, its (N,) per-client loss sums out.  Operands are seed-major: images
+// (n_seeds, S, 28, 28, 1), labels and seg (n_seeds, S), the weights
+// (n_seeds, ...).  Scratch, seed-major as well: wsplit (WSPLIT_FLOATS a
+// seed), act (S, 3136), hidden (S, 512), losses (S,), span (2N,) int32
+// (every seed's first rows, then every seed's last rows), sums (N,).
+// Returns a cudaError_t.
+static int probe_phases_run(int n_seeds, const void* images,
+                            const void* labels, const void* seg, int s_rows,
+                            int n_clients,
                             const void* w1, const void* b1, const void* w2,
                             const void* b2, const void* f1w, const void* f1b,
                             const void* f2w, const void* f2b, void* wsplit,
                             void* act, void* hidden, void* losses,
                             void* span, void* sums, cudaStream_t st) {
   const long fc_rows = ((long)s_rows + FC_BM - 1) / FC_BM;
-  if (fc_rows > 65535) return (int)cudaErrorInvalidValue;
+  if (fc_rows > 65535 || n_seeds <= 0 || n_seeds > 65535)
+    return (int)cudaErrorInvalidValue;
+  const unsigned ns = (unsigned)n_seeds;
   cudaError_t err = cudaFuncSetAttribute(
       probe_conv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       CONV_SMEM);
@@ -488,40 +537,40 @@ static int probe_phases_run(const void* images, const void* labels,
       fc1_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, FC_SMEM);
   if (err != cudaSuccess) return (int)err;
 
-  split_weights_kernel<<<264, 256, 0, st>>>(
+  split_weights_kernel<<<dim3(264, 1, ns), 256, 0, st>>>(
       (const float*)w2, (const float*)f1w, (float*)wsplit);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
-  probe_conv_kernel<<<(s_rows + PROBE_NS - 1) / PROBE_NS, CONV_THREADS,
-                      CONV_SMEM, st>>>(
+  probe_conv_kernel<<<dim3((s_rows + PROBE_NS - 1) / PROBE_NS, 1, ns),
+                      CONV_THREADS, CONV_SMEM, st>>>(
       (const float*)images, (const float*)w1, (const float*)b1,
       (const float*)wsplit, (const float*)b2, (float*)act, s_rows);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
-  fc1_kernel<<<dim3(HID / FC_BN, (unsigned)fc_rows), 256, FC_SMEM, st>>>(
+  fc1_kernel<<<dim3(HID / FC_BN, (unsigned)fc_rows, ns), 256, FC_SMEM,
+               st>>>(
       (const float*)act, (const float*)wsplit + 2 * C2 * K2,
       (const float*)f1b, (float*)hidden, s_rows);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
-  fc2_nll_kernel<<<(s_rows + 7) / 8, 256, 0, st>>>(
+  fc2_nll_kernel<<<dim3((s_rows + 7) / 8, 1, ns), 256, 0, st>>>(
       (const float*)hidden, (const float*)f2w, (const float*)f2b,
       (const int*)labels, (float*)losses, s_rows);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
+  const size_t span_bytes = (size_t)n_seeds * n_clients * sizeof(int);
   int* first = (int*)span;
-  int* last = first + n_clients;
-  if ((err = cudaMemsetAsync(first, 0x7f, n_clients * sizeof(int), st)) !=
-      cudaSuccess)
+  int* last = first + (long)n_seeds * n_clients;
+  if ((err = cudaMemsetAsync(first, 0x7f, span_bytes, st)) != cudaSuccess)
     return (int)err;                          // 0x7f7f7f7f > any row
-  if ((err = cudaMemsetAsync(last, 0xff, n_clients * sizeof(int), st)) !=
-      cudaSuccess)
+  if ((err = cudaMemsetAsync(last, 0xff, span_bytes, st)) != cudaSuccess)
     return (int)err;                          // -1
-  client_span_kernel<<<(s_rows + 255) / 256, 256, 0, st>>>(
+  client_span_kernel<<<dim3((s_rows + 255) / 256, 1, ns), 256, 0, st>>>(
       (const int*)seg, s_rows, n_clients, first, last);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
-  client_sum_kernel<<<(n_clients + 7) / 8, 256, 0, st>>>(
-      (const float*)losses, (const int*)seg, n_clients, first, last,
+  client_sum_kernel<<<dim3((n_clients + 7) / 8, 1, ns), 256, 0, st>>>(
+      (const float*)losses, (const int*)seg, s_rows, n_clients, first, last,
       (float*)sums);
   return (int)cudaGetLastError();
 }

@@ -22,3 +22,10 @@ def fp32_strict() -> None:
     convolutions and cuBLAS matmuls (cuDNN's default is TF32)."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def synchronize(dev: torch.device) -> None:
+    """Wait for ``dev``'s queued work (a no-op on the CPU), so a host
+    clock read after it times the work, not its enqueue."""
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)

@@ -5,7 +5,9 @@ Only the ``*_from_fields`` forms of ``repro.fl.network`` are ported: each
 random draw of the round (the pinned channel shadow, the (64, N) Reno
 loss uniforms, the upload shadow) enters as a tensor, so the port and
 the reference can be fed the same numbers.  Everything here is
-elementwise in the client axis and runs on the fields' device.
+elementwise in the client axis and runs on the fields' device; leading
+axes (the sweep's seeds) broadcast through, each seed's values those of
+its own (N,) call.
 """
 from __future__ import annotations
 
@@ -56,7 +58,7 @@ def true_rate_bps_from_shadow(cfg: NetworkConfig, pos: torch.Tensor,
     """Achievable rate at ``pos`` given a raw standard-normal shadow."""
     bs_pos = (torch.arange(cfg.n_bs, dtype=torch.float32, device=pos.device)
               + 0.5) * (cfg.road_length_m / cfg.n_bs)
-    d = torch.abs(pos[:, None] - bs_pos[None, :]).min(dim=1).values
+    d = torch.abs(pos[..., None] - bs_pos).min(dim=-1).values
     d_max = cfg.road_length_m / cfg.n_bs / 2.0
     frac = torch.clamp(1.0 - d / d_max, 0.0, 1.0)          # 1 under BS
     log_rate = (np.log10(cfg.worst_rate_bps)
@@ -75,22 +77,22 @@ def _loss_prob(cfg: NetworkConfig, rate_bps: torch.Tensor) -> torch.Tensor:
 def cwnd_history_from_fields(cfg: NetworkConfig, pos: torch.Tensor,
                              shadow: torch.Tensor,
                              loss_u: torch.Tensor) -> torch.Tensor:
-    """Reno AIMD over precomputed fields -> (N, cwnd_history) windows.
-    ``loss_u``: (steps, N) uniform loss draws."""
+    """Reno AIMD over precomputed fields -> (..., N, cwnd_history)
+    windows.  ``loss_u``: (..., steps, N) uniform loss draws."""
     rate = true_rate_bps_from_shadow(cfg, pos, shadow)
     p_loss = _loss_prob(cfg, rate)
     cap = torch.clamp(rate * cfg.rtt_s / (8.0 * cfg.packet_bytes), min=1.0)
     cwnd = torch.ones_like(pos)
-    steps = loss_u.shape[0]
+    steps = loss_u.shape[-2]
     hist = []
     for t in range(steps):
-        loss = loss_u[t] < p_loss
+        loss = loss_u[..., t, :] < p_loss
         cwnd = torch.where(loss, torch.clamp(cwnd / 2.0, min=1.0),
                            cwnd + 1.0)
         cwnd = torch.minimum(cwnd, cap)                    # rate-limited
         if t >= steps - cfg.cwnd_history:
             hist.append(cwnd)
-    return torch.stack(hist, dim=1)
+    return torch.stack(hist, dim=-1)
 
 
 def predicted_throughput_from_fields(cfg: NetworkConfig, pos: torch.Tensor,
@@ -98,7 +100,7 @@ def predicted_throughput_from_fields(cfg: NetworkConfig, pos: torch.Tensor,
                                      loss_u: torch.Tensor) -> torch.Tensor:
     """CWND-average predictor (paper §5.1) in bps-equivalent units."""
     h = cwnd_history_from_fields(cfg, pos, shadow, loss_u)
-    return h.mean(dim=1) * 8.0 * cfg.packet_bytes / cfg.rtt_s
+    return h.mean(dim=-1) * 8.0 * cfg.packet_bytes / cfg.rtt_s
 
 
 def upload_time_s_from_shadow(cfg: NetworkConfig, pos: torch.Tensor,

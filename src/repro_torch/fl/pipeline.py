@@ -1,7 +1,7 @@
 """Staged round pipeline (paper Alg. 1 steps 1-7 as data flow).
 
     positions(statics, cfg, t)                      -> (N,) road positions
-    features(statics, cfg, params, t, fields)       -> (pos, raw (N, 4))
+    aux_features(statics, cfg, pos, fields)         -> raw (N, 3) SQ, TA, CC
     evaluate(statics, feats_raw)                    -> (N,) fuzzy evals
     select(cfg, pos, evals, fields)                 -> (N,) int32 mask
     deadline_filter(statics, cfg, pos, mask, shadow) -> (survivors, n_straggler)
@@ -20,6 +20,14 @@ back through the dense election (``FLSimulation.finish_round``).
 
 Every random draw of a round enters as a ``RoundFields`` tensor, so a
 round is deterministic in ``(statics, params, rnd, fields)``.
+
+``selection_prefix_seeds`` runs the prefix for S seeds at once, as the
+reference's ``vmap`` over seeds does (the multi-seed sweep,
+``launch/sweep.py``): ``stack_statics`` and ``stack_fields`` give the
+statics and draws a leading seed axis, the elementwise stages run once
+on (S, N) tensors, and the fused probe and the dense election launch
+once for all seeds.  ``selection_prefix`` is its one-seed case, so each
+seed's outputs are those of ``selection_prefix`` on that seed alone.
 
 The ``*_sharded`` stages are one rank's body on the client mesh
 (``launch/mesh.py``): the rank owns ``shard_n = ceil(N / K)`` clients,
@@ -139,20 +147,7 @@ def aux_features(st: RoundStatics, cfg: StageConfig, pos: torch.Tensor,
     ta = predicted_throughput_from_fields(
         cfg.network, pos, fields.channel_shadow.to(pos.device),
         fields.loss_u.to(pos.device))
-    return torch.stack([st.n_valid, ta, 1.0 / st.slowdown], dim=1).float()
-
-
-def features(st: RoundStatics, cfg: StageConfig, params: Params,
-             t_s: torch.Tensor, fields: RoundFields
-             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Probe stage (Alg. 1 steps 1-2): ``(pos, raw feats (N, 4))`` with
-    columns [SQ, TA, CC, LF]; Eq. 8 happens in ``evaluate``."""
-    pos = positions(st, cfg, t_s)
-    lf = dataset_loss_packed(params, st.probe_images, st.probe_labels,
-                             st.probe_seg, st.probe_counts,
-                             n_clients=cfg.n_clients)
-    return pos, torch.cat([aux_features(st, cfg, pos, fields),
-                           lf[:, None]], dim=1)
+    return torch.stack([st.n_valid, ta, 1.0 / st.slowdown], dim=-1).float()
 
 
 def evaluate(st: RoundStatics, feats_raw: torch.Tensor) -> torch.Tensor:
@@ -165,57 +160,149 @@ def evaluate(st: RoundStatics, feats_raw: torch.Tensor) -> torch.Tensor:
 
 def select(cfg: StageConfig, pos: torch.Tensor, evals: torch.Tensor,
            fields: RoundFields) -> torch.Tensor:
-    """Selection stage (Alg. 1 step 4) through the scheme registry."""
+    """Selection stage (Alg. 1 step 4) through the scheme registry:
+    (..., N) -> int32 mask (..., N), leading axes (seeds) broadcast."""
     return get_scheme(cfg.scheme).select(cfg, pos, evals, fields)
 
 
 def deadline_filter(st: RoundStatics, cfg: StageConfig, pos: torch.Tensor,
                     mask: torch.Tensor, upload_shadow: torch.Tensor
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Eq. 6 straggler stage: ``(survivors (N,) bool, n_straggler)``."""
+    """Eq. 6 straggler stage: ``(survivors (..., N) bool, n_straggler
+    (...))``; leading axes (seeds) broadcast."""
     train_t = training_time_s(cfg.timing, st.slowdown, st.n_valid)
     upload_t = upload_time_s_from_shadow(cfg.network, pos, cfg.model_bytes,
                                          upload_shadow.to(pos.device))
     ok = completes_before_deadline(cfg.timing, train_t, upload_t)
     selected = mask > 0
-    return selected & ok, (selected & ~ok).sum()
+    return selected & ok, (selected & ~ok).sum(dim=-1)
+
+
+# the fuzzy membership parameters: one set for every seed of a group
+# (they follow the StageConfig's e_tau), kept unstacked
+_SHARED_STATICS = ("means", "sigmas", "level_centers")
+
+
+def stack_statics(statics: Sequence[RoundStatics]) -> RoundStatics:
+    """Per-seed statics as one ``RoundStatics`` with a leading seed axis
+    on every tensor but the fuzzy membership parameters, which stay the
+    first seed's.  Raises ``ValueError`` when the seeds' shapes (the
+    probe pack's rows among them) or membership parameters differ: the
+    sweep then runs those seeds one by one."""
+    first = statics[0]
+    for other in statics[1:]:
+        for f in dataclasses.fields(RoundStatics):
+            a, b = getattr(first, f.name), getattr(other, f.name)
+            if a.shape != b.shape or a.dtype != b.dtype:
+                raise ValueError(f"seeds differ in {f.name}: "
+                                 f"{tuple(a.shape)} vs {tuple(b.shape)}")
+            if f.name in _SHARED_STATICS and not torch.equal(a, b):
+                raise ValueError(f"seeds differ in {f.name}")
+    return RoundStatics(**{
+        f.name: (getattr(first, f.name) if f.name in _SHARED_STATICS
+                 else torch.stack([getattr(st, f.name) for st in statics]))
+        for f in dataclasses.fields(RoundStatics)})
+
+
+_PREFIX_FIELDS = ("channel_shadow", "loss_u", "upload_shadow", "random_idx")
+
+
+def stack_fields(fields: Sequence[RoundFields]) -> RoundFields:
+    """The seeds' draws of one round stacked for the prefix; ``perms``
+    stay with each seed's ``RoundFields``, which its training reads."""
+    return RoundFields(*(torch.stack([getattr(f, name) for f in fields])
+                         for name in _PREFIX_FIELDS))
+
+
+def seed_fields(fields: RoundFields, i: int) -> RoundFields:
+    """Seed ``i``'s draws out of ``stack_fields``' result."""
+    return RoundFields(*(getattr(fields, name)[i]
+                         for name in _PREFIX_FIELDS))
+
+
+def selection_prefix_seeds(st: RoundStatics, params: Params, rnd: int,
+                           fields: RoundFields, *,
+                           cfg: StageConfig) -> Dict[str, torch.Tensor]:
+    """Probe -> evaluate -> select -> deadline for S seeds of one
+    ``StageConfig`` at once: ``st`` from ``stack_statics``, ``params``
+    stacked (S, ...) weights, ``fields`` from ``stack_fields``.  Returns
+    the prefix's outputs with a leading seed axis; seed i's slice is
+    bit-equal to ``selection_prefix`` on seed i's statics, params and
+    draws.
+
+    Mobility, the Reno predictor, the aux features, the scheme's
+    ``select`` and the Eq. 6 deadline run once on (S, N) tensors; the
+    fused probe and the dense election launch once for all seeds.  Per
+    seed: the unfused probe and its Mamdani kernel, the windowed
+    election (each seed raises its own overflow flag) and the
+    mean-evaluation statistic (a float sum, kept in one seed's order).
+    The reference's ``selection_prefix_seeds_donated`` lets XLA reuse
+    the stacked params' buffer; PyTorch frees it when the caller drops
+    it, so it has no counterpart here."""
+    dev = st.x0.device
+    n_seeds = st.x0.shape[0]
+    t_s = torch.tensor(float(rnd), dtype=torch.float32,
+                       device=dev) * cfg.timing.deadline_s
+    table, levels = _rules()
+    with torch.no_grad():
+        pos = positions(st, cfg, t_s)
+        aux = aux_features(st, cfg, pos, fields)
+        if cfg.fused_probe:
+            feats, evals = kops.probe_fuzzy(
+                params, st.probe_images, st.probe_labels, st.probe_seg,
+                st.probe_counts, aux, st.means, st.sigmas, table, levels,
+                st.level_centers, n_clients=cfg.n_clients)
+        else:
+            feats = []
+            for i in range(n_seeds):
+                # copies: a seed's slice of a stacked bias can start off
+                # a 16-byte boundary, and cuBLAS picks kernels by it
+                lf = dataset_loss_packed(
+                    {k: v[i].clone() for k, v in params.items()},
+                    st.probe_images[i], st.probe_labels[i],
+                    st.probe_seg[i], st.probe_counts[i],
+                    n_clients=cfg.n_clients)
+                feats.append(torch.cat([aux[i], lf[:, None]], dim=1))
+            evals = torch.stack([evaluate(st, f) for f in feats])
+            feats = torch.stack(feats)
+        scheme = get_scheme(cfg.scheme)
+        if cfg.elect == "windowed" and scheme.select_windowed is not None:
+            mask, elect_overflow = (torch.stack(t) for t in zip(*(
+                scheme.select_windowed(cfg, pos[i], evals[i],
+                                       seed_fields(fields, i))
+                for i in range(n_seeds))))
+        else:
+            mask = select(cfg, pos, evals, fields)
+            elect_overflow = torch.zeros(n_seeds, dtype=torch.int32,
+                                         device=dev)
+        survivors, n_straggler = deadline_filter(st, cfg, pos, mask,
+                                                 fields.upload_shadow)
+        stats = [selection_stats(mask[i], evals[i]) for i in range(n_seeds)]
+    return {"pos": pos, "feats": feats, "evals": evals, "mask": mask,
+            "survivors": survivors, "n_straggler": n_straggler,
+            "n_selected": torch.stack([x["n_selected"] for x in stats]),
+            "n_survivor": survivors.sum(dim=-1),
+            "mean_eval_selected": torch.stack(
+                [x["mean_eval_selected"] for x in stats]),
+            "elect_overflow": elect_overflow}
 
 
 def selection_prefix(st: RoundStatics, params: Params, rnd: int,
                      fields: RoundFields, *,
                      cfg: StageConfig) -> Dict[str, torch.Tensor]:
     """Probe -> evaluate -> select -> deadline for round ``rnd``; every
-    output stays on the statics' device."""
-    dev = st.x0.device
-    t_s = torch.tensor(float(rnd), dtype=torch.float32,
-                       device=dev) * cfg.timing.deadline_s
-    with torch.no_grad():
-        if cfg.fused_probe:
-            pos = positions(st, cfg, t_s)
-            table, levels = _rules()
-            feats, evals = kops.probe_fuzzy(
-                params, st.probe_images, st.probe_labels, st.probe_seg,
-                st.probe_counts, aux_features(st, cfg, pos, fields),
-                st.means, st.sigmas, table, levels, st.level_centers,
-                n_clients=cfg.n_clients)
-        else:
-            pos, feats = features(st, cfg, params, t_s, fields)
-            evals = evaluate(st, feats)
-        windowed = get_scheme(cfg.scheme).select_windowed
-        if cfg.elect == "windowed" and windowed is not None:
-            mask, elect_overflow = windowed(cfg, pos, evals, fields)
-        else:
-            mask = select(cfg, pos, evals, fields)
-            elect_overflow = torch.zeros((), dtype=torch.int32, device=dev)
-        survivors, n_straggler = deadline_filter(st, cfg, pos, mask,
-                                                 fields.upload_shadow)
-        stats = selection_stats(mask, evals)
-    return {"pos": pos, "feats": feats, "evals": evals, "mask": mask,
-            "survivors": survivors, "n_straggler": n_straggler,
-            "n_selected": stats["n_selected"],
-            "n_survivor": survivors.sum(),
-            "mean_eval_selected": stats["mean_eval_selected"],
-            "elect_overflow": elect_overflow}
+    output stays on the statics' device.  ``selection_prefix_seeds`` of
+    one seed: the statics, params and draws enter as views with a seed
+    axis of 1, and the outputs leave without it."""
+    one = RoundStatics(**{
+        f.name: getattr(st, f.name) if f.name in _SHARED_STATICS
+        else getattr(st, f.name).unsqueeze(0)
+        for f in dataclasses.fields(RoundStatics)})
+    out = selection_prefix_seeds(
+        one, {k: v.unsqueeze(0) for k, v in params.items()}, rnd,
+        RoundFields(*(getattr(fields, name).unsqueeze(0)
+                      for name in _PREFIX_FIELDS)), cfg=cfg)
+    return {k: v[0] for k, v in out.items()}
 
 
 def cohort_bucket(k: int) -> int:

@@ -1,7 +1,9 @@
 """Client-selection scheme registry (paper Alg. 1 step 4, pluggable).
 
 A scheme is a name bound to a selection function ``(cfg: StageConfig,
-pos (N,), evals (N,), fields: RoundFields) -> (N,) int32 mask``.
+pos (..., N), evals (..., N), fields: RoundFields) -> (..., N) int32
+mask``: a leading axis is the sweep's seeds (``fields`` then stacked
+alike), each seed's mask equal to a call on that seed alone.
 ``fields`` carries the round's random draws (``random_idx`` for the
 uniform scheme).  ``overhead_key`` names the scheme's §4.2
 accumulated-time model in ``core/overhead.py`` (``"cfl"``: classical

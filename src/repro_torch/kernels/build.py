@@ -11,8 +11,9 @@ compiled at import time.
 ``LAUNCHES`` counts the kernel launches of each wrapper: a wrapper adds
 one where it launches its kernel and nowhere else (one per call, also
 where a call runs more than one CUDA kernel, as ``wkv6`` past one time
-chunk does), so a run can show that its main path went through the
-kernels.
+chunk does, and where one call takes several seeds, as the sweep's
+seed-batched ``probe_fuzzy`` and ``neighbor_elect`` do), so a run can
+show that its main path went through the kernels.
 """
 from __future__ import annotations
 
@@ -37,10 +38,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # C signatures: argument kinds in order (p = pointer/stream, i = int,
 # f = float); every function returns a cudaError_t as int
 _SIGNATURES = {
-    "probe_fuzzy": {"probe_fuzzy_launch": "pppipppippppppppppppippppppppp"},
+    "probe_fuzzy": {"probe_fuzzy_launch": "ipppipppippppppppppppippppppppp"},
     "fuzzy_eval": {"fuzzy_eval_launch": "piippp",
                    "fuzzy_eval_scratch_floats": ""},
-    "neighbor_elect": {"neighbor_elect_launch": "ppiffipp"},
+    "neighbor_elect": {"neighbor_elect_launch": "ippiffipp"},
     "windowed_counts": {"windowed_counts_launch": "pppiiiffipp"},
     "wkv6": {"wkv6_launch": "ppppppiiiiipppp"},
     "flash_attention": {"flash_attention_launch": "ppppiiiiiiiiiifp"},

@@ -59,7 +59,8 @@ def probe_fuzzy(params, images, labels, seg, counts, aux, means, sigmas,
                 col_maxima: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The fused selection fast path: packed Eq. 7 probe samples ->
-    ``(feats (N, 4) raw, evals (N,))``."""
+    ``(feats (N, 4) raw, evals (N,))``.  Stacked (seeds, ...) weights and
+    packs run all seeds in one launch, Eq. 8 per seed."""
     if _on_cuda(images):
         from repro_torch.kernels.probe_fuzzy import probe_fuzzy_cuda
         return probe_fuzzy_cuda(params, images, labels, seg, counts, aux,
@@ -90,7 +91,8 @@ def probe_loss(params, images, labels, seg, counts, *,
 def neighbor_elect(pos: torch.Tensor, evals: torch.Tensor, *,
                    comm_range: float, top_m: int,
                    e_tau: float) -> torch.Tensor:
-    """Dense DCS election -> int32 mask (N,)."""
+    """Dense DCS election -> int32 mask (..., N); each leading index (a
+    seed) is a fleet of its own, all elected in one launch."""
     if _on_cuda(pos):
         from repro_torch.kernels.neighbor_elect import neighbor_elect_cuda
         return neighbor_elect_cuda(pos, evals, comm_range=comm_range,

@@ -68,7 +68,19 @@ def probe_fuzzy_ref(params, images, labels, seg, counts, aux, means,
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The selection hot path in one transcription: Eq. 7 probe -> raw
     features [SQ, TA, CC, LF] -> Eq. 8 (in-batch maxima or external
-    ``col_maxima`` (4,)) -> Mamdani.  Returns ``(feats (N, 4), evals)``."""
+    ``col_maxima`` (4,)) -> Mamdani.  Returns ``(feats (N, 4), evals)``.
+    Images (seeds, S, 28, 28, 1) give every operand but the Mamdani set
+    a leading axis of seeds: each seed's Eq. 8 over its own clients,
+    ``(feats (seeds, N, 4), evals (seeds, N))``."""
+    if images.dim() == 5:
+        outs = [probe_fuzzy_ref(
+            {k: v[i] for k, v in params.items()}, images[i], labels[i],
+            seg[i], counts[i], aux[i], means, sigmas, rule_table,
+            rule_levels, level_centers, n_clients,
+            None if col_maxima is None else col_maxima[i])
+            for i in range(images.shape[0])]
+        return (torch.stack([f for f, _ in outs]),
+                torch.stack([e for _, e in outs]))
     lf = probe_loss_ref(params, images, labels, seg, counts, n_clients)
     feats = torch.cat([aux.float(), lf[:, None]], dim=1)
     if col_maxima is None:
@@ -87,7 +99,15 @@ def neighbor_elect_ref(pos: torch.Tensor, evals: torch.Tensor, *,
     eval_i >= E_tau and fewer than ``top_m`` in-range vehicles at or
     above E_tau are strictly better (lower index wins ties).  All
     comparisons in fp32.  Returns int32 (N,) 0/1; ``rows`` bounds the
-    memory of one block of the (N, N) comparison."""
+    memory of one block of the (N, N) comparison.  Leading axes (seeds)
+    are fleets of their own: (..., N) in, (..., N) out."""
+    if pos.dim() > 1:
+        n = pos.shape[-1]
+        return torch.stack([
+            neighbor_elect_ref(p, e, comm_range=comm_range, top_m=top_m,
+                               e_tau=e_tau, rows=rows)
+            for p, e in zip(pos.reshape(-1, n), evals.reshape(-1, n))
+        ]).reshape(pos.shape)
     n = pos.shape[0]
     cr, et = _f32(comm_range, pos), _f32(e_tau, pos)
     idx = torch.arange(n, device=pos.device)

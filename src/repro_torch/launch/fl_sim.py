@@ -38,6 +38,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from repro_torch.device import synchronize
 from repro_torch.fl import pipeline
 from repro_torch.fl.mobility import MobilityConfig
 from repro_torch.fl.partition import PartitionConfig
@@ -69,11 +70,6 @@ def paper_config(scheme: str, **kw) -> FLSimConfig:
     45) over 6600 samples a class."""
     return FLSimConfig(scheme=scheme, local_epochs=30, n_rounds=50,
                        deadline_s=20.0, **kw)
-
-
-def _sync(dev: torch.device) -> None:
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
 
 
 def sim_rank(mesh: ClientMesh, cfg: FLSimConfig, run: RunConfig,
@@ -112,13 +108,13 @@ def drive_rounds(sim: FLSimulation, n_rounds: int, *,
     build.reset_launches()
     for r in range(n_rounds):
         f = sim.round_fields(r)
-        _sync(sim.device)
+        synchronize(sim.device)
         t0 = time.perf_counter()
         state = sim.selection_state(r, f)
-        _sync(sim.device)
+        synchronize(sim.device)
         t1 = time.perf_counter()
         row = sim.finish_round(r, state, f)
-        _sync(sim.device)
+        synchronize(sim.device)
         prefix_s.append(t1 - t0)
         round_s.append(time.perf_counter() - t0)
         for key in ("pos", "feats", "evals"):

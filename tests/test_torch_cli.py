@@ -16,9 +16,10 @@ import pytest
 from repro.configs import ARCH_IDS as REF_ARCH_IDS
 from repro.launch import fl_sim as ref_fl_sim
 from repro.launch import serve as ref_serve
+from repro.launch import sweep as ref_sweep
 from repro_torch.configs import ARCH_IDS
 from repro_torch.fl.runconfig import RunConfig
-from repro_torch.launch import fl_sim, serve
+from repro_torch.launch import fl_sim, serve, sweep
 
 # options one parser has and the other has not: the reference's hidden
 # --multihost child flags; the port's device and ring-halo capacity
@@ -106,6 +107,36 @@ def test_fl_sim_takes_the_references_command_line(monkeypatch, flags, item):
     else:
         with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
             fl_sim.main(argv + ["--device", "cpu"])
+
+
+SWEEP_CASES = [
+    [],
+    ["--fast", "--seeds", "4", "--rounds", "2", "--schemes", "all"],
+    ["--paper-profile", "--seeds", "2", "--rounds", "1", "--no-vmap"],
+    ["--classes", "9,6,2", "--distributions", "uniform,extreme",
+     "--workers", "2", "--out", "grid.csv"],
+    ["--schemes", "dcs", "--compat-aligned-pack", "--elect", "windowed",
+     "--elect-window", "8"],
+    ["--churn-rates", "0,0.3", "--staleness-lambdas", "0,1",
+     "--agg-cadences", "0,30", "--server", "event"],
+    ["--mesh", "clients=4", "--multihost", "2", "--overlap-rounds",
+     "--resume", "--checkpoint-dir", "ckpt", "--checkpoint-every", "3",
+     "--jit-cache-dir", "none"],
+]
+
+
+@pytest.mark.parametrize("argv", SWEEP_CASES,
+                         ids=[" ".join(a) or "defaults" for a in SWEEP_CASES])
+def test_sweep_takes_the_references_command_line(argv):
+    """The sweep's parser against the reference's: every shared ``dest``
+    equal (the port adds ``--device``; the reference's hidden
+    ``--multihost`` child flags stay its own)."""
+    theirs = _parsed(ref_sweep.main, argv)
+    mine = _parsed(sweep.main, argv)
+    assert set(theirs) - set(mine) == REF_ONLY
+    assert set(mine) - set(theirs) == {"device"}
+    for dest in set(theirs) & set(mine):
+        assert mine[dest] == theirs[dest], dest
 
 
 UNPORTED_ARCHS = [a for a in REF_ARCH_IDS if a not in ARCH_IDS]

@@ -38,15 +38,16 @@ def _mamdani(device):
             default_level_centers(device))
 
 
-def _probe_inputs(device, counts=(24, 7, 40, 13, 1, 30)):
-    rng = np.random.default_rng(0)
+def _probe_inputs(device, counts=(24, 7, 40, 13, 1, 30), seed=0):
+    rng = np.random.default_rng(seed)
     counts = np.asarray(counts)
     n, s = len(counts), int(counts.sum())
     seg = np.repeat(np.arange(n), counts).astype(np.int32)
     seg[::11] = n                                 # overflow-lane rows
     t = lambda a: torch.tensor(a, device=device)
     return dict(
-        params=init_cnn(torch.Generator().manual_seed(0), CONFIG, device),
+        params=init_cnn(torch.Generator().manual_seed(seed), CONFIG,
+                        device),
         images=t(rng.normal(size=(s, 28, 28, 1)).astype(np.float32)),
         labels=t(rng.integers(0, 10, s).astype(np.int32)), seg=t(seg),
         counts=t(np.bincount(seg, minlength=n + 1)[:n].astype(np.int32)),
@@ -84,6 +85,66 @@ def test_probe_fuzzy_kernel_is_run_to_run_bit_identical(cuda):
     fx = _probe_inputs(cuda, counts=(300, 200, 1, 500))
     a, b = _probe(fx, cuda), _probe(fx, cuda)
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+def _probe_seeds(device, n_seeds=3, counts=(300, 45, 1, 45, 130)):
+    """``n_seeds`` packs of one shape with their own weights, images and
+    aux, stacked on ``device`` as the sweep's seed-batched prefix stacks
+    them, and each seed's own inputs."""
+    one = [_probe_inputs(device, counts=counts, seed=i)
+           for i in range(n_seeds)]
+    stack = {k: torch.stack([fx[k] for fx in one]).to(device)
+             for k in ("images", "labels", "seg", "counts", "aux")}
+    stack["params"] = {k: torch.stack([fx["params"][k] for fx in one])
+                       for k in one[0]["params"]}
+    return stack, one
+
+
+def _probe_seeds_call(stack, n, device):
+    table, levels = build_rule_table()
+    means, sigmas, centers = _mamdani(device)
+    return ops.probe_fuzzy(
+        stack["params"], *(stack[k] for k in ("images", "labels", "seg",
+                                              "counts", "aux")),
+        means, sigmas, table, levels, centers, n_clients=n)
+
+
+def test_probe_fuzzy_seeds_kernel_bit_equal_to_single_launches(cuda):
+    """One launch for 3 seeds: each seed's feats and evals bit-equal to
+    a launch of that seed alone, within the single kernel's tolerances
+    of the plain seed version (feats 1e-4 relative, evals 1e-3 on
+    [0, 100]), bit-repeatable, counted once."""
+    stack, one = _probe_seeds(cuda)
+    n = one[0]["n"]
+    before = build.LAUNCHES["probe_fuzzy"]
+    f, e = _probe_seeds_call(stack, n, cuda)
+    assert build.LAUNCHES["probe_fuzzy"] == before + 1
+    f2, e2 = _probe_seeds_call(stack, n, cuda)
+    assert torch.equal(f, f2) and torch.equal(e, e2)
+    for i, fx in enumerate(one):
+        fi, ei = _probe(fx, cuda)
+        assert torch.equal(f[i], fi) and torch.equal(e[i], ei), i
+    cpu = {k: (v.cpu() if torch.is_tensor(v)
+               else {kk: vv.cpu() for kk, vv in v.items()})
+           for k, v in stack.items()}
+    f0, e0 = _probe_seeds_call(cpu, n, "cpu")
+    np.testing.assert_allclose(f.cpu().numpy(), f0.numpy(), rtol=1e-4)
+    np.testing.assert_allclose(e.cpu().numpy(), e0.numpy(), rtol=0,
+                               atol=1e-3)
+
+
+def test_probe_fuzzy_seeds_kernel_scales_each_seed_by_its_own_maxima(cuda):
+    """Eq. 8 per seed, never over the union of seeds: seed 1's aux times
+    1024 (a power of 2, which Eq. 8 undoes exactly) moves no eval bit
+    of any seed, though it holds the union's maxima."""
+    stack, one = _probe_seeds(cuda)
+    n = one[0]["n"]
+    _, e = _probe_seeds_call(stack, n, cuda)
+    stack["aux"] = stack["aux"].clone()
+    stack["aux"][1] *= 1024.0
+    f_s, e_s = _probe_seeds_call(stack, n, cuda)
+    assert torch.equal(e_s, e)
+    assert torch.equal(f_s[1, :, :3], stack["aux"][1])
 
 
 def _probe_loss(fx, device, **over):
@@ -248,6 +309,30 @@ def test_neighbor_elect_kernel_bit_equal(cuda, n):
     got = ops.neighbor_elect(torch.tensor(pos, device=cuda),
                              torch.tensor(ev, device=cuda), **kw)
     assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("n", [30, 257, 4096])
+def test_neighbor_elect_seeds_kernel_bit_equal(cuda, n):
+    """3 fleets in one launch: each seed's mask bit-equal to a launch of
+    that fleet alone and to the plain seed version; tied evaluations and
+    pairs exactly comm_range apart in every seed; repeatable."""
+    rng = np.random.default_rng(n)
+    pos = rng.uniform(0, 1000 * max(1, n // 30), (3, n)).astype(np.float32)
+    ev = rng.uniform(0, 100, (3, n)).astype(np.float32)
+    pos[:, :6] = [100, 300, 300, 500, 700, 900]     # d == comm_range
+    ev[:, :6] = [50, 50, 50, 30, 30, 29.999]        # ties, E_tau
+    ev[1, 6:12] = 50.0
+    kw = dict(comm_range=200.0, top_m=2, e_tau=30.0)
+    pc, ec = torch.tensor(pos, device=cuda), torch.tensor(ev, device=cuda)
+    before = build.LAUNCHES["neighbor_elect"]
+    got = ops.neighbor_elect(pc, ec, **kw)
+    assert build.LAUNCHES["neighbor_elect"] == before + 1
+    assert torch.equal(got, ops.neighbor_elect(pc, ec, **kw))
+    want = ref.neighbor_elect_ref(torch.tensor(pos), torch.tensor(ev),
+                                  **kw)
+    assert torch.equal(got.cpu(), want)
+    for i in range(3):
+        assert torch.equal(got[i], ops.neighbor_elect(pc[i], ec[i], **kw))
 
 
 def _sorted_fleet(n, seed, road, device):

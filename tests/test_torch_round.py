@@ -249,7 +249,9 @@ def test_port_imports_neither_jax_nor_repro():
             "repro_torch.kernels.selective_scan, repro_torch.models.mamba, "
             "repro_torch.models.moe, repro_torch.configs.jamba_v0_1_52b, "
             "repro_torch.launch.mesh, repro_torch.kernels.probe_loss, "
-            "repro_torch.ioutil, repro_torch.core.overhead\n"
+            "repro_torch.ioutil, repro_torch.core.overhead, "
+            "repro_torch.launch.sweep, repro_torch.core.selection, "
+            "repro_torch.fl.schemes, repro_torch.fl.network\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "
             "m.startswith('repro.')]\n"
