@@ -147,6 +147,31 @@ Phases (any failure exits non-zero; no phase's exception is caught):
    of each with ``--no-vmap``), ``--paper-profile --seeds 1 --rounds
    1`` (Table 3's comm columns) and ``--paper-profile --seeds 2``, which
    raises the reference's partition error (ROADMAP C10);
+5g. the round drivers (``rounds.run_schedule``, round-ahead by
+   default, and ``fl/async_server.py``): the fast profile ``dcs`` for 4
+   rounds, round-ahead and serially in alternation (4 runs, rows and
+   params bit-equal; the first round-ahead run under
+   ``torch.cuda.set_sync_debug_mode("error")`` from each round's
+   training dispatch through the next prefix's enqueue, the second
+   counting synchronising calls by site), the median round of rounds
+   1-3 of each schedule a reading; the large fleet 2 rounds each way
+   (masks and rows equal, the synchronising calls left on its stretch
+   by site); the degenerate event server bit-equal to the sync driver;
+   churn 0.2 + weighted staleness lambda 0.5 + a cadence of 1.5 periods
+   for 4 rounds, the card against the CPU in lockstep (masks under C3's
+   near-tie rule, ``n_active``, landing ticks unless ``t_done / T`` is
+   within 1e-5 of an integer, counts, histograms and stale fraction
+   equal, ``n_effective`` within 1e-9, accuracy within 0.01, one
+   ``probe_fuzzy`` and one ``neighbor_elect`` launch a round, some round
+   stale); ``neighbor_elect`` (N = 30) and ``windowed_counts`` (the large
+   fleet's round 0 at churn 0.2) on churn-gated evals bit-equal to their
+   plain versions; ``python -m repro_torch.launch.fl_sim --scheme all
+   --rounds 3 --server event --churn-rate 0.2 --staleness weighted
+   --staleness-lambda 0.5 --out``; the sweep over churn {0, 0.2} x
+   lambda {0, 0.5} by default, with ``--no-vmap``, with
+   ``--no-overlap-rounds`` and again (CSVs byte-equal; one
+   ``probe_fuzzy`` and one ``neighbor_elect`` a round a group for both
+   seeds, one a seed with ``--no-vmap``);
 6. the probe's time split by phase (conv, fc1, fc2 + NLL, the client
    sums) with ``torch.profiler`` at the fast profile's and the large
    fleet's packs, last, since launches cost more in a process once the
@@ -1082,8 +1107,9 @@ def round0_training(sim, mesh=None):
     for dtype, np_dtype in ((torch.float32, np.float32),
                             (torch.float64, np.float64)):
         params = {k: v.to(dtype) for k, v in sim.params.items()}
-        groups = [dataclasses.replace(g, images=g.images.astype(np_dtype))
-                  for g in sim.groups]
+        groups = pipeline.device_groups(
+            [dataclasses.replace(g, images=g.images.astype(np_dtype))
+             for g in sim.groups], sim.device)
         perms = lambda i: fields.perms[i]
         if mesh is None:
             new = pipeline.aggregate(params, pipeline.train_groups(
@@ -1266,7 +1292,7 @@ def paper_round(dev) -> dict:
     torch.cuda.synchronize()
     t = time.perf_counter()
     trained = pipeline.aggregate(params0, pipeline.train_groups(
-        params0, sim.groups, sim._group_steps, survivors,
+        params0, sim.device_groups(), sim._group_steps, survivors,
         lambda i: fields.perms[i], epochs=c.local_epochs,
         batch_size=c.batch_size, lr=c.lr))
     torch.cuda.synchronize()
@@ -1354,7 +1380,8 @@ def engines_and_prox(dev) -> None:
         def prox_half(device, mu):
             params = {k: v.to(device) for k, v in params64.items()}
             return pipeline.aggregate(params, pipeline.train_groups(
-                params, groups64, sim._group_steps, survivors, perms,
+                params, pipeline.device_groups(groups64, device),
+                sim._group_steps, survivors, perms,
                 epochs=c.local_epochs, batch_size=c.batch_size, lr=c.lr,
                 prox_mu=mu))
         prox_card = prox_half(dev, PROX_MU)
@@ -1812,10 +1839,16 @@ def check_sweep_csv(label: str, text: str, n_rows: int, cfg_fn) -> None:
         ok = ok and all(sweep._FMT[k].format(v)
                         == sweep._FMT[k].format(row[k])
                         for k, v in cols.items())
+        # the event server aggregates late updates of earlier rounds too
+        sync = not (row["churn_rate"] or row["staleness_lambda"]
+                    or row["agg_cadence_s"])
         ok = ok and (0.0 <= row["accuracy"] <= 1.0
                      and math.isfinite(row["mean_eval_selected"])
-                     and 0 <= row["n_aggregated"] <= row["n_selected"]
-                     <= cfg.partition.n_clients)
+                     and 0 <= row["n_aggregated"]
+                     and (row["n_aggregated"] <= row["n_selected"]
+                          or not sync)
+                     and row["n_selected"] <= cfg.partition.n_clients
+                     and row["n_active"] <= cfg.partition.n_clients)
     log(f"[check] sweep {label}: {n_rows} rows, the reference's header, "
         f"parse/format byte-stable, comm columns == core/overhead.py, "
         f"counts sane {ok} {'OK' if ok else 'FAIL'}")
@@ -1883,6 +1916,370 @@ def sweep_phase(dev) -> dict:
         raise AssertionError("the sweep on the card is wrong")
     reading["launches"] = launches["default"]
     return reading
+
+
+# phase 5g: the round drivers (fl/rounds.py::run_schedule, round-ahead
+# by default; fl/async_server.py::EventDrivenServer) on the fast profile
+# and the large fleet
+DRIVER_ROUNDS = 4
+# the event server's non-degenerate scenario: churn, weighted staleness,
+# and a cadence of 1.5 round periods, so some updates land a round late
+EVENT_RUN = dict(churn_rate=0.2, staleness="weighted", staleness_lambda=0.5)
+EVENT_CADENCE_PERIODS = 1.5
+# a landing tick may differ between the card and the CPU only where
+# t_done / T is this close (relative) to an integer on one side
+TICK_MARGIN = 1e-5
+FL_SIM_EVENT_ARGS = ["--scheme", "all", "--rounds", "3", "--server", "event",
+                     "--churn-rate", "0.2", "--staleness", "weighted",
+                     "--staleness-lambda", "0.5"]
+SWEEP_EVENT_ARGV = ["--fast", "--seeds", "2", "--rounds", "2", "--schemes",
+                    "dcs", "--churn-rates", "0,0.2", "--staleness-lambdas",
+                    "0,0.5"]
+
+
+class SyncSites:
+    """A ``run_schedule`` stretch that records, by call site, every
+    synchronising CUDA call made in it (``torch.cuda.set_sync_debug_mode``
+    "warn"); with ``error=True`` the first one raises instead."""
+
+    def __init__(self, error: bool = False):
+        self.error = error
+        self.sites = {}
+
+    @contextlib.contextmanager
+    def __call__(self, r):
+        import warnings
+        import torch
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("error" if self.error else "warn")
+            try:
+                yield
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        for w in caught:
+            if "synchroniz" in str(w.message):
+                path = Path(w.filename)
+                if path.is_relative_to(ROOT):
+                    path = path.relative_to(ROOT)
+                site = f"{path}:{w.lineno}"
+                self.sites[site] = self.sites.get(site, 0) + 1
+
+
+def schedule_run(sim, params0, n_rounds: int, overlap: bool, stretch=None):
+    """``n_rounds`` rounds of ``sim.driver()`` through ``run_schedule``
+    from ``params0``, the launch counts reset just before: (rows, the
+    final params, each round's wall seconds from the previous row to its
+    own, each round's mask, the launches)."""
+    import torch
+    from repro_torch.fl.rounds import run_schedule
+    from repro_torch.kernels import build
+    sim.params = {k: v.clone() for k, v in params0.items()}
+    times, masks = [], []
+    build.reset_launches()
+    torch.cuda.synchronize()
+    last = [time.perf_counter()]
+
+    def on_row(r, host, row):
+        now = time.perf_counter()
+        times.append(now - last[0])
+        last[0] = now
+        masks.append(host["mask"].copy())
+
+    rows = run_schedule(sim.driver(), sim, n_rounds, overlap=overlap,
+                        stretch=stretch, on_row=on_row)
+    torch.cuda.synchronize()
+    return rows, sim.params, times, masks, dict(build.LAUNCHES)
+
+
+def same_params(a, b) -> bool:
+    import torch
+    return all(torch.equal(a[k], b[k]) for k in a)
+
+
+def overlap_checks(dev, big) -> None:
+    """The round-ahead schedule against the serial one: the fast profile
+    for ``DRIVER_ROUNDS`` rounds, four runs alternating round-ahead
+    (the first under ``set_sync_debug_mode("error")`` from each round's
+    training dispatch through the next prefix's enqueue) and serial, rows
+    and params bit-equal, the median round of rounds 1-3 of each as a
+    reading; then the large fleet for 2 rounds each way (masks and rows
+    equal), with the synchronising calls left on its stretch by site."""
+    import numpy as np
+    from repro_torch.fl.rounds import FLSimulation
+    from repro_torch.fl.runconfig import RunConfig
+    sim = FLSimulation(fast_config_dcs(DRIVER_ROUNDS), run=RunConfig(),
+                       device=dev)
+    params0 = {k: v.clone() for k, v in sim.params.items()}
+    runs = []
+    fast_sites = SyncSites()
+    for overlap, stretch in ((True, SyncSites(error=True)), (False, None),
+                             (True, fast_sites), (False, None)):
+        runs.append((overlap,) + schedule_run(sim, params0, DRIVER_ROUNDS,
+                                              overlap, stretch))
+    _, rows0, p0, _, _, launches0 = runs[0]
+    same = all(r[1] == rows0 and same_params(r[2], p0) for r in runs[1:])
+    want = {"probe_fuzzy": DRIVER_ROUNDS, "neighbor_elect": DRIVER_ROUNDS}
+    launch_ok = all(r[5] == {k: want.get(k, 0) for k in r[5]} for r in runs)
+    med = {o: float(np.median([t for r in runs if r[0] == o
+                               for t in r[3][1:]])) for o in (True, False)}
+    log("[round drivers] fast profile dcs, round wall s (host clock; "
+        "from the previous row to the round's own) by run: " + "; ".join(
+            f"{'round-ahead' if r[0] else 'serial'} "
+            f"[{', '.join(f'{t:.4f}' for t in r[3])}]" for r in runs))
+    log(f"[round drivers] fast profile median round of rounds 1-3: "
+        f"round-ahead {med[True]:.4f} s, serial {med[False]:.4f} s (a "
+        f"reading); synchronising calls on the round-ahead stretch "
+        f"{fast_sites.sites or 'none'}")
+    ok = same and launch_ok and not fast_sites.sites
+    log(f"[check] round-ahead vs serial, fast profile, {DRIVER_ROUNDS} "
+        f"rounds x 4 runs: rows and params bit-equal {same}; the stretch "
+        f"from training dispatch to the next prefix's enqueue raised "
+        f"nothing under set_sync_debug_mode('error'); launches a run "
+        f"{launches0} {'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the round-ahead schedule differs on the card")
+
+    # the large fleet, 2 rounds each way from the same params
+    bparams0 = {k: v.clone() for k, v in big.params.items()}
+    big_sites = SyncSites()
+    ra = schedule_run(big, bparams0, 2, True, big_sites)
+    se = schedule_run(big, bparams0, 2, False)
+    same = (ra[0] == se[0] and all(np.array_equal(a, b)
+                                   for a, b in zip(ra[3], se[3])))
+    log(f"[round drivers] large fleet round wall s: round-ahead "
+        f"[{', '.join(f'{t:.4f}' for t in ra[2])}] (sum {sum(ra[2]):.4f}),"
+        f" serial [{', '.join(f'{t:.4f}' for t in se[2])}] (sum "
+        f"{sum(se[2]):.4f}); synchronising calls "
+        f"left on the round-ahead stretch (2 rounds), by site: "
+        f"{json.dumps(big_sites.sites)}")
+    ok = same and ra[4] == se[4] and ra[4]["windowed_counts"] == 2
+    log(f"[check] round-ahead vs serial, large fleet, 2 rounds: masks and "
+        f"rows equal {same}; launches {ra[4]} / {se[4]} "
+        f"{'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the large fleet's round-ahead rounds differ")
+
+
+def event_checks(dev) -> tuple:
+    """The event-driven server on the fast profile: the degenerate one
+    (default knobs) bit-equal to the sync driver; then ``EVENT_RUN`` with
+    a cadence of ``EVENT_CADENCE_PERIODS`` periods for
+    ``DRIVER_ROUNDS`` rounds on the card against the port's CPU path in
+    lockstep (each round starts the CPU from the card's global params;
+    the draws are the same generators'): masks (C3's near-tie rule),
+    ``n_active``, the landing ticks (equal unless ``t_done / T`` sits
+    within ``TICK_MARGIN`` of an integer), ``n_aggregated``,
+    ``rounds_behind_hist`` and ``stale_frac`` equal, ``n_effective``
+    within 1e-9, accuracy within 0.01, one ``probe_fuzzy`` and one
+    ``neighbor_elect`` launch a round, some round stale.  Returns round
+    0's prefix (positions, churn-gated evals) for the kernel checks."""
+    import numpy as np
+    import torch
+    from repro_torch.fl.async_server import EventDrivenServer
+    from repro_torch.fl.client import evaluate_accuracy_async
+    from repro_torch.fl.rounds import FLSimulation
+    from repro_torch.fl.runconfig import RunConfig
+    from repro_torch.kernels import build
+    cfg = fast_config_dcs(DRIVER_ROUNDS)
+    sync = FLSimulation(cfg, run=RunConfig(), device=dev)
+    params0 = {k: v.clone() for k, v in sync.params.items()}
+    event = FLSimulation(cfg, run=RunConfig(server="event"), device=dev)
+    a = schedule_run(sync, params0, DRIVER_ROUNDS, True)
+    b = schedule_run(event, params0, DRIVER_ROUNDS, True)
+    same = (a[0] == b[0] and same_params(a[1], b[1])
+            and EventDrivenServer(event).sync_equivalent)
+    log(f"[check] degenerate event server (server='event', default knobs) "
+        f"vs the sync driver, {DRIVER_ROUNDS} rounds: rows and params "
+        f"bit-equal {same} {'OK' if same else 'FAIL'}")
+    if not same:
+        raise AssertionError("the degenerate event server is not the sync "
+                             "driver")
+
+    run = RunConfig(**EVENT_RUN,
+                    agg_cadence_s=EVENT_CADENCE_PERIODS * cfg.deadline_s)
+    card = FLSimulation(cfg, run=run, device=dev)
+    cpu = FLSimulation(cfg, run=run, device="cpu")
+    srv = {"card": EventDrivenServer(card), "cpu": EventDrivenServer(cpu)}
+    cadence = srv["card"].cadence
+    rows, first, diverged, notes = [], None, False, []
+    for r in range(DRIVER_ROUNDS):
+        cpu.params = {k: v.cpu() for k, v in card.params.items()}
+        fields = card.round_fields(r)
+        hosts, got = {}, {}
+        build.reset_launches()
+        for name, sim in (("card", card), ("cpu", cpu)):
+            hosts[name] = sim._host(sim.selection_state(r, fields))
+            if name == "card":
+                launches = dict(build.LAUNCHES)
+            srv[name]._dispatch_training(r, hosts[name], fields)
+            acc, n_test = evaluate_accuracy_async(
+                sim.params, sim.test_images, sim.test_labels, batch=256)
+            got[name] = srv[name]._round_row(r, hosts[name], acc, n_test)
+        hc, hp = hosts["card"], hosts["cpu"]
+        if first is None:
+            first = (torch.tensor(hc["pos"], device=dev),
+                     torch.tensor(hc["evals"], device=dev))
+        rows.append(got["card"])
+        want = {k: int(k in ("probe_fuzzy", "neighbor_elect"))
+                for k in launches}
+        ev_err = float(np.abs(hc["evals"] - hp["evals"]).max())
+        # departed clients tie at +0.0 and are never elected: the margin
+        # is the active clients'
+        margin = eval_margin(hp["evals"][hp["evals"] != 0], cfg.e_tau)
+        if not np.array_equal(hc["mask"], hp["mask"]):
+            if margin > 2 * ev_err:
+                raise AssertionError(f"event round {r}: masks differ away "
+                                     f"from a tie (margin {margin:.3g})")
+            notes.append(f"round {r}: masks differ at a near-tie (margin "
+                         f"{margin:.3g}); later rounds not compared")
+            diverged = True
+        if diverged:
+            continue
+        tc, tp = (srv["card"].landing_ticks(hc["t_done"]),
+                  srv["cpu"].landing_ticks(hp["t_done"]))
+        q = np.asarray(hp["t_done"], np.float64) / cadence
+        rel = np.abs(q - np.round(q)) / np.abs(q)
+        tick_margin = float(rel.min())
+        near = rel <= TICK_MARGIN
+        ticks_ok = bool(np.all((tc == tp) | near))
+        c, p = got["card"], got["cpu"]
+        ok = (ticks_ok and launches == want
+              and int(hc["n_active"]) == int(hp["n_active"])
+              and np.array_equal(hc["alive_at_done"], hp["alive_at_done"])
+              and all(c[k] == p[k] for k in (
+                  "n_selected", "n_aggregated", "n_straggler", "n_active",
+                  "rounds_behind_hist", "stale_frac"))
+              and abs(c["n_effective"] - p["n_effective"]) <= 1e-9
+              and abs(c["accuracy"] - p["accuracy"]) <= 0.01)
+        log(f"[event] round {r} card {json.dumps(c)}; cpu accuracy "
+            f"{p['accuracy']:.4f}, eval max abs err {ev_err:.3g}, smallest "
+            f"eval margin {margin:.3g}, smallest t_done/T distance to an "
+            f"integer (relative) {tick_margin:.3g}, landing ticks equal "
+            f"{bool(np.all(tc == tp))}, launches {launches} "
+            f"{'OK' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"event server round {r}: the card and "
+                                 f"the CPU disagree")
+    stale = any(row["stale_frac"] > 0 for row in rows)
+    active = any(row["n_active"] < card.n for row in rows)
+    log(f"[check] event server churn {EVENT_RUN['churn_rate']}, weighted "
+        f"lambda {EVENT_RUN['staleness_lambda']}, cadence {cadence} s, "
+        f"{DRIVER_ROUNDS} rounds, card vs CPU in lockstep: some round stale "
+        f"{stale}, churn seen {active}"
+        + (f"; {'; '.join(notes)}" if notes else "")
+        + f" {'OK' if stale and active else 'FAIL'}")
+    if not (stale and active):
+        raise AssertionError("the event scenario never went stale or "
+                             "churned")
+    return first
+
+
+def churn_kernel_checks(dev, first, bpos0, bevals0, big_cfg,
+                        window_big) -> None:
+    """The kernels of the path on churn-gated evaluations (departed
+    clients at +0.0, many exact ties below E_tau): ``neighbor_elect`` at
+    the event scenario's round 0 (N = 30) and ``windowed_counts`` at the
+    large fleet's round 0 gated at churn 0.2, each bit-equal to its plain
+    version; the windowed election's mask equals the dense kernel's
+    wherever its flag is 0."""
+    import torch
+    from repro_torch.fl.mobility import coverage_active
+    from repro_torch.kernels import ops, ref
+    pos, ev = first
+    kw = dict(comm_range=big_cfg.comm_range_m, top_m=big_cfg.top_m,
+              e_tau=big_cfg.e_tau)
+    got = ops.neighbor_elect(pos, ev, **kw)
+    same_dense = torch.equal(got, ref.neighbor_elect_ref(pos, ev, **kw))
+    active = coverage_active(bpos0, road_length_m=big_cfg.road_length_m,
+                             churn_rate=EVENT_RUN["churn_rate"])
+    bev = torch.where(active, bevals0, torch.zeros_like(bevals0))
+    from repro_torch.core.elect import SENT_EV, SENT_POS
+    m = bpos0.shape[0]
+    order = torch.argsort(bpos0, stable=True)
+    pad = -(-m // 128) * 128 - m             # the election's sentinels
+    sp = torch.cat([bpos0[order], torch.full((pad,), SENT_POS, device=dev)])
+    se = torch.cat([bev[order], torch.full((pad,), SENT_EV, device=dev)])
+    sg = torch.cat([order.to(torch.int32),
+                    torch.full((pad,), m, dtype=torch.int32, device=dev)])
+    wkw = dict(comm_range=big_cfg.comm_range_m, e_tau=big_cfg.e_tau,
+               n_valid=m, window=window_big, block=128)
+    same_counts = torch.equal(ops.windowed_counts(sp, se, sg, **wkw),
+                              ref.windowed_counts_ref(sp, se, sg, **wkw))
+    mask, ovf = ops.neighbor_elect_windowed(bpos0, bev, window=window_big,
+                                            **kw)
+    dense = ops.neighbor_elect(bpos0, bev, **kw)
+    same_win = int(ovf) == 1 or torch.equal(mask, dense)
+    ok = same_dense and same_counts and same_win
+    log(f"[check] churn-gated inputs: neighbor_elect N={pos.shape[0]} "
+        f"({int((ev == 0).sum())} evals at +0.0) bit-equal {same_dense}; "
+        f"windowed_counts M={bpos0.shape[0]} window {window_big} "
+        f"({int((~active).sum())} departed) bit-equal {same_counts}; "
+        f"windowed election flag {int(ovf)}, mask equals dense "
+        f"{torch.equal(mask, dense)} {'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("a kernel disagrees on churn-gated evals")
+
+
+def driver_clis() -> None:
+    """``fl_sim`` with the event server for every scheme (``--out``:
+    rc 0, 3 rows a scheme with the reference's keys, the server's
+    banner), then the sweep over churn x lambda four times (default,
+    ``--no-vmap``, ``--no-overlap-rounds``, default again): the CSVs
+    byte-equal; one ``probe_fuzzy`` and one ``neighbor_elect`` launch a
+    round a group for both seeds (one a seed with ``--no-vmap``)."""
+    import tempfile
+    from repro_torch.launch.sweep import fast_cell_config
+    with tempfile.TemporaryDirectory() as tmp:
+        secs, lines, res = fl_sim_cli(FL_SIM_EVENT_ARGS,
+                                      Path(tmp) / "event.json")
+        banner = any(line.startswith("[fl_sim] event-driven server: churn"
+                                     "=0.2 staleness=weighted lam=0.5")
+                     for line in lines)
+        ok = (banner and sorted(res) == sorted(OVERHEAD_KEYS)
+              and all(len(rows) == 3 for rows in res.values()))
+        log(f"[check] fl_sim {' '.join(FL_SIM_EVENT_ARGS)} ({secs:.1f}s): "
+            f"banner {banner}, rows a scheme "
+            f"{ {k: len(v) for k, v in res.items()} } "
+            f"{'OK' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("fl_sim with the event server is wrong")
+        runs = {}
+        for label, extra in (("default", []), ("--no-vmap", ["--no-vmap"]),
+                             ("--no-overlap-rounds", ["--no-overlap-rounds"]),
+                             ("default again", [])):
+            runs[label] = sweep_cli(SWEEP_EVENT_ARGV + extra,
+                                    Path(tmp) / f"event{len(runs)}.csv")
+    texts = {label: r[2] for label, r in runs.items()}
+    scenarios, rounds, seeds = 4, 2, 2
+    check_sweep_csv("scenarios", texts["default"], scenarios * rounds * seeds,
+                    fast_cell_config)
+    want = {"probe_fuzzy": scenarios * rounds,
+            "neighbor_elect": scenarios * rounds}
+    full = lambda w: {k: w.get(k, 0) for k in runs["default"][1]}
+    launches_ok = all(
+        runs[k][1] == full({n: v * (seeds if k == "--no-vmap" else 1)
+                            for n, v in want.items()}) for k in runs)
+    same = len(set(texts.values())) == 1
+    ok = same and launches_ok
+    log(f"[check] sweep {' '.join(SWEEP_EVENT_ARGV)}: default, --no-vmap, "
+        f"--no-overlap-rounds and default again byte-equal {same}; launches "
+        + "; ".join(f"{k} {v[1]} ({v[0]:.1f}s)" for k, v in runs.items())
+        + f" {'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the scenario sweep is wrong on the card")
+
+
+def round_drivers(dev, big, bpos0, bevals0, window_big) -> None:
+    """Phase 5g (``overlap_checks``, ``event_checks``,
+    ``churn_kernel_checks``, ``driver_clis``)."""
+    t0 = time.perf_counter()
+    overlap_checks(dev, big)
+    first = event_checks(dev)
+    churn_kernel_checks(dev, first, bpos0, bevals0, big.stage_cfg,
+                        window_big)
+    driver_clis()
+    log(f"[round drivers] phase 5g in {time.perf_counter() - t0:.1f}s")
 
 
 # phase 6's small kernels: the CUDA kernels each wrapper launches
@@ -2357,7 +2754,9 @@ def main() -> int:
 
     def train_half(params, groups):
         trained = pipeline.train_groups(
-            params, groups, sim._group_steps, survivors,
+            params, pipeline.device_groups(
+                groups, next(iter(params.values())).device),
+            sim._group_steps, survivors,
             lambda i: fields.perms[i], epochs=c.local_epochs,
             batch_size=c.batch_size, lr=c.lr)
         return pipeline.aggregate(params, trained)
@@ -2516,6 +2915,11 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     sweep_reading = sweep_phase(dev)
+
+    # -- 5g. the round drivers: round-ahead by default, the event server --
+    gc.collect()
+    torch.cuda.empty_cache()
+    round_drivers(dev, big, bpos0, bevals0, window_big)
 
     launches = {"probe_fuzzy": fused["probe_fuzzy"],
                 "neighbor_elect": fused["neighbor_elect"],

@@ -72,8 +72,7 @@ def window_coverage(sp: torch.Tensor, se: torch.Tensor, sg: torch.Tensor,
     real = sg < n_valid
     span = torch.where(real, sp.abs(), torch.zeros((), device=dev)).max()
     cr = comm_range + 1e-5 * torch.clamp(span, min=1.0) + 1e-8    # fp32
-    valid = real & (se >= torch.tensor(e_tau, dtype=torch.float32,
-                                       device=dev))
+    valid = real & (se >= _f32(e_tau, se))
     cum = torch.cumsum(valid.to(torch.int32), 0)
 
     def count_in(a, b):                       # valid entries in [a, b]
@@ -138,7 +137,7 @@ def windowed_elect(pos: torch.Tensor, evals: torch.Tensor, *,
         sp, se, sg, comm_range=comm_range, e_tau=e_tau, n_valid=n,
         window=window, need=torch.ones(n, dtype=torch.bool,
                                        device=pos.device))
-    et = torch.tensor(e_tau, dtype=torch.float32, device=pos.device)
+    et = _f32(e_tau, pos)
     sel = ((se >= et) & (counts < top_m)).to(torch.int32)
     mask = torch.empty(n, dtype=torch.int32, device=pos.device)
     mask[order] = sel
@@ -147,8 +146,9 @@ def windowed_elect(pos: torch.Tensor, evals: torch.Tensor, *,
 
 def _f32(v: float, like: torch.Tensor) -> torch.Tensor:
     """A Python number as an fp32 scalar: arithmetic with it rounds in
-    fp32, as JAX's weakly typed floats do."""
-    return torch.tensor(v, dtype=torch.float32, device=like.device)
+    fp32, as JAX's weakly typed floats do.  A fill on the device, not an
+    upload, so it does not wait for the card."""
+    return torch.full((), v, dtype=torch.float32, device=like.device)
 
 
 def auto_capacity(shard_n: int, n_shards: int) -> int:

@@ -29,3 +29,15 @@ def synchronize(dev: torch.device) -> None:
     clock read after it times the work, not its enqueue."""
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
+
+
+def to_device(t: torch.Tensor, dev: torch.device) -> torch.Tensor:
+    """``t`` on ``dev`` without waiting for the card: a host tensor
+    bound for CUDA is staged through pinned memory and copied with
+    ``non_blocking=True``, so the host goes on enqueuing (a pageable
+    copy waits for the stream to drain).  PyTorch's pinned allocator
+    keeps the staging buffer until the copy has run.  A no-op when ``t``
+    is already there."""
+    if t.device == dev or dev.type != "cuda" or t.device.type != "cpu":
+        return t.to(dev)
+    return t.pin_memory().to(dev, non_blocking=True)

@@ -1,0 +1,208 @@
+"""The event-driven streaming FL server (the reference's
+``fl/async_server.py``), on PyTorch.
+
+The synchronous driver (``fl/rounds.py``) aggregates at a round
+barrier: a selected client lands inside the Eq. 6 deadline or is
+discarded.  ``EventDrivenServer`` generalizes it:
+
+- **churn**: the prefix gates evaluation and selection on the RSU's
+  coverage window (``mobility.coverage_active``) and reports each
+  client's presence at its own upload instant; a vehicle that leaves
+  coverage before its upload completes loses the update;
+- **staleness**: with ``staleness="weighted"`` stragglers still train
+  and their update lands at a later aggregation tick, its FedAvg weight
+  scaled by ``timing.staleness_weight``, ``1 / (1 + lambda * delay)``;
+- **cadence**: the server aggregates every ``agg_cadence_s`` simulated
+  seconds (default: the round period) instead of at the barrier.
+
+Tick algebra (host integers; ``P`` the round period ``deadline_s``,
+``T`` the cadence)::
+
+    round r spans      [r*P, (r+1)*P)
+    update lands at    tick k = max(ceil(t_done / T), 1)
+    tick k fires in    round ceil(k*T / P) - 1
+    delay_rounds       = firing round - source round   (>= 0)
+
+A tick's aggregation is one FedAvg (``fedavg_masked``) over the stacks
+landing there, in enqueue order, then, in weighted mode, an **anchor**
+row: the current global model at the discounted mass ``sum_i w_i (1 -
+s_i)``.  A fresh tick is plain FedAvg; drop mode never adds the anchor.
+
+With no churn, "drop" and the cadence at the round period every
+surviving update lands at tick r + 1, which fires in round r: the
+server is the round barrier, detected up front, and delegates training
+and rows to ``FLSimulation`` verbatim, so its rows are the sync
+driver's bit for bit.  On the client mesh only that case runs; the
+reference's sharded pool is ROADMAP A11 (rest).  Checkpoint and resume
+of the pending ticks are A10.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.device import to_device
+from repro_torch.fl import pipeline
+from repro_torch.fl.aggregation import fedavg_masked
+from repro_torch.fl.rounds import FLSimulation, close_round, run_schedule
+from repro_torch.fl.runconfig import unported_event_pool
+from repro_torch.fl.timing import staleness_weight
+
+# rounds-behind histogram bins: delays 0, 1, 2, 3+ (aggregated updates)
+HIST_BINS = 4
+
+
+class EventDrivenServer:
+    """Streaming aggregation over one ``FLSimulation``, behind the
+    simulation's driver surface (``_dispatch_training``, ``_round_row``,
+    ``finish_round``, ``run``), so ``rounds.run_schedule`` and the sweep
+    drive it unchanged; the prefix stays the simulation's."""
+
+    def __init__(self, sim: FLSimulation):
+        self.sim = sim
+        self.run_cfg = sim.run_cfg
+        self.period = float(sim.stage_cfg.timing.deadline_s)
+        self.cadence = float(self.run_cfg.agg_cadence_s
+                             if self.run_cfg.agg_cadence_s is not None
+                             else self.period)
+        self.weighted = self.run_cfg.staleness == "weighted"
+        # the degenerate server is the round barrier: delegate verbatim
+        self.sync_equivalent = (self.run_cfg.churn_rate == 0.0
+                                and not self.weighted
+                                and self.cadence == self.period)
+        if not self.sync_equivalent and self.run_cfg.engine != "batched":
+            raise ValueError(
+                "the event-driven pool path trains through the batched "
+                f"engine; engine={self.run_cfg.engine!r} only supports "
+                "the sync-equivalent configuration")
+        if not self.sync_equivalent and sim.mesh is not None:
+            raise unported_event_pool()
+        # landing tick -> pending entries, in enqueue order
+        self._pending: Dict[int, List[Dict]] = {}
+        self._stats: Dict[int, Dict] = {}
+
+    # -- tick algebra ---------------------------------------------------
+    def _tick_round(self, k: int) -> int:
+        """The round in which tick ``k`` fires (k*T falls inside it)."""
+        return int(math.ceil(k * self.cadence / self.period)) - 1
+
+    def _due_ticks(self, rnd: int) -> List[int]:
+        """Pending ticks firing by the end of round ``rnd``, in order."""
+        k_max = int(math.floor((rnd + 1) * self.period / self.cadence))
+        return sorted(k for k in self._pending if k <= k_max)
+
+    # -- training dispatch ----------------------------------------------
+    def _dispatch_training(self, rnd: int, host: Dict,
+                           fields: pipeline.RoundFields) -> None:
+        """Enqueue round ``rnd``'s local training into landing-tick
+        pools, then fire every tick due by the round's end.  Training
+        starts from the global model broadcast at the round's start, so
+        the enqueue comes first."""
+        if self.sync_equivalent:
+            self.sim._dispatch_training(rnd, host, fields)
+            return
+        self._stats[rnd] = {"n_agg": 0, "n_stale": 0, "eff": 0.0,
+                            "hist": [0] * HIST_BINS}
+        self._enqueue_round(rnd, host, fields)
+        self._process_due_ticks(rnd)
+
+    def landing_ticks(self, t_done: np.ndarray) -> np.ndarray:
+        """Each client's landing tick from its upload instants (fp32 from
+        the prefix, divided in fp64 on the host, as the reference's)."""
+        t = np.asarray(t_done, np.float64)
+        return np.maximum(np.ceil(t / self.cadence).astype(np.int64), 1)
+
+    def _enqueue_round(self, rnd: int, host: Dict,
+                       fields: pipeline.RoundFields) -> None:
+        sim = self.sim
+        mask = np.asarray(host["mask"])
+        sim._record_participation(mask)
+        survivors = np.asarray(host["survivors"]).astype(bool)
+        alive = np.asarray(host["alive_at_done"]).astype(bool)
+        # weighted mode trains every selected client (stragglers land
+        # late, discounted); drop mode the Eq. 6 survivors.  Either way
+        # a client out of coverage at its upload instant is lost.
+        train_mask = ((mask > 0) if self.weighted else survivors) & alive
+        if not train_mask.any():
+            return
+        land = self.landing_ticks(host["t_done"])
+        entries = pipeline.train_groups(
+            sim.params, sim.device_groups(), sim._group_steps, train_mask,
+            lambda i: fields.perms[i], return_entries=True,
+            **sim._train_args())
+        merged, w, row_ids = entries
+        land_rows = land[row_ids]            # padding rows keep weight 0
+        lam = self.run_cfg.staleness_lambda
+        for k in np.unique(land_rows[w > 0]):
+            delay = max(0, self._tick_round(int(k)) - rnd)
+            s = staleness_weight(lam, delay) if self.weighted else 1.0
+            wk = np.where(land_rows == k, w, 0.0).astype(np.float32)
+            live = float(wk.sum())
+            self._pending.setdefault(int(k), []).append({
+                "src": rnd, "merged": merged,
+                "w": (wk * np.float32(s) if s != 1.0 else wk),
+                "anchor": float(live * (1.0 - s)),
+                "n": int((wk > 0).sum()), "delay": delay,
+                "scale": float(s)})
+
+    def _process_due_ticks(self, rnd: int) -> None:
+        """Fire every tick due by the end of round ``rnd``, in tick
+        order, each its own FedAvg over the updates landing there.  An
+        empty or zero-weight tick leaves the global model untouched."""
+        sim = self.sim
+        stats = self._stats[rnd]
+        for k in self._due_ticks(rnd):
+            items = self._pending.pop(k)
+            anchor = sum(it["anchor"] for it in items)
+            w = np.concatenate([it["w"] for it in items])
+            if float(w.sum()) + anchor <= 0.0:
+                continue                     # zero-weight tick: no-op
+            merged = items[0]["merged"] if len(items) == 1 else {
+                key: torch.cat([it["merged"][key] for it in items])
+                for key in items[0]["merged"]}
+            if anchor > 0.0:                 # the discounted mass, last
+                merged = {key: torch.cat([m, sim.params[key][None]])
+                          for key, m in merged.items()}
+                w = np.append(w, np.float32(anchor))
+            sim.params = fedavg_masked(
+                merged, to_device(torch.from_numpy(w), sim.device))
+            for it in items:
+                stats["n_agg"] += it["n"]
+                if it["delay"] >= 1:
+                    stats["n_stale"] += it["n"]
+                stats["eff"] += it["n"] * it["scale"]
+                stats["hist"][min(it["delay"], HIST_BINS - 1)] += it["n"]
+
+    # -- rows and drivers -----------------------------------------------
+    def _round_row(self, rnd: int, host: Dict, acc_count: torch.Tensor,
+                   n_test: int) -> Dict[str, object]:
+        row = self.sim._round_row(rnd, host, acc_count, n_test)
+        if self.sync_equivalent:
+            return row
+        st = self._stats.pop(rnd)
+        row["n_aggregated"] = st["n_agg"]
+        row["stale_frac"] = (st["n_stale"] / st["n_agg"]
+                             if st["n_agg"] else 0.0)
+        row["n_effective"] = st["eff"]
+        row["rounds_behind_hist"] = "/".join(str(h) for h in st["hist"])
+        return row
+
+    def finish_round(self, rnd: int, state: Dict[str, torch.Tensor],
+                     fields: pipeline.RoundFields) -> Dict[str, object]:
+        """Complete round ``rnd`` from a prefix's outputs
+        (``rounds.close_round``)."""
+        return close_round(self, self.sim, rnd, state, fields)
+
+    def run(self, n_rounds: Optional[int] = None,
+            overlap: Optional[bool] = None) -> List[Dict[str, object]]:
+        """Drive ``n_rounds`` rounds on the sync driver's schedule
+        (``rounds.run_schedule``, round-ahead unless ``overlap`` or the
+        run config says otherwise) with the tick pools behind
+        ``_dispatch_training``."""
+        if overlap is None:
+            overlap = self.run_cfg.overlap_rounds
+        return run_schedule(self, self.sim, n_rounds or self.sim.cfg.n_rounds,
+                            overlap=overlap)

@@ -11,7 +11,9 @@
   FedProx's proximal gradient mu * (w - w_g) to every step;
 - ``local_train``: one client's Eq. 1 loop (the loop engine's), a
   cohort of one;
-- ``evaluate_accuracy``: test-set accuracy of the global model.
+- ``evaluate_accuracy_async``: the test set's correct count of the
+  global model, left on the device so a round driver reads it only
+  after enqueuing the next round's prefix.
 """
 from __future__ import annotations
 
@@ -116,10 +118,13 @@ def local_train(params: Params, images: torch.Tensor, labels: torch.Tensor,
 
 
 @torch.no_grad()
-def evaluate_accuracy(params: Params, images: torch.Tensor,
-                      labels: torch.Tensor, batch: int = 1024) -> float:
+def evaluate_accuracy_async(params: Params, images: torch.Tensor,
+                            labels: torch.Tensor, batch: int = 1024
+                            ) -> Tuple[torch.Tensor, int]:
+    """Enqueue the test-set accuracy without waiting for it: ``(correct
+    count, a device int64, n_samples)``."""
     correct = torch.zeros((), dtype=torch.int64, device=images.device)
     for s in range(0, images.shape[0], batch):
         pred = cnn_forward(params, images[s:s + batch]).argmax(-1)
         correct += (pred == labels[s:s + batch]).sum()
-    return float(correct) / float(images.shape[0])
+    return correct, images.shape[0]

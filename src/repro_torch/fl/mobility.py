@@ -2,7 +2,8 @@
 freeway model).
 
 ``FreewayMobility`` is host numpy, bit-equal to ``repro.fl.mobility``;
-``positions`` is its tensor twin for the selection prefix.
+``positions`` is its tensor twin for the selection prefix, and
+``coverage_active`` the event-driven server's churn mask over it.
 """
 from __future__ import annotations
 
@@ -81,8 +82,20 @@ def positions(x0: torch.Tensor, speeds: torch.Tensor,
               jitter_phase: torch.Tensor, t_s: torch.Tensor, *,
               road_length_m: float, speed_jitter: float) -> torch.Tensor:
     """Tensor twin of ``FreewayMobility.positions`` over the model's
-    constant (N,) arrays; ``t_s`` broadcasts."""
+    constant (N,) arrays; ``t_s`` broadcasts, so a per-client tensor of
+    completion instants gives each vehicle's position at its own."""
     jitter_disp = speed_jitter * _JITTER_PERIOD_S * (
         torch.cos(jitter_phase)
         - torch.cos(t_s / _JITTER_PERIOD_S + jitter_phase))
     return floor_mod(x0 + speeds * t_s + jitter_disp, road_length_m)
+
+
+def coverage_active(pos: torch.Tensor, *, road_length_m: float,
+                    churn_rate: float) -> torch.Tensor:
+    """Mobility-driven churn mask: the RSU covers ``[0, (1 - churn_rate)
+    * L)`` of the wrapped road, and a vehicle in the uncovered tail has
+    departed (it neither probes nor is selected, and an upload that
+    completes there is lost).  ``churn_rate=0`` is full coverage, 1 an
+    empty fleet; the bound is compared in fp32, as the reference's
+    weakly typed float is."""
+    return pos < (1.0 - churn_rate) * road_length_m

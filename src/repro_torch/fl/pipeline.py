@@ -9,10 +9,18 @@
 
 ``selection_prefix`` runs probe -> evaluate -> select -> deadline with
 every output left on the device: nothing crosses to the host between
-stages.  The survivors cross once, at the cohort gather in
-``train_groups``.  On a CUDA device the prefix runs the hand-written
-kernels (``kernels/ops.py``): the fused probe -> Eq. 8 -> Mamdani kernel
-(``fused_probe=True``) or the standalone Mamdani kernel behind the
+stages, and nothing in it waits for the card (its draws are staged
+through pinned memory), so a round driver can enqueue round r+1's
+prefix while round r still trains.  The survivors cross once, at the
+cohort gather in ``train_groups``, which gathers each cohort on the
+device from stacks uploaded once (``device_groups``).  With
+``churn_rate > 0`` (the event-driven server) departed clients'
+evaluations are 0 before the election and their mask bits after it,
+and the prefix also reports each client's upload-completion instant
+``t_done`` and presence ``alive_at_done`` there; at 0 the prefix runs
+exactly the churn-free ops.  On a CUDA device the prefix runs the
+hand-written kernels (``kernels/ops.py``): the fused probe -> Eq. 8 ->
+Mamdani kernel (``fused_probe=True``) or the standalone Mamdani kernel behind the
 plain-PyTorch probe (``fused_probe=False``), and for ``dcs`` the dense
 election (``elect="gather"``) or the windowed counts
 (``elect="windowed"``), whose ``elect_overflow`` flag sends the round
@@ -58,8 +66,10 @@ import torch
 
 from repro_torch.core.rules import build_rule_table
 from repro_torch.core.selection import selection_stats
+from repro_torch.device import to_device
 from repro_torch.fl.aggregation import fedavg_masked, fedavg_sums
 from repro_torch.fl.client import dataset_loss_packed, local_train_batch
+from repro_torch.fl.mobility import coverage_active
 from repro_torch.fl.mobility import positions as mobility_positions
 from repro_torch.fl.network import (NetworkConfig,
                                     predicted_throughput_from_fields,
@@ -125,6 +135,9 @@ class StageConfig:
     elect: str
     elect_window: int             # sorted neighbours per side (0 = auto)
     elect_capacity: int           # rank -> segment bucket slots (0 = auto)
+    # coverage-window churn (the event-driven server): clients past
+    # (1 - rate) * road_length are departed; 0.0 runs the churn-free ops
+    churn_rate: float = 0.0
 
 
 @functools.lru_cache(maxsize=None)
@@ -163,6 +176,19 @@ def select(cfg: StageConfig, pos: torch.Tensor, evals: torch.Tensor,
     """Selection stage (Alg. 1 step 4) through the scheme registry:
     (..., N) -> int32 mask (..., N), leading axes (seeds) broadcast."""
     return get_scheme(cfg.scheme).select(cfg, pos, evals, fields)
+
+
+def completion_time_s(st: RoundStatics, cfg: StageConfig, pos: torch.Tensor,
+                      upload_shadow: torch.Tensor,
+                      t_s: torch.Tensor) -> torch.Tensor:
+    """Each client's absolute upload-completion instant (..., N): ``t_s
+    + train_t + upload_t`` in fp32, in the reference's order, from the
+    shadow ``deadline_filter`` reads, so ``t_done <= t_s + deadline``
+    exactly when the client survives Eq. 6."""
+    train_t = training_time_s(cfg.timing, st.slowdown, st.n_valid)
+    upload_t = upload_time_s_from_shadow(cfg.network, pos, cfg.model_bytes,
+                                         upload_shadow.to(pos.device))
+    return t_s + train_t + upload_t
 
 
 def deadline_filter(st: RoundStatics, cfg: StageConfig, pos: torch.Tensor,
@@ -226,9 +252,10 @@ def selection_prefix_seeds(st: RoundStatics, params: Params, rnd: int,
     """Probe -> evaluate -> select -> deadline for S seeds of one
     ``StageConfig`` at once: ``st`` from ``stack_statics``, ``params``
     stacked (S, ...) weights, ``fields`` from ``stack_fields``.  Returns
-    the prefix's outputs with a leading seed axis; seed i's slice is
-    bit-equal to ``selection_prefix`` on seed i's statics, params and
-    draws.
+    the prefix's outputs with a leading seed axis, the event server's
+    ``t_done``, ``alive_at_done`` and ``n_active`` among them; seed i's
+    slice is bit-equal to ``selection_prefix`` on seed i's statics,
+    params and draws.
 
     Mobility, the Reno predictor, the aux features, the scheme's
     ``select`` and the Eq. 6 deadline run once on (S, N) tensors; the
@@ -241,9 +268,13 @@ def selection_prefix_seeds(st: RoundStatics, params: Params, rnd: int,
     it, so it has no counterpart here."""
     dev = st.x0.device
     n_seeds = st.x0.shape[0]
-    t_s = torch.tensor(float(rnd), dtype=torch.float32,
-                       device=dev) * cfg.timing.deadline_s
+    # a fill, not an upload: nothing here waits for the card
+    t_s = torch.full((), float(rnd), dtype=torch.float32,
+                     device=dev) * cfg.timing.deadline_s
+    fields = RoundFields(*(to_device(getattr(fields, name), dev)
+                           for name in _PREFIX_FIELDS))
     table, levels = _rules()
+    churn = cfg.churn_rate > 0.0
     with torch.no_grad():
         pos = positions(st, cfg, t_s)
         aux = aux_features(st, cfg, pos, fields)
@@ -265,6 +296,10 @@ def selection_prefix_seeds(st: RoundStatics, params: Params, rnd: int,
                 feats.append(torch.cat([aux[i], lf[:, None]], dim=1))
             evals = torch.stack([evaluate(st, f) for f in feats])
             feats = torch.stack(feats)
+        if churn:                  # departed clients report no evaluation
+            active = coverage_active(pos, road_length_m=cfg.road_length_m,
+                                     churn_rate=cfg.churn_rate)
+            evals = torch.where(active, evals, torch.zeros_like(evals))
         scheme = get_scheme(cfg.scheme)
         if cfg.elect == "windowed" and scheme.select_windowed is not None:
             mask, elect_overflow = (torch.stack(t) for t in zip(*(
@@ -275,11 +310,27 @@ def selection_prefix_seeds(st: RoundStatics, params: Params, rnd: int,
             mask = select(cfg, pos, evals, fields)
             elect_overflow = torch.zeros(n_seeds, dtype=torch.int32,
                                          device=dev)
+        if churn:                  # ... and are never selected
+            mask = torch.where(active, mask, torch.zeros_like(mask))
         survivors, n_straggler = deadline_filter(st, cfg, pos, mask,
                                                  fields.upload_shadow)
+        # the event server's inputs: each client's upload instant, and
+        # whether it is still covered then (else its update is lost)
+        t_done = completion_time_s(st, cfg, pos, fields.upload_shadow, t_s)
+        if churn:
+            alive_at_done = coverage_active(
+                positions(st, cfg, t_done), road_length_m=cfg.road_length_m,
+                churn_rate=cfg.churn_rate)
+            n_active = active.sum(dim=-1)
+        else:
+            alive_at_done = torch.ones_like(survivors)
+            n_active = torch.full((n_seeds,), cfg.n_clients,
+                                  dtype=torch.int64, device=dev)
         stats = [selection_stats(mask[i], evals[i]) for i in range(n_seeds)]
     return {"pos": pos, "feats": feats, "evals": evals, "mask": mask,
             "survivors": survivors, "n_straggler": n_straggler,
+            "t_done": t_done, "alive_at_done": alive_at_done,
+            "n_active": n_active,
             "n_selected": torch.stack([x["n_selected"] for x in stats]),
             "n_survivor": survivors.sum(dim=-1),
             "mean_eval_selected": torch.stack(
@@ -311,22 +362,52 @@ def cohort_bucket(k: int) -> int:
     return max(2, k + (k % 2))
 
 
+def device_groups(groups: Sequence[ClientGroup],
+                  device) -> Tuple[ClientGroup, ...]:
+    """The capacity groups with their image and label stacks on
+    ``device``, uploaded once (shared with the numpy arrays on the CPU),
+    so a round's cohort gather is an index on the device, not an upload
+    of the cohort.  ``client_ids`` and ``n_valid`` stay host arrays."""
+    dev = torch.device(device)
+    return tuple(dataclasses.replace(
+        g, images=torch.as_tensor(g.images, device=dev),
+        labels=torch.as_tensor(g.labels, device=dev)) for g in groups)
+
+
+def _cohort(g: ClientGroup, idx: np.ndarray,
+            perms: Callable[[int], torch.Tensor], dev: torch.device
+            ) -> Tuple[torch.Tensor, ...]:
+    """One group's cohort rows ``idx`` for ``local_train_batch``:
+    images, labels, n_valid and the (epochs, C, cap) permutations on
+    ``dev``, gathered there from ``device_groups``' stacks; the small
+    host arrays cross through pinned memory, so nothing waits."""
+    rows = to_device(torch.from_numpy(idx), dev)
+    return (g.images.index_select(0, rows), g.labels.index_select(0, rows),
+            to_device(torch.from_numpy(g.n_valid[idx]), dev),
+            to_device(torch.stack([torch.as_tensor(perms(int(i)))
+                                   for i in g.client_ids[idx]], 1), dev))
+
+
 def train_groups(params: Params, groups: Sequence[ClientGroup],
                  group_steps: Sequence[int], survivors: np.ndarray,
                  perms: Callable[[int], torch.Tensor], *, epochs: int,
-                 batch_size: int, lr: float, prox_mu: float = 0.0
-                 ) -> Optional[Tuple[Params, torch.Tensor]]:
+                 batch_size: int, lr: float, prox_mu: float = 0.0,
+                 return_entries: bool = False) -> Optional[Tuple]:
     """Local-training stage (Eq. 1): one ``local_train_batch`` per
     capacity group over that group's surviving cohort.
 
-    ``survivors`` is the round's host-side mask (the one crossing);
-    ``perms(i)`` gives client i's (epochs, cap) sample orders.  Returns
-    ``(stacked models, weights)`` with padding duplicates at weight
-    zero, or ``None`` for an empty round."""
+    ``groups`` come from ``device_groups``; ``survivors`` is the round's
+    host-side mask (the one crossing); ``perms(i)`` gives client i's
+    (epochs, cap) sample orders.  Returns ``(stacked models, weights)``
+    with padding duplicates at weight zero, or ``None`` for an empty
+    round.  ``return_entries=True`` (the event server's pool) returns
+    ``(stacked models, weights (np), client ids (np))`` instead: each
+    row's global client id, padding rows repeating the cohort head's.
+    Only enqueues work: nothing here waits for the card."""
     if not survivors.any():
         return None
     dev = next(iter(params.values())).device
-    stacks, weights = [], []
+    stacks, weights, row_ids = [], [], []
     for gi, g in enumerate(groups):
         cohort = np.where(survivors[g.client_ids])[0]       # group-local
         k = len(cohort)
@@ -334,20 +415,19 @@ def train_groups(params: Params, groups: Sequence[ClientGroup],
             continue                         # empty cohort: skip group
         idx = np.concatenate([cohort,
                               np.full(cohort_bucket(k) - k, cohort[0])])
-        ids = g.client_ids[idx]
         stacked, _ = local_train_batch(
-            params, torch.as_tensor(g.images[idx], device=dev),
-            torch.as_tensor(g.labels[idx], device=dev),
-            torch.as_tensor(g.n_valid[idx], device=dev),
-            torch.stack([torch.as_tensor(perms(int(i))) for i in ids], 1),
-            epochs=epochs, batch_size=batch_size,
-            steps_per_epoch=group_steps[gi], lr=lr, prox_mu=prox_mu)
+            params, *_cohort(g, idx, perms, dev), epochs=epochs,
+            batch_size=batch_size, steps_per_epoch=group_steps[gi], lr=lr,
+            prox_mu=prox_mu)
         w = g.n_valid[idx].astype(np.float32)
         w[k:] = 0.0                          # padding duplicates drop out
         stacks.append(stacked)
         weights.append(w)
+        row_ids.append(g.client_ids[idx])
     merged = {k: torch.cat([s[k] for s in stacks]) for k in stacks[0]}
-    return merged, torch.as_tensor(np.concatenate(weights), device=dev)
+    if return_entries:
+        return merged, np.concatenate(weights), np.concatenate(row_ids)
+    return merged, to_device(torch.from_numpy(np.concatenate(weights)), dev)
 
 
 def aggregate(params: Params,
@@ -480,23 +560,18 @@ def train_group_cohort_sharded(params: Params, group: ClientGroup,
                                prox_mu: float = 0.0
                                ) -> Tuple[Params, torch.Tensor]:
     """One capacity group's cohort ``idx`` (group-local rows, a multiple
-    of the shards long) on the mesh: this rank trains its equal slice
-    and the weighted model sum finishes with an all-reduce
-    (``fedavg_sums``).  Returns ``(sum_i w_i model_i, sum_i w_i)``."""
+    of the shards long; ``group`` from ``device_groups``) on the mesh:
+    this rank trains its equal slice and the weighted model sum finishes
+    with an all-reduce (``fedavg_sums``).  Returns ``(sum_i w_i model_i, sum_i w_i)``."""
     per = len(idx) // mesh.size
     part = slice(mesh.rank * per, (mesh.rank + 1) * per)
-    idx = idx[part]
     dev = next(iter(params.values())).device
     stacked, _ = local_train_batch(
-        params, torch.as_tensor(group.images[idx], device=dev),
-        torch.as_tensor(group.labels[idx], device=dev),
-        torch.as_tensor(group.n_valid[idx], device=dev),
-        torch.stack([torch.as_tensor(perms(int(i)))
-                     for i in group.client_ids[idx]], 1),
-        epochs=epochs, batch_size=batch_size,
-        steps_per_epoch=steps_per_epoch, lr=lr, prox_mu=prox_mu)
-    return fedavg_sums(stacked, torch.as_tensor(weights[part], device=dev),
-                       mesh)
+        params, *_cohort(group, idx[part], perms, dev), epochs=epochs,
+        batch_size=batch_size, steps_per_epoch=steps_per_epoch, lr=lr,
+        prox_mu=prox_mu)
+    return fedavg_sums(stacked,
+                       to_device(torch.from_numpy(weights[part]), dev), mesh)
 
 
 def train_groups_sharded(params: Params, groups: Sequence[ClientGroup],

@@ -20,6 +20,22 @@ accounting (``_comm_accounting``, ``core/overhead.py``).  A round whose
 windowed election overflowed re-runs its prefix through the dense
 election on the same draws before the gather.
 
+``run_schedule`` drives the rounds, serially or round-ahead (the
+default, ``RunConfig.overlap_rounds``, as in the reference): the prefix
+is pure in ``(statics, params, rnd, fields)`` and training only
+enqueues, so round r+1's prefix is enqueued right after round r's
+training and accuracy, before round r's row reads anything back.  The
+one fence a round is the prefix's host crossing (``_host``); from there
+to the next prefix's enqueue nothing waits for the card (round r+1's
+draws are made on the host before round r's fence, the cohort stacks
+live on the device, small host arrays cross through pinned memory), so
+the host's row building and enqueuing overlap the card's training.
+Both schedules run the same ops in the same order: their rows are
+bit-equal.  ``RunConfig(server="event")`` (any churn, weighted
+staleness or cadence) swaps the event-driven server
+(``fl/async_server.py``) in behind the same surface
+(``_dispatch_training``, ``_round_row``, ``finish_round``).
+
 Built on a rank of the client mesh (``mesh=``, ``launch/mesh.py``), the
 simulation runs the round's client axis over the K ranks, as the
 reference's does under ``--mesh clients=K``: the rank keeps its own
@@ -31,15 +47,16 @@ loop engine trains every survivor on every rank, as the reference's
 does on its mesh.  Every rank ends the round with the same global model
 and row.
 
-Both engines and the serial driver are ported.  Randomness comes
-from ``torch.Generator``s seeded from ``FLSimConfig.seed``, or from an
-injected ``fields(rnd) -> RoundFields`` (the parity tests feed the
-reference's draws through it).
+Randomness comes from ``torch.Generator``s seeded from
+``FLSimConfig.seed`` and the round, or from an injected ``fields(rnd) ->
+RoundFields`` (the parity tests feed the reference's draws through it).
+Checkpoint and resume are ROADMAP A10.
 """
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass, field, replace
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Callable, ContextManager, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -50,10 +67,11 @@ from repro_torch.core.overhead import (IoVParams, accumulated_time_s,
                                        model_upload_bytes,
                                        state_maintenance_bytes)
 from repro_torch.data.synthetic import make_dataset, train_test_split
-from repro_torch.device import fp32_strict, resolve_device
+from repro_torch.device import fp32_strict, resolve_device, to_device
 from repro_torch.fl import pipeline
 from repro_torch.fl.aggregation import fedavg
-from repro_torch.fl.client import PROBE_BATCH, evaluate_accuracy, local_train
+from repro_torch.fl.client import (PROBE_BATCH, evaluate_accuracy_async,
+                                   local_train)
 from repro_torch.fl.mobility import FreewayMobility, MobilityConfig
 from repro_torch.fl.network import (NetworkConfig, draw_round_fields,
                                     pinned_channel_shadow)
@@ -152,8 +170,13 @@ class FLSimulation:
                                CNN_CFG, self.device)
         self._channel_shadow = pinned_channel_shadow(self.n)
         self.last_mask: Optional[np.ndarray] = None
+        # lifetime selection counts (the event server's and the sync
+        # dispatch's one bookkeeping point, _record_participation)
+        self.participation = np.zeros(self.n, np.int64)
         self.statics = self._build_statics()
         self.stage_cfg = self.run_cfg.to_stage_config(cfg, n_clients=self.n)
+        self._dev_groups: Optional[Tuple] = None
+        self.device_groups()                 # uploaded once, here
 
     def _build_statics(self) -> pipeline.RoundStatics:
         def f32(a):
@@ -169,6 +192,15 @@ class FLSimulation:
             means=f32(self.fuzzy_cfg.means),
             sigmas=f32(self.fuzzy_cfg.sigmas),
             level_centers=default_level_centers(self.device))
+
+    def device_groups(self) -> Tuple:
+        """``self.groups`` with their stacks on the run's device
+        (``pipeline.device_groups``), uploaded once per ``groups``
+        object: assigning other groups uploads those."""
+        if self._dev_groups is None or self._dev_groups[0] is not self.groups:
+            self._dev_groups = (self.groups, pipeline.device_groups(
+                self.groups, self.device))
+        return self._dev_groups[1]
 
     def _probe_take(self) -> np.ndarray:
         """Probe samples per client: its first ``probe_samples`` valid."""
@@ -277,12 +309,15 @@ class FLSimulation:
         """The windowed election's escape hatch: when round ``rnd``'s
         prefix raised ``elect_overflow`` (the window could not hold every
         dense comparison), re-run the prefix with the dense election on
-        the same ``fields`` and use that state instead.  The prefix is
-        pure in ``(params, rnd, fields)``, so the masks are exactly the
-        dense election's."""
+        the same ``fields`` and use that state instead (its
+        ``elect_overflow`` keeps the windowed prefix's flag).  The prefix
+        is pure in ``(params, rnd, fields)``, so the masks are exactly
+        the dense election's."""
         if int(host["elect_overflow"]) == 0:
             return host
-        return self._host(self.selection_state(rnd, fields, elect="gather"))
+        rerun = self._host(self.selection_state(rnd, fields, elect="gather"))
+        rerun["elect_overflow"] = host["elect_overflow"]
+        return rerun
 
     def run_round(self, rnd: int) -> Dict[str, object]:
         fields = self.round_fields(rnd)
@@ -291,21 +326,31 @@ class FLSimulation:
 
     def finish_round(self, rnd: int, state: Dict[str, torch.Tensor],
                      fields: pipeline.RoundFields) -> Dict[str, object]:
-        """Steps 5 + 7 and the row: the prefix's outputs, the windowed
-        election's overflow flag among them, cross to the host here,
-        once, for the cohort gather (twice on an overflow round, whose
-        dense re-run crosses too)."""
-        host = self.resolve_elect_overflow(rnd, self._host(state), fields)
-        survivors = host["survivors"]
-        self.last_mask = host["mask"]
+        """Steps 5 + 7 and the row from a prefix's outputs (which may
+        come from the sweep's seed-batched prefix): the outputs, the
+        windowed election's overflow flag among them, cross to the host
+        here, once, for the cohort gather (twice on an overflow round,
+        whose dense re-run crosses too)."""
+        return close_round(self, self, rnd, state, fields)
+
+    def _dispatch_training(self, rnd: int, host: Dict[str, np.ndarray],
+                           fields: pipeline.RoundFields) -> None:
+        """Steps 5 + 7 from the round's host-side prefix outputs: the
+        cohort gather, local SGD and FedAvg, enqueued; ``self.params``
+        is then the card's pending result."""
+        self._record_participation(host["mask"])
         perms = lambda i: fields.perms[i]
         if self.run_cfg.engine == "loop":
-            self._train_loop(survivors, perms)
+            self._train_loop(host["survivors"], perms)
         else:
-            self._train_batched(survivors, perms)
-        acc = evaluate_accuracy(self.params, self.test_images,
-                                self.test_labels, batch=256)
-        return self._round_row(rnd, host, acc)
+            self._train_batched(host["survivors"], perms)
+
+    def _record_participation(self, mask: np.ndarray) -> None:
+        """Keep the round's selection mask and count each selected
+        client's participation (the sync dispatch's and the event
+        server's one bookkeeping point)."""
+        self.last_mask = np.asarray(mask)
+        self.participation[self.last_mask > 0] += 1
 
     def _train_args(self) -> Dict[str, float]:
         cfg = self.cfg
@@ -320,13 +365,13 @@ class FLSimulation:
         group cohort is skipped."""
         if self.mesh is not None:
             trained = pipeline.train_groups_sharded(
-                self.params, self.groups, self._group_steps, survivors,
-                perms, self.mesh, **self._train_args())
+                self.params, self.device_groups(), self._group_steps,
+                survivors, perms, self.mesh, **self._train_args())
             self.params = pipeline.aggregate_sharded(self.params, trained)
         else:
             trained = pipeline.train_groups(
-                self.params, self.groups, self._group_steps, survivors,
-                perms, **self._train_args())
+                self.params, self.device_groups(), self._group_steps,
+                survivors, perms, **self._train_args())
             self.params = pipeline.aggregate(self.params, trained)
 
     def _train_loop(self, survivors: np.ndarray,
@@ -339,12 +384,11 @@ class FLSimulation:
         models, weights = [], []
         for i in np.where(survivors)[0]:
             gi, li = self._slot[i]
-            g = self.groups[gi]
+            g = self.device_groups()[gi]
             p_i, _ = local_train(
-                self.params, torch.as_tensor(g.images[li], device=dev),
-                torch.as_tensor(g.labels[li], device=dev),
-                torch.as_tensor(g.n_valid[li], device=dev),
-                torch.as_tensor(perms(int(i))),
+                self.params, g.images[li], g.labels[li],
+                to_device(torch.as_tensor(g.n_valid[li]), dev),
+                to_device(torch.as_tensor(perms(int(i))), dev),
                 steps_per_epoch=self._group_steps[gi], **self._train_args())
             models.append(p_i)
             weights.append(float(self.n_valid[i]))
@@ -380,18 +424,22 @@ class FLSimulation:
                 "comm_time_s": comm_t}
 
     def _round_row(self, rnd: int, host: Dict[str, np.ndarray],
-                   accuracy: float) -> Dict[str, object]:
+                   acc_count: torch.Tensor, n_test: int
+                   ) -> Dict[str, object]:
         """The round's row in the reference's key order, Python scalars
-        only (``json.dumps`` takes it).  The async columns hold the
-        synchronous server's values: the whole fleet active, every
-        aggregated update on time."""
+        only (``json.dumps`` takes it); reading the accuracy count here
+        is the round's second and last wait for the card.  The async
+        columns hold the synchronous server's values (every aggregated
+        update on time; the active fleet from the prefix, all of it
+        without churn); the event server overrides them."""
         n_selected = int(host["n_selected"])
         n_agg = int(host["survivors"].sum())
-        row = {"round": rnd, "accuracy": accuracy,
+        row = {"round": rnd,
+               "accuracy": float(acc_count) / float(n_test),
                "n_selected": n_selected,
                "n_aggregated": n_agg,
                "n_straggler": int(host["n_straggler"]),
-               "n_active": self.n,
+               "n_active": int(host.get("n_active", self.n)),
                "stale_frac": 0.0,
                "n_effective": float(n_agg),
                "rounds_behind_hist": f"{n_agg}/0/0/0",
@@ -399,7 +447,76 @@ class FLSimulation:
         row.update(self._comm_accounting(n_selected))
         return row
 
-    def run(self, n_rounds: Optional[int] = None) -> List[Dict[str, object]]:
-        """Drive ``n_rounds`` rounds serially."""
-        return [self.run_round(r)
-                for r in range(n_rounds or self.cfg.n_rounds)]
+    def driver(self):
+        """The round driver of this run: the simulation itself (the round
+        barrier) or, under ``RunConfig(server="event")``, a new
+        ``EventDrivenServer`` wrapping it."""
+        if self.run_cfg.server == "event":
+            from repro_torch.fl.async_server import EventDrivenServer
+            return EventDrivenServer(self)
+        return self
+
+    def run(self, n_rounds: Optional[int] = None,
+            overlap: Optional[bool] = None) -> List[Dict[str, object]]:
+        """Drive ``n_rounds`` rounds through ``driver()``, round-ahead
+        unless ``overlap`` (default: ``RunConfig.overlap_rounds``) is
+        False; the rows are the same either way."""
+        if overlap is None:
+            overlap = self.run_cfg.overlap_rounds
+        return run_schedule(self.driver(), self,
+                            n_rounds or self.cfg.n_rounds, overlap=overlap)
+
+
+def close_round(driver, sim: FLSimulation, rnd: int,
+                state: Dict[str, torch.Tensor],
+                fields: pipeline.RoundFields) -> Dict[str, object]:
+    """Round ``rnd`` of ``driver`` (``sim`` or an ``EventDrivenServer``
+    over it) from a prefix's outputs: the host crossing, the training
+    dispatch, the accuracy, the row."""
+    host = sim.resolve_elect_overflow(rnd, sim._host(state), fields)
+    driver._dispatch_training(rnd, host, fields)
+    acc, n_test = evaluate_accuracy_async(
+        sim.params, sim.test_images, sim.test_labels, batch=256)
+    return driver._round_row(rnd, host, acc, n_test)
+
+
+def run_schedule(driver, sim: FLSimulation, n_rounds: int, *, overlap: bool,
+                 stretch: Optional[Callable[[int], ContextManager]] = None,
+                 on_row: Optional[Callable[[int, Dict, Dict], None]] = None
+                 ) -> List[Dict[str, object]]:
+    """Rounds ``0 .. n_rounds - 1`` of ``driver`` (``sim`` itself or an
+    ``EventDrivenServer`` over it), serial or round-ahead.
+
+    A round: its prefix's outputs cross to the host (the fence, with
+    the overflow re-run), the driver enqueues training and the accuracy
+    is enqueued; round-ahead, round r+1's prefix is enqueued next, on
+    the draws made before the fence, and only then does round r's row
+    read the accuracy.  Serially, round r+1's draws and prefix come
+    after the row.  ``stretch(r)``, when given, is a context entered
+    from round r's training dispatch through the next prefix's enqueue
+    (``chip_smoke.py`` runs it under ``torch.cuda.set_sync_debug_mode``);
+    ``on_row(r, host, row)`` sees each round's host-side prefix outputs
+    and row."""
+    stretch = stretch or (lambda r: contextlib.nullcontext())
+    rows: List[Dict[str, object]] = []
+    fields = state = None
+    for r in range(n_rounds):
+        if state is None:                    # serial, or the first round
+            fields = sim.round_fields(r)
+            state = sim.selection_state(r, fields)
+        # round-ahead: draw round r+1 on the host while the card works
+        nxt = sim.round_fields(r + 1) if overlap and r + 1 < n_rounds \
+            else None
+        host = sim.resolve_elect_overflow(r, sim._host(state), fields)
+        with stretch(r):
+            driver._dispatch_training(r, host, fields)
+            acc, n_test = evaluate_accuracy_async(
+                sim.params, sim.test_images, sim.test_labels, batch=256)
+            state = (sim.selection_state(r + 1, nxt) if nxt is not None
+                     else None)
+        row = driver._round_row(r, host, acc, n_test)
+        rows.append(row)
+        if on_row is not None:
+            on_row(r, host, row)
+        fields = nxt
+    return rows

@@ -3,11 +3,26 @@
 The fields mirror ``repro.fl.runconfig.RunConfig``, and
 ``add_run_arguments`` / ``RunConfig.from_args`` its CLI flags, with the
 reference's defaults and ``dest`` names, so a command line parses the
-same way in both packages.  The knobs this slice of the port does not
-implement raise ``NotImplementedError`` naming the ROADMAP item that
-brings them; none is silently ignored.  ``overlap_rounds`` defaults to
-False here: the reference pins its round-ahead rows bit-identical to
-the serial ones, so rows do not move.
+same way in both packages.  ``resolved`` validates and promotes as the
+reference's does: any churn, weighted staleness or cadence runs the
+event-driven server (``fl/async_server.py``).  ``overlap_rounds``
+defaults to True, the round-ahead schedule (``rounds.run_schedule``),
+whose rows are the serial schedule's bit for bit.  The knobs this
+slice of the port does not implement raise ``NotImplementedError``
+naming the ROADMAP item that brings them (checkpoints A10; the
+multi-host launch and the event server's sharded pool A11; the
+persistent compilation cache A14); none is silently ignored.
+
+Async axis (any non-default value promotes ``server`` to "event"):
+
+- ``churn_rate``: the fraction of the road outside RSU coverage; a
+  client past ``(1 - rate) * road_length`` is departed for the round,
+  and one that leaves coverage before its upload completes loses it;
+- ``staleness``: "drop" keeps the Eq. 6 hard deadline; "weighted"
+  trains stragglers too and scales their FedAvg weight by ``1 / (1 +
+  staleness_lambda * delay_rounds)``;
+- ``agg_cadence_s``: aggregate every ``T`` simulated seconds instead of
+  at the round barrier (None: the round period).
 """
 from __future__ import annotations
 
@@ -29,6 +44,14 @@ def _unported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
 
 
+def unported_event_pool() -> NotImplementedError:
+    """The event server on the client mesh beyond its sync-equivalent
+    case: the reference's sharded pool (per-tick psum'd partials)."""
+    return _unported("the event-driven server's sharded pool (churn, "
+                     "weighted staleness or a cadence other than the round "
+                     "period on --mesh clients=K)", "A11 (rest)")
+
+
 @dataclasses.dataclass(frozen=True)
 class RunConfig:
     # batched: one local_train_batch per capacity group; loop: one
@@ -37,16 +60,16 @@ class RunConfig:
     # rank, as the reference's does on its mesh
     engine: str = "batched"
     fused_probe: bool = True             # fused probe->evaluate kernel
-    overlap_rounds: bool = False         # round-ahead scheduler (unported)
+    overlap_rounds: bool = True          # round-ahead scheduler
     # "clients=K": K ranks of the client mesh (launch/mesh.py) on one
     # host; multihost > 0 (processes over several hosts) is unported
     mesh: Optional[str] = None
     multihost: int = 0
-    server: str = "sync"                 # sync | event (event: unported)
-    churn_rate: float = 0.0
-    staleness: str = "drop"
-    staleness_lambda: float = 0.0
-    agg_cadence_s: Optional[float] = None
+    server: str = "sync"                 # sync | event
+    churn_rate: float = 0.0              # 0 = full coverage, no churn
+    staleness: str = "drop"              # drop | weighted
+    staleness_lambda: float = 0.0        # weighted: 1/(1 + lambda * delay)
+    agg_cadence_s: Optional[float] = None  # None = round period
     # DCS election: auto (windowed at N >= AUTO_WINDOWED_MIN_CLIENTS,
     # else gather), gather (dense O(N^2)), windowed (O(N * W) sorted
     # window; an overflow round re-runs through gather, so masks are
@@ -60,26 +83,35 @@ class RunConfig:
     resume: bool = False
 
     def resolved(self) -> "RunConfig":
-        """Validate; every unported knob raises here, before any work is
-        done."""
+        """Validate and promote, as the reference's: any churn, weighted
+        staleness or cadence promotes ``server`` to "event".  Every
+        unported knob raises here, before any work is done."""
         if self.engine not in ENGINES:
             raise ValueError(f"engine must be one of {ENGINES}: "
                              f"{self.engine!r}")
+        if self.server not in SERVERS:
+            raise ValueError(f"server must be one of {SERVERS}: "
+                             f"{self.server!r}")
+        if self.staleness not in STALENESS_MODES:
+            raise ValueError(f"staleness must be one of {STALENESS_MODES}: "
+                             f"{self.staleness!r}")
+        if not 0.0 <= self.churn_rate <= 1.0:
+            raise ValueError(f"churn_rate must be in [0, 1]: "
+                             f"{self.churn_rate}")
+        if self.staleness_lambda < 0.0:
+            raise ValueError(f"staleness_lambda must be >= 0: "
+                             f"{self.staleness_lambda}")
+        if self.agg_cadence_s is not None and self.agg_cadence_s <= 0.0:
+            raise ValueError(f"agg_cadence_s must be > 0: "
+                             f"{self.agg_cadence_s}")
         if self.multihost:
             raise _unported("--multihost (torchrun over several hosts, "
                             "launch/multihost.py, faults.py)", "A11 (rest)")
-        mesh_clients(self.mesh)              # a bad spec raises here
-        if (self.server != "sync" or self.churn_rate != 0.0
-                or self.staleness != "drop" or self.staleness_lambda != 0.0
-                or self.agg_cadence_s is not None):
-            raise _unported("the event-driven server (server='event', "
-                            "churn, staleness, cadence)", "A9")
+        k = mesh_clients(self.mesh)          # a bad spec raises here
         if (self.checkpoint_dir is not None or self.checkpoint_every != 1
                 or self.resume):
             raise _unported("checkpoint_dir / checkpoint_every / resume",
                             "A10")
-        if self.overlap_rounds:
-            raise _unported("overlap_rounds=True", "A7")
         if self.elect not in ELECT_MODES:
             raise ValueError(f"elect must be one of {ELECT_MODES}: "
                              f"{self.elect!r}")
@@ -89,6 +121,19 @@ class RunConfig:
         if self.elect_capacity < 0:
             raise ValueError(f"elect_capacity must be >= 0: "
                              f"{self.elect_capacity}")
+        server = self.server
+        if (self.churn_rate > 0.0 or self.staleness == "weighted"
+                or self.agg_cadence_s is not None):
+            server = "event"
+        if server == "event" and self.staleness == "weighted" \
+                and self.engine != "batched":
+            raise ValueError("staleness='weighted' trains stragglers "
+                             "through the batched engine; engine="
+                             f"{self.engine!r} is not supported")
+        if k > 1 and (self.churn_rate > 0.0 or self.staleness == "weighted"):
+            raise unported_event_pool()
+        if server != self.server:
+            return dataclasses.replace(self, server=server)
         return self
 
     def to_stage_config(self, cfg, *, n_clients: int):
@@ -110,7 +155,7 @@ class RunConfig:
                                 deadline_s=cfg.deadline_s),
             network=cfg.network, fused_probe=self.fused_probe,
             elect=elect, elect_window=self.elect_window,
-            elect_capacity=self.elect_capacity)
+            elect_capacity=self.elect_capacity, churn_rate=self.churn_rate)
 
     @classmethod
     def from_args(cls, args, base: Optional["RunConfig"] = None
@@ -171,22 +216,24 @@ def add_run_arguments(ap) -> None:
     ap.add_argument("--compat-aligned-pack", action="store_true",
                     help="aligned probe pack + unfused prefix")
     ap.add_argument("--overlap-rounds", action="store_true",
-                    help="the round-ahead scheduler (not ported: raises)")
+                    help="no-op: the round-ahead scheduler is the default")
     ap.add_argument("--no-overlap-rounds", action="store_true",
-                    help="no-op: serial round dispatch is the port's")
+                    help="serial round dispatch (disable the round-ahead "
+                         "scheduler; the rows are the same)")
     ap.add_argument("--server", choices=SERVERS, default=None,
                     help="sync round barrier (default) or the event-driven "
-                         "server (not ported: raises)")
+                         "server")
     ap.add_argument("--churn-rate", type=float, default=None,
-                    help="coverage-window churn rate (not ported: raises "
-                         "unless 0)")
+                    help="coverage-window churn rate in [0, 1] (implies "
+                         "--server event)")
     ap.add_argument("--staleness", choices=STALENESS_MODES, default=None,
-                    help="straggler policy (weighted: not ported, raises)")
+                    help="straggler policy: drop (Eq. 6 hard deadline) or "
+                         "weighted (1 / (1 + lambda * delay_rounds))")
     ap.add_argument("--staleness-lambda", type=float, default=None,
-                    help="staleness decay (not ported: raises unless 0)")
+                    help="staleness decay lambda for --staleness weighted")
     ap.add_argument("--agg-cadence", type=float, default=None,
                     help="aggregation cadence in simulated seconds (0 = the "
-                         "round period; others not ported: raise)")
+                         "round period; implies --server event)")
     ap.add_argument("--elect", choices=ELECT_MODES, default=None,
                     help="DCS election: auto (windowed for fleets of 512 or "
                          "more), gather (dense O(N^2)), windowed (O(N*W) "

@@ -10,6 +10,8 @@ Usage:
   python -m repro_torch.launch.fl_sim --elect windowed --elect-window 2 \
       --distribution extreme
   python -m repro_torch.launch.fl_sim --mesh clients=2 --device cpu
+  python -m repro_torch.launch.fl_sim --scheme all --rounds 3 \
+      --churn-rate 0.2 --staleness weighted --staleness-lambda 0.5
 
 ``--paper-profile`` runs Table 3's profile (``paper_config``: 30 local
 epochs, a 20 s deadline, the 4500-sample clients) for ``--rounds``
@@ -25,12 +27,19 @@ collectives; rank 0 prints the mesh banner and the rows, then the
 launcher prints each rank's kernel launches and host-staged
 collectives (``--out`` writes rank 0's rows).  On one device the CLI
 prints the rows, then the kernel launches of the scheme's rounds.
-Every scheme ends with its prefix and round seconds (host clock,
-device synchronised) and a summary line.
+Rounds run round-ahead (``--no-overlap-rounds``: serially; the rows are
+the same).  ``--churn-rate``, ``--staleness weighted``
+(``--staleness-lambda``) or ``--agg-cadence`` run the event-driven
+server (``fl/async_server.py``), announced by one line.  Every scheme
+ends with its prefix and round seconds (host clock: a round from the
+previous row to its own, its prefix to the end of its host crossing,
+which round-ahead is the part of the prefix the round still waits for)
+and a summary line.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import time
 from typing import Dict, Optional
@@ -42,7 +51,7 @@ from repro_torch.device import synchronize
 from repro_torch.fl import pipeline
 from repro_torch.fl.mobility import MobilityConfig
 from repro_torch.fl.partition import PartitionConfig
-from repro_torch.fl.rounds import FLSimConfig, FLSimulation
+from repro_torch.fl.rounds import FLSimConfig, FLSimulation, run_schedule
 from repro_torch.fl.runconfig import RunConfig, add_run_arguments
 from repro_torch.ioutil import write_atomic_json
 from repro_torch.kernels import build
@@ -95,35 +104,45 @@ def sim_rank(mesh: ClientMesh, cfg: FLSimConfig, run: RunConfig,
 
 def drive_rounds(sim: FLSimulation, n_rounds: int, *,
                  print_rows: bool = False) -> Dict[str, object]:
-    """``n_rounds`` rounds of ``sim``, the launch counts reset just before.
+    """``n_rounds`` rounds of ``sim.driver()`` on the run config's
+    schedule (``rounds.run_schedule``), the launch counts reset just
+    before.
 
     Returns the rows; per round r this rank's shard of the prefix
     (``pos{r}``, ``feats{r}``, ``evals{r}``), the round's global
-    ``mask{r}`` and ``overflow{r}``; the prefix and round wall times
-    (host clock, device synchronised); the final params
-    (``param.<name>``); the kernel launches and, on a mesh, the
-    host-staged collectives of the rounds."""
+    ``mask{r}`` and ``overflow{r}`` (the windowed election's flag); the
+    prefix and round wall times (host clock: the round from the previous
+    row, or a synchronised start, to its own row, which reads the
+    accuracy; the prefix to the end of the round's host crossing); the
+    final params (``param.<name>``); the kernel launches and, on a mesh,
+    the host-staged collectives of the rounds."""
     out: Dict[str, object] = {}
-    rows, prefix_s, round_s = [], [], []
-    build.reset_launches()
-    for r in range(n_rounds):
-        f = sim.round_fields(r)
-        synchronize(sim.device)
-        t0 = time.perf_counter()
-        state = sim.selection_state(r, f)
-        synchronize(sim.device)
-        t1 = time.perf_counter()
-        row = sim.finish_round(r, state, f)
-        synchronize(sim.device)
-        prefix_s.append(t1 - t0)
-        round_s.append(time.perf_counter() - t0)
+    prefix_s, round_s = [], []
+    marks = {}
+
+    @contextlib.contextmanager
+    def fenced(r):
+        marks[r] = time.perf_counter()       # the host crossing is done
+        yield
+
+    def on_row(r, host, row):
+        now = time.perf_counter()
+        prefix_s.append(marks[r] - marks["start"])
+        round_s.append(now - marks["start"])
+        marks["start"] = now
         for key in ("pos", "feats", "evals"):
-            out[f"{key}{r}"] = state[key].cpu().numpy()
+            out[f"{key}{r}"] = host[key]
         out[f"mask{r}"] = sim.last_mask
-        out[f"overflow{r}"] = int(state["elect_overflow"])
-        rows.append(row)
+        out[f"overflow{r}"] = int(host["elect_overflow"])
         if print_rows:
             print(json.dumps(row), flush=True)
+
+    build.reset_launches()
+    synchronize(sim.device)
+    marks["start"] = time.perf_counter()
+    rows = run_schedule(sim.driver(), sim, n_rounds,
+                        overlap=sim.run_cfg.overlap_rounds, stretch=fenced,
+                        on_row=on_row)
     out.update(rows=rows, prefix_s=prefix_s, round_s=round_s,
                launches=dict(build.LAUNCHES), device=str(sim.device),
                staged=dict(sim.mesh.staged) if sim.mesh else {})
@@ -168,6 +187,10 @@ def main(argv=None) -> int:
 
     run = RunConfig.from_args(args)
     k = mesh_clients(run.mesh)
+    if run.server == "event":
+        print(f"[fl_sim] event-driven server: churn={run.churn_rate} "
+              f"staleness={run.staleness} lam={run.staleness_lambda} "
+              f"cadence={run.agg_cadence_s or 'round period'}", flush=True)
     results = {}
     for scheme in (SCHEMES if args.scheme == "all" else (args.scheme,)):
         if args.paper_profile:
@@ -198,8 +221,9 @@ def main(argv=None) -> int:
                   flush=True)
         dt = time.perf_counter() - t0
         rows = res["rows"]
-        print(f"[fl_sim] {scheme} seconds a round (host clock, synchronised"
-              f"): prefix {_seconds(res['prefix_s'])}, round "
+        print(f"[fl_sim] {scheme} seconds a round (host clock, "
+              f"{'round-ahead' if run.overlap_rounds else 'serial'}): "
+              f"prefix {_seconds(res['prefix_s'])}, round "
               f"{_seconds(res['round_s'])}", flush=True)
         accs = [r["accuracy"] for r in rows]
         nsel = sum(r["n_selected"] for r in rows) / len(rows)

@@ -7,6 +7,8 @@ card unless ``--device cpu`` is given.
       --classes 9,6,2 --distributions uniform,extreme --out grid.csv
   python -m repro_torch.launch.sweep --paper-profile --seeds 1 --rounds 1
   python -m repro_torch.launch.sweep --seeds 2 --rounds 1 --device cpu
+  python -m repro_torch.launch.sweep --fast --seeds 2 --rounds 2 \
+      --churn-rates 0,0.2 --staleness-lambdas 0,0.5 --agg-cadences 0,90
 
 Each **cell** is a whole (scheme, classes_per_client, distribution,
 seed) simulation; the seeds of one (scheme, classes, distribution) are
@@ -14,28 +16,36 @@ a **group**.  The seeds of a group share one ``StageConfig``, so their
 selection prefixes run as one ``pipeline.selection_prefix_seeds`` per
 round: the fused probe and the dense election launch once for every
 seed of the group, as the reference's vmap over seeds dispatches one
-program.  Training, FedAvg and the accuracy run per seed, through the
-``finish_round`` that single-seed runs use, which also resolves a seed's
-windowed-election overflow on its own.  ``--no-vmap`` (or seeds whose
-statics do not stack) runs each seed's prefix alone; the CSV is the
-same byte for byte.  ``--workers N`` spreads the groups over N spawned
-processes, which share the one card.
+program.  Training, FedAvg and the accuracy run per seed, through each
+seed's driver (``_dispatch_training``, ``_round_row``), which also
+resolves a seed's windowed-election overflow on its own.  Rounds run
+round-ahead (``RunConfig.overlap_rounds``, the default): the group's
+prefix for round r+1 is enqueued after round r's training and
+accuracy and before round r's rows read anything back;
+``--no-overlap-rounds`` runs them serially.  ``--no-vmap`` (or seeds
+whose statics do not stack) runs each seed's prefix alone.  The CSV is
+the same byte for byte either way.  ``--workers N`` spreads the groups
+over N spawned processes, which share the one card.
 
-Output: ONE tidy CSV, one row per (cell, round), with the reference's
-header and float formats (``CSV_COLUMNS``, ``_FMT``), so a CSV of
-either package parses with the other's ``parse_csv_rows``; rows are
-sorted and formatted deterministically, and two runs of the same sweep
-write the same bytes.  The per-seed metrics carry across-seed mean and
-sample-std columns, constant within a (round, scheme, classes,
-distribution, scenario) group.
+The async flags add a **scenario** axis: every (churn rate x staleness
+lambda x aggregation cadence) combination (``scenario_runs``) runs the
+cell grid through the event-driven server (``fl/async_server.py``),
+with the streaming columns (active fleet, stale fraction, effective
+cohort, rounds-behind histogram); the all-defaults scenario is the
+synchronous barrier, bit-equal to a sweep without async flags.
+
+Output: ONE tidy CSV, one row per (cell, scenario, round), with the
+reference's header and float formats (``CSV_COLUMNS``, ``_FMT``), so a
+CSV of either package parses with the other's ``parse_csv_rows``; rows
+are sorted and formatted deterministically, and two runs of the same
+sweep write the same bytes.  The per-seed metrics carry across-seed
+mean and sample-std columns, constant within a (round, scheme,
+classes, distribution, scenario) group.
 
 The knobs the port does not have yet raise ``NotImplementedError``
-naming their ROADMAP item before any work is done: the scenario axis
-(``--churn-rates``, ``--staleness-lambdas``, ``--agg-cadences`` other
-than the synchronous defaults) and ``--server event``: A9; ``--resume``
-and ``--checkpoint-dir``: A10; ``--mesh clients=K`` (the sharded
-seed-batched prefix) and ``--multihost``: A11; ``--overlap-rounds``: A7;
-``--jit-cache-dir``: A14.
+naming their ROADMAP item before any work is done: ``--resume`` and
+``--checkpoint-dir``: A10; ``--mesh clients=K`` (the sharded
+seed-batched prefix) and ``--multihost``: A11; ``--jit-cache-dir``: A14.
 """
 from __future__ import annotations
 
@@ -50,6 +60,7 @@ import torch
 
 from repro_torch.device import resolve_device, synchronize
 from repro_torch.fl import pipeline
+from repro_torch.fl.client import evaluate_accuracy_async
 from repro_torch.fl.mobility import MobilityConfig
 from repro_torch.fl.partition import PartitionConfig
 from repro_torch.fl.rounds import FLSimConfig, FLSimulation
@@ -130,15 +141,20 @@ def run_seed_group(scheme: str, classes_per_client: int, distribution: str,
                    run: Optional[RunConfig] = None, *, device=None,
                    fields_fn: Optional[FieldsFn] = None,
                    prefix_s: Optional[List[float]] = None) -> List[Dict]:
-    """Run every seed of one cell group for ``rounds`` rounds, serially.
+    """Run every seed of one cell group for ``rounds`` rounds.
 
     With more than one seed and statics that stack (the seeds share a
     ``StageConfig`` and the probe pack's shape), each round's selection
     prefixes run as ONE ``pipeline.selection_prefix_seeds``; otherwise,
     or with ``vmap_prefix=False``, each seed's prefix runs alone.  Each
-    seed then finishes the round through its ``finish_round``.  The rows
-    are the same either way.  ``prefix_s``, when given, receives each
-    round's prefix wall seconds (host clock, device synchronised)."""
+    seed's driver (the simulation, or its ``EventDrivenServer`` under
+    ``run.server == "event"``) then trains and closes the round.
+    Round-ahead (``run.overlap_rounds``) it enqueues round r+1's
+    prefix, on params stacked from round r's FedAvg outputs, before
+    round r's rows read the accuracies, as ``rounds.run_schedule`` does
+    for one seed.  The rows are the same either way.  ``prefix_s``,
+    when given, receives each round's wait for its prefix (host clock,
+    from the round's start to the end of its seeds' host crossings)."""
     run = (run if run is not None else RunConfig()).resolved()
     if mesh_clients(run.mesh) > 1:
         raise NotImplementedError(
@@ -150,6 +166,7 @@ def run_seed_group(scheme: str, classes_per_client: int, distribution: str,
             for seed in seeds]
     if not sims:
         return []
+    drivers = [sim.driver() for sim in sims]
     cfg0 = sims[0].stage_cfg
     stacked = None
     if (vmap_prefix and len(sims) > 1
@@ -158,6 +175,17 @@ def run_seed_group(scheme: str, classes_per_client: int, distribution: str,
             stacked = pipeline.stack_statics([s.statics for s in sims])
         except ValueError:
             stacked = None
+
+    def dispatch(r: int, fields: List[pipeline.RoundFields]) -> List[Dict]:
+        """Enqueue round ``r``'s prefixes: one state dict a seed."""
+        if stacked is None:
+            return [sim.selection_state(r, f) for sim, f in zip(sims, fields)]
+        # a fresh stack of the seeds' current (post-FedAvg) params
+        params = {k: torch.stack([s.params[k] for s in sims])
+                  for k in sims[0].params}
+        outs = pipeline.selection_prefix_seeds(
+            stacked, params, r, pipeline.stack_fields(fields), cfg=cfg0)
+        return [{k: v[i] for k, v in outs.items()} for i in range(len(sims))]
 
     def meta(seed: int, row: Dict) -> Dict:
         return {"scheme": scheme, "seed": seed,
@@ -170,27 +198,31 @@ def run_seed_group(scheme: str, classes_per_client: int, distribution: str,
                                   else 0.0),
                 **row}
 
-    dev = sims[0].device
+    synchronize(sims[0].device)
+    t0 = time.perf_counter()
     rows: List[Dict] = []
+    fields = states = None
     for r in range(rounds):
-        fields = [sim.round_fields(r) for sim in sims]
-        synchronize(dev)
-        t0 = time.perf_counter()
-        if stacked is None:
-            states = [sim.selection_state(r, f)
-                      for sim, f in zip(sims, fields)]
-        else:
-            params = {k: torch.stack([s.params[k] for s in sims])
-                      for k in sims[0].params}
-            outs = pipeline.selection_prefix_seeds(
-                stacked, params, r, pipeline.stack_fields(fields), cfg=cfg0)
-            states = [{k: v[i] for k, v in outs.items()}
-                      for i in range(len(sims))]
-        synchronize(dev)
+        if states is None:                   # serial, or the first round
+            fields = [sim.round_fields(r) for sim in sims]
+            states = dispatch(r, fields)
+        nxt = ([sim.round_fields(r + 1) for sim in sims]
+               if run.overlap_rounds and r + 1 < rounds else None)
+        hosts = [sim.resolve_elect_overflow(r, sim._host(st), f)
+                 for sim, st, f in zip(sims, states, fields)]
         if prefix_s is not None:
             prefix_s.append(time.perf_counter() - t0)
-        for seed, sim, state, f in zip(seeds, sims, states, fields):
-            rows.append(meta(seed, sim.finish_round(r, state, f)))
+        pend = []
+        for sim, drv, host, f in zip(sims, drivers, hosts, fields):
+            drv._dispatch_training(r, host, f)
+            pend.append(evaluate_accuracy_async(
+                sim.params, sim.test_images, sim.test_labels, batch=256))
+        states = dispatch(r + 1, nxt) if nxt is not None else None
+        for seed, drv, host, (acc, n_test) in zip(seeds, drivers, hosts,
+                                                  pend):
+            rows.append(meta(seed, drv._round_row(r, host, acc, n_test)))
+        fields = nxt
+        t0 = time.perf_counter()
     return rows
 
 
@@ -399,10 +431,10 @@ def scenario_runs(base: RunConfig, churn_rates: Sequence[float],
                   staleness_lambdas: Sequence[float],
                   agg_cadences: Sequence[float]) -> List[RunConfig]:
     """The async scenario axis: every (churn x lambda x cadence) combo
-    as a ``RunConfig`` derived from ``base``, as the reference's.  A
-    lambda of 0 keeps the "drop" policy and a cadence of 0 means the
-    round period; any other scenario needs the event-driven server and
-    raises naming ROADMAP A9 (``RunConfig.resolved``)."""
+    as a resolved ``RunConfig`` derived from ``base``, as the
+    reference's.  A lambda of 0 keeps the "drop" policy and a cadence of
+    0 means the round period; any other scenario runs the event-driven
+    server."""
     out = []
     for churn in churn_rates:
         for lam in staleness_lambdas:
@@ -441,11 +473,14 @@ def main(argv=None) -> int:
                     help="run each seed's selection prefix alone")
     add_run_arguments(ap)
     ap.add_argument("--churn-rates", type=_float_list, default=None,
-                    help="scenario axis (not ported: raises unless 0)")
+                    help="comma list of coverage-window churn rates "
+                         "(scenario axis; e.g. 0,0.3)")
     ap.add_argument("--staleness-lambdas", type=_float_list, default=None,
-                    help="scenario axis (not ported: raises unless 0)")
+                    help="comma list of staleness decay lambdas (scenario "
+                         "axis; 0 = hard-deadline drop)")
     ap.add_argument("--agg-cadences", type=_float_list, default=None,
-                    help="scenario axis (not ported: raises unless 0)")
+                    help="comma list of aggregation cadences in simulated "
+                         "seconds (scenario axis; 0 = the round period)")
     ap.add_argument("--multihost", type=int, default=0, metavar="P",
                     help="processes over several hosts (not ported: "
                          "raises)")

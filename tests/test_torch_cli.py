@@ -3,17 +3,21 @@
 Each command line is parsed by the reference's parser and the port's
 (``argparse`` stopped right after ``parse_args``), and every option
 both parsers know must come out with the same value.  Then the port's
-CLI runs it: the reference's no-ops (``--fast``, ``--no-overlap-rounds``)
-run (the simulation stubbed: no dataset, no round), and every knob the
-port has not ported raises ``NotImplementedError`` naming its ROADMAP
-item before any work is done.  ``launch/serve.py --arch`` with an arch
-the reference serves and the port does not yet names A13b.
+CLI runs it (the simulation stubbed: no dataset, no round): the
+schedule and event-server flags land in the ``RunConfig`` the
+reference's ``RunConfig.from_args`` builds from the same command line,
+and every knob the port has not ported raises ``NotImplementedError``
+naming its ROADMAP item before any work is done.  ``launch/serve.py
+--arch`` with an arch the reference serves and the port does not yet
+names A13b.
 """
 import argparse
+import dataclasses
 
 import pytest
 
 from repro.configs import ARCH_IDS as REF_ARCH_IDS
+from repro.fl.runconfig import RunConfig as RefRunConfig
 from repro.launch import fl_sim as ref_fl_sim
 from repro.launch import serve as ref_serve
 from repro.launch import sweep as ref_sweep
@@ -75,17 +79,12 @@ FL_SIM_CASES = [
     (["--no-overlap-rounds"], None),
     (["--fast", "--no-overlap-rounds", "--elect", "windowed",
       "--elect-window", "4"], None),
-    (["--overlap-rounds"], "A7"),
-    (["--server", "event"], "A9"),
-    (["--churn-rate", "0.3"], "A9"),
-    (["--staleness", "weighted"], "A9"),
-    (["--staleness-lambda", "1"], "A9"),
-    (["--agg-cadence", "20"], "A9"),
     (["--checkpoint-dir", "ckpt"], "A10"),
     (["--checkpoint-every", "5"], "A10"),
     (["--resume"], "A10"),
     (["--jit-cache-dir", "none"], "A14"),
     (["--multihost", "2"], "A11"),
+    (["--mesh", "clients=2", "--churn-rate", "0.2"], "A11"),
 ]
 
 
@@ -100,13 +99,60 @@ def test_fl_sim_takes_the_references_command_line(monkeypatch, flags, item):
     for dest in set(theirs) & set(mine):
         assert mine[dest] == theirs[dest], dest
     if item is None:
-        want = RunConfig().resolved()
+        want = RunConfig(
+            overlap_rounds="--no-overlap-rounds" not in flags).resolved()
         if "--elect" in flags:
-            want = RunConfig(elect="windowed", elect_window=4).resolved()
+            want = dataclasses.replace(want, elect="windowed",
+                                       elect_window=4)
         assert _runs(monkeypatch, argv) == [want]
     else:
         with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
             fl_sim.main(argv + ["--device", "cpu"])
+
+
+ASYNC_CASES = [
+    ["--overlap-rounds"],
+    ["--server", "event"],
+    ["--churn-rate", "0.3"],
+    ["--staleness", "weighted"],
+    ["--staleness-lambda", "1"],
+    ["--agg-cadence", "20"],
+]
+
+
+def shared_fields(port_obj, ref_obj, skip=()):
+    """The dataclass fields both objects have (less ``skip``), as two
+    dicts: the port's values and the reference's."""
+    names = ({f.name for f in dataclasses.fields(port_obj)}
+             & {f.name for f in dataclasses.fields(ref_obj)}) - set(skip)
+    return ({n: getattr(port_obj, n) for n in names},
+            {n: getattr(ref_obj, n) for n in names})
+
+
+@pytest.mark.parametrize("flags", ASYNC_CASES,
+                         ids=[" ".join(f) for f in ASYNC_CASES])
+def test_fl_sim_takes_the_async_and_overlap_flags(monkeypatch, flags):
+    """The round-ahead and event-server flags parse as the reference's,
+    and the port's CLI runs with the ``RunConfig`` (server promotion
+    included) and ``StageConfig`` the reference builds from the same
+    command line."""
+    argv = ["--scheme", "dcs", "--rounds", "1", *flags]
+    theirs = _parsed(ref_fl_sim.main, argv)
+    mine = _parsed(fl_sim.main, argv)
+    for dest in set(theirs) & set(mine):
+        assert mine[dest] == theirs[dest], dest
+    want = RefRunConfig.from_args(argparse.Namespace(**theirs))
+    (run,) = _runs(monkeypatch, argv)
+    got, exp = shared_fields(run, want)
+    assert got == exp
+    assert run.server == ("sync" if flags in (["--overlap-rounds"],
+                                              ["--staleness-lambda", "1"])
+                          else "event")
+    got, exp = shared_fields(
+        run.to_stage_config(fl_sim.fast_config("dcs"), n_clients=30),
+        want.to_stage_config(ref_fl_sim.fast_config("dcs"), n_clients=30),
+        skip=("timing", "network"))
+    assert got == exp
 
 
 SWEEP_CASES = [

@@ -848,3 +848,93 @@ def test_loop_and_batched_engines_agree_in_fp32(cuda, deterministic):
                      - sims["batched"].params[k]).abs().max())
               for k in sims["loop"].params)
     assert gap <= 1e-5, gap
+
+
+# -- the round drivers: round-ahead schedule, churn-gated elections --------
+
+
+def _tiny_sim(cuda, **run):
+    """The parity tests' 10-client profile on the card."""
+    from repro_torch.fl.mobility import MobilityConfig
+    from repro_torch.fl.partition import PartitionConfig
+    from repro_torch.fl.rounds import FLSimConfig, FLSimulation
+    from repro_torch.fl.runconfig import RunConfig
+    cfg = FLSimConfig(
+        scheme="dcs", n_rounds=3, local_epochs=1, samples_per_class=260,
+        probe_samples=64,
+        partition=PartitionConfig(n_clients=10, big_clients=3,
+                                  big_quantity=120, small_quantity=40),
+        mobility=MobilityConfig(n_vehicles=10))
+    return FLSimulation(cfg, run=RunConfig(**run), device=cuda)
+
+
+@pytest.mark.parametrize("run", [{}, dict(churn_rate=0.2,
+                                          staleness="weighted",
+                                          staleness_lambda=0.5,
+                                          agg_cadence_s=90.0)],
+                         ids=["sync", "event"])
+def test_round_ahead_is_the_serial_schedule_on_the_card(cuda, run):
+    """3 rounds round-ahead and serially from the same params: rows and
+    params bit-equal (the card's training repeats bit for bit)."""
+    sim = _tiny_sim(cuda, **run)
+    params0 = {k: v.clone() for k, v in sim.params.items()}
+    out = []
+    for overlap in (True, False):
+        sim.params = {k: v.clone() for k, v in params0.items()}
+        out.append((sim.run(3, overlap=overlap), sim.params))
+    (rows_a, p_a), (rows_b, p_b) = out
+    assert rows_a == rows_b
+    assert all(torch.equal(p_a[k], p_b[k]) for k in p_a)
+
+
+def test_round_ahead_stretch_does_not_synchronise(cuda):
+    """From each round's training dispatch through the next prefix's
+    enqueue nothing waits for the card: the stretch runs under
+    ``set_sync_debug_mode("error")``."""
+    import contextlib
+
+    from repro_torch.fl.rounds import run_schedule
+
+    @contextlib.contextmanager
+    def no_sync(r):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            yield
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+    sim = _tiny_sim(cuda)
+    rows = run_schedule(sim, sim, 3, overlap=True, stretch=no_sync)
+    assert len(rows) == 3 and rows[-1]["n_selected"] > 0
+
+
+@pytest.mark.parametrize("n", [30, 4096])
+def test_elections_on_churn_gated_evals_bit_equal(cuda, n):
+    """Departed clients' evals at +0.0 (many exact ties below E_tau): the
+    dense kernel and the windowed counts bit-equal to their plain
+    versions, the windowed mask the dense one wherever its flag is 0."""
+    from repro_torch.fl.mobility import coverage_active
+    rng = np.random.default_rng(n)
+    pos = torch.tensor(rng.uniform(0, n, n).astype(np.float32))
+    ev = torch.tensor(rng.uniform(0, 100, n).astype(np.float32))
+    ev = torch.where(coverage_active(pos, road_length_m=float(n),
+                                     churn_rate=0.2), ev, torch.zeros(()))
+    kw = dict(comm_range=200.0, top_m=2, e_tau=30.0)
+    pc, ec = pos.to(cuda), ev.to(cuda)
+    dense = ops.neighbor_elect(pc, ec, **kw)
+    assert torch.equal(dense.cpu(), ref.neighbor_elect_ref(pos, ev, **kw))
+    order = torch.argsort(pc, stable=True)
+    pad = -(-n // 128) * 128 - n             # the election's sentinels
+    sp = torch.cat([pc[order], torch.full((pad,), elect.SENT_POS,
+                                          device=cuda)])
+    se = torch.cat([ec[order], torch.full((pad,), elect.SENT_EV,
+                                          device=cuda)])
+    sg = torch.cat([order.to(torch.int32),
+                    torch.full((pad,), n, dtype=torch.int32, device=cuda)])
+    wkw = dict(comm_range=200.0, e_tau=30.0, n_valid=n, window=64,
+               block=128)
+    assert torch.equal(ops.windowed_counts(sp, se, sg, **wkw).cpu(),
+                       ref.windowed_counts_ref(sp.cpu(), se.cpu(), sg.cpu(),
+                                               **wkw))
+    mask, ovf = ops.neighbor_elect_windowed(pc, ec, window=64, **kw)
+    assert int(ovf) == 1 or torch.equal(mask, dense)

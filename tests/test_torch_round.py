@@ -251,7 +251,8 @@ def test_port_imports_neither_jax_nor_repro():
             "repro_torch.launch.mesh, repro_torch.kernels.probe_loss, "
             "repro_torch.ioutil, repro_torch.core.overhead, "
             "repro_torch.launch.sweep, repro_torch.core.selection, "
-            "repro_torch.fl.schemes, repro_torch.fl.network\n"
+            "repro_torch.fl.schemes, repro_torch.fl.network, "
+            "repro_torch.fl.async_server\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "
             "m.startswith('repro.')]\n"
@@ -279,12 +280,51 @@ def test_cli_without_cuda_raises():
 
 @pytest.mark.parametrize("kw", [
     dict(mesh="clients=4", multihost=2),
-    dict(server="event"),
-    dict(churn_rate=0.3), dict(staleness="weighted"),
-    dict(agg_cadence_s=10.0), dict(checkpoint_dir="ckpt"),
-    dict(resume=True), dict(overlap_rounds=True)])
+    dict(checkpoint_dir="ckpt"),
+    dict(resume=True),
+    dict(mesh="clients=2", churn_rate=0.2)])
 def test_unported_knobs_raise(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
+        RunConfig(**kw).resolved()
+
+
+# (RunConfig fields shared by both packages; the port adds multihost
+# and elect_capacity)
+def _shared(port_run, ref_run):
+    names = {f.name for f in dataclasses.fields(ref_run)}
+    names &= {f.name for f in dataclasses.fields(port_run)}
+    return ({n: getattr(port_run, n) for n in names},
+            {n: getattr(ref_run, n) for n in names})
+
+
+@pytest.mark.parametrize("kw", [
+    dict(server="event"), dict(churn_rate=0.3), dict(staleness="weighted"),
+    dict(agg_cadence_s=10.0), dict(overlap_rounds=True)])
+def test_async_and_overlap_knobs_resolve(kw):
+    """The event server's and the round-ahead schedule's knobs resolve
+    as the reference's (the same server promotion), and the churn rate
+    reaches the prefix's ``StageConfig``."""
+    mine, theirs = RunConfig(**kw).resolved(), RefRunConfig(**kw).resolved()
+    got, want = _shared(mine, theirs)
+    assert got == want
+    assert mine.server == ("sync" if "overlap_rounds" in kw else "event")
+    rcfg, cfg = _cfgs()
+    assert (mine.to_stage_config(cfg, n_clients=N).churn_rate
+            == theirs.to_stage_config(rcfg, n_clients=N).churn_rate
+            == kw.get("churn_rate", 0.0))
+
+
+@pytest.mark.parametrize("kw", [
+    dict(server="async"), dict(staleness="sometimes"),
+    dict(churn_rate=1.5), dict(churn_rate=-0.1),
+    dict(staleness_lambda=-1.0), dict(agg_cadence_s=0.0),
+    dict(staleness="weighted", engine="loop")])
+def test_runconfig_validates_as_the_reference(kw):
+    """Each of the reference's ``resolved()`` rules raises ``ValueError``
+    in both packages."""
+    with pytest.raises(ValueError):
+        RefRunConfig(**kw).resolved()
+    with pytest.raises(ValueError):
         RunConfig(**kw).resolved()
 
 

@@ -13,6 +13,7 @@ and comm columns equal, accuracy within 0.01 (four of the 390 test
 images, as ``test_torch_round.py::_check_round``) and the mean
 evaluation within 1e-3.
 """
+import argparse
 import dataclasses
 import functools
 
@@ -457,15 +458,10 @@ def test_central_schemes_take_a_seed_axis_with_ties():
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--churn-rates", "0,0.3"], "A9"),
-    (["--staleness-lambdas", "1"], "A9"),
-    (["--agg-cadences", "30"], "A9"),
-    (["--server", "event"], "A9"),
     (["--resume"], "A10"),
     (["--checkpoint-dir", "ckpt"], "A10"),
     (["--mesh", "clients=2"], "A11"),
     (["--multihost", "2"], "A11"),
-    (["--overlap-rounds"], "A7"),
     (["--jit-cache-dir", "none"], "A14")])
 def test_unported_flags_raise_naming_their_item(flags, item, tmp_path,
                                                 monkeypatch):
@@ -474,6 +470,42 @@ def test_unported_flags_raise_naming_their_item(flags, item, tmp_path,
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         sweep.main(["--seeds", "1", "--rounds", "1", "--device", "cpu",
                     "--out", str(tmp_path / "x.csv"), *flags])
+
+
+@pytest.mark.parametrize("flags", [
+    ["--churn-rates", "0,0.3"], ["--staleness-lambdas", "1"],
+    ["--agg-cadences", "30"], ["--server", "event"], ["--overlap-rounds"]],
+    ids=" ".join)
+def test_async_and_overlap_flags_reach_the_sweep(flags, tmp_path,
+                                                 monkeypatch):
+    """The scenario axis and the schedule flags give the sweep the
+    ``RunConfig``s the reference's ``main`` builds from the same command
+    line (its ``scenario_runs`` over its ``RunConfig.from_args``; the
+    reference's default checkpoint directory left out)."""
+    from test_torch_cli import _parsed, shared_fields
+    argv = ["--seeds", "1", "--rounds", "1", "--out",
+            str(tmp_path / "x.csv"), *flags]
+    got = []
+    monkeypatch.setattr(sweep, "sweep", lambda *a, **k: got.append(
+        k["runs"]) or [])
+    assert sweep.main(argv + ["--device", "cpu"]) == 0
+    ns = _parsed(ref_sweep.main, argv)
+    base = dataclasses.replace(
+        RefRunConfig.from_args(argparse.Namespace(**ns)),
+        checkpoint_dir=None)
+    axes = ("churn_rates", "staleness_lambdas", "agg_cadences")
+    if any(ns[k] is not None for k in axes):
+        want = ref_sweep.scenario_runs(
+            base, ns["churn_rates"] or (base.churn_rate,),
+            ns["staleness_lambdas"] or (base.staleness_lambda,),
+            ns["agg_cadences"] or (base.agg_cadence_s or 0.0,))
+    else:
+        want = [base]
+    (runs,) = got
+    assert len(runs) == len(want)
+    for mine, theirs in zip(runs, want):
+        a, b = shared_fields(mine, theirs)
+        assert a == b
 
 
 def test_seed_group_on_the_client_mesh_names_a11():
