@@ -172,6 +172,31 @@ Phases (any failure exits non-zero; no phase's exception is caught):
    ``--no-overlap-rounds`` and again (CSVs byte-equal; one
    ``probe_fuzzy`` and one ``neighbor_elect`` a round a group for both
    seeds, one a seed with ``--no-vmap``);
+5h. preemption (``train/checkpoint.py``, ``launch/faults.py``, the
+   drivers' ``capture_state`` / ``restore_state``): C4 first, the fast
+   profile's 4 rounds and the paper profile's 2 under the default and
+   the deterministic algorithms in turns (each mode's median trained
+   round; each must repeat bit for bit); snapshot bytes and capture +
+   write + fsync seconds (fast profile, the sweep's 4-seed group, the
+   large fleet, the event server with its pool), the fast round with a
+   snapshot every round and without, the sweep's wall time with its
+   default and a fresh checkpoint directory (readings); a card snapshot
+   restored on the CPU and a CPU one on the card (params bit-equal);
+   then child processes started with ``REPRO_FAULTS``, all at once,
+   each of which must die by SIGKILL: the fast profile ``dcs`` at round
+   1's snapshot round-ahead and serially, the large fleet at round 0's,
+   the event server (churn 0.2, weighted lambda 0.5, a 1.5-period
+   cadence) at round 1's with a non-empty pending pool, ``python -m
+   repro_torch.launch.sweep --fast --seeds 4 --rounds 2 --schemes
+   dcs,random`` at ``group-done:index=0`` and at its first snapshot;
+   then the resumes, each a fresh child, all at once: rows, masks and a
+   params sha256 equal to the uninterrupted run's (made in this
+   process), the large fleet again under ``overflow@resume`` (one
+   ``neighbor_elect`` launch on its dense re-run), a copy of the
+   round-ahead snapshots with the newest ``arrays.npz`` torn by
+   ``faults flipbyte`` (a warning, a fall back to round 0, the same
+   rows), the sweeps' CSVs byte-equal, the skip line where a group had
+   finished, one ``probe_fuzzy`` a round a group left to run;
 6. the probe's time split by phase (conv, fc1, fc2 + NLL, the client
    sums) with ``torch.profiler`` at the fast profile's and the large
    fleet's packs, last, since launches cost more in a process once the
@@ -2282,6 +2307,521 @@ def round_drivers(dev, big, bpos0, bevals0, window_big) -> None:
     log(f"[round drivers] phase 5g in {time.perf_counter() - t0:.1f}s")
 
 
+# phase 5h: preemption on the card (train/checkpoint.py, the drivers'
+# capture_state / restore_state, launch/faults.py).  Every kill is a
+# SIGKILL in a child process started with REPRO_FAULTS; every resume
+# runs in a fresh child process.  The children of a wave run together
+# on the card (each on its own data: nothing they compute depends on
+# the others), the readings in this process while no child runs.
+PREEMPT_ROUNDS = 4
+PREEMPT_SWEEP_ARGV = ["--fast", "--seeds", "4", "--rounds", "2", "--schemes",
+                      "dcs,random"]
+PREEMPT_CHILD_TIMEOUT_S = 300
+# a byte of the newest round-ahead snapshot's payload, flipped
+TORN_OFFSET = 4096
+
+
+def preempt_config(profile: str):
+    """The cell's ``FLSimConfig`` and ``RunConfig`` (no checkpoint
+    knobs: the drivers get their checkpointer explicitly)."""
+    from repro_torch.fl.runconfig import RunConfig
+    if profile == "large":
+        return large_fleet_config("uniform"), RunConfig()
+    cfg = fast_config_dcs(PREEMPT_ROUNDS)
+    if profile == "event":
+        return cfg, RunConfig(**EVENT_RUN, agg_cadence_s=(
+            EVENT_CADENCE_PERIODS * cfg.deadline_s))
+    return cfg, RunConfig()
+
+
+def params_digest(params) -> str:
+    import hashlib
+    h = hashlib.sha256()
+    for k in sorted(params):
+        h.update(params[k].detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def resumable_run(driver, sim, n_rounds: int, overlap: bool, ckpt,
+                  resume: bool) -> dict:
+    """``rounds.run_resumable`` with ``ckpt``, the launch counts reset
+    just before: rows, the first round run here, the masks of the
+    rounds run here, the params' digest, the launches."""
+    import torch
+    from repro_torch.fl.rounds import run_resumable
+    from repro_torch.kernels import build
+    masks = {}
+    build.reset_launches()
+    rows = run_resumable(driver, sim, n_rounds, overlap=overlap,
+                         checkpointer=ckpt, resume=resume,
+                         on_row=lambda r, host, row: masks.__setitem__(
+                             str(r), host["mask"].tolist()))
+    torch.cuda.synchronize()
+    return {"rows": rows, "start": len(rows) - len(masks), "masks": masks,
+            "params": params_digest(sim.params),
+            "launches": dict(build.LAUNCHES)}
+
+
+def preempt_child(spec_path: str) -> int:
+    """``python3 chip_smoke.py --preempt-child SPEC``: one phase-5h cell
+    in a fresh process on the card.  SPEC (JSON) names the profile
+    (``fast``, ``large`` or ``event``), the rounds, the schedule and the
+    runs, each a snapshot directory, whether to resume from it and a
+    behaviour switch to set first (``overflow@resume``); a kill plan
+    comes in the environment.  Each run's ``resumable_run`` result goes
+    to the spec's ``out`` as JSON."""
+    import torch
+    from repro_torch.fl.rounds import FLSimulation
+    from repro_torch.launch import faults
+    from repro_torch.train.checkpoint import RoundCheckpointer
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False",
+              file=sys.stderr)
+        return 2
+    spec = json.loads(Path(spec_path).read_text())
+    cfg, run = preempt_config(spec["profile"])
+    sim = FLSimulation(cfg, run=run, device="cuda")
+    out = []
+    for step in spec["runs"]:
+        if step.get("switch"):
+            os.environ[faults.ENV_VAR] = step["switch"]
+        out.append(resumable_run(sim.driver(), sim, spec["rounds"],
+                                 spec["overlap"],
+                                 RoundCheckpointer(step["dir"]),
+                                 step["resume"]))
+    Path(spec["out"]).write_text(json.dumps(out))
+    return 0
+
+
+class Children:
+    """Child processes of one wave, started together, each logging to
+    its own file; ``wait`` joins them under one deadline and kills every
+    one still running when it passes (or when this process leaves the
+    block), so no child outlives the phase."""
+
+    def __init__(self, workdir: Path):
+        self.workdir = workdir
+        self.procs = {}
+
+    def start(self, name: str, argv, plan=None) -> None:
+        from repro_torch.launch import faults
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        env.pop(faults.ENV_VAR, None)
+        if plan:
+            env[faults.ENV_VAR] = plan
+        logf = open(self.workdir / f"{name}.log", "w")
+        self.procs[name] = (subprocess.Popen(
+            [sys.executable, *argv], cwd=ROOT, env=env, stdout=logf,
+            stderr=subprocess.STDOUT), logf)
+
+    def child(self, name: str, spec: dict, plan=None) -> None:
+        path = self.workdir / f"{name}.spec.json"
+        path.write_text(json.dumps(dict(
+            spec, out=str(self.workdir / f"{name}.out.json"))))
+        self.start(name, [str(ROOT / "chip_smoke.py"), "--preempt-child",
+                          str(path)], plan)
+
+    def wait(self) -> dict:
+        """{name: (exit code, log text, the child's JSON or None)}."""
+        deadline = time.monotonic() + PREEMPT_CHILD_TIMEOUT_S
+        try:
+            for name, (proc, _) in self.procs.items():
+                proc.wait(timeout=max(1.0, deadline - time.monotonic()))
+        finally:
+            self.stop()
+        res = {}
+        for name, (proc, _) in self.procs.items():
+            out = self.workdir / f"{name}.out.json"
+            res[name] = (proc.returncode,
+                         (self.workdir / f"{name}.log").read_text(),
+                         json.loads(out.read_text()) if out.exists()
+                         else None)
+        self.procs = {}
+        return res
+
+    def stop(self) -> None:
+        for proc, logf in self.procs.values():
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait()
+            logf.close()
+
+
+def snapshot_cost(label: str, capture, ckdir: Path, rounds: int = 3) -> None:
+    """Bytes of one snapshot and the seconds of capture + write + fsync
+    (``capture()`` then ``RoundCheckpointer.save_round``, synchronised
+    before), ``rounds`` times: a reading."""
+    import torch
+    from repro_torch.train.checkpoint import RoundCheckpointer
+    ck = RoundCheckpointer(str(ckdir), keep=1)
+    secs = []
+    for r in range(rounds):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ck.save_round(r, capture(), extra={"rows": [], "next_round": r + 1})
+        secs.append(time.perf_counter() - t0)
+    size = sum(f.stat().st_size for f in Path(ck.path_for(rounds - 1))
+               .iterdir())
+    ck.clear()
+    log(f"[preempt] snapshot {label}: {size} bytes; capture + write + "
+        f"fsync s [{', '.join(f'{s:.4f}' for s in secs)}]")
+
+
+def c4_determinism(dev) -> None:
+    """ROADMAP C4: the trained rounds of the fast profile (4 rounds) and
+    the paper profile (2 rounds) under the default algorithms and under
+    ``torch.use_deterministic_algorithms(True)`` + ``cudnn.deterministic``,
+    in turns (default, deterministic, deterministic, default) from the
+    same params: each mode's median trained round (host clock, row to
+    row) and whether its two runs repeat bit for bit (rows and params).
+    Resume parity below runs with the defaults, so they must repeat."""
+    import numpy as np
+    import torch
+    from repro_torch.fl.rounds import FLSimulation
+    from repro_torch.fl.runconfig import RunConfig
+    from repro_torch.launch.fl_sim import paper_config
+    repeat_default = True
+    for label, cfg, n in (("fast", fast_config_dcs(PREEMPT_ROUNDS),
+                           PREEMPT_ROUNDS),
+                          ("paper", paper_config("dcs"), 2)):
+        sim = FLSimulation(cfg, run=RunConfig(), device=dev)
+        params0 = {k: v.clone() for k, v in sim.params.items()}
+        runs = {False: [], True: []}
+        for det in (False, True, True, False):
+            torch.use_deterministic_algorithms(det)
+            torch.backends.cudnn.deterministic = det
+            try:
+                runs[det].append(schedule_run(sim, params0, n, True))
+            finally:
+                torch.use_deterministic_algorithms(False)
+                torch.backends.cudnn.deterministic = False
+        parts = []
+        for det, (a, b) in runs.items():
+            same = a[0] == b[0] and same_params(a[1], b[1])
+            trained = [t for run in (a, b) for row, t in zip(run[0], run[2])
+                       if row["n_aggregated"] > 0]
+            parts.append(
+                f"{'deterministic' if det else 'default'}: trained rounds "
+                f"{len(trained)}, median {float(np.median(trained)):.4f} s "
+                f"(all rounds [{', '.join(f'{t:.4f}' for t in a[2])}] / "
+                f"[{', '.join(f'{t:.4f}' for t in b[2])}]), repeat bit for "
+                f"bit {same}")
+            if not det:
+                repeat_default &= same
+        same_modes = (runs[False][0][0] == runs[True][0][0]
+                      and same_params(runs[False][0][1], runs[True][0][1]))
+        log(f"[c4] {label} profile, {n} rounds x 2 a mode: "
+            + "; ".join(parts) + f"; the two modes bit-equal {same_modes}")
+        del sim
+    log(f"[check] C4: the default algorithms repeat bit for bit "
+        f"{repeat_default} {'OK' if repeat_default else 'FAIL'}")
+    if not repeat_default:
+        raise AssertionError("rounds do not repeat under the default "
+                             "algorithms: resume parity cannot hold")
+
+
+def checkpoint_round_times(dev, ckdir: Path) -> None:
+    """The fast profile's median round of rounds 1-3 with a snapshot
+    every round and without, in turns (without, with, with, without)
+    from the same params: a reading."""
+    import numpy as np
+    import torch
+    from repro_torch.fl.rounds import FLSimulation, run_schedule
+    from repro_torch.fl.runconfig import RunConfig
+    from repro_torch.train.checkpoint import RoundCheckpointer
+    sim = FLSimulation(fast_config_dcs(PREEMPT_ROUNDS), run=RunConfig(),
+                       device=dev)
+    params0 = {k: v.clone() for k, v in sim.params.items()}
+    times = {False: [], True: []}
+    for with_ck in (False, True, True, False):
+        ck = RoundCheckpointer(str(ckdir)) if with_ck else None
+        sim.params = {k: v.clone() for k, v in params0.items()}
+        stamps = []
+        torch.cuda.synchronize()
+        last = [time.perf_counter()]
+
+        def on_row(r, host, row):
+            now = time.perf_counter()
+            stamps.append(now - last[0])
+            last[0] = now
+        run_schedule(sim, sim, PREEMPT_ROUNDS, overlap=True, on_row=on_row,
+                     checkpointer=ck)
+        torch.cuda.synchronize()
+        # a round's snapshot lands between its row and the next row
+        times[with_ck] += stamps[1:]
+        if ck is not None:
+            ck.clear()
+    log(f"[preempt] fast profile median round of rounds 1-3 (host clock, "
+        f"row to row, 2 runs each): with --checkpoint-every 1 "
+        f"{float(np.median(times[True])):.4f} s "
+        f"[{', '.join(f'{t:.4f}' for t in times[True])}], without "
+        f"{float(np.median(times[False])):.4f} s "
+        f"[{', '.join(f'{t:.4f}' for t in times[False])}] (a reading)")
+
+
+def check_kill(name: str, res, event: str) -> None:
+    rc, text, _ = res[name]
+    ok = (rc == -9 and f"injecting sigkill at {event}" in text)
+    log(f"[check] preempt {name}: SIGKILL at {event}: exit {rc} "
+        f"{'OK' if ok else 'FAIL'}")
+    if not ok:
+        log(text[-4000:])
+        raise AssertionError(f"{name}: the planned SIGKILL did not end it")
+
+
+def check_resume(name: str, res, want_rows, want_params, start: int,
+                 want_masks=None, run: int = 0) -> dict:
+    rc, text, out = res[name]
+    if rc != 0 or out is None:
+        log(text[-4000:])
+        raise AssertionError(f"{name}: the resume exited {rc}")
+    got = out[run]
+    masks_ok = want_masks is None or all(
+        got["masks"][str(r)] == want_masks[r].tolist()
+        for r in range(start, len(want_rows)))
+    ok = (got["start"] == start and got["rows"] == want_rows
+          and got["params"] == want_params and masks_ok)
+    log(f"[check] preempt {name}: resumed at round {got['start']} (want "
+        f"{start}), rows bit-equal {got['rows'] == want_rows}, params "
+        f"sha256 equal {got['params'] == want_params}, masks equal "
+        f"{masks_ok}; launches {got['launches']} {'OK' if ok else 'FAIL'}")
+    if not ok:
+        log(text[-4000:])
+        raise AssertionError(f"{name}: the resumed run is not the "
+                             f"uninterrupted one")
+    return got
+
+
+def preemption(dev, big) -> None:
+    """Phase 5h: C4 first; the uninterrupted runs and the readings in
+    this process; then the kills, together, and the resumes, together:
+    the fast profile ``dcs`` killed after round 1's snapshot round-ahead
+    and serially, the large fleet after round 0 (resumed plainly and
+    under ``overflow@resume``, whose resumed round must launch
+    ``neighbor_elect`` on its dense re-run), the event server after
+    round 1 with a pending pool, the round-ahead snapshot torn (one
+    byte flipped: the resume warns and falls back one round), the sweep
+    killed at ``group-done:index=0`` and at ``checkpoint-saved:round=0``
+    (byte-equal CSVs, the skip line where a group was finished, one
+    ``probe_fuzzy`` a round a group); a snapshot crossing between the
+    card and the CPU both ways."""
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch.configs.mnist_cnn import CONFIG as CNN_CFG
+    from repro_torch.fl.async_server import EventDrivenServer
+    from repro_torch.fl.rounds import FLSimulation, run_schedule
+    from repro_torch.launch.sweep import _group_ckpt_dir, fast_cell_config
+    from repro_torch.fl.runconfig import RunConfig
+    from repro_torch.models.cnn import init_cnn
+    from repro_torch.train.checkpoint import (RoundCheckpointer, load_state,
+                                              save_state)
+    t0 = time.perf_counter()
+    c4_determinism(dev)
+    tmp = Path(tempfile.mkdtemp(prefix="preempt_"))
+    try:
+        # -- the uninterrupted runs, and the readings ---------------------
+        fast_cfg, fast_run = preempt_config("fast")
+        fast = FLSimulation(fast_cfg, run=fast_run, device=dev)
+        p0 = {k: v.clone() for k, v in fast.params.items()}
+        ra = schedule_run(fast, p0, PREEMPT_ROUNDS, True)
+        se = schedule_run(fast, p0, PREEMPT_ROUNDS, False)
+        if not (ra[0] == se[0] and same_params(ra[1], se[1])):
+            raise AssertionError("round-ahead and serial rows differ")
+        want_fast = (ra[0], params_digest(ra[1]), ra[3])
+        snapshot_cost("fast profile (1 seed)", fast.capture_state,
+                      tmp / "cost")
+        cell_sims = [FLSimulation(fast_cell_config("dcs", 9, "uniform", s),
+                                  run=RunConfig(), device=dev)
+                     for s in range(4)]
+        snapshot_cost("sweep group (4 seeds)", lambda: {
+            "seeds": [s.capture_state() for s in cell_sims]}, tmp / "cost")
+        del cell_sims
+        big.params = init_cnn(torch.Generator().manual_seed(big.cfg.seed),
+                              CNN_CFG, dev)
+        big.participation[:] = 0
+        lf = schedule_run(big, big.params, 2, True)
+        want_large = (lf[0], params_digest(lf[1]), lf[3])
+        snapshot_cost(f"large fleet ({big.n} vehicles)", big.capture_state,
+                      tmp / "cost")
+        ev_cfg, ev_run = preempt_config("event")
+        ev_sim = FLSimulation(ev_cfg, run=ev_run, device=dev)
+        ev = EventDrivenServer(ev_sim)
+        ev_rows = run_schedule(ev, ev_sim, PREEMPT_ROUNDS, overlap=True)
+        want_event = (ev_rows, params_digest(ev_sim.params))
+        snapshot_cost(f"event server (pool of "
+                      f"{sum(map(len, ev._pending.values()))} entries over "
+                      f"ticks {sorted(ev._pending)})", ev.capture_state,
+                      tmp / "cost")
+        checkpoint_round_times(dev, tmp / "rounds_ck")
+        sweep_out = tmp / "sweep.csv"
+        s_def, l_def, want_csv = sweep_cli(PREEMPT_SWEEP_ARGV, sweep_out)
+        s_dir, _, csv_dir = sweep_cli(
+            PREEMPT_SWEEP_ARGV + ["--checkpoint-dir", str(tmp / "fresh")],
+            tmp / "sweep_fresh.csv")
+        log(f"[preempt] sweep {' '.join(PREEMPT_SWEEP_ARGV)} wall s: default "
+            f"checkpoints ({sweep_out.name}.ckpt) {s_def:.2f}, "
+            f"--checkpoint-dir a fresh directory {s_dir:.2f} (readings)")
+        left = [p for p in (tmp / "fresh").rglob("round_*")]
+        if csv_dir != want_csv or left or l_def["probe_fuzzy"] != 4:
+            raise AssertionError(f"the sweep with checkpoints is wrong: "
+                                 f"CSVs equal {csv_dir == want_csv}, "
+                                 f"snapshots left {left}, launches {l_def}")
+
+        # -- the card and the CPU share snapshots -------------------------
+        cpu = FLSimulation(fast_cfg, run=fast_run, device="cpu")
+        save_state(str(tmp / "card"), fast.capture_state())
+        cpu.restore_state(*load_state(str(tmp / "card")))
+        to_cpu = all(torch.equal(cpu.params[k], fast.params[k].cpu())
+                     for k in fast.params)
+        cpu.params = {k: v + 1.0 for k, v in cpu.params.items()}
+        save_state(str(tmp / "cpu"), cpu.capture_state())
+        fast.restore_state(*load_state(str(tmp / "cpu")))
+        to_card = all(fast.params[k].is_cuda
+                      and torch.equal(fast.params[k].cpu(), cpu.params[k])
+                      for k in cpu.params)
+        log(f"[check] a card snapshot restored on the CPU: params "
+            f"bit-equal {to_cpu}; a CPU snapshot restored on the card: "
+            f"{to_card} {'OK' if to_cpu and to_card else 'FAIL'}")
+        if not (to_cpu and to_card):
+            raise AssertionError("snapshots do not cross between the card "
+                                 "and the CPU")
+        del cpu
+
+        # -- wave 1: the kills ------------------------------------------------
+        d = {k: tmp / f"{k}_ck" for k in ("ra", "serial", "large", "event")}
+        sweep_argv = ["-m", "repro_torch.launch.sweep", *PREEMPT_SWEEP_ARGV]
+        kids = Children(tmp)
+        t1 = time.perf_counter()
+        for name, profile, overlap, rounds, plan in (
+                ("ra", "fast", True, PREEMPT_ROUNDS,
+                 "sigkill@checkpoint-saved:round=1"),
+                ("serial", "fast", False, PREEMPT_ROUNDS,
+                 "sigkill@checkpoint-saved:round=1"),
+                ("large", "large", True, 2, "sigkill@checkpoint-saved:round=0"),
+                ("event", "event", True, PREEMPT_ROUNDS,
+                 "sigkill@checkpoint-saved:round=1")):
+            kids.child(f"kill_{name}", dict(
+                profile=profile, rounds=rounds, overlap=overlap,
+                runs=[dict(dir=str(d[name]), resume=False)]), plan)
+        for tag, plan in (("a", "sigkill@group-done:index=0"),
+                          ("b", "sigkill@checkpoint-saved:round=0")):
+            kids.start(f"kill_sweep_{tag}", sweep_argv + [
+                "--out", str(tmp / f"sweep_{tag}.csv")], plan)
+        res = kids.wait()
+        log(f"[preempt] wave of kills: {len(res)} children in "
+            f"{time.perf_counter() - t1:.1f}s")
+        for name in ("ra", "serial", "event"):
+            check_kill(f"kill_{name}", res, "checkpoint-saved (round=1)")
+        check_kill("kill_large", res, "checkpoint-saved (round=0)")
+        check_kill("kill_sweep_a", res, "group-done (index=0)")
+        check_kill("kill_sweep_b", res, "checkpoint-saved (round=0)")
+        on_disk = {k: RoundCheckpointer(str(v)).rounds_on_disk()
+                   for k, v in d.items()}
+        pending = load_state(str(d["event"] / "round_000001"))[0]["pending"]
+        dcs_dir = Path(_group_ckpt_dir(str(tmp / "sweep_b.csv.ckpt"), "dcs",
+                                       9, "uniform", RunConfig().resolved()))
+        partial = (tmp / "sweep_a.csv").read_text().splitlines()
+        ok = (on_disk == {"ra": [0, 1], "serial": [0, 1], "large": [0],
+                          "event": [0, 1]}
+              and bool(pending)
+              and RoundCheckpointer(str(dcs_dir)).rounds_on_disk() == [0]
+              and not (tmp / "sweep_b.csv").exists()
+              and len(partial) == 1 + 4 * 2
+              and all(",dcs," in line for line in partial[1:]))
+        log(f"[check] after the kills: snapshots {on_disk}; the event "
+            f"snapshot's pending pool {sum(map(len, pending.values()))} "
+            f"entries over ticks {sorted(pending)}; the sweep killed at "
+            f"group-done left {len(partial) - 1} dcs rows in its CSV, the "
+            f"one killed at its first snapshot a round-0 snapshot and no "
+            f"CSV {'OK' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("the kills left other state than planned")
+
+        # -- wave 2: the resumes ----------------------------------------------
+        shutil.copytree(d["ra"], tmp / "torn_ck")
+        shutil.copytree(d["large"], tmp / "large_ov_ck")
+        torn = tmp / "torn_ck" / "round_000001" / "arrays.npz"
+        flip = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.faults", "flipbyte",
+             str(torn), str(TORN_OFFSET)], cwd=ROOT, capture_output=True,
+            text=True, env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+        if flip.returncode != 0:
+            raise AssertionError(f"faults flipbyte failed: {flip.stderr}")
+        t1 = time.perf_counter()
+        for name, profile, overlap, rounds, runs in (
+                ("ra", "fast", True, PREEMPT_ROUNDS, [d["ra"]]),
+                ("serial", "fast", False, PREEMPT_ROUNDS, [d["serial"]]),
+                ("torn", "fast", True, PREEMPT_ROUNDS, [tmp / "torn_ck"]),
+                ("large", "large", True, 2,
+                 [d["large"], (tmp / "large_ov_ck", "overflow@resume")]),
+                ("event", "event", True, PREEMPT_ROUNDS, [d["event"]])):
+            steps = [dict(dir=str(r), resume=True) if isinstance(r, Path)
+                     else dict(dir=str(r[0]), resume=True, switch=r[1])
+                     for r in runs]
+            kids.child(f"resume_{name}", dict(
+                profile=profile, rounds=rounds, overlap=overlap, runs=steps))
+        for tag in ("a", "b"):
+            kids.start(f"resume_sweep_{tag}", sweep_argv + [
+                "--out", str(tmp / f"sweep_{tag}.csv"), "--resume"])
+        res = kids.wait()
+        log(f"[preempt] wave of resumes: {len(res)} children in "
+            f"{time.perf_counter() - t1:.1f}s")
+        for name in ("ra", "serial"):
+            check_resume(f"resume_{name}", res, *want_fast[:2], 2,
+                         want_fast[2])
+        check_resume("resume_event", res, *want_event, 2)
+        check_resume("resume_torn", res, *want_fast[:2], 1, want_fast[2])
+        warned = "skipping corrupt checkpoint" in res["resume_torn"][1]
+        log(f"[check] preempt resume_torn: the flipped snapshot skipped with "
+            f"a CheckpointCorruptWarning {warned} "
+            f"{'OK' if warned else 'FAIL'}")
+        if not warned:
+            raise AssertionError("the torn snapshot was not reported")
+        plain = check_resume("resume_large", res, want_large[0],
+                             want_large[1], 1, run=0)
+        over = check_resume("resume_large", res, want_large[0],
+                            want_large[1], 1, run=1)
+        ok = (over["launches"]["neighbor_elect"] >= 1
+              and over["launches"]["windowed_counts"] == 1
+              and over["masks"]["1"] == want_large[2][1].tolist()
+              and plain["masks"]["1"] == want_large[2][1].tolist())
+        log(f"[check] large fleet resumed under overflow@resume: round 1 "
+            f"launched neighbor_elect {over['launches']['neighbor_elect']}"
+            f" time(s) on its dense re-run (plain resume: "
+            f"{plain['launches']['neighbor_elect']}), masks equal "
+            f"{'OK' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("overflow@resume did not take the dense "
+                                 "re-run")
+        for tag, skip, want_l in (("a", True, {"probe_fuzzy": 2,
+                                               "neighbor_elect": 0}),
+                                  ("b", False, {"probe_fuzzy": 3,
+                                                "neighbor_elect": 1})):
+            rc, text, _ = res[f"resume_sweep_{tag}"]
+            csv = (tmp / f"sweep_{tag}.csv").read_text()
+            m = re.search(r"\[sweep\] launches (\{.*\})", text)
+            launches = json.loads(m.group(1)) if m else {}
+            skipped = ("[sweep] resume: skipping completed group "
+                       "dcs/9/uniform" in text)
+            left = list((tmp / f"sweep_{tag}.csv.ckpt").rglob("round_*"))
+            ok = (rc == 0 and csv == want_csv and skipped == skip
+                  and all(launches.get(k) == v for k, v in want_l.items())
+                  and not left)
+            log(f"[check] preempt sweep resumed after the kill at "
+                f"{'group-done' if skip else 'its first snapshot'}: exit "
+                f"{rc}, CSV byte-equal {csv == want_csv}, skip line {skipped}"
+                f" (want {skip}), launches {launches} (want {want_l}), "
+                f"snapshots left {len(left)} {'OK' if ok else 'FAIL'}")
+            if not ok:
+                log(text[-4000:])
+                raise AssertionError("the resumed sweep is wrong")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"[preempt] phase 5h in {time.perf_counter() - t0:.1f}s")
+
+
 # phase 6's small kernels: the CUDA kernels each wrapper launches
 SMALL_KERNEL_NAMES = {"fuzzy_eval": ("fuzzy_eval_kernel",),
                       "neighbor_elect": ("neighbor_elect_kernel",),
@@ -2921,6 +3461,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     round_drivers(dev, big, bpos0, bevals0, window_big)
 
+    # -- 5h. preemption: checkpoints, kills and resumes ---------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    preemption(dev, big)
+
     launches = {"probe_fuzzy": fused["probe_fuzzy"],
                 "neighbor_elect": fused["neighbor_elect"],
                 "fuzzy_eval": unfused["fuzzy_eval"],
@@ -3048,4 +3593,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--preempt-child"]:
+        sys.exit(preempt_child(sys.argv[2]))
     sys.exit(main())

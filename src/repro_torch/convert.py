@@ -20,11 +20,16 @@ DENSE = ("fc1", "fc2")
 
 
 def params_from_jax(tree: Mapping, device=None) -> Dict[str, torch.Tensor]:
-    """Nested numpy (or array-like) reference params -> port params."""
+    """Nested numpy (or array-like) reference params -> port params.
+    Leading axes (a stack of models, as the event server's pool keeps)
+    carry through: only the trailing weight axes are permuted."""
     out = {}
     for name in CONV + DENSE:
         w = np.asarray(tree[name]["w"])
-        w = w.transpose(3, 2, 0, 1) if name in CONV else w.T
+        lead = tuple(range(w.ndim - (4 if name in CONV else 2)))
+        k = len(lead)
+        w = w.transpose(*lead, *((k + 3, k + 2, k, k + 1) if name in CONV
+                                 else (k + 1, k)))
         out[name + ".w"] = torch.tensor(np.ascontiguousarray(w),
                                         device=device)
         out[name + ".b"] = torch.tensor(np.asarray(tree[name]["b"]),
@@ -33,11 +38,15 @@ def params_from_jax(tree: Mapping, device=None) -> Dict[str, torch.Tensor]:
 
 
 def params_to_numpy(params: Mapping[str, torch.Tensor]) -> Dict:
-    """Port params -> the reference's nested numpy layout."""
+    """Port params -> the reference's nested numpy layout (leading axes
+    carry through, as in ``params_from_jax``)."""
     out = {}
     for name in CONV + DENSE:
         w = params[name + ".w"].detach().cpu().numpy()
-        w = w.transpose(2, 3, 1, 0) if name in CONV else w.T
+        lead = tuple(range(w.ndim - (4 if name in CONV else 2)))
+        k = len(lead)
+        w = w.transpose(*lead, *((k + 2, k + 3, k + 1, k) if name in CONV
+                                 else (k + 1, k)))
         out[name] = {"w": np.ascontiguousarray(w),
                      "b": params[name + ".b"].detach().cpu().numpy()}
     return out

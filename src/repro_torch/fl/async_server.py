@@ -33,8 +33,12 @@ surviving update lands at tick r + 1, which fires in round r: the
 server is the round barrier, detected up front, and delegates training
 and rows to ``FLSimulation`` verbatim, so its rows are the sync
 driver's bit for bit.  On the client mesh only that case runs; the
-reference's sharded pool is ROADMAP A11 (rest).  Checkpoint and resume
-of the pending ticks are A10.
+reference's sharded pool is ROADMAP A11 (rest).
+
+``capture_state`` / ``restore_state`` carry the wrapped simulation's
+state, the pending landing-tick pool and the open per-round stats in the
+reference's layout, so updates enqueued rounds before a kill land at the
+same tick with the same weights after the resume.
 """
 from __future__ import annotations
 
@@ -44,15 +48,21 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch.convert import params_from_jax, params_to_numpy
 from repro_torch.device import to_device
 from repro_torch.fl import pipeline
 from repro_torch.fl.aggregation import fedavg_masked
-from repro_torch.fl.rounds import FLSimulation, close_round, run_schedule
+from repro_torch.fl.rounds import FLSimulation, close_round, run_resumable
 from repro_torch.fl.runconfig import unported_event_pool
 from repro_torch.fl.timing import staleness_weight
 
 # rounds-behind histogram bins: delays 0, 1, 2, 3+ (aggregated updates)
 HIST_BINS = 4
+
+# the pool entries' scalar fields and their types (the snapshot's
+# coercion, as the reference's)
+_ENTRY_SCALARS = {"src": int, "n": int, "delay": int,
+                  "anchor": float, "scale": float}
 
 
 class EventDrivenServer:
@@ -176,6 +186,29 @@ class EventDrivenServer:
                 stats["eff"] += it["n"] * it["scale"]
                 stats["hist"][min(it["delay"], HIST_BINS - 1)] += it["n"]
 
+    # -- preemption safety ----------------------------------------------
+    def capture_state(self) -> Dict:
+        """The simulation's state plus the server's own: the pending
+        landing-tick pool (each entry's ``merged`` stacks on the host in
+        the reference's layout, a leading cohort axis; ``w`` float32; the
+        scalars coerced) and the open per-round stat accumulators."""
+        pending = {str(k): [_coerce_entry(it, params_to_numpy)
+                            for it in items]
+                   for k, items in self._pending.items()}
+        return {"sim": self.sim.capture_state(), "pending": pending,
+                "stats": _coerce_stats(self._stats)}
+
+    def restore_state(self, state: Dict,
+                      extra: Optional[Dict] = None) -> None:
+        """Restore a ``capture_state`` snapshot (the pool's stacks onto
+        the simulation's device)."""
+        self.sim.restore_state(state["sim"], extra)
+        onto = lambda m: params_from_jax(m, device=self.sim.device)
+        self._pending = {int(k): [_coerce_entry(it, onto) for it in items]
+                         for k, items in state["pending"].items()}
+        self._stats = {int(r): s
+                       for r, s in _coerce_stats(state["stats"]).items()}
+
     # -- rows and drivers -----------------------------------------------
     def _round_row(self, rnd: int, host: Dict, acc_count: torch.Tensor,
                    n_test: int) -> Dict[str, object]:
@@ -197,12 +230,32 @@ class EventDrivenServer:
         return close_round(self, self.sim, rnd, state, fields)
 
     def run(self, n_rounds: Optional[int] = None,
-            overlap: Optional[bool] = None) -> List[Dict[str, object]]:
+            overlap: Optional[bool] = None, *, checkpointer=None,
+            resume: Optional[bool] = None) -> List[Dict[str, object]]:
         """Drive ``n_rounds`` rounds on the sync driver's schedule
         (``rounds.run_schedule``, round-ahead unless ``overlap`` or the
         run config says otherwise) with the tick pools behind
-        ``_dispatch_training``."""
-        if overlap is None:
-            overlap = self.run_cfg.overlap_rounds
-        return run_schedule(self, self.sim, n_rounds or self.sim.cfg.n_rounds,
-                            overlap=overlap)
+        ``_dispatch_training``; checkpoints and resume as
+        ``FLSimulation.run``, the pool in every snapshot."""
+        return run_resumable(self, self.sim,
+                             n_rounds or self.sim.cfg.n_rounds,
+                             overlap=overlap, checkpointer=checkpointer,
+                             resume=resume)
+
+
+def _coerce_entry(entry: Dict, merged) -> Dict:
+    """A pool entry with ``merged`` passed through ``merged`` (to the
+    host's layout or back onto the device), ``w`` float32 and the
+    scalars coerced."""
+    return {name: (merged(v) if name == "merged"
+                   else np.asarray(v, np.float32) if name == "w"
+                   else _ENTRY_SCALARS[name](v))
+            for name, v in entry.items()}
+
+
+def _coerce_stats(stats: Dict) -> Dict[str, Dict]:
+    """The open per-round stats with string keys and Python scalars."""
+    return {str(r): {"n_agg": int(s["n_agg"]), "n_stale": int(s["n_stale"]),
+                     "eff": float(s["eff"]),
+                     "hist": [int(h) for h in s["hist"]]}
+            for r, s in stats.items()}

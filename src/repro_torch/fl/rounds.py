@@ -50,7 +50,20 @@ and row.
 Randomness comes from ``torch.Generator``s seeded from
 ``FLSimConfig.seed`` and the round, or from an injected ``fields(rnd) ->
 RoundFields`` (the parity tests feed the reference's draws through it).
-Checkpoint and resume are ROADMAP A10.
+
+Preemption safety, as the reference's: with a ``RoundCheckpointer``
+(``train/checkpoint.py``; ``RunConfig.checkpoint_dir``) ``run_schedule``
+snapshots the driver's ``capture_state`` after a round's row every
+``checkpoint_every`` rounds, and ``resume_rows`` restores the newest good
+snapshot, so a run killed at any round and resumed in a fresh process
+gives the uninterrupted run's rows, masks, participation and params bit
+for bit.  A round's draws are a function of (seed, round) and its prefix
+is pure in the params, so nothing else needs saving: the round-ahead
+prefix a kill threw away is enqueued again from the restored params.
+The snapshot is taken after the row, outside the stretch from training
+dispatch to the next prefix's enqueue: copying the params to the host
+waits for the enqueued prefix, which the next round's fence waits for
+anyway.
 """
 from __future__ import annotations
 
@@ -62,6 +75,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.mnist_cnn import CONFIG as CNN_CFG
+from repro_torch.convert import params_from_jax, params_to_numpy
 from repro_torch.core.fuzzy import FuzzyEvaluatorConfig, default_level_centers
 from repro_torch.core.overhead import (IoVParams, accumulated_time_s,
                                        model_upload_bytes,
@@ -80,8 +94,59 @@ from repro_torch.fl.partition import (PartitionConfig, partition,
                                       steps_per_epoch)
 from repro_torch.fl.runconfig import RunConfig
 from repro_torch.fl.schemes import get_scheme
+from repro_torch.launch import faults
 from repro_torch.launch.mesh import ClientMesh, all_gather, mesh_clients
 from repro_torch.models.cnn import init_cnn
+from repro_torch.train.checkpoint import RoundCheckpointer
+
+# a standalone run's draws: round r's generator is seeded with
+# (seed * ROUND_SEED_STRIDE + r) mod 2^63 (``FLSimulation.round_fields``)
+ROUND_SEED_STRIDE = 1_000_003
+
+
+def build_round_checkpointer(run_cfg: RunConfig, checkpointer=None):
+    """The drivers' checkpoint seam, as the reference's: an explicit
+    ``RoundCheckpointer`` wins; otherwise one is built from the run
+    config's ``checkpoint_dir`` / ``checkpoint_every``; ``None`` runs
+    without snapshots."""
+    if checkpointer is not None:
+        return checkpointer
+    if run_cfg.checkpoint_dir:
+        return RoundCheckpointer(run_cfg.checkpoint_dir,
+                                 every=run_cfg.checkpoint_every)
+    return None
+
+
+def resume_rows(restore: Callable[[Dict, Dict], None], ckpt,
+                resume: bool) -> Tuple[List[Dict], int]:
+    """Restore from the newest good snapshot through ``restore(state,
+    extra)`` (a driver's ``restore_state``; the sweep restores each seed
+    of a group) -> ``(rows so far, start round)``.
+
+    Corrupt snapshots were already skipped, with a warning, inside
+    ``latest_good``; no snapshot at all means a fresh start, so resume is
+    safe to pass unconditionally."""
+    if not resume or ckpt is None:
+        return [], 0
+    got = ckpt.latest_good()
+    if got is None:
+        return [], 0
+    rnd, state, extra = got
+    restore(state, extra)
+    return [dict(r) for r in extra.get("rows", [])], rnd + 1
+
+
+def checkpoint_round(capture: Callable[[], Dict], ckpt, rnd: int, rows, *,
+                     lead: bool = True) -> None:
+    """Snapshot ``capture()`` (a driver's ``capture_state``; the sweep
+    captures every seed of a group) with the rows so far when round
+    ``rnd`` is due (the lead rank only), then announce the
+    fault-injection events."""
+    if ckpt is not None and lead and ckpt.due(rnd):
+        ckpt.save_round(rnd, capture(),
+                        extra={"rows": rows, "next_round": rnd + 1})
+        faults.fire("checkpoint-saved", round=rnd)
+    faults.fire("round-done", round=rnd)
 
 
 @dataclass
@@ -262,7 +327,7 @@ class FLSimulation:
             return self._fields(rnd)
         cfg = self.cfg
         gen = torch.Generator().manual_seed(
-            (cfg.seed * 1_000_003 + rnd) % (2 ** 63))
+            (cfg.seed * ROUND_SEED_STRIDE + rnd) % (2 ** 63))
         loss_u, upload_shadow = draw_round_fields(self.n, gen)
         k = min(cfg.n_clients_central, self.n)
         random_idx = torch.randperm(self.n, generator=gen)[:k]
@@ -351,6 +416,82 @@ class FLSimulation:
         server's one bookkeeping point)."""
         self.last_mask = np.asarray(mask)
         self.participation[self.last_mask > 0] += 1
+
+    # -- preemption safety -----------------------------------------------
+    def _draw_identity(self) -> Optional[Dict[str, int]]:
+        """What fixes this run's draws: the seed and the per-round
+        seeding rule of ``round_fields``; ``None`` for injected draws."""
+        if self._fields is not None:
+            return None
+        return {"seed": int(self.cfg.seed),
+                "round_seed_stride": ROUND_SEED_STRIDE}
+
+    def capture_state(self) -> Dict:
+        """The complete mutable round state as host arrays, in the
+        reference's layout: params (nested HWIO / ``(in, out)`` numpy,
+        ``convert.params_to_numpy``), the participation counters (int64),
+        the last selection mask (float32, zeros before round 0) and the
+        mobility field (float64); and, in place of the reference's JAX
+        keys, the draw identity (``draws``).  Everything else a round
+        reads is rebuilt from ``FLSimConfig`` at construction.  The
+        identity and the mobility field are constants of the config,
+        kept so that ``restore_state`` can verify the snapshot's
+        configuration instead of trusting the caller."""
+        return {
+            "params": params_to_numpy(self.params),
+            "draws": self._draw_identity(),
+            "participation": np.array(self.participation, np.int64),
+            "last_mask": (np.asarray(self.last_mask, np.float32)
+                          if self.last_mask is not None
+                          else np.zeros(self.n, np.float32)),
+            "mobility": {
+                "x0": np.asarray(self.mobility.x0, np.float64),
+                "speeds": np.asarray(self.mobility.speeds, np.float64),
+                "jitter_phase": np.asarray(self.mobility._jitter_phase,
+                                           np.float64)},
+        }
+
+    def restore_state(self, state: Dict,
+                      extra: Optional[Dict] = None) -> None:
+        """Restore a ``capture_state`` snapshot (params onto this run's
+        device).  Raises ``ValueError`` when the snapshot came from
+        another configuration: another fleet size, other draws (another
+        seed, or a snapshot of injected draws or of the reference's JAX
+        keys, unless this simulation's draws are injected too: then the
+        caller vouches for them) or another mobility field.
+
+        ``overflow@resume`` (``launch/faults.py``) forces the windowed
+        election's overflow in every later round, so each takes the
+        dense re-run (the masks stay exact): it clamps the ring halo's
+        bucket capacity to 1, as the reference's does, and the sorted
+        window to 1, which one device's windowed election reads (the
+        capacity binds only on the mesh)."""
+        part = np.asarray(state["participation"])
+        if part.shape != (self.n,):
+            raise ValueError(
+                f"checkpoint is for a {part.shape[0]}-client fleet; this "
+                f"simulation has {self.n} clients")
+        if (self._fields is None
+                and state.get("draws") != self._draw_identity()):
+            raise ValueError(
+                f"checkpoint PRNG base {state.get('draws')!r} does not "
+                f"match this simulation's {self._draw_identity()!r} "
+                f"(another seed, or a snapshot of injected or JAX draws)")
+        mob = state["mobility"]
+        for name, cur in (("x0", self.mobility.x0),
+                          ("speeds", self.mobility.speeds),
+                          ("jitter_phase", self.mobility._jitter_phase)):
+            if not np.array_equal(np.asarray(mob[name], np.float64),
+                                  np.asarray(cur, np.float64)):
+                raise ValueError(
+                    f"checkpoint mobility field {name!r} does not match "
+                    f"this simulation's configuration")
+        self.params = params_from_jax(state["params"], device=self.device)
+        self.participation = part.astype(np.int64)
+        self.last_mask = np.asarray(state["last_mask"]).astype(np.int32)
+        if faults.active("overflow", "resume"):
+            self.stage_cfg = replace(self.stage_cfg, elect_capacity=1,
+                                     elect_window=1)
 
     def _train_args(self) -> Dict[str, float]:
         cfg = self.cfg
@@ -457,14 +598,18 @@ class FLSimulation:
         return self
 
     def run(self, n_rounds: Optional[int] = None,
-            overlap: Optional[bool] = None) -> List[Dict[str, object]]:
+            overlap: Optional[bool] = None, *, checkpointer=None,
+            resume: Optional[bool] = None) -> List[Dict[str, object]]:
         """Drive ``n_rounds`` rounds through ``driver()``, round-ahead
         unless ``overlap`` (default: ``RunConfig.overlap_rounds``) is
-        False; the rows are the same either way."""
-        if overlap is None:
-            overlap = self.run_cfg.overlap_rounds
-        return run_schedule(self.driver(), self,
-                            n_rounds or self.cfg.n_rounds, overlap=overlap)
+        False; the rows are the same either way.  With a
+        ``checkpointer`` (or the run config's ``checkpoint_dir``) the
+        round state is snapshotted every ``checkpoint_every`` rounds;
+        ``resume`` (default: the run config's) first restores the newest
+        good snapshot and runs the rounds after it."""
+        return run_resumable(self.driver(), self,
+                             n_rounds or self.cfg.n_rounds, overlap=overlap,
+                             checkpointer=checkpointer, resume=resume)
 
 
 def close_round(driver, sim: FLSimulation, rnd: int,
@@ -480,12 +625,34 @@ def close_round(driver, sim: FLSimulation, rnd: int,
     return driver._round_row(rnd, host, acc, n_test)
 
 
+def run_resumable(driver, sim: FLSimulation, n_rounds: int, *,
+                  overlap: Optional[bool] = None, checkpointer=None,
+                  resume: Optional[bool] = None,
+                  **schedule_kw) -> List[Dict[str, object]]:
+    """``run_schedule`` behind the run config's checkpoint knobs: the
+    checkpointer (``build_round_checkpointer``), the resume
+    (``resume_rows``; default ``RunConfig.resume``) and the schedule
+    (default ``RunConfig.overlap_rounds``)."""
+    run_cfg = sim.run_cfg
+    ckpt = build_round_checkpointer(run_cfg, checkpointer)
+    rows, start = resume_rows(driver.restore_state, ckpt,
+                              run_cfg.resume if resume is None else resume)
+    return run_schedule(driver, sim, n_rounds,
+                        overlap=(run_cfg.overlap_rounds if overlap is None
+                                 else overlap),
+                        checkpointer=ckpt, start=start, rows=rows,
+                        **schedule_kw)
+
+
 def run_schedule(driver, sim: FLSimulation, n_rounds: int, *, overlap: bool,
                  stretch: Optional[Callable[[int], ContextManager]] = None,
-                 on_row: Optional[Callable[[int, Dict, Dict], None]] = None
+                 on_row: Optional[Callable[[int, Dict, Dict], None]] = None,
+                 checkpointer: Optional[RoundCheckpointer] = None,
+                 start: int = 0, rows: Optional[List[Dict]] = None
                  ) -> List[Dict[str, object]]:
-    """Rounds ``0 .. n_rounds - 1`` of ``driver`` (``sim`` itself or an
-    ``EventDrivenServer`` over it), serial or round-ahead.
+    """Rounds ``start .. n_rounds - 1`` of ``driver`` (``sim`` itself or
+    an ``EventDrivenServer`` over it), serial or round-ahead, appended
+    to ``rows`` (a resumed run's rows so far).
 
     A round: its prefix's outputs cross to the host (the fence, with
     the overflow re-run), the driver enqueues training and the accuracy
@@ -496,11 +663,14 @@ def run_schedule(driver, sim: FLSimulation, n_rounds: int, *, overlap: bool,
     from round r's training dispatch through the next prefix's enqueue
     (``chip_smoke.py`` runs it under ``torch.cuda.set_sync_debug_mode``);
     ``on_row(r, host, row)`` sees each round's host-side prefix outputs
-    and row."""
+    and row.  After each row, ``checkpoint_round`` snapshots the
+    driver's state when ``checkpointer`` says the round is due (on the
+    mesh, rank 0 writes) and fires the round's fault events."""
     stretch = stretch or (lambda r: contextlib.nullcontext())
-    rows: List[Dict[str, object]] = []
+    rows = [] if rows is None else rows
+    lead = sim.mesh is None or sim.mesh.rank == 0
     fields = state = None
-    for r in range(n_rounds):
+    for r in range(start, n_rounds):
         if state is None:                    # serial, or the first round
             fields = sim.round_fields(r)
             state = sim.selection_state(r, fields)
@@ -518,5 +688,7 @@ def run_schedule(driver, sim: FLSimulation, n_rounds: int, *, overlap: bool,
         rows.append(row)
         if on_row is not None:
             on_row(r, host, row)
+        checkpoint_round(driver.capture_state, checkpointer, r, rows,
+                         lead=lead)
         fields = nxt
     return rows

@@ -7,11 +7,15 @@ same way in both packages.  ``resolved`` validates and promotes as the
 reference's does: any churn, weighted staleness or cadence runs the
 event-driven server (``fl/async_server.py``).  ``overlap_rounds``
 defaults to True, the round-ahead schedule (``rounds.run_schedule``),
-whose rows are the serial schedule's bit for bit.  The knobs this
-slice of the port does not implement raise ``NotImplementedError``
-naming the ROADMAP item that brings them (checkpoints A10; the
-multi-host launch and the event server's sharded pool A11; the
-persistent compilation cache A14); none is silently ignored.
+whose rows are the serial schedule's bit for bit.  ``checkpoint_dir``
+snapshots the round state every ``checkpoint_every`` rounds
+(``train/checkpoint.py``) and ``resume`` restores the latest good
+snapshot first (``rounds.resume_rows``): a resumed run's rows, masks and
+params are the uninterrupted run's bit for bit.  The knobs the port
+does not implement yet raise ``NotImplementedError`` naming the ROADMAP
+item that brings them (the multi-host launch and the event server's
+sharded pool A11; the persistent compilation cache A14); none is
+silently ignored.
 
 Async axis (any non-default value promotes ``server`` to "event"):
 
@@ -108,10 +112,11 @@ class RunConfig:
             raise _unported("--multihost (torchrun over several hosts, "
                             "launch/multihost.py, faults.py)", "A11 (rest)")
         k = mesh_clients(self.mesh)          # a bad spec raises here
-        if (self.checkpoint_dir is not None or self.checkpoint_every != 1
-                or self.resume):
-            raise _unported("checkpoint_dir / checkpoint_every / resume",
-                            "A10")
+        if self.checkpoint_every < 1:
+            raise ValueError(f"checkpoint_every must be >= 1: "
+                             f"{self.checkpoint_every}")
+        if self.resume and not self.checkpoint_dir:
+            raise ValueError("resume=True requires checkpoint_dir")
         if self.elect not in ELECT_MODES:
             raise ValueError(f"elect must be one of {ELECT_MODES}: "
                              f"{self.elect!r}")
@@ -243,10 +248,11 @@ def add_run_arguments(ap) -> None:
                     help="windowed election: sorted neighbours per side "
                          "(0 = auto-size from fleet density)")
     ap.add_argument("--checkpoint-dir", default=None,
-                    help="per-round state snapshots (not ported: raises)")
+                    help="write atomic, checksummed per-round state "
+                         "snapshots here (preemption safety)")
     ap.add_argument("--checkpoint-every", type=int, default=None,
-                    help="snapshot cadence in rounds (not ported: raises "
-                         "unless 1)")
+                    help="snapshot cadence in rounds (default 1)")
     ap.add_argument("--resume", action="store_true",
-                    help="restore the latest checkpoint (not ported: "
-                         "raises)")
+                    help="restore the latest good checkpoint from "
+                         "--checkpoint-dir before running (bit-identical "
+                         "continuation)")

@@ -1,7 +1,8 @@
 """Atomic file writes: a temporary file beside the target + ``os.replace``.
 
-The port's copy of the reference's ``write_atomic`` and
-``write_atomic_json``.  The payload lands in a temporary file in the
+The port's copy of the reference's ``write_atomic``,
+``write_atomic_json`` and ``sha256_file`` (the checkpoint manifest's
+checksum, ``train/checkpoint.py``).  The payload lands in a temporary file in the
 target's directory, is fsync'd, and is renamed over the target in one
 ``os.replace``, so a reader sees either the complete old file or the
 complete new one; a process killed mid-write leaves at most a stray
@@ -9,6 +10,7 @@ complete new one; a process killed mid-write leaves at most a stray
 """
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 import tempfile
@@ -49,3 +51,16 @@ def write_atomic_json(path: Union[str, os.PathLike], obj: Any,
     """``json.dumps`` through ``write_atomic`` (one serialized payload,
     one rename)."""
     write_atomic(path, json.dumps(obj, **json_kwargs))
+
+
+def sha256_file(path: Union[str, os.PathLike],
+                chunk_bytes: int = 1 << 20) -> str:
+    """Hex sha256 of a file's contents (streamed)."""
+    h = hashlib.sha256()
+    with open(path, "rb") as f:
+        while True:
+            chunk = f.read(chunk_bytes)
+            if not chunk:
+                break
+            h.update(chunk)
+    return h.hexdigest()

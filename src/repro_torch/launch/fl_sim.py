@@ -12,6 +12,8 @@ Usage:
   python -m repro_torch.launch.fl_sim --mesh clients=2 --device cpu
   python -m repro_torch.launch.fl_sim --scheme all --rounds 3 \
       --churn-rate 0.2 --staleness weighted --staleness-lambda 0.5
+  python -m repro_torch.launch.fl_sim --rounds 4 --checkpoint-dir ck \
+      --resume
 
 ``--paper-profile`` runs Table 3's profile (``paper_config``: 30 local
 epochs, a 20 s deadline, the 4500-sample clients) for ``--rounds``
@@ -30,7 +32,12 @@ prints the rows, then the kernel launches of the scheme's rounds.
 Rounds run round-ahead (``--no-overlap-rounds``: serially; the rows are
 the same).  ``--churn-rate``, ``--staleness weighted``
 (``--staleness-lambda``) or ``--agg-cadence`` run the event-driven
-server (``fl/async_server.py``), announced by one line.  Every scheme
+server (``fl/async_server.py``), announced by one line.
+``--checkpoint-dir DIR`` snapshots each scheme's rounds under
+``DIR/<scheme>`` (every ``--checkpoint-every`` rounds) and ``--resume``
+continues each scheme from its newest good snapshot: the rows of a run
+killed at any round and resumed are the uninterrupted run's; only the
+resumed rounds are printed and timed.  Every scheme
 ends with its prefix and round seconds (host clock: a round from the
 previous row to its own, its prefix to the end of its host crossing,
 which round-ahead is the part of the prefix the round still waits for)
@@ -40,7 +47,9 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import json
+import os
 import time
 from typing import Dict, Optional
 
@@ -51,7 +60,7 @@ from repro_torch.device import synchronize
 from repro_torch.fl import pipeline
 from repro_torch.fl.mobility import MobilityConfig
 from repro_torch.fl.partition import PartitionConfig
-from repro_torch.fl.rounds import FLSimConfig, FLSimulation, run_schedule
+from repro_torch.fl.rounds import FLSimConfig, FLSimulation, run_resumable
 from repro_torch.fl.runconfig import RunConfig, add_run_arguments
 from repro_torch.ioutil import write_atomic_json
 from repro_torch.kernels import build
@@ -105,10 +114,11 @@ def sim_rank(mesh: ClientMesh, cfg: FLSimConfig, run: RunConfig,
 def drive_rounds(sim: FLSimulation, n_rounds: int, *,
                  print_rows: bool = False) -> Dict[str, object]:
     """``n_rounds`` rounds of ``sim.driver()`` on the run config's
-    schedule (``rounds.run_schedule``), the launch counts reset just
-    before.
+    schedule, checkpoints and resume (``rounds.run_resumable``), the
+    launch counts reset just before.
 
-    Returns the rows; per round r this rank's shard of the prefix
+    Returns the rows (a resumed run's earlier rows first); per round r
+    run here this rank's shard of the prefix
     (``pos{r}``, ``feats{r}``, ``evals{r}``), the round's global
     ``mask{r}`` and ``overflow{r}`` (the windowed election's flag); the
     prefix and round wall times (host clock: the round from the previous
@@ -140,9 +150,8 @@ def drive_rounds(sim: FLSimulation, n_rounds: int, *,
     build.reset_launches()
     synchronize(sim.device)
     marks["start"] = time.perf_counter()
-    rows = run_schedule(sim.driver(), sim, n_rounds,
-                        overlap=sim.run_cfg.overlap_rounds, stretch=fenced,
-                        on_row=on_row)
+    rows = run_resumable(sim.driver(), sim, n_rounds, stretch=fenced,
+                         on_row=on_row)
     out.update(rows=rows, prefix_s=prefix_s, round_s=round_s,
                launches=dict(build.LAUNCHES), device=str(sim.device),
                staged=dict(sim.mesh.staged) if sim.mesh else {})
@@ -201,11 +210,17 @@ def main(argv=None) -> int:
                               seed=args.seed)
         cfg.mobility = MobilityConfig(distribution=args.distribution,
                                       seed=args.seed)
+        srun = run
+        if run.checkpoint_dir:
+            # one snapshot directory a scheme, so --scheme all runs never
+            # overwrite each other's round state (as the reference's)
+            srun = dataclasses.replace(run, checkpoint_dir=os.path.join(
+                run.checkpoint_dir, scheme))
         t0 = time.perf_counter()
         if k > 1:
             ranks = spawn_ranks(
                 sim_rank, k, args.device,
-                args=(cfg, run, args.rounds),
+                args=(cfg, srun, args.rounds),
                 kwargs=dict(print_rows=True))
             res, where = ranks[0], f"{k} ranks"
             for r, rank in enumerate(ranks):
@@ -214,13 +229,17 @@ def main(argv=None) -> int:
                       f"collectives {json.dumps(rank['staged'])}",
                       flush=True)
         else:
-            sim = FLSimulation(cfg, run=run, device=args.device)
+            sim = FLSimulation(cfg, run=srun, device=args.device)
             res = drive_rounds(sim, args.rounds, print_rows=True)
             where = str(sim.device)
             print(f"[fl_sim] launches {json.dumps(res['launches'])}",
                   flush=True)
         dt = time.perf_counter() - t0
         rows = res["rows"]
+        start = len(rows) - len(res["round_s"])
+        if start:
+            print(f"[fl_sim] {scheme} resumed from {srun.checkpoint_dir} "
+                  f"at round {start}", flush=True)
         print(f"[fl_sim] {scheme} seconds a round (host clock, "
               f"{'round-ahead' if run.overlap_rounds else 'serial'}): "
               f"prefix {_seconds(res['prefix_s'])}, round "

@@ -42,17 +42,29 @@ sweep write the same bytes.  The per-seed metrics carry across-seed
 mean and sample-std columns, constant within a (round, scheme,
 classes, distribution, scenario) group.
 
+Preemption safety, as the reference's: each group snapshots every
+seed's driver state after each seed-batched round (``--checkpoint-every``)
+under its own directory of ``--checkpoint-dir`` (default ``OUT.ckpt``),
+and the partial CSV is rewritten atomically after every finished group,
+whose snapshots are then cleared.  ``--resume`` skips the groups whose
+rows the partial CSV already holds, restarts an unfinished group from
+its newest good snapshot, and writes the uninterrupted run's CSV byte
+for byte.
+
 The knobs the port does not have yet raise ``NotImplementedError``
-naming their ROADMAP item before any work is done: ``--resume`` and
-``--checkpoint-dir``: A10; ``--mesh clients=K`` (the sharded
-seed-batched prefix) and ``--multihost``: A11; ``--jit-cache-dir``: A14.
+naming their ROADMAP item before any work is done: ``--mesh clients=K``
+(the sharded seed-batched prefix) and ``--multihost``: A11;
+``--jit-cache-dir``: A14.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import io
+import json
+import os
 import time
+import warnings
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -63,10 +75,14 @@ from repro_torch.fl import pipeline
 from repro_torch.fl.client import evaluate_accuracy_async
 from repro_torch.fl.mobility import MobilityConfig
 from repro_torch.fl.partition import PartitionConfig
-from repro_torch.fl.rounds import FLSimConfig, FLSimulation
+from repro_torch.fl.rounds import (FLSimConfig, FLSimulation,
+                                   checkpoint_round, resume_rows)
 from repro_torch.fl.runconfig import RunConfig, add_run_arguments
 from repro_torch.ioutil import write_atomic
+from repro_torch.kernels import build
+from repro_torch.launch import faults
 from repro_torch.launch.mesh import mesh_clients
+from repro_torch.train.checkpoint import RoundCheckpointer
 
 SCHEMES = ("dcs", "ccs-fuzzy", "random")
 
@@ -140,7 +156,10 @@ def run_seed_group(scheme: str, classes_per_client: int, distribution: str,
                    vmap_prefix: bool = True,
                    run: Optional[RunConfig] = None, *, device=None,
                    fields_fn: Optional[FieldsFn] = None,
-                   prefix_s: Optional[List[float]] = None) -> List[Dict]:
+                   prefix_s: Optional[List[float]] = None,
+                   checkpoint_dir: Optional[str] = None,
+                   checkpoint_every: int = 1,
+                   resume: bool = False) -> List[Dict]:
     """Run every seed of one cell group for ``rounds`` rounds.
 
     With more than one seed and statics that stack (the seeds share a
@@ -154,7 +173,13 @@ def run_seed_group(scheme: str, classes_per_client: int, distribution: str,
     round r's rows read the accuracies, as ``rounds.run_schedule`` does
     for one seed.  The rows are the same either way.  ``prefix_s``,
     when given, receives each round's wait for its prefix (host clock,
-    from the round's start to the end of its seeds' host crossings)."""
+    from the round's start to the end of its seeds' host crossings).
+
+    With ``checkpoint_dir`` the group snapshots every
+    ``checkpoint_every`` rounds, after the round's rows: every seed's
+    driver state in one ``RoundCheckpointer`` entry (``{"seeds":
+    [...]}``) with the rows so far; ``resume`` restores the newest good
+    snapshot and runs only the rounds after it, bit-identically."""
     run = (run if run is not None else RunConfig()).resolved()
     if mesh_clients(run.mesh) > 1:
         raise NotImplementedError(
@@ -167,6 +192,14 @@ def run_seed_group(scheme: str, classes_per_client: int, distribution: str,
     if not sims:
         return []
     drivers = [sim.driver() for sim in sims]
+    ckpt = (RoundCheckpointer(checkpoint_dir, every=checkpoint_every)
+            if checkpoint_dir else None)
+
+    def restore(state: Dict, extra: Dict) -> None:
+        for drv, st in zip(drivers, state["seeds"]):
+            drv.restore_state(st, extra)
+
+    rows, start = resume_rows(restore, ckpt, resume)
     cfg0 = sims[0].stage_cfg
     stacked = None
     if (vmap_prefix and len(sims) > 1
@@ -200,9 +233,8 @@ def run_seed_group(scheme: str, classes_per_client: int, distribution: str,
 
     synchronize(sims[0].device)
     t0 = time.perf_counter()
-    rows: List[Dict] = []
     fields = states = None
-    for r in range(rounds):
+    for r in range(start, rounds):
         if states is None:                   # serial, or the first round
             fields = [sim.round_fields(r) for sim in sims]
             states = dispatch(r, fields)
@@ -221,6 +253,9 @@ def run_seed_group(scheme: str, classes_per_client: int, distribution: str,
         for seed, drv, host, (acc, n_test) in zip(seeds, drivers, hosts,
                                                   pend):
             rows.append(meta(seed, drv._round_row(r, host, acc, n_test)))
+        checkpoint_round(lambda: {"seeds": [drv.capture_state()
+                                            for drv in drivers]},
+                         ckpt, r, rows)
         fields = nxt
         t0 = time.perf_counter()
     return rows
@@ -277,7 +312,6 @@ def parse_csv_rows(text: str) -> Optional[List[Dict]]:
     lines (a torn tail) are dropped with a warning.  Every float column
     re-formats idempotently under ``_FMT``, so parsed rows re-emit byte
     for byte."""
-    import warnings
     lines = text.splitlines()
     if not lines or lines[0] != ",".join(CSV_COLUMNS):
         return None
@@ -333,13 +367,22 @@ def _row_job_key(row: Dict) -> Tuple:
             _FMT["agg_cadence_s"].format(row["agg_cadence_s"]))
 
 
+def _group_ckpt_dir(checkpoint_dir: str, scheme: str, classes: int,
+                    dist: str, run: RunConfig) -> str:
+    """A (cell, scenario) group's snapshot subdirectory, the reference's
+    name: the same in the killed run and its resume."""
+    slug = "_".join(str(p) for p in
+                    _job_key(scheme, classes, dist, run)).replace(".", "p")
+    return os.path.join(checkpoint_dir, slug)
+
+
 def completed_job_rows(parsed: Optional[List[Dict]],
                        jobs: Sequence[Tuple[Group, RunConfig]],
                        seeds: Sequence[int],
                        rounds: int) -> Dict[Tuple, List[Dict]]:
     """Map each fully completed job (every (seed, round) row present in
-    a partial CSV) to its parsed rows; the reference's resume skips
-    those groups (resume itself is ROADMAP A10)."""
+    a partial CSV) to its parsed rows: a resumed sweep skips those
+    groups and passes their rows through verbatim."""
     if not parsed:
         return {}
     by_job: Dict[Tuple, List[Dict]] = {}
@@ -358,14 +401,15 @@ def completed_job_rows(parsed: Optional[List[Dict]],
 
 def _run_group_worker(args: Tuple) -> Tuple[List[Dict], List[float]]:
     """Top-level (picklable) worker: one cell group, in a spawned
-    process on the same device."""
+    process on the same device, with its snapshot directory."""
     (scheme, classes, dist, seeds, rounds, cfg_fn, vmap_prefix, run,
-     device, fields_fn) = args
+     device, fields_fn, ckpt_dir, ckpt_every, resume) = args
     prefix_s: List[float] = []
     rows = run_seed_group(scheme, classes, dist, seeds, rounds,
                           cfg_fn=cfg_fn, vmap_prefix=vmap_prefix, run=run,
                           device=device, fields_fn=fields_fn,
-                          prefix_s=prefix_s)
+                          prefix_s=prefix_s, checkpoint_dir=ckpt_dir,
+                          checkpoint_every=ckpt_every, resume=resume)
     return rows, prefix_s
 
 
@@ -375,33 +419,80 @@ def sweep(schemes: Sequence[str], classes_list: Sequence[int],
           workers: int = 1, runs: Optional[Sequence[RunConfig]] = None,
           log: Optional[Callable[[str], None]] = None,
           out_path: Optional[str] = None, *, device=None,
-          fields_fn: Optional[FieldsFn] = None) -> List[Dict]:
+          fields_fn: Optional[FieldsFn] = None,
+          checkpoint_dir: Optional[str] = None, checkpoint_every: int = 1,
+          resume: bool = False) -> List[Dict]:
     """Run the whole grid and return aggregated tidy rows.
 
     ``runs`` is the scenario axis (default: the single synchronous
     scenario); every run is resolved, so an unported knob raises before
     any work.  ``workers > 1`` fans the groups out over spawned
     processes sharing ``device`` (``cfg_fn`` and ``fields_fn`` cross by
-    reference, so they must be module-level functions).  With
-    ``out_path`` the partial CSV is rewritten atomically after every
-    finished group."""
+    reference, so they must be module-level functions).
+
+    Preemption safety, as the reference's: with ``checkpoint_dir`` each
+    group snapshots every ``checkpoint_every`` rounds under its own
+    subdirectory (``_group_ckpt_dir``); with ``out_path`` the partial
+    CSV is rewritten atomically after every finished group, whose
+    snapshots are then cleared, and ``group-done`` fires.  ``resume``
+    reads ``out_path`` back: completed groups are skipped (their rows
+    pass through verbatim; ``_FMT`` parses and formats idempotently),
+    unfinished ones restart from their snapshots, and the final CSV is
+    the uninterrupted run's byte for byte."""
     log = log or (lambda s: None)
     runs = tuple(r.resolved() for r in runs) if runs else (
         RunConfig().resolved(),)
     jobs: List[Tuple[Group, RunConfig]] = [
         ((s, c, d), run) for run in runs for s in schemes
         for c in classes_list for d in distributions]
-    work = [(s, c, d, tuple(seeds), rounds, cfg_fn, vmap_prefix, run,
-             None if device is None else str(device), fields_fn)
-            for (s, c, d), run in jobs]
+
+    done: Dict[Tuple, List[Dict]] = {}
+    if resume and out_path and os.path.exists(out_path):
+        with open(out_path) as f:
+            parsed = parse_csv_rows(f.read())
+        if parsed is None:
+            warnings.warn(f"{out_path} is not a sweep CSV of this schema: "
+                          f"ignoring it and rerunning the full grid",
+                          RuntimeWarning)
+        else:
+            done = completed_job_rows(parsed, jobs, seeds, rounds)
+    done_rows = [row for got in done.values() for row in got]
+
+    def group_dir(job: Tuple[Group, RunConfig]) -> Optional[str]:
+        (s, c, d), run = job
+        return (_group_ckpt_dir(checkpoint_dir, s, c, d, run)
+                if checkpoint_dir else None)
+
+    todo = [(i, job) for i, job in enumerate(jobs)
+            if _job_key(*job[0], job[1]) not in done]
+    for key in done:
+        log(f"[sweep] resume: skipping completed group "
+            f"{'/'.join(str(p) for p in key)}")
+    # a completed group's snapshots are stale: drop them, so a later
+    # corruption there can never shadow the CSV's finished rows
+    for job in jobs:
+        if _job_key(*job[0], job[1]) in done and group_dir(job):
+            RoundCheckpointer(group_dir(job)).clear()
+    work = [(*job[0], tuple(seeds), rounds, cfg_fn, vmap_prefix, job[1],
+             None if device is None else str(device), fields_fn,
+             group_dir(job), checkpoint_every, resume) for _, job in todo]
     rows: List[Dict] = []
 
-    def finish_group(job: Tuple, got: List[Dict], prefix_s: List[float],
-                     seconds: Optional[float]) -> None:
+    def finish_group(index: int, job: Tuple, got: List[Dict],
+                     prefix_s: List[float], seconds: Optional[float]
+                     ) -> None:
+        """The group's rows become durable (the partial CSV, atomically),
+        its now redundant snapshots go, then ``group-done`` fires.  A
+        kill anywhere here resumes cleanly: before the CSV lands, the
+        group reruns from its snapshots."""
         (s, c, d), run = job
         rows.extend(got)
         if out_path:
-            write_atomic(out_path, rows_to_csv(aggregate_rows(rows)))
+            write_atomic(out_path,
+                         rows_to_csv(aggregate_rows(rows) + done_rows))
+        if group_dir(job):
+            RoundCheckpointer(group_dir(job)).clear()
+        faults.fire("group-done", index=index)
         accs = [r["accuracy"] for r in got if r["round"] == rounds - 1]
         log(f"[sweep] {s} classes={c} {d} churn={run.churn_rate} "
             f"lam={run.staleness_lambda} cadence={run.agg_cadence_s or 0}: "
@@ -416,15 +507,15 @@ def sweep(schemes: Sequence[str], classes_list: Sequence[int],
         with ProcessPoolExecutor(
                 max_workers=workers,
                 mp_context=mp.get_context("spawn")) as pool:
-            for job, (got, prefix_s) in zip(
-                    jobs, pool.map(_run_group_worker, work)):
-                finish_group(job, got, prefix_s, None)
-        return aggregate_rows(rows)
-    for job, args in zip(jobs, work):
+            for (i, job), (got, prefix_s) in zip(
+                    todo, pool.map(_run_group_worker, work)):
+                finish_group(i, job, got, prefix_s, None)
+        return aggregate_rows(rows) + done_rows
+    for (i, job), args in zip(todo, work):
         t0 = time.time()
         got, prefix_s = _run_group_worker(args)
-        finish_group(job, got, prefix_s, time.time() - t0)
-    return aggregate_rows(rows)
+        finish_group(i, job, got, prefix_s, time.time() - t0)
+    return aggregate_rows(rows) + done_rows
 
 
 def scenario_runs(base: RunConfig, churn_rates: Sequence[float],
@@ -493,6 +584,10 @@ def main(argv=None) -> int:
                          "plain versions)")
     args = ap.parse_args(argv)
 
+    # snapshots default to a directory beside the output, set before
+    # RunConfig.from_args so that --resume validates, as the reference's
+    if args.checkpoint_dir is None:
+        args.checkpoint_dir = args.out + ".ckpt"
     if args.fast and args.paper_profile:
         ap.error("--fast and --paper-profile are mutually exclusive")
     if args.seeds < 1:
@@ -508,7 +603,11 @@ def main(argv=None) -> int:
     distributions = tuple(args.distributions.split(","))
     cfg_fn = paper_cell_config if args.paper_profile else fast_cell_config
 
-    base_run = RunConfig.from_args(args)
+    full_run = RunConfig.from_args(args)
+    # the grid drives the rounds itself: the group snapshots are the
+    # sweep's own (run_seed_group), not each simulation's
+    base_run = dataclasses.replace(full_run, checkpoint_dir=None,
+                                   checkpoint_every=1, resume=False)
     if mesh_clients(base_run.mesh) > 1:
         raise NotImplementedError(
             "--mesh clients=K in the sweep (selection_prefix_seeds_sharded)"
@@ -526,17 +625,24 @@ def main(argv=None) -> int:
     device = resolve_device(args.device)
 
     t0 = time.time()
+    build.reset_launches()
     rows = sweep(schemes, classes_list, distributions,
                  seeds=range(args.seeds), rounds=args.rounds, cfg_fn=cfg_fn,
                  vmap_prefix=not args.no_vmap, workers=args.workers,
                  runs=runs, log=lambda s: print(s, flush=True),
-                 out_path=args.out, device=device)
+                 out_path=args.out, device=device,
+                 checkpoint_dir=full_run.checkpoint_dir,
+                 checkpoint_every=full_run.checkpoint_every,
+                 resume=full_run.resume)
     write_atomic(args.out, rows_to_csv(rows))
     print(f"[sweep] wrote {len(rows)} rows "
           f"({len(schemes)}x{len(classes_list)}x{len(distributions)} "
           f"cells x {len(runs)} scenarios x {args.seeds} seeds x "
           f"{args.rounds} rounds) to {args.out} on {device} in "
           f"{time.time() - t0:.0f}s", flush=True)
+    if device.type == "cuda" and args.workers <= 1:
+        print(f"[sweep] launches {json.dumps(dict(build.LAUNCHES))}",
+              flush=True)
     return 0
 
 

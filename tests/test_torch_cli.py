@@ -6,13 +6,16 @@ both parsers know must come out with the same value.  Then the port's
 CLI runs it (the simulation stubbed: no dataset, no round): the
 schedule and event-server flags land in the ``RunConfig`` the
 reference's ``RunConfig.from_args`` builds from the same command line,
-and every knob the port has not ported raises ``NotImplementedError``
-naming its ROADMAP item before any work is done.  ``launch/serve.py
+the checkpoint flags land there too (the snapshots in a directory a
+scheme, as the reference's), and every knob the port has not ported
+raises ``NotImplementedError`` naming its ROADMAP item before any work
+is done.  ``launch/serve.py
 --arch`` with an arch the reference serves and the port does not yet
 names A13b.
 """
 import argparse
 import dataclasses
+import os
 
 import pytest
 
@@ -79,9 +82,9 @@ FL_SIM_CASES = [
     (["--no-overlap-rounds"], None),
     (["--fast", "--no-overlap-rounds", "--elect", "windowed",
       "--elect-window", "4"], None),
-    (["--checkpoint-dir", "ckpt"], "A10"),
-    (["--checkpoint-every", "5"], "A10"),
-    (["--resume"], "A10"),
+    (["--checkpoint-dir", "ckpt"], None),
+    (["--checkpoint-every", "5"], None),
+    (["--resume", "--checkpoint-dir", "ckpt"], None),
     (["--jit-cache-dir", "none"], "A14"),
     (["--multihost", "2"], "A11"),
     (["--mesh", "clients=2", "--churn-rate", "0.2"], "A11"),
@@ -99,12 +102,16 @@ def test_fl_sim_takes_the_references_command_line(monkeypatch, flags, item):
     for dest in set(theirs) & set(mine):
         assert mine[dest] == theirs[dest], dest
     if item is None:
-        want = RunConfig(
-            overlap_rounds="--no-overlap-rounds" not in flags).resolved()
-        if "--elect" in flags:
-            want = dataclasses.replace(want, elect="windowed",
-                                       elect_window=4)
-        assert _runs(monkeypatch, argv) == [want]
+        # the RunConfig the reference's fl_sim builds from the same
+        # command line, its snapshots in a directory a scheme
+        want = RefRunConfig.from_args(argparse.Namespace(**theirs))
+        if want.checkpoint_dir:
+            want = dataclasses.replace(want, checkpoint_dir=os.path.join(
+                want.checkpoint_dir, "dcs"))
+        (run,) = _runs(monkeypatch, argv)
+        got, exp = shared_fields(run, want)
+        assert got == exp
+        assert (run.multihost, run.elect_capacity) == (0, 0)
     else:
         with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
             fl_sim.main(argv + ["--device", "cpu"])

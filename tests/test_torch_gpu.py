@@ -938,3 +938,47 @@ def test_elections_on_churn_gated_evals_bit_equal(cuda, n):
                                                **wkw))
     mask, ovf = ops.neighbor_elect_windowed(pc, ec, window=64, **kw)
     assert int(ovf) == 1 or torch.equal(mask, dense)
+
+
+# -- checkpoints: the card and the CPU share snapshots -------------------
+
+
+def test_snapshots_cross_between_the_card_and_the_cpu(cuda, tmp_path):
+    """A snapshot written on the card restores into a CPU simulation and
+    one written on the CPU onto the card: the params bit-equal after
+    each round trip, the counters and mask equal."""
+    from repro_torch.train.checkpoint import load_state, save_state
+    card = _tiny_sim(cuda)
+    card.run(1)
+    cpu = _tiny_sim("cpu")
+    save_state(str(tmp_path / "card"), card.capture_state())
+    cpu.restore_state(*load_state(str(tmp_path / "card")))
+    assert all(torch.equal(cpu.params[k], card.params[k].cpu())
+               for k in card.params)
+    assert np.array_equal(cpu.participation, card.participation)
+    assert np.array_equal(cpu.last_mask, card.last_mask)
+    cpu.run(1)
+    save_state(str(tmp_path / "cpu"), cpu.capture_state())
+    card.restore_state(*load_state(str(tmp_path / "cpu")))
+    assert all(card.params[k].is_cuda
+               and torch.equal(card.params[k].cpu(), cpu.params[k])
+               for k in cpu.params)
+
+
+@pytest.mark.parametrize("run", [{}, dict(churn_rate=0.2,
+                                          staleness="weighted",
+                                          staleness_lambda=0.5,
+                                          agg_cadence_s=90.0)],
+                         ids=["sync", "event"])
+def test_kill_and_resume_on_the_card(cuda, tmp_path, run):
+    """3 rounds uninterrupted against 1 with snapshots and a fresh
+    simulation resumed to 3: rows and params bit-equal on the card."""
+    from repro_torch.train.checkpoint import RoundCheckpointer
+    full = _tiny_sim(cuda, **run)
+    rows = full.run(3)
+    ck = RoundCheckpointer(str(tmp_path / "ck"))
+    _tiny_sim(cuda, **run).run(1, checkpointer=ck)
+    res = _tiny_sim(cuda, **run)
+    assert res.run(3, checkpointer=ck, resume=True) == rows
+    assert all(torch.equal(full.params[k], res.params[k])
+               for k in full.params)

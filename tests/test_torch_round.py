@@ -252,7 +252,8 @@ def test_port_imports_neither_jax_nor_repro():
             "repro_torch.ioutil, repro_torch.core.overhead, "
             "repro_torch.launch.sweep, repro_torch.core.selection, "
             "repro_torch.fl.schemes, repro_torch.fl.network, "
-            "repro_torch.fl.async_server\n"
+            "repro_torch.fl.async_server, repro_torch.train.checkpoint, "
+            "repro_torch.launch.faults\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "
             "m.startswith('repro.')]\n"
@@ -280,8 +281,6 @@ def test_cli_without_cuda_raises():
 
 @pytest.mark.parametrize("kw", [
     dict(mesh="clients=4", multihost=2),
-    dict(checkpoint_dir="ckpt"),
-    dict(resume=True),
     dict(mesh="clients=2", churn_rate=0.2)])
 def test_unported_knobs_raise(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -297,17 +296,25 @@ def _shared(port_run, ref_run):
             {n: getattr(ref_run, n) for n in names})
 
 
+# the knobs that keep the synchronous server
+_SYNC_KNOBS = {"overlap_rounds", "checkpoint_dir", "checkpoint_every",
+               "resume"}
+
+
 @pytest.mark.parametrize("kw", [
     dict(server="event"), dict(churn_rate=0.3), dict(staleness="weighted"),
-    dict(agg_cadence_s=10.0), dict(overlap_rounds=True)])
+    dict(agg_cadence_s=10.0), dict(overlap_rounds=True),
+    dict(checkpoint_dir="ckpt"),
+    dict(checkpoint_dir="ckpt", checkpoint_every=3, resume=True)])
 def test_async_and_overlap_knobs_resolve(kw):
-    """The event server's and the round-ahead schedule's knobs resolve
-    as the reference's (the same server promotion), and the churn rate
-    reaches the prefix's ``StageConfig``."""
+    """The event server's, the round-ahead schedule's and the
+    checkpoints' knobs resolve as the reference's (the same server
+    promotion), and the churn rate reaches the prefix's
+    ``StageConfig``."""
     mine, theirs = RunConfig(**kw).resolved(), RefRunConfig(**kw).resolved()
     got, want = _shared(mine, theirs)
     assert got == want
-    assert mine.server == ("sync" if "overlap_rounds" in kw else "event")
+    assert mine.server == ("sync" if set(kw) <= _SYNC_KNOBS else "event")
     rcfg, cfg = _cfgs()
     assert (mine.to_stage_config(cfg, n_clients=N).churn_rate
             == theirs.to_stage_config(rcfg, n_clients=N).churn_rate
@@ -318,7 +325,8 @@ def test_async_and_overlap_knobs_resolve(kw):
     dict(server="async"), dict(staleness="sometimes"),
     dict(churn_rate=1.5), dict(churn_rate=-0.1),
     dict(staleness_lambda=-1.0), dict(agg_cadence_s=0.0),
-    dict(staleness="weighted", engine="loop")])
+    dict(staleness="weighted", engine="loop"), dict(resume=True),
+    dict(checkpoint_dir="ckpt", checkpoint_every=0)])
 def test_runconfig_validates_as_the_reference(kw):
     """Each of the reference's ``resolved()`` rules raises ``ValueError``
     in both packages."""

@@ -458,8 +458,6 @@ def test_central_schemes_take_a_seed_axis_with_ties():
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--resume"], "A10"),
-    (["--checkpoint-dir", "ckpt"], "A10"),
     (["--mesh", "clients=2"], "A11"),
     (["--multihost", "2"], "A11"),
     (["--jit-cache-dir", "none"], "A14")])
@@ -470,6 +468,31 @@ def test_unported_flags_raise_naming_their_item(flags, item, tmp_path,
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         sweep.main(["--seeds", "1", "--rounds", "1", "--device", "cpu",
                     "--out", str(tmp_path / "x.csv"), *flags])
+
+
+@pytest.mark.parametrize("flags", [
+    ["--resume"], ["--checkpoint-dir", "ckpt", "--checkpoint-every", "3"]],
+    ids=" ".join)
+def test_checkpoint_flags_reach_the_sweep(flags, tmp_path, monkeypatch):
+    """The checkpoint flags reach ``sweep()`` as the reference's ``main``
+    passes them: the snapshot directory defaults to ``OUT.ckpt``, and
+    the grid's runs carry no checkpoints of their own."""
+    from test_torch_cli import _parsed
+    out = str(tmp_path / "x.csv")
+    argv = ["--seeds", "1", "--rounds", "1", "--out", out, *flags]
+    got = []
+    monkeypatch.setattr(sweep, "sweep", lambda *a, **k: got.append(k) or [])
+    assert sweep.main(argv + ["--device", "cpu"]) == 0
+    ns = _parsed(ref_sweep.main, argv)
+    ns["checkpoint_dir"] = ns["checkpoint_dir"] or out + ".ckpt"
+    full = RefRunConfig.from_args(argparse.Namespace(**ns))
+    (k,) = got
+    assert (k["checkpoint_dir"], k["checkpoint_every"], k["resume"]) == (
+        full.checkpoint_dir, full.checkpoint_every, full.resume)
+    assert k["checkpoint_dir"] == (out + ".ckpt" if "--resume" in flags
+                                   else "ckpt")
+    assert all((r.checkpoint_dir, r.checkpoint_every, r.resume)
+               == (None, 1, False) for r in k["runs"])
 
 
 @pytest.mark.parametrize("flags", [
