@@ -85,6 +85,31 @@ Phases (any failure exits non-zero; no phase's exception is caught):
    layer (14) and ``flash_attention`` once per attention layer (2) at
    prefill and nothing else; then ``serve()`` again with one 4096-token
    prompt and 4 new tokens (the same launches);
+5i. the rest of the LM zoo, after the jamba weights are freed (it runs
+   between 5c and 5d): ``flash_attention`` against its plain version
+   (fp32 to 1e-5, bf16 to 2^-7 of the largest |out|, bit-repeatable) at
+   the shapes its models give it: whisper-medium's encoder (B=4, 1500
+   frames, unmasked, 16 heads of 64), its cross-attention at prefill (64
+   queries over 1500) and at a decode step (one query over 1500),
+   paligemma-3b's prefix-LM prefill (256 patch positions + 64 tokens,
+   prefix_len 256, 8 q heads over 1 kv head of 256), groups of 8 at
+   head dim 128 (qwen3-moe, yi-6b) and 36 heads of 64 (minicpm-2b);
+   timed in bf16 at whisper's encoder and paligemma's prefill beside
+   the fp32 kernel, the plain version and ``scaled_dot_product_attention``
+   with the same mask, with their bounds; whisper-medium (2 encoder and
+   2 decoder layers over 1500 frames), paligemma-3b, minicpm-2b and
+   qwen3-moe (16 of its experts at full width, top-2, 4 rows) with 2
+   layers at full width, the card against the CPU (whisper's encoder
+   K/V in the comparison); then yi-6b (32 layers), granite-8b (36),
+   minicpm-2b (40), paligemma-3b (18), whisper-medium (24 + 24),
+   qwen3-moe-30b-a3b (48, all 128 experts) and phi3.5-moe-42b-a6.6b (24
+   of its 32 layers: 32 do not fit one 80 GB card) served at full width
+   through ``launch/serve.py`` (B=4, prompt 64, 32 new tokens), each
+   arch's weights freed before the next is drawn: one ``flash_attention``
+   launch per attention layer at prefill (whisper's 72: encoder,
+   self- and cross-attention) and none in decode but whisper's 24 a
+   step (its cross-attention), no other kernel; each run's JSON line
+   and the phase's wall seconds;
 5d. the client mesh (``--mesh clients=K``) with ``probe_loss``:
    ``probe_loss`` against its plain version (within 1e-5 of the largest
    loss, bit-repeatable) at the fast profile's whole pack, at ranks 1
@@ -210,7 +235,10 @@ Phases (any failure exits non-zero; no phase's exception is caught):
    launches; then ``{"kernels": [...]}`` on the line before the last,
    ``probe_fuzzy``'s and ``neighbor_elect``'s entries with a ``seeds``
    object (S, the fast sweep's launches, ms, the S single launches' ms,
-   device ms of both, the bound scaled by S);
+   device ms of both, the bound scaled by S), ``flash_attention``'s
+   with a ``paths`` list (phase 5i's whisper encoder and paligemma
+   prefill: the shape, the arch's serving launches, its bf16 error and
+   times, bound and library time);
 7. ``{"ok": true, "device": {...}}`` as the last line.
 """
 from __future__ import annotations
@@ -324,6 +352,47 @@ JAMBA_LONG_SERVE = dict(JAMBA_SERVE, batch=1, prompt_len=LONG_PROMPT,
 # long prompt and a Di that is no multiple of a block's 16 channels
 SCAN_CASES = [(4, 64, 8192, 16), (1, 4096, 8192, 16), (3, 77, 300, 7),
               (1, 4096, 8192, 32), (2, 100, 8200, 16)]
+# phase 5i, the rest of the LM zoo: flash_attention at the shapes its
+# models give it: whisper-medium's encoder (1500 frames, unmasked, 16
+# heads of 64 without grouping), its cross-attention at prefill (64
+# decoder positions over 1500) and at a decode step (one query),
+# paligemma-3b's prefix-LM prefill (256 patch positions + 64 tokens, 8 q
+# heads over 1 kv head of 256), qwen3-moe's and yi-6b's groups of 8 at
+# 128, minicpm-2b's 36 heads of 64
+WHISPER_ENC_FLASH = (4, 1500, 1500, 16, 16, 64, False, 0, 0)
+PALIGEMMA_FLASH = (4, 320, 320, 8, 1, 256, True, 0, 256)
+ZOO_FLASH_CASES = [WHISPER_ENC_FLASH,
+                   (4, 64, 1500, 16, 16, 64, False, 0, 0),
+                   (4, 1, 1500, 16, 16, 64, False, 0, 0),
+                   PALIGEMMA_FLASH,
+                   (4, 64, 64, 32, 4, 128, True, 0, 0),
+                   (4, 64, 64, 36, 36, 64, True, 0, 0)]
+# its 2-layer model checks at full width: arch -> (cache keys compared
+# within MODEL_TOL, config changes, batch rows).  whisper's with 2
+# encoder layers over its 1500 frames; qwen3-moe's with 16 of its 128
+# experts (full width), top-2, over 4 rows (with 128 experts top-8 a
+# bf16 router near-tie reroutes some token of every row, ROADMAP C3),
+# and a capacity that drops no token: a drop couples the rows (a
+# rerouted token moves the expert positions of the batch's later
+# tokens), so a reroute would move other rows too
+ZOO_CHECKS = {
+    "whisper-medium": (("k", "v", "cross_k", "cross_v"),
+                       dict(num_layers=2, encoder_layers=2), 2),
+    "paligemma-3b": (("k", "v"), None, 2),
+    "minicpm-2b": (("k", "v"), None, 2),
+    "qwen3-moe-30b-a3b": (("k", "v"), dict(num_layers=2, num_experts=16,
+                                           experts_per_token=2,
+                                           capacity_factor=8.0), 4),
+}
+# its serving runs, 4 prompts of 64 tokens, 32 new tokens each, every
+# arch at full depth but phi3.5-moe, whose 32 layers (~84 GB in bf16) do
+# not fit one 80 GB card: 24 of them leave room for one layer drawn in
+# fp32 (~5.2 GB)
+ZOO_ARCHS = ("yi-6b", "granite-8b", "minicpm-2b", "paligemma-3b",
+             "whisper-medium", "qwen3-moe-30b-a3b", "phi3.5-moe-42b-a6.6b")
+ZOO_SERVE_ARGV = ["--batch", "4", "--prompt-len", "64", "--max-new", "32"]
+PHI = "phi3.5-moe-42b-a6.6b"
+PHI_LAYERS = 24
 # the keys of the reference's rows, in its order
 # (``repro.fl.rounds.FLSimulation._round_row``)
 ROW_KEYS = ["round", "accuracy", "n_selected", "n_aggregated",
@@ -542,18 +611,17 @@ def flash_label(case, dtype) -> str:
             f"{str(dtype).split('.')[-1]}")
 
 
-def flash_checks(dev) -> float:
+def flash_checks(dev, cases=FLASH_CASES) -> dict:
     """flash_attention against its plain version at every case, fp32 and
     bf16: both compute in fp32 and round the output once, so fp32 within
     1e-5 of the largest |out| (sums in another order) and bf16 within
     2^-7 of it (one bf16 ulp at the largest value); a second launch
-    equal bit for bit.  Returns the max abs error at the serving shape
-    in bf16."""
+    equal bit for bit.  Returns the max abs error in bf16 a case."""
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import flash_attention_cuda
-    err_serve = None
-    for case in FLASH_CASES:
+    errs = {}
+    for case in cases:
         kw = dict(zip(("causal", "window", "prefix_len"), case[6:]))
         for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2 ** -7)):
             q, k, v = flash_inputs(case, dtype, dev)
@@ -565,8 +633,8 @@ def flash_checks(dev) -> float:
             same = torch.equal(out, again)
             ok = (err <= tol and same and out.dtype == dtype
                   and bool(torch.isfinite(out).all()))
-            if case == FLASH_CASES[0] and dtype == torch.bfloat16:
-                err_serve = float((out.float() - want.float()).abs().max())
+            if dtype == torch.bfloat16:
+                errs[case] = float((out.float() - want.float()).abs().max())
             log(f"[check] flash_attention {flash_label(case, dtype)}: max err "
                 f"/ scale {err:.3g} (tol {tol:.3g}), bit-repeatable {same} "
                 f"{'OK' if ok else 'FAIL'}")
@@ -574,36 +642,60 @@ def flash_checks(dev) -> float:
                 raise AssertionError(f"flash_attention {case} {dtype} "
                                      f"disagrees")
             del q, k, v, out, again, want
-    return err_serve
+    return errs
 
 
-def flash_times(dev):
+def sdpa_mask(case, device) -> dict:
+    """``scaled_dot_product_attention``'s keywords for ``case``'s mask:
+    ``is_causal`` for a plain causal one, a boolean (Sq, Skv) mask for a
+    window or a prefix, none when not causal."""
+    import torch
+    sq, skv, causal, window, prefix = (case[1], case[2]) + tuple(case[6:])
+    if not causal:
+        return {}
+    if not (window or prefix):
+        return {"is_causal": True}
+    qp = torch.arange(sq, device=device)[:, None]
+    kp = torch.arange(skv, device=device)[None, :]
+    ok = kp <= qp
+    if window:
+        ok &= (qp - kp) < window
+    if prefix:
+        ok |= kp < prefix
+    return {"attn_mask": ok}
+
+
+def flash_times(dev, cases=((FLASH_CASES[0], 200), (FLASH_CASES[1], 5),
+                            (JAMBA_FLASH, 200))):
     """flash_attention (bf16: the tensor-core kernel), its plain version
-    and the library's ``scaled_dot_product_attention`` (causal, GQA) in
-    bf16 at gemma's serving shape, the long prompt and jamba's serving
-    shape, each with its bound, beside the fp32 CUDA-core kernel on the
-    same values in fp32.  Returns (ms, plain ms, bound ms, bound by,
-    library ms) at the serving shape."""
+    and the library's ``scaled_dot_product_attention`` (GQA, the same
+    mask) in bf16 at each (case, iterations), by default gemma's serving
+    shape, the long prompt and jamba's serving shape, each with its
+    bound, beside the fp32 CUDA-core kernel on the same values in fp32.
+    Returns (ms, plain ms, bound ms, bound by, library ms) a case."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import flash_attention_cuda
     rows = []
-    for case, iters in ((FLASH_CASES[0], 200), (FLASH_CASES[1], 5),
-                        (JAMBA_FLASH, 200)):
+    for case, iters in cases:
+        kw = dict(zip(("causal", "window", "prefix_len"), case[6:]))
         q, k, v = flash_inputs(case, torch.bfloat16, dev, seed=2)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        mask = sdpa_mask(case, dev)
 
         def library():
-            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                                  enable_gqa=True)
+            return F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True,
+                                                  **mask)
         lib_err = scaled_err(library().transpose(1, 2),
-                             ref.flash_attention_ref(q, k, v))
-        ms = time_ms(lambda: flash_attention_cuda(q, k, v), iters)
-        plain_ms = time_ms(lambda: ref.flash_attention_ref(q, k, v), iters)
+                             ref.flash_attention_ref(q, k, v, **kw))
+        ms = time_ms(lambda: flash_attention_cuda(q, k, v, **kw), iters)
+        plain_ms = time_ms(lambda: ref.flash_attention_ref(q, k, v, **kw),
+                           iters)
         lib_ms = time_ms(library, iters)
         qf, kf, vf = (t.float() for t in (q, k, v))
-        fp32_ms = time_ms(lambda: flash_attention_cuda(qf, kf, vf), iters)
+        fp32_ms = time_ms(lambda: flash_attention_cuda(qf, kf, vf, **kw),
+                          iters)
         b_ms, b_by = flash_bound(case, 2)
         log(f"[time] flash_attention {flash_label(case, torch.bfloat16)}: "
             f"kernel {ms:.4f} ms (tensor cores), fp32 kernel {fp32_ms:.4f} "
@@ -612,8 +704,8 @@ def flash_times(dev):
             f"against plain {lib_err:.3g}) {lib_ms:.4f} ms, bound "
             f"{b_ms:.6f} ms ({b_by})")
         rows.append((ms, plain_ms, b_ms, b_by, lib_ms))
-        del q, k, v, qt, kt, vt, qf, kf, vf
-    return rows[0]
+        del q, k, v, qt, kt, vt, qf, kf, vf, mask
+    return rows
 
 
 def scan_inputs(case, dtype, device, seed=0):
@@ -714,18 +806,22 @@ def scan_times(dev):
     return rows[0], {c: r[0] for c, r in zip(SCAN_CASES[:2], rows)}
 
 
-def model_check(arch: str, dev, cache_keys, exact=(), changes=None) -> None:
+def model_check(arch: str, dev, cache_keys, exact=(), changes=None,
+                batch: int = 2) -> None:
     """``arch`` with 2 layers at full width (or as ``changes`` set it):
     the card against the port's CPU path on the same weights (drawn on
     the card from seed 0, cast once to bf16 where the forward computes
     in bf16), teacher-forced on the CPU's greedy tokens for 8 steps (the
-    prefill and 7 decodes).  Logits and each cache's ``cache_keys`` (of
-    the layers that have them) within MODEL_TOL of their largest
-    magnitude, its ``exact`` keys equal; the card's argmax equal to the
-    CPU's wherever the CPU's top-2 gap exceeds twice that bound.  With
-    MoE layers, a batch row is held until the card and the CPU send one
-    of its tokens to other experts, which they may do only on a near-tie
-    of the router (ROADMAP C3); at least one row is held to the end."""
+    prefill and 7 decodes) of ``batch`` prompts of 64 tokens (after the
+    vlm family's patch embeddings, beside the audio family's frames,
+    random bf16).  Logits and each cache's ``cache_keys`` (of the layers
+    that have them, and the audio family's per-layer encoder K/V) within
+    MODEL_TOL of their largest magnitude, its ``exact`` keys equal; the
+    card's argmax equal to the CPU's wherever the CPU's top-2 gap
+    exceeds twice that bound.  With MoE layers, a batch row is held
+    until the card and the CPU send one of its tokens to other experts,
+    which they may do only on a near-tie of the router (ROADMAP C3); at
+    least one row is held to the end."""
     import torch
     import torch.nn.functional as F
     from repro_torch.configs import get_arch
@@ -735,10 +831,13 @@ def model_check(arch: str, dev, cache_keys, exact=(), changes=None) -> None:
     p_dev = registry.serving_params(registry.init_params(
         torch.Generator(device=dev).manual_seed(0), cfg2))
     p_cpu = tree_to(p_dev, "cpu")
-    toks = torch.randint(0, cfg2.vocab_size, (2, 64),
-                         generator=torch.Generator().manual_seed(1))
+    g_cpu = torch.Generator().manual_seed(1)
+    inputs = {"tokens": torch.randint(0, cfg2.vocab_size, (batch, 64),
+                                      generator=g_cpu)}
+    inputs.update(registry.stub_inputs(cfg2, batch, g_cpu))
+    context = 64 + cfg2.num_prefix_tokens + 8
     prefill2, decode2 = (registry.prefill_fn(cfg2),
-                         registry.decode_fn(cfg2, 72))
+                         registry.decode_fn(cfg2, context))
     routes = {"cpu": [], "card": []}
     cpu_moe = {id(lp["moe"]) for lp in p_cpu["blocks"] if "moe" in lp}
     apply_moe = moe.apply_moe
@@ -751,24 +850,29 @@ def model_check(arch: str, dev, cache_keys, exact=(), changes=None) -> None:
             torch.softmax(logits, -1).cpu())
         return apply_moe(cfg_, p_, x_)
 
-    def rerouted() -> "torch.Tensor":
-        """Rows with a token that the two sides sent to other experts in
-        the calls since the last look; each such choice must sit on a
-        near-tie of the CPU's router (its k-th and (k+1)-th
-        probabilities within MODEL_TOL of the k-th)."""
+    def rerouted(held) -> "torch.Tensor":
+        """The rows not ``held`` and those with a token that the two
+        sides sent to other experts in the calls since the last look, in
+        call order; each such choice in a row held until that call must
+        sit on a near-tie of the CPU's router (its k-th and (k+1)-th
+        probabilities within MODEL_TOL of the k-th).  A rerouted token
+        moves its row's later layers, which may then route elsewhere
+        far from a tie: such a row is no longer held."""
         k = cfg2.experts_per_token
-        rows = torch.zeros(2, dtype=torch.bool)
+        rows = ~held
         assert len(routes["cpu"]) == len(routes["card"])
         for pc, pd in zip(routes["cpu"], routes["card"]):
             top = lambda pr: pr.sort(dim=-1, descending=True, stable=True
                                      ).indices[:, :k].sort(-1).values
-            moved = (top(pc) != top(pd)).any(-1)
+            moved = (top(pc) != top(pd)).any(-1).reshape(batch, -1)
             srt = pc.sort(-1, descending=True).values
-            gap = (srt[:, k - 1] - srt[:, k]) / srt[:, k - 1]
-            if bool((gap[moved] > MODEL_TOL).any()):
+            gap = ((srt[:, k - 1] - srt[:, k]) / srt[:, k - 1]).reshape(
+                batch, -1)
+            fresh = moved & ~rows[:, None]
+            if bool((gap[fresh] > MODEL_TOL).any()):
                 raise AssertionError(f"{arch}: a token routed elsewhere on "
-                                     f"the card at gap {gap[moved]}")
-            rows |= moved.reshape(2, -1).any(-1)
+                                     f"the card at gap {gap[fresh]}")
+            rows |= moved.any(-1)
         routes["cpu"].clear()
         routes["card"].clear()
         return rows
@@ -777,18 +881,28 @@ def model_check(arch: str, dev, cache_keys, exact=(), changes=None) -> None:
     seen = set()
     decisive = flipped = 0
     equal = True
-    held = torch.ones(2, dtype=torch.bool)
+    held = torch.ones(batch, dtype=torch.bool)
+
+    def layer_pairs(cd, cc):
+        """(card, CPU) dicts a layer: the slot caches or states, then
+        each top-level per-layer list (the encoder K/V) as one-key
+        dicts."""
+        pairs = list(zip(cd["layers"], cc["layers"]))
+        for key in sorted(set(cd) - {"layers"}):
+            pairs += [({key: a}, {key: b}) for a, b in zip(cd[key], cc[key])]
+        return pairs
+
     moe.apply_moe = recording
     try:
-        lg_c, c_c = prefill2(p_cpu, {"tokens": toks}, context=72)
-        lg_d, c_d = prefill2(p_dev, {"tokens": toks.to(dev)}, context=72)
+        lg_c, c_c = prefill2(p_cpu, inputs, context=context)
+        lg_d, c_d = prefill2(p_dev, tree_to(inputs, dev), context=context)
         for i in range(8):
-            held &= ~rerouted()
+            held = ~rerouted(held)
             if not held.any():
                 break
             errs["logits"] = max(errs["logits"],
                                  scaled_err(lg_d[held.to(dev)], lg_c[held]))
-            for a, b in zip(c_d["layers"], c_c["layers"]):
+            for a, b in layer_pairs(c_d, c_c):
                 seen.update(k for k in a if k in b)
                 for key in cache_keys:
                     if key in a:
@@ -814,12 +928,15 @@ def model_check(arch: str, dev, cache_keys, exact=(), changes=None) -> None:
           and bool(torch.isfinite(lg_d).all()))
     same = f"; {', '.join(exact)} equal {equal}" if exact else ""
     same += f"; in no layer's cache: {unseen}" if unseen else ""
-    rows = (f"; rows held to the end {int(held.sum())} of 2"
+    rows = (f"; rows held to the end {int(held.sum())} of {batch}"
             if cfg2.is_moe else "")
-    log(f"[check] {arch} {cfg2.num_layers} layers at full width, cuda vs "
-        f"cpu (bf16, B=2, T=64, 8 steps): max err / scale "
+    enc = (f" (+ {cfg2.encoder_layers} encoder layers over "
+           f"{cfg2.encoder_seq} frames)" if cfg2.family == "audio" else "")
+    log(f"[check] {arch} {cfg2.num_layers} layers{enc} at full width, cuda "
+        f"vs cpu (bf16, B={batch}, T=64, 8 steps): max err / scale "
         f"{json.dumps(errs)} (tol {MODEL_TOL}){same}{rows}; argmax equal "
-        f"on {decisive - flipped} of {decisive} decisive steps of 16; "
+        f"on {decisive - flipped} of {decisive} decisive steps of "
+        f"{8 * batch}; "
         f"{time.perf_counter() - t0:.1f}s {'OK' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"{arch} on the card disagrees with the CPU")
@@ -827,28 +944,45 @@ def model_check(arch: str, dev, cache_keys, exact=(), changes=None) -> None:
     torch.cuda.empty_cache()
 
 
-def serve_path(arch: str, expected, dev, argv=None, cfg=None, **serve_kw):
+def serve_path(arch: str, expected, dev, argv=None, cfg=None,
+               per_step=None, **serve_kw):
     """Serving ``arch`` at full width, through ``python -m
     repro_torch.launch.serve``'s ``main(argv)``, or its ``serve(cfg,
     **serve_kw)`` for a config the CLI does not name (fewer layers); the
     launch counts reset just before and read just after must be
-    ``expected`` (kernel -> launches at prefill; none in decode), and no
-    other kernel launched.  Its peak device memory includes what the
-    earlier phases still hold.  Returns the launch counts."""
+    ``expected`` (kernel -> launches) at prefill and ``per_step`` (none
+    by default) at each decode step, and no other kernel launched.  Its
+    peak device memory includes what the earlier phases still hold.
+    Returns the launch counts of the whole run."""
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.kernels import build
     from repro_torch.launch import serve as serve_cli
+    from repro_torch.models import transformer
     held = torch.cuda.memory_allocated(dev)
+    at_prefill = {}
+    prefill = transformer.prefill
+
+    def counted(*args, **kw):
+        """``transformer.prefill``, reading the launch counts after it
+        (a launch counts when it is enqueued)."""
+        out = prefill(*args, **kw)
+        at_prefill.update(build.LAUNCHES)
+        return out
+
     t_wall = time.perf_counter()
     build.reset_launches()
     out = io.StringIO()
-    with contextlib.redirect_stdout(out):
-        if cfg is None:
-            rc = serve_cli.main(argv)
-        else:
-            serve_cli.serve(cfg, device=dev, **serve_kw)
-            rc = 0
+    transformer.prefill = counted
+    try:
+        with contextlib.redirect_stdout(out):
+            if cfg is None:
+                rc = serve_cli.main(argv)
+            else:
+                serve_cli.serve(cfg, device=dev, **serve_kw)
+                rc = 0
+    finally:
+        transformer.prefill = prefill
     served = dict(build.LAUNCHES)
     t_wall = time.perf_counter() - t_wall
     lines = out.getvalue().strip().splitlines()
@@ -858,8 +992,13 @@ def serve_path(arch: str, expected, dev, argv=None, cfg=None, **serve_kw):
     first = json.loads(next(line for line in lines if line.startswith(
         "[serve] first sequence:")).split(":", 1)[1])
     cfg = cfg or get_arch(arch)
+    steps = stats["max_new"]
+    decode = {k: n - at_prefill.get(k, 0) for k, n in served.items()}
+    want_decode = {k: (per_step or {}).get(k, 0) * steps for k in served}
     log(f"[serve path] {arch} ({cfg.num_layers} layers, B={stats['batch']}, "
-        f"prompt {stats['prompt_len']}) launches {served}; "
+        f"prompt {stats['prompt_len']}) launches {served}: at prefill "
+        f"{ {k: n for k, n in at_prefill.items() if n} }, in {steps} decode "
+        f"steps { {k: n for k, n in decode.items() if n} }; "
         f"{stats['params']} params; peak device memory "
         f"{stats['peak_mem_bytes'] / 1e9:.2f} GB (of which "
         f"{held / 1e9:.2f} GB held by earlier phases); prefill "
@@ -868,7 +1007,8 @@ def serve_path(arch: str, expected, dev, argv=None, cfg=None, **serve_kw):
         f"{t_wall:.1f}s with the weights' draw")
     if (rc != 0 or not stats["device"].startswith("cuda")
             or stats["arch"] != arch or stats["layers"] != cfg.num_layers
-            or served != {k: expected.get(k, 0) for k in served}
+            or at_prefill != {k: expected.get(k, 0) for k in served}
+            or decode != want_decode
             or not all(0 <= t < cfg.vocab_size for t in first)
             or len(first) != min(16, stats["max_new"])
             or not (math.isfinite(stats["prefill_s"])
@@ -876,6 +1016,52 @@ def serve_path(arch: str, expected, dev, argv=None, cfg=None, **serve_kw):
         raise AssertionError(f"serving path {arch}: rc {rc}, launches "
                              f"{served}, stats {stats}")
     return served
+
+
+def zoo_phase(dev) -> dict:
+    """Phase 5i, the rest of the LM zoo: ``flash_attention`` against its
+    plain version at ``ZOO_FLASH_CASES``, timed at whisper's encoder and
+    paligemma's prefix-LM prefill; the 2-layer full-width model checks of
+    ``ZOO_CHECKS``; then each of ``ZOO_ARCHS`` served at full width (B=4,
+    prompt 64, 32 new tokens; phi3.5-moe with ``PHI_LAYERS`` layers), its
+    weights freed before the next is drawn: one ``flash_attention``
+    launch a self-attention layer at prefill (whisper's also one an
+    encoder layer and one a cross-attention), none in decode but
+    whisper's cross-attention, one a decoder layer a step, and no other
+    kernel.  Returns the check's error, the two timings (as
+    ``flash_times``) and each arch's launch counts."""
+    import torch
+    from repro_torch.configs import get_arch
+    t0 = time.perf_counter()
+    err = flash_checks(dev, ZOO_FLASH_CASES)
+    timing = flash_times(dev, ((WHISPER_ENC_FLASH, 20),
+                               (PALIGEMMA_FLASH, 200)))
+    for arch, (keys, changes, batch) in ZOO_CHECKS.items():
+        model_check(arch, dev, keys, exact=("pos", "idx"), changes=changes,
+                    batch=batch)
+    served = {}
+    for arch in ZOO_ARCHS:
+        gc.collect()                  # the last arch's weights are gone
+        torch.cuda.empty_cache()
+        cfg = get_arch(arch)
+        prefill = {"flash_attention": cfg.num_layers}
+        per_step = None
+        if cfg.family == "audio":
+            prefill["flash_attention"] += cfg.encoder_layers + cfg.num_layers
+            per_step = {"flash_attention": cfg.num_layers}
+        if arch == PHI:
+            cfg = dataclasses.replace(cfg, num_layers=PHI_LAYERS)
+            prefill = {"flash_attention": PHI_LAYERS}
+            served[arch] = serve_path(arch, prefill, dev, cfg=cfg,
+                                      batch=4, prompt_len=64, max_new=32,
+                                      temperature=0.0, seed=0)
+        else:
+            served[arch] = serve_path(arch, prefill, dev, per_step=per_step,
+                                      argv=["--arch", arch] + ZOO_SERVE_ARGV)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[zoo] phase 5i in {time.perf_counter() - t0:.1f}s")
+    return {"err": err, "timing": timing, "served": served}
 
 
 def probe_bounds(n_bytes: float, s_rows: int) -> tuple:
@@ -3403,8 +3589,8 @@ def main() -> int:
     # -- 5b. the dense family: flash_attention, then gemma-2b ----------------
     gc.collect()                      # the rwkv6 weights are gone
     torch.cuda.empty_cache()
-    err_flash = flash_checks(dev)
-    flash_timing = flash_times(dev)
+    err_flash = flash_checks(dev)[FLASH_CASES[0]]
+    flash_timing = flash_times(dev)[0]
     model_check("gemma-2b", dev, ("k", "v"), exact=("pos", "idx"))
     served_dense = serve_path(
         "gemma-2b", {"flash_attention": get_arch("gemma-2b").num_layers},
@@ -3434,8 +3620,13 @@ def main() -> int:
                        "flash_attention": kinds.count("attn")}, dev,
                cfg=jamba16, **JAMBA_LONG_SERVE)
 
-    # -- 5d. the client mesh, with probe_loss -------------------------------
+    # -- 5i. the rest of the LM zoo: flash_attention's other paths --------
     gc.collect()                      # the jamba weights are gone
+    torch.cuda.empty_cache()
+    zoo = zoo_phase(dev)
+
+    # -- 5d. the client mesh, with probe_loss -------------------------------
+    gc.collect()
     torch.cuda.empty_cache()
     loss_timing, err_loss = probe_loss_phase(
         dev, big, big_probe, bfeats0, main_probe, feats_main)
@@ -3585,6 +3776,18 @@ def main() -> int:
         if name in sweep_reading:        # the sweep's seed-batched launch
             entry["seeds"] = dict(sweep_reading[name],
                                   launches=sweep_reading["launches"][name])
+        if name == "flash_attention":    # phase 5i's paths
+            entry["paths"] = [
+                dict(zip(("ms", "plain_ms", "bound_ms", "bound_by",
+                          "library_ms"), row), path=path,
+                     shape=flash_label(case, torch.bfloat16),
+                     launches=zoo["served"][arch][name],
+                     max_abs_err=zoo["err"][case])
+                for (path, arch, case), row in zip(
+                    (("whisper-medium encoder", "whisper-medium",
+                      WHISPER_ENC_FLASH),
+                     ("paligemma-3b prefix-LM prefill", "paligemma-3b",
+                      PALIGEMMA_FLASH)), zoo["timing"])]
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -13,9 +13,10 @@ from dataclasses import dataclass
 
 @dataclass(frozen=True)
 class ArchConfig:
-    """A single transformer/SSM/hybrid architecture (the decoder
-    backbone; the fields of the families the port does not serve yet
-    are kept so that configs copy over unchanged)."""
+    """A single transformer/SSM/hybrid architecture: the decoder
+    backbone.  For the audio and vlm families the modality frontend is
+    a stub, and ``encoder_seq`` / ``num_prefix_tokens`` give the
+    precomputed embeddings the backbone consumes."""
 
     name: str
     family: str                      # dense | moe | ssm | hybrid | audio | vlm

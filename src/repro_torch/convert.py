@@ -6,7 +6,8 @@ PyTorch's layout (conv OIHW, dense ``(out, in)``).  The fc1 ``in`` axis
 keeps the NHWC flatten order on both sides — ``cnn_forward`` permutes
 its activation to NHWC before flattening, so no row of fc1 is permuted
 here.  For the LM zoo see ``rwkv_params_from_jax``,
-``dense_params_from_jax`` and ``hybrid_params_from_jax``.
+``dense_params_from_jax`` (also the moe and vlm families),
+``hybrid_params_from_jax`` and ``audio_params_from_jax``.
 """
 from __future__ import annotations
 
@@ -56,6 +57,7 @@ def params_to_numpy(params: Mapping[str, torch.Tensor]) -> Dict:
 # here, by block group (the MoE's expert stacks keep (E, in, out))
 RWKV_DENSE = ("wr", "wk", "wv", "wg", "wo", "wA", "wB", "ck", "cv")
 _LM_DENSE = {"rwkv": RWKV_DENSE, "attn": ("wq", "wk", "wv", "wo"),
+             "xattn": ("wq", "wk", "wv", "wo"),
              "mlp": ("wi", "wg", "wo"),
              "mamba": ("in_proj", "x_proj", "dt_proj", "out_proj"),
              "moe": ("router",)}
@@ -73,6 +75,12 @@ def _block_from_jax(blocks: Mapping, i: int, device=None) -> Dict:
             for group, leaves in blocks.items()}
 
 
+def _stack_from_jax(stacked: Mapping, device=None) -> list:
+    """One block dict per entry of a layer-stacked block tree."""
+    return [_block_from_jax(stacked, i, device)
+            for i in range(np.asarray(stacked["n1"]["w"]).shape[0])]
+
+
 def _lm_params_from_jax(tree: Mapping, device=None, blocks=None) -> Dict:
     """The embedding, head and final norm, and ``blocks`` (default: one
     per entry of the reference's layer-stacked ``blocks``)."""
@@ -81,11 +89,8 @@ def _lm_params_from_jax(tree: Mapping, device=None, blocks=None) -> Dict:
                           for k, v in tree["final_norm"].items()}}
     if "lm_head" in tree:
         out["lm_head"] = _t(np.asarray(tree["lm_head"]).T, device)
-    if blocks is None:
-        stacked = tree["blocks"]
-        blocks = [_block_from_jax(stacked, i, device) for i in
-                  range(np.asarray(stacked["n1"]["w"]).shape[0])]
-    out["blocks"] = blocks
+    out["blocks"] = (_stack_from_jax(tree["blocks"], device)
+                     if blocks is None else blocks)
     return out
 
 
@@ -98,11 +103,12 @@ def rwkv_params_from_jax(tree: Mapping, device=None) -> Dict:
 
 
 def dense_params_from_jax(tree: Mapping, device=None) -> Dict:
-    """The reference's dense-family parameter tree (``blocks`` stacked
-    on a leading layer axis, each with ``n1``, ``n2``, ``attn`` and
-    ``mlp``) -> the port's per-layer list, the attention and MLP weights
-    and the head ``(out, in)``.  Norm weights (and qk norms) are copied
-    as stored (weight - 1)."""
+    """The reference's dense-, moe- or vlm-family parameter tree
+    (``blocks`` stacked on a leading layer axis, each with ``n1``,
+    ``n2``, ``attn`` and ``mlp`` or ``moe``) -> the port's per-layer
+    list, the attention and MLP weights, the router and the head ``(out,
+    in)``, the expert stacks as stored (E, in, out).  Norm weights (and
+    qk norms) are copied as stored (weight - 1)."""
     return _lm_params_from_jax(tree, device)
 
 
@@ -119,3 +125,18 @@ def hybrid_params_from_jax(tree: Mapping, device=None) -> Dict:
     blocks = [_block_from_jax(period[i], g, device)
               for g in range(groups) for i in range(len(period))]
     return _lm_params_from_jax(tree, device, blocks)
+
+
+def audio_params_from_jax(tree: Mapping, device=None) -> Dict:
+    """The reference's audio-family parameter tree (``encoder``:
+    ``layers`` stacked, each with ``n1``, ``n2``, ``attn`` and ``mlp``,
+    and ``final_norm``; ``blocks`` stacked, each adding ``nc`` and the
+    cross-attention ``xattn``) -> the port's per-layer lists, dense
+    weights and the head ``(out, in)``.  Layernorm weights and biases
+    are copied as stored."""
+    out = _lm_params_from_jax(tree, device)
+    enc = tree["encoder"]
+    out["encoder"] = {"layers": _stack_from_jax(enc["layers"], device),
+                      "final_norm": {k: _t(v, device) for k, v in
+                                     enc["final_norm"].items()}}
+    return out

@@ -3,16 +3,22 @@
 
 Usage:
   python -m repro_torch.launch.serve --batch 4 --prompt-len 64 --max-new 32
-  python -m repro_torch.launch.serve --arch rwkv6-3b
-  python -m repro_torch.launch.serve --arch jamba-v0.1-52b --reduced --device cpu
+  python -m repro_torch.launch.serve --arch whisper-medium
+  python -m repro_torch.launch.serve --arch qwen3-moe-30b-a3b --reduced --device cpu
   python -m repro_torch.launch.serve --reduced --device cpu
 
-``--arch`` defaults to gemma-2b, as the reference's does; the port also
-serves rwkv6-3b and jamba-v0.1-52b (whose 32 layers, ~103 GB in bf16,
-do not fit one 80 GB card: ``serve(cfg)`` serves fewer layer groups).
-Weights are random, drawn from ``--seed`` on the device, each layer
-cast to bf16 where the forward computes in bf16 before the next is
-drawn (``registry.init_serving_params``).  The last line is a JSON
+``--arch`` takes the reference's ten ids: rwkv6-3b, granite-8b,
+whisper-medium, yi-6b, phi3.5-moe-42b-a6.6b, paligemma-3b, gemma-2b
+(the default, as the reference's), minicpm-2b, jamba-v0.1-52b and
+qwen3-moe-30b-a3b.  Two do not fit one 80 GB card at full depth in
+bf16: jamba-v0.1-52b (32 layers, ~103 GB) and phi3.5-moe-42b-a6.6b (32
+layers, ~84 GB); ``serve(cfg)`` serves a config with fewer layers, and
+the CLI raises the card's out-of-memory error for them.  Weights are
+random, drawn from ``--seed`` on the device, each layer cast to bf16
+where the forward computes in bf16 before the next is drawn
+(``registry.init_serving_params``); so are whisper's frame embeddings
+(B, 1500, D) and paligemma's patch embeddings (B, 256, D), the stubs of
+their frontends, as the reference draws them.  The last line is a JSON
 object with the prefill and decode seconds, tokens per second and, on
 the card, the peak device memory.
 """
@@ -40,14 +46,18 @@ def serve(cfg, *, batch: int = 4, prompt_len: int = 64, max_new: int = 32,
           temperature: float = 0.0, seed: int = 0, device=None) -> dict:
     """Serve ``cfg`` once: random weights from ``seed`` (cast to bf16 as
     they are drawn, ``registry.init_serving_params``), ``batch`` random
-    prompts of ``prompt_len`` tokens, ``max_new`` new tokens each.
-    Prints the run and, last, its stats as JSON, and returns them."""
+    prompts of ``prompt_len`` tokens (after the vlm family's
+    ``num_prefix_tokens`` random patch embeddings; beside the audio
+    family's ``encoder_seq`` random frame embeddings), ``max_new`` new
+    tokens each.  Prints the run and, last, its stats as JSON, and
+    returns them."""
     dev = resolve_device(device)
     g = torch.Generator(device=dev).manual_seed(seed)
     params = registry.init_serving_params(g, cfg)
     prompts = {"tokens": torch.randint(0, cfg.vocab_size,
                                        (batch, prompt_len), generator=g,
                                        device=dev)}
+    prompts.update(registry.stub_inputs(cfg, batch, g))
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
 
@@ -72,10 +82,7 @@ def serve(cfg, *, batch: int = 4, prompt_len: int = 64, max_new: int = 32,
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
-    # no `choices`: an arch the port does not serve yet reaches get_arch,
-    # which names the ROADMAP item that brings it
-    ap.add_argument("--arch", default="gemma-2b",
-                    help=f"one of {', '.join(ARCH_IDS)}")
+    ap.add_argument("--arch", choices=ARCH_IDS, default="gemma-2b")
     ap.add_argument("--reduced", action="store_true",
                     help="the scaled-down variant (2 layers, d_model 256)")
     ap.add_argument("--batch", type=int, default=4)

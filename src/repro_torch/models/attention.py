@@ -6,7 +6,9 @@ the hand-written kernel for a CUDA tensor, its plain version on the
 CPU, as ``repro.kernels.ops.flash_attention(..., impl="pallas")`` would
 (the reference's model calls its own jnp chunked version).  A decode
 step attends one token over a slot cache in plain ops, as in the
-reference.  Cross-attention comes with the audio family (ROADMAP A13b).
+reference.  Cross-attention (the audio family's decoder) attends to the
+encoder's K/V through the same ``flash_attention``, unmasked, in
+prefill and at every decode step, as the reference's does.
 """
 from __future__ import annotations
 
@@ -38,6 +40,10 @@ def init_attention(g: torch.Generator, cfg, d: int) -> Params:
         p["qn"] = torch.zeros(dh, dtype=PARAM_DTYPE, device=g.device)
         p["kn"] = torch.zeros(dh, dtype=PARAM_DTYPE, device=g.device)
     return p
+
+
+def init_cross_attention(g: torch.Generator, cfg, d: int) -> Params:
+    return init_attention(g, cfg, d)
 
 
 # --------------------------------------------------------------------------
@@ -133,3 +139,25 @@ def attn_apply_decode(cfg, p: Params, x: torch.Tensor, cache: Params, *,
                                   prefix_len=prefix_len)
     y = F.linear(out.reshape(x.shape[0], 1, -1), p["wo"].to(x.dtype))
     return y, cache
+
+
+def cross_attn_apply(cfg, p: Params, x: torch.Tensor, enc_k: torch.Tensor,
+                     enc_v: torch.Tensor) -> torch.Tensor:
+    """Cross-attention of x (B, S, D) to precomputed encoder K/V (B,
+    S_enc, Hkv, Dh): no rope, no mask (whisper's decoder)."""
+    b, s, _ = x.shape
+    dt = x.dtype
+    q = F.linear(x, p["wq"].to(dt)).reshape(b, s, cfg.num_heads,
+                                            cfg.head_dim)
+    out = kops.flash_attention(q, enc_k.to(dt), enc_v.to(dt), causal=False)
+    return F.linear(out.reshape(b, s, -1), p["wo"].to(dt))
+
+
+def encoder_kv(cfg, p: Params, enc: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Cross-attention K/V (B, S_enc, Hkv, Dh) of the encoder states."""
+    b, s, _ = enc.shape
+    dt = enc.dtype
+    shape = (b, s, cfg.num_kv_heads, cfg.head_dim)
+    return (F.linear(enc, p["wk"].to(dt)).reshape(shape),
+            F.linear(enc, p["wv"].to(dt)).reshape(shape))

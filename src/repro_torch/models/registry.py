@@ -13,15 +13,17 @@ from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import COMPUTE_DTYPE, Params
 
 # the weights the forward casts to the compute dtype at every use: the
-# embedding and head (gathered/projected in bf16) and, per block, the
-# dense matrices (and RWKV's lerp coefficients, mamba's conv, biases and
-# skip D), by the block's groups.  Norm weights (n1, n2, final_norm, qk
-# norms), w0, u and A_log are read in fp32 and stay fp32.
+# embedding and head (gathered/projected in bf16) and, per block (and per
+# encoder layer), the dense matrices (and RWKV's lerp coefficients,
+# mamba's conv, biases and skip D, the MoE's router and expert stacks),
+# by the block's groups.  Norm weights (n1, nc, n2, final_norm, qk norms,
+# layernorm biases), w0, u and A_log are read in fp32 and stay fp32.
 _CAST_TOP = ("embed", "lm_head")
 _CAST_IN_BLOCK = {
     "rwkv": ("mu", "wr", "wk", "wv", "wg", "wo", "wA", "wB", "mu_c", "ck",
              "cv"),
     "attn": ("wq", "wk", "wv", "wo"),
+    "xattn": ("wq", "wk", "wv", "wo"),
     "mlp": ("wi", "wg", "wo"),
     "mamba": ("in_proj", "conv_w", "conv_b", "x_proj", "dt_proj", "dt_bias",
               "D", "out_proj"),
@@ -46,6 +48,22 @@ def init_cache(cfg: ArchConfig, batch: int, context: int, device=None):
     return tfm.init_cache(cfg, batch, context, device=device)
 
 
+def stub_inputs(cfg: ArchConfig, batch: int,
+                g: torch.Generator) -> Params:
+    """The embeddings that stand in for a modality frontend, drawn from
+    ``g`` on its device in the compute dtype, as the reference's stubs
+    are random: the audio family's ``frames`` (B, encoder_seq, D), the
+    vlm family's ``prefix`` (B, num_prefix_tokens, D); none for the
+    other families."""
+    stubs = {"audio": ("frames", cfg.encoder_seq),
+             "vlm": ("prefix", cfg.num_prefix_tokens)}
+    if cfg.family not in stubs:
+        return {}
+    key, n = stubs[cfg.family]
+    return {key: torch.randn((batch, n, cfg.d_model), generator=g,
+                             device=g.device).to(COMPUTE_DTYPE)}
+
+
 def _cast(tree: Params) -> Params:
     """Cast, in place, the top-level dict's or one layer's weights that
     the forward casts to bf16 at each use."""
@@ -66,7 +84,8 @@ def serving_params(params: Params) -> Params:
     weights take half the memory and half the bytes per decode step.
     Each fp32 tensor is dropped as soon as its copy exists."""
     _cast(params)
-    for lp in params["blocks"]:
+    encoder = params.get("encoder", {"layers": []})["layers"]
+    for lp in encoder + params["blocks"]:
         _cast(lp)
     return params
 

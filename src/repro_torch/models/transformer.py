@@ -1,17 +1,24 @@
-"""Model assembly (``repro.models.transformer``), for the families the
-port serves: the attention-free ``ssm`` family (RWKV-6), the ``dense``
-family (gemma-2b) and the ``hybrid`` family (jamba: mamba and attention
-layers, MoE on every other one).
+"""Model assembly (``repro.models.transformer``) for every family of the
+reference:
+
+- ssm (RWKV-6), dense (gemma-2b, yi-6b, granite-8b, minicpm-2b) and moe
+  (qwen3-moe, phi3.5-moe: every layer's MLP an MoE): decoder layers;
+- hybrid (jamba): mamba and attention layers, MoE on every other one;
+- audio (whisper): an encoder over precomputed frame embeddings, then
+  decoder layers with cross-attention to it;
+- vlm (paligemma): the dense decoder over precomputed patch embeddings
+  before the tokens, with prefix-LM masking over them at prefill.
 
 Parameters are a nested dict: ``embed`` (V, D), ``final_norm``,
-``lm_head`` (V, D) unless tied, and ``blocks``, a list with one dict
-per layer in layer order (the reference stacks layers, or jamba's
+``lm_head`` (V, D) unless tied, ``blocks``, a list with one dict per
+layer in layer order, and for the audio family ``encoder`` (``layers``,
+a list, and ``final_norm``).  The reference stacks layers, or jamba's
 groups of ``attn_layer_period`` layers, on a leading axis and scans
-over it; the port loops).  The decode cache is ``{"layers": [one entry
+over it; the port loops.  The decode cache is ``{"layers": [one entry
 per layer]}``: an RWKV state, an attention layer's slot cache
-(``attention.make_kv_cache``) or a mamba layer's ``{conv, h}``.  The
-moe, audio and vlm families raise ``NotImplementedError`` (ROADMAP
-A13b).
+(``attention.make_kv_cache``) or a mamba layer's ``{conv, h}``; the
+audio family's adds ``cross_k`` and ``cross_v``, a list of each
+decoder layer's encoder K/V (B, S_enc, Hkv, Dh).
 """
 from __future__ import annotations
 
@@ -30,28 +37,19 @@ from repro_torch.models.layers import (COMPUTE_DTYPE, Params, apply_mlp,
                                        apply_norm, dense_init, embed_init,
                                        init_mlp, init_norm, weak_scalar)
 
-PORTED_FAMILIES = ("ssm", "dense", "hybrid")
-
-
-def _require_ported(cfg: ArchConfig) -> None:
-    if cfg.family not in PORTED_FAMILIES or (cfg.is_moe
-                                             and cfg.family != "hybrid"):
-        raise NotImplementedError(
-            f"family {cfg.family!r} ({cfg.name}) is not ported yet: the "
-            f"port serves the ssm (rwkv6), dense (gemma) and hybrid "
-            f"(jamba) families; moe, audio and vlm come with ROADMAP A13b")
-
 
 def _layer_body(cfg: ArchConfig, i: int) -> Tuple[str, bool]:
-    """(mixer, is_moe) of layer ``i``: 'rwkv', 'attn' or 'mamba'; a
-    hybrid layer takes the kind of its place in its group, as the
-    reference's group body does."""
+    """(mixer, is_moe) of decoder layer ``i``: 'rwkv', 'attn' or
+    'mamba'; a hybrid layer takes the kind of its place in its group, as
+    the reference's group body does, and every layer of the dense, moe
+    and vlm families layer 0's MoE flag, as the reference's scan body
+    does."""
     if cfg.family == "ssm":
         return "rwkv", False
     if cfg.family == "hybrid":
         j = i % cfg.attn_layer_period
         return cfg.layer_kind(j), cfg.layer_is_moe(j)
-    return "attn", False
+    return "attn", cfg.layer_is_moe(0)
 
 
 # ==========================================================================
@@ -64,12 +62,30 @@ def _init_rwkv_layer(g: torch.Generator, cfg: ArchConfig) -> Params:
             "rwkv": rwkv.init_rwkv_layer(g, cfg)}
 
 
+def _init_whisper_enc_layer(g: torch.Generator, cfg: ArchConfig) -> Params:
+    return {"n1": init_norm(cfg, cfg.d_model, g.device),
+            "n2": init_norm(cfg, cfg.d_model, g.device),
+            "attn": attn.init_attention(g, cfg, cfg.d_model),
+            "mlp": init_mlp(g, cfg, cfg.d_model, cfg.d_ff)}
+
+
+def _init_whisper_dec_layer(g: torch.Generator, cfg: ArchConfig) -> Params:
+    return {"n1": init_norm(cfg, cfg.d_model, g.device),
+            "nc": init_norm(cfg, cfg.d_model, g.device),
+            "n2": init_norm(cfg, cfg.d_model, g.device),
+            "attn": attn.init_attention(g, cfg, cfg.d_model),
+            "xattn": attn.init_cross_attention(g, cfg, cfg.d_model),
+            "mlp": init_mlp(g, cfg, cfg.d_model, cfg.d_ff)}
+
+
 def _init_layer(g: torch.Generator, cfg: ArchConfig, i: int) -> Params:
-    """Layer ``i``: norms, its mixer (attention or mamba), then its MLP
-    or MoE."""
+    """Decoder layer ``i``: norms, its mixer (attention or mamba), then
+    its MLP or MoE (whisper's: self-attention, cross-attention, MLP)."""
     mixer, is_moe = _layer_body(cfg, i)
     if mixer == "rwkv":
         return _init_rwkv_layer(g, cfg)
+    if cfg.family == "audio":
+        return _init_whisper_dec_layer(g, cfg)
     p = {"n1": init_norm(cfg, cfg.d_model, g.device),
          "n2": init_norm(cfg, cfg.d_model, g.device)}
     if mixer == "attn":
@@ -89,8 +105,8 @@ def init_params(g: torch.Generator, cfg: ArchConfig,
     """The full parameter tree (fp32), drawn from ``g`` on its device.
     ``finish`` (default: none) is applied to the top-level dict before
     the first layer is drawn, and to each layer's dict before the next
-    one is drawn (``registry.init_serving_params`` casts there)."""
-    _require_ported(cfg)
+    one is drawn (``registry.init_serving_params`` casts there); the
+    audio family's encoder layers are drawn first."""
     finish = finish or (lambda p: p)
     params: Params = {
         "embed": embed_init(g, cfg.vocab_size, cfg.d_model),
@@ -99,6 +115,11 @@ def init_params(g: torch.Generator, cfg: ArchConfig,
     if not cfg.tie_embeddings:
         params["lm_head"] = dense_init(g, cfg.d_model, cfg.vocab_size)
     params = finish(params)
+    if cfg.family == "audio":
+        params["encoder"] = {
+            "layers": [finish(_init_whisper_enc_layer(g, cfg))
+                       for _ in range(cfg.encoder_layers)],
+            "final_norm": init_norm(cfg, cfg.d_model, g.device)}
     params["blocks"] = [finish(_init_layer(g, cfg, i))
                         for i in range(cfg.num_layers)]
     return params
@@ -117,8 +138,7 @@ def init_cache(cfg: ArchConfig, batch: int, context: int,
     """Decode cache, one entry per layer: a zero RWKV or mamba state
     (``context`` unused), or an empty slot cache of ``context``
     positions, only the window's (a ring) once the context exceeds the
-    window."""
-    _require_ported(cfg)
+    window; the audio family's adds zero encoder K/V per layer."""
     slots = decode_window(cfg, context) or context
     layers = []
     for i in range(cfg.num_layers):
@@ -130,7 +150,12 @@ def init_cache(cfg: ArchConfig, batch: int, context: int,
         else:
             layers.append(attn.make_kv_cache(batch, slots, cfg.num_kv_heads,
                                              cfg.head_dim, device=device))
-    return {"layers": layers}
+    if cfg.family != "audio":
+        return {"layers": layers}
+    shape = (batch, cfg.encoder_seq, cfg.num_kv_heads, cfg.head_dim)
+    zeros = lambda: [torch.zeros(shape, dtype=COMPUTE_DTYPE, device=device)
+                     for _ in range(cfg.num_layers)]
+    return {"layers": layers, "cross_k": zeros(), "cross_v": zeros()}
 
 
 # ==========================================================================
@@ -269,6 +294,61 @@ def _run_rwkv_stack(cfg, params, x, *, mode, cache=None):
     return x, {"layers": states}
 
 
+def _sinusoidal(s: int, d: int, device=None) -> torch.Tensor:
+    """(s, d) fp32 sinusoidal positions: sines, then cosines."""
+    pos = torch.arange(s, dtype=torch.float32, device=device)[:, None]
+    dim = torch.arange(d // 2, dtype=torch.float32, device=device)[None, :]
+    ang = pos / torch.pow(10000.0, 2 * dim / d)
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+def run_encoder(cfg: ArchConfig, params: Params,
+                frames: torch.Tensor) -> torch.Tensor:
+    """Whisper's encoder over precomputed frame embeddings (B, S_enc,
+    D): sinusoidal positions, then pre-norm bidirectional attention (no
+    rope) and MLP a layer."""
+    x = frames.to(COMPUTE_DTYPE)
+    x = x + _sinusoidal(x.shape[1], cfg.d_model, x.device).to(x.dtype)
+    pos = torch.arange(x.shape[1], device=x.device)
+    enc = params["encoder"]
+    for lp in enc["layers"]:
+        x = x + attn.attn_apply_full(cfg, lp["attn"],
+                                     apply_norm(cfg, lp["n1"], x), pos,
+                                     causal=False, use_rope=False)
+        x = x + apply_mlp(cfg, lp["mlp"], apply_norm(cfg, lp["n2"], x))
+    return apply_norm(cfg, enc["final_norm"], x)
+
+
+def _run_whisper_decoder(cfg, params, x, positions, *, mode, enc=None,
+                         cache=None, window=0, context=0):
+    """Every decoder layer in order: self-attention, cross-attention to
+    the encoder (its K/V computed from ``enc`` at prefill, read from the
+    cache in decode), MLP.  Returns (x, the new cache)."""
+    layers, kvs, cross_k, cross_v = [], [], [], []
+    for i, lp in enumerate(params["blocks"]):
+        h = apply_norm(cfg, lp["n1"], x)
+        if mode == "decode":
+            a, c = attn.attn_apply_decode(cfg, lp["attn"], h,
+                                          cache["layers"][i], window=window)
+            layers.append(c)
+            xk, xv = cache["cross_k"][i], cache["cross_v"][i]
+        else:
+            a, kv = attn.attn_apply_full(cfg, lp["attn"], h, positions,
+                                         window=window, return_kv=True)
+            kvs.append(kv)
+            xk, xv = attn.encoder_kv(cfg, lp["xattn"], enc)
+            cross_k.append(xk.to(COMPUTE_DTYPE))
+            cross_v.append(xv.to(COMPUTE_DTYPE))
+        x = x + a
+        x = x + attn.cross_attn_apply(cfg, lp["xattn"],
+                                      apply_norm(cfg, lp["nc"], x), xk, xv)
+        x = x + apply_mlp(cfg, lp["mlp"], apply_norm(cfg, lp["n2"], x))
+    if mode == "decode":
+        return x, dict(cache, layers=layers)
+    cache = _kvs_to_cache(cfg, kvs, positions, context)
+    return x, dict(cache, cross_k=cross_k, cross_v=cross_v)
+
+
 def _embed(cfg: ArchConfig, params: Params,
            tokens: torch.Tensor) -> torch.Tensor:
     x = params["embed"][tokens].to(COMPUTE_DTYPE)
@@ -283,19 +363,31 @@ def forward(cfg: ArchConfig, params: Params,
             context: int = 0) -> Tuple[torch.Tensor, Params]:
     """mode: 'prefill' | 'decode'.  Returns (hidden (B, S, D), the new
     cache).  ``window`` masks a sliding window; ``context`` sizes a
-    prefill's cache (both unused by the recurrent family)."""
-    _require_ported(cfg)
+    prefill's cache (both unused by the recurrent family).  A prefill
+    batch holds ``tokens`` and, for the audio family, ``frames`` (B,
+    S_enc, D), for the vlm family ``prefix`` (B, P, D), whose P
+    positions come before the tokens' and attend bidirectionally."""
     if mode not in ("prefill", "decode"):
         raise ValueError(f"mode must be 'prefill' or 'decode', got {mode!r}")
     x = _embed(cfg, params, batch["tokens"])
+    prefix_len = 0
+    if cfg.family == "vlm" and mode == "prefill":
+        x = torch.cat([batch["prefix"].to(COMPUTE_DTYPE), x], dim=1)
+        prefix_len = cfg.num_prefix_tokens
+    positions = torch.arange(x.shape[1], device=x.device)
+    kw = dict(mode=mode, cache=cache, window=window, context=context)
     if cfg.family == "ssm":
         x, cache = _run_rwkv_stack(cfg, params, x, mode=mode, cache=cache)
+    elif cfg.family == "hybrid":
+        x, cache = _run_hybrid_stack(cfg, params, x, positions, **kw)
+    elif cfg.family == "audio":
+        enc = (run_encoder(cfg, params, batch["frames"])
+               if mode == "prefill" else None)
+        x, cache = _run_whisper_decoder(cfg, params, x, positions, enc=enc,
+                                        **kw)
     else:
-        positions = torch.arange(x.shape[1], device=x.device)
-        run = (_run_hybrid_stack if cfg.family == "hybrid"
-               else _run_dense_stack)
-        x, cache = run(cfg, params, x, positions, mode=mode, cache=cache,
-                       window=window, context=context)
+        x, cache = _run_dense_stack(cfg, params, x, positions,
+                                    prefix_len=prefix_len, **kw)
     return apply_norm(cfg, params["final_norm"], x), cache
 
 

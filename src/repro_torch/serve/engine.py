@@ -40,12 +40,15 @@ def generate(cfg: ArchConfig, params, batch: Dict[str, torch.Tensor],
     (the cache in ``info`` has seen it).  The cache is sized for
     ``prompt + max_new_tokens`` positions; as in the reference, the
     prompt pass runs without a sliding window and only decode uses it.
-    ``info`` holds the cache, the prompt length and the prefill and
-    decode seconds (host clock, the device synchronised at both
-    ends)."""
+    ``info`` holds the cache, the prompt length (for the vlm family the
+    prefix's positions too, as the reference counts them) and the
+    prefill and decode seconds (host clock, the device synchronised at
+    both ends)."""
     tokens = batch["tokens"]
     device = tokens.device
     prompt_len = tokens.shape[1]
+    if cfg.family == "vlm":
+        prompt_len += cfg.num_prefix_tokens
     context = prompt_len + max_new_tokens
     step = make_serve_step(cfg, context)
 

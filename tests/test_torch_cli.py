@@ -9,12 +9,14 @@ reference's ``RunConfig.from_args`` builds from the same command line,
 the checkpoint flags land there too (the snapshots in a directory a
 scheme, as the reference's), and every knob the port has not ported
 raises ``NotImplementedError`` naming its ROADMAP item before any work
-is done.  ``launch/serve.py
---arch`` with an arch the reference serves and the port does not yet
-names A13b.
+is done.  ``launch/serve.py --arch`` takes each of the reference's ten
+ids and serves its scaled-down variant on the CPU.
 """
 import argparse
+import contextlib
 import dataclasses
+import io
+import json
 import os
 
 import pytest
@@ -192,15 +194,22 @@ def test_sweep_takes_the_references_command_line(argv):
         assert mine[dest] == theirs[dest], dest
 
 
-UNPORTED_ARCHS = [a for a in REF_ARCH_IDS if a not in ARCH_IDS]
-
-
-@pytest.mark.parametrize("arch", UNPORTED_ARCHS)
-def test_serve_names_a13b_for_an_arch_not_yet_ported(arch):
+@pytest.mark.parametrize("arch", REF_ARCH_IDS)
+def test_serve_takes_every_arch_of_the_reference(arch):
+    """The port's ``serve`` flags equal the reference's for every id,
+    and the scaled-down arch serves on the CPU to its JSON line."""
     argv = ["--arch", arch, "--batch", "2", "--max-new", "3"]
     theirs = _parsed(ref_serve.main, argv)
     mine = _parsed(serve.main, argv)
     assert set(mine) - set(theirs) == {"device"}
     assert all(mine[k] == v for k, v in theirs.items())
-    with pytest.raises(KeyError, match="A13b"):
-        serve.main(argv + ["--device", "cpu"])
+    assert ARCH_IDS == REF_ARCH_IDS
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        assert serve.main(argv + ["--reduced", "--prompt-len", "8",
+                                  "--device", "cpu"]) == 0
+    stats = json.loads(out.getvalue().strip().splitlines()[-1])
+    assert stats["arch"] == arch and stats["device"] == "cpu"
+    assert (stats["batch"], stats["prompt_len"], stats["max_new"],
+            stats["layers"]) == (2, 8, 3, 2)
+    assert stats["prefill_s"] > 0 and stats["decode_s"] > 0

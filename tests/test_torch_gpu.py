@@ -542,6 +542,12 @@ FLASH_CASES = [
     (2, 200, 200, 8, 2, 64, True, 0, 0),         # Dh 64, groups of 4
     (2, 200, 200, 4, 4, 128, True, 0, 0),        # Dh 128, groups of 1
     (2, 200, 200, 8, 2, 128, True, 0, 0),        # Dh 128, groups of 4
+    (4, 1500, 1500, 16, 16, 64, False, 0, 0),    # whisper's encoder
+    (4, 64, 1500, 16, 16, 64, False, 0, 0),      # its cross-attn, prefill
+    (4, 1, 1500, 16, 16, 64, False, 0, 0),       # its cross-attn, decode
+    (4, 320, 320, 8, 1, 256, True, 0, 256),      # paligemma's prefix-LM
+    (4, 64, 64, 32, 4, 128, True, 0, 0),         # qwen3-moe, yi: groups of 8
+    (4, 64, 64, 36, 36, 64, True, 0, 0),         # minicpm: 36 heads of 64
 ]
 
 
@@ -642,6 +648,91 @@ def test_gemma_prefill_launches_flash_attention_once_per_layer(cuda):
     got, _ = engine.generate(cfg, on(params, cuda),
                              {"tokens": toks.to(cuda)}, 4)
     assert got.shape == (2, 4) and got.device.type == "cuda"
+
+
+def _on(tree, dev):
+    return (tree.to(dev) if torch.is_tensor(tree) else
+            {k: _on(v, dev) for k, v in tree.items()}
+            if isinstance(tree, dict) else [_on(v, dev) for v in tree])
+
+
+def _zoo_batch(cfg, tokens=64, seed=1):
+    """``tokens`` random tokens for 2 prompts, and the vlm family's patch
+    or the audio family's frame embeddings (bf16), on the CPU."""
+    g = torch.Generator().manual_seed(seed)
+    return dict(tokens=torch.randint(0, cfg.vocab_size, (2, tokens),
+                                     generator=g),
+                **registry.stub_inputs(cfg, 2, g))
+
+
+@pytest.mark.parametrize("arch", ["yi-6b", "granite-8b", "minicpm-2b",
+                                  "paligemma-3b", "qwen3-moe-30b-a3b",
+                                  "phi3.5-moe-42b-a6.6b"])
+def test_zoo_prefill_launches_flash_attention_once_per_layer(
+        cuda, arch, monkeypatch):
+    """Each dense, vlm and moe arch scaled down with its own number of
+    layers on the card: one flash_attention launch per layer at prefill
+    (paligemma's over its prefix and tokens, prefix-LM), none in decode,
+    no other kernel; logits and slot caches within 2^-5 of the CPU's.
+    The moe archs compute in fp32 here (the compute dtype
+    monkeypatched): in bf16 a router near-tie may send a token to
+    another expert on one side (ROADMAP C3)."""
+    from repro_torch.models import transformer
+    n = get_arch(arch).num_layers
+    cfg = scaled_down(get_arch(arch), layers=n)
+    if cfg.is_moe:
+        monkeypatch.setattr(transformer, "COMPUTE_DTYPE", torch.float32)
+    params = registry.serving_params(registry.init_params(
+        torch.Generator().manual_seed(0), cfg))
+    batch = _zoo_batch(cfg)
+    ctx = 64 + cfg.num_prefix_tokens + 8
+    prefill = registry.prefill_fn(cfg)
+    want_lg, want_cache = prefill(params, batch, context=ctx)
+    build.reset_launches()
+    got_lg, cache = prefill(_on(params, cuda), _on(batch, cuda), context=ctx)
+    assert build.LAUNCHES["flash_attention"] == n
+    assert sum(build.LAUNCHES.values()) == n
+    assert _scaled_err(got_lg.cpu(), want_lg) <= 2 ** -5
+    for a, b in zip(cache["layers"], want_cache["layers"]):
+        assert torch.equal(a["pos"].cpu(), b["pos"])
+        assert _scaled_err(a["k"].float().cpu(), b["k"].float()) <= 2 ** -5
+    registry.decode_fn(cfg, ctx)(_on(params, cuda), cache,
+                                 batch["tokens"][:, :1].to(cuda))
+    assert sum(build.LAUNCHES.values()) == n
+    got, info = engine.generate(cfg, _on(params, cuda), _on(batch, cuda), 4)
+    assert got.shape == (2, 4) and got.device.type == cuda.type
+    assert info["prompt_len"] == 64 + cfg.num_prefix_tokens
+
+
+def test_whisper_launches_flash_attention_in_prefill_and_each_decode_step(
+        cuda):
+    """Scaled-down whisper-medium with its 24 encoder and 24 decoder
+    layers on the card: 72 flash_attention launches at prefill (each
+    encoder layer, each decoder layer's self- and cross-attention) and
+    24 at each decode step (the cross-attention, one query over the
+    encoder's positions), no other kernel; logits, slot caches and the
+    encoder K/V within 2^-5 of the CPU's."""
+    cfg = scaled_down(get_arch("whisper-medium"), layers=24)
+    assert (cfg.encoder_layers, cfg.num_layers) == (24, 24)
+    params = registry.serving_params(registry.init_params(
+        torch.Generator().manual_seed(0), cfg))
+    batch = _zoo_batch(cfg)
+    prefill, decode = registry.prefill_fn(cfg), registry.decode_fn(cfg, 72)
+    tok = batch["tokens"][:, :1]
+    want_lg, want_cache = prefill(params, batch, context=72)
+    want_step, _ = decode(params, want_cache, tok)
+    build.reset_launches()
+    got_lg, cache = prefill(_on(params, cuda), _on(batch, cuda), context=72)
+    assert build.LAUNCHES["flash_attention"] == 72
+    assert sum(build.LAUNCHES.values()) == 72
+    assert _scaled_err(got_lg.cpu(), want_lg) <= 2 ** -5
+    for key in ("cross_k", "cross_v"):
+        for a, b in zip(cache[key], want_cache[key]):
+            assert _scaled_err(a.float().cpu(), b.float()) <= 2 ** -5
+    got_lg, _ = decode(_on(params, cuda), cache, tok.to(cuda))
+    assert build.LAUNCHES["flash_attention"] == 72 + 24
+    assert sum(build.LAUNCHES.values()) == 72 + 24
+    assert _scaled_err(got_lg.cpu(), want_step) <= 2 ** -5
 
 
 # the selective scan at chip_smoke.py's shapes: (B, T, Di, N); the first
