@@ -2,11 +2,12 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --c12-readings   # one-off readings, see below
 
 Phases (any failure exits non-zero; no phase's exception is caught):
 
 1. the card: name, device count, ``nvidia-smi`` name and power limit;
-2. build all eight CUDA kernels from ``src/repro_torch/csrc`` (one
+2. build all nine CUDA kernels from ``src/repro_torch/csrc`` (one
    ``nvcc`` per source, all started together) and print ptxas' register
    / shared-memory report; build the two simulations of the paths (the
    fast profile, 30 vehicles; the large fleet, 4096 vehicles at 1 per
@@ -22,7 +23,10 @@ Phases (any failure exits non-zero; no phase's exception is caught):
    shape (B=4, T=64, H=40, N=64, bf16 r/k/v, fp32 w) and at B=1,
    T=4096, then about its time chunk (T = 64, 65, 129 and 4096; B*H 40
    and 160) with decays of exactly 0, 1e-31 and 1 - 2^-24, each within
-   1e-5 of scale and bit-repeatable;
+   1e-5 of scale and bit-repeatable; ``cohort_gemm`` (the local-SGD
+   products of a cohort of 4, 20 samples a step) within 1e-5 of scale
+   of its plain version, bit-repeatable, one client alone bit-equal to
+   its block of the cohort;
 4. time each kernel and its plain version with CUDA events and print its
    bound (the larger of bytes over 3.35 TB/s and operations over the
    fp32 peak of 67 TFLOP/s; for the probe, whose conv2 and fc1 run as 3
@@ -133,6 +137,16 @@ Phases (any failure exits non-zero; no phase's exception is caught):
    masks and evals equal phase 5's single-device round 0; each rank's
    ``probe_loss`` time, the round's wall time and the host-staged
    collective bytes are printed (readings: four ranks share one card);
+   ``[mesh event]``: on the same 4 ranks the large fleet's event server
+   at churn 0.2 for 2 rounds (the sharded pool: one all-reduced partial
+   (num, den) per landing tick), and the fast profile on 2 ranks with
+   5g's event server (churn 0.2, weighted lambda 0.5, a 1.5-period
+   cadence) for 3 rounds, each against the same rounds on one device:
+   rows' integer and async columns, masks and accuracy (1e-5) equal,
+   the params gap per round a reading; ``[mesh resume]``: that 2-rank
+   run killed by SIGKILL on rank 0 at round 0's snapshot (whose pool
+   holds pending ``num`` / ``den`` entries) and resumed by 2 fresh
+   ranks: rows and the params' sha256 equal the uninterrupted run's;
 5e. the paper's profile (``paper_config("dcs")``: Table 3's 30 local
    epochs, a 20 s deadline, 12 clients of 4500 samples and 18 of 45),
    round 0 through ``drive_rounds`` at the full 30 epochs (the Eq. 6
@@ -150,9 +164,12 @@ Phases (any failure exits non-zero; no phase's exception is caught):
    after it a reading; fp64 training halves within 1e-6) and FedProx
    (mu 0.01), the card against the CPU in fp64 within 1e-6; C8 op by
    op: one local-SGD step alone and in the cohort of four, every op and
-   gradient within 1e-5 of scale in the card's GEMM form, beside
-   cuDNN's grouped convolution (a reading) and the convolution kernels
-   the profiler sees in each; then ``python -m
+   gradient bit-equal through ``cohort_gemm``, beside its plain version
+   (cuBLAS) and cuDNN's grouped convolution (readings) and the kernels
+   the profiler sees in each; ``[c12]``: 3 fast rounds of the loop and
+   the batched engine on the same draws, default algorithms, held to
+   the reference's engine contract (masks, counts equal, accuracy
+   within 1e-5); then ``python -m
    repro_torch.launch.fl_sim --scheme all --rounds 1 --out`` and
    ``--paper-profile --scheme dcs --rounds 1 --out``: rc 0, every scheme's rows with the reference's keys in
    order, the paper CLI's launch line ``probe_fuzzy`` 1 and
@@ -171,7 +188,17 @@ Phases (any failure exits non-zero; no phase's exception is caught):
    a group and one ``neighbor_elect`` a round of the ``dcs`` group; 4
    of each with ``--no-vmap``), ``--paper-profile --seeds 1 --rounds
    1`` (Table 3's comm columns) and ``--paper-profile --seeds 2``, which
-   raises the reference's partition error (ROADMAP C10);
+   raises the reference's partition error (ROADMAP C10); ``probe_loss``
+   with the seed axis (4 seeds at the fast packs and at the large
+   fleet's 4-way regions, S = 48,612, N = 4096) and ``fuzzy_eval`` (4
+   seeds at P = 30 and 4096, each seed's own Eq. 8 maxima and external
+   ones), one launch each, bit-equal to 4 single launches, within
+   tolerance of the plain versions, bit-repeatable, timed against 4
+   single launches beside 4 x the bound; ``[mesh sweep]``: ``python -m
+   repro_torch.launch.sweep --fast --seeds 4 --rounds 2 --schemes all
+   --mesh clients=2`` against the single-device CSV (integer columns
+   equal, accuracy within 1e-5), each rank launching ``probe_loss`` and
+   ``fuzzy_eval`` once a round a group;
 5g. the round drivers (``rounds.run_schedule``, round-ahead by
    default, and ``fl/async_server.py``): the fast profile ``dcs`` for 4
    rounds, round-ahead and serially in alternation (4 runs, rows and
@@ -235,11 +262,23 @@ Phases (any failure exits non-zero; no phase's exception is caught):
    launches; then ``{"kernels": [...]}`` on the line before the last,
    ``probe_fuzzy``'s and ``neighbor_elect``'s entries with a ``seeds``
    object (S, the fast sweep's launches, ms, the S single launches' ms,
-   device ms of both, the bound scaled by S), ``flash_attention``'s
-   with a ``paths`` list (phase 5i's whisper encoder and paligemma
-   prefill: the shape, the arch's serving launches, its bf16 error and
-   times, bound and library time);
+   device ms of both, the bound scaled by S), ``probe_loss``'s and
+   ``fuzzy_eval``'s with one too (the mesh sweep's rank-0 launches, no
+   device ms), ``flash_attention``'s with a ``paths`` list (phase 5i's
+   whisper encoder and paligemma prefill: the shape, the arch's serving
+   launches, its bf16 error and times, bound and library time); the
+   line's ``kernels`` are the eight that port a Pallas kernel, and its
+   ``other_kernels`` hold ``cohort_gemm`` (the local-SGD products, which
+   the reference leaves to XLA: timed at conv2's input gradient beside
+   ``torch.matmul``, with the same keys but ``reference`` in place of
+   ``replaces``);
 7. ``{"ok": true, "device": {...}}`` as the last line.
+
+``--c12-readings`` takes two one-off readings instead (no result line):
+``[c12]`` through the plain products (cuBLAS), and the trained rounds'
+wall time (fast and paper profile), which uses only entry points older
+than ``cohort_gemm``, so this file run from an older checkout's root
+times that checkout.
 """
 from __future__ import annotations
 
@@ -406,6 +445,13 @@ PROX_MU = 0.01
 # exp (one MUFU.EX2 each) per second: 16 per SM per clock, 132 SMs at
 # the H100 SXM's 1.98 GHz boost clock
 SFU_EXP_PER_S = 16 * 132 * 1.98e9
+
+
+def prefix_launches(counts: dict) -> dict:
+    """A run's kernel launches without ``cohort_gemm``'s, whose count
+    follows the cohorts' local-SGD steps (phase 5 and ``[c12]`` read
+    it)."""
+    return {k: v for k, v in counts.items() if k != "cohort_gemm"}
 
 
 def log(msg: str) -> None:
@@ -1488,7 +1534,7 @@ def paper_round(dev) -> dict:
     survivors = got["survivors"].cpu().numpy()
 
     res = drive_rounds(sim, 1)
-    row, launches = res["rows"][0], res["launches"]
+    row, launches = res["rows"][0], prefix_launches(res["launches"])
     same = bool(np.array_equal(res["mask0"], want["mask"].numpy()))
     cols = comm_columns(sim.cfg, sim.n, row["n_selected"])
     cols_ok = list(row) == ROW_KEYS and all(row[k] == v
@@ -1683,13 +1729,17 @@ def c8_step_check(dev) -> None:
                 names.add(re.split(r"[<(]", key)[0][:56])
         return sorted(names), total / 1e3
 
-    gemm = cnn._stacked_conv_gemm
+    from repro_torch.kernels import ops, ref
+    gemm, kernel = cnn._stacked_conv_gemm, ops.cohort_gemm
+    forms = (("cohort_gemm", gemm, kernel),
+             ("plain (cuBLAS)", gemm, ref.cohort_gemm_ref),
+             ("grouped cuDNN", grouped, kernel))
     torch.use_deterministic_algorithms(True)
     torch.backends.cudnn.deterministic = True
     errs = {}
     try:
-        for form, fn in (("gemm", gemm), ("grouped cuDNN", grouped)):
-            cnn._stacked_conv_gemm = fn
+        for form, conv, product in forms:
+            cnn._stacked_conv_gemm, ops.cohort_gemm = conv, product
             alone, in_cohort = step(idx[:1]), step(idx)
             errs[form] = {k: float((alone[k] - want).abs().max()
                                    / want.abs().max().clamp(min=1e-30))
@@ -1699,16 +1749,214 @@ def c8_step_check(dev) -> None:
                 log(f"[c8] {form} step {label} (C={len(c_idx)}): device "
                     f"{ms:.4f} ms; convolution kernels {names}")
     finally:
-        cnn._stacked_conv_gemm = gemm
+        cnn._stacked_conv_gemm, ops.cohort_gemm = gemm, kernel
         torch.use_deterministic_algorithms(False)
         torch.backends.cudnn.deterministic = False
     for form, e in errs.items():
         worst = max(e, key=e.get)
         log(f"[c8] {form}: one step alone vs in the cohort of {len(idx)}, "
             f"worst scaled gap {e[worst]:.3g} ({worst})"
-            + (" (tol 1e-5)" if form == "gemm" else " (a reading)"))
-    if len(idx) < 2 or max(errs["gemm"].values()) > 1e-5:
-        raise AssertionError(f"C8: a cohort of one drifts: {errs['gemm']}")
+            + (" (must be 0)" if form == "cohort_gemm" else " (a reading)"))
+    if len(idx) < 2 or max(errs["cohort_gemm"].values()) != 0.0:
+        raise AssertionError(f"C8/C12: a cohort of one is not bit-equal "
+                             f"to the same client in its cohort: "
+                             f"{errs['cohort_gemm']}")
+
+
+C12_ROUNDS = 3
+
+
+def c12_engines(dev, plain: bool = False) -> list:
+    """ROADMAP C12 on the card: ``C12_ROUNDS`` fast ``dcs`` rounds in
+    the loop and the batched engine on the same draws, with the default
+    algorithms, held to the reference's engine contract
+    (``tests/test_engine_parity.py``): masks, ``n_selected``,
+    ``n_aggregated`` and ``n_straggler`` equal, accuracy within 1e-5;
+    the largest params gap per round logged.  ``plain=True`` runs the
+    cohort's products through their plain version (cuBLAS), as a
+    reading.  Returns the per-round params gaps."""
+    import numpy as np
+    from repro_torch.fl.rounds import FLSimulation
+    from repro_torch.fl.runconfig import RunConfig
+    from repro_torch.kernels import build, ops, ref
+    kernel = ops.cohort_gemm
+    if plain:
+        ops.cohort_gemm = ref.cohort_gemm_ref
+    try:
+        sims = {e: FLSimulation(fast_config_dcs(C12_ROUNDS),
+                                run=RunConfig(engine=e), device=dev)
+                for e in ("loop", "batched")}
+        build.reset_launches()
+        gaps, report, ok = [], [], True
+        for rnd in range(C12_ROUNDS):
+            rows = {e: s.run_round(rnd) for e, s in sims.items()}
+            same_mask = bool(np.array_equal(sims["loop"].last_mask,
+                                            sims["batched"].last_mask))
+            same = all(rows["loop"][k] == rows["batched"][k]
+                       for k in ("n_selected", "n_aggregated",
+                                 "n_straggler"))
+            acc = abs(rows["loop"]["accuracy"] - rows["batched"]["accuracy"])
+            gap = max(float((sims["loop"].params[k] - sims["batched"]
+                             .params[k]).abs().max())
+                      for k in sims["loop"].params)
+            gaps.append(gap)
+            ok = ok and same_mask and same and acc <= 1e-5
+            acc_l, acc_b = (rows[e]["accuracy"] for e in ("loop", "batched"))
+            report.append(f"round {rnd}: masks equal {same_mask}, counts "
+                          f"equal {same}, accuracy {acc_l:.6f} / "
+                          f"{acc_b:.6f}, params gap {gap:.3g}, aggregated "
+                          f"{rows['loop']['n_aggregated']}")
+        launches = build.LAUNCHES["cohort_gemm"]
+    finally:
+        ops.cohort_gemm = kernel
+    tag = "[reading] C12 plain (cuBLAS)" if plain else "[check] C12"
+    log(f"{tag} loop vs batched engine, {C12_ROUNDS} fast rounds (default "
+        f"algorithms): " + "; ".join(report)
+        + f"; cohort_gemm launches {launches}"
+        + ("" if plain else f" {'OK' if ok else 'FAIL'}"))
+    if not plain and (not ok or launches == 0):
+        raise AssertionError("C12: the engines break the reference's "
+                             "contract on the card")
+    return gaps
+
+
+def c12_round_times(dev=None) -> dict:
+    """The trained rounds' wall time (host clock, synchronised, the
+    serial schedule): 4 fast ``dcs`` rounds and 2 paper-profile ``dcs``
+    rounds (round 0 trains 1 client, round 1 two), each round's seconds
+    with its aggregated count.  Uses only entry points that predate the
+    cohort GEMM, so it times an older checkout too (run this file from
+    that checkout's root)."""
+    import torch
+    from repro_torch.fl.rounds import FLSimulation
+    from repro_torch.fl.runconfig import RunConfig
+    from repro_torch.launch.fl_sim import (drive_rounds, fast_config,
+                                           paper_config)
+    dev = dev or torch.device("cuda")
+    out = {}
+    for label, cfg, n in (("fast", fast_config("dcs", n_rounds=4), 4),
+                          ("paper", paper_config("dcs"), 2)):
+        sim = FLSimulation(cfg, run=RunConfig(overlap_rounds=False),
+                           device=dev)
+        res = drive_rounds(sim, n)
+        out[label] = [(round(t, 6), r["n_aggregated"])
+                      for t, r in zip(res["round_s"], res["rows"])]
+    log(f"[time] trained rounds (s, aggregated), {ROOT.name}: "
+        f"{json.dumps(out)}")
+    return out
+
+
+def c12_readings() -> int:
+    """``python3 chip_smoke.py --c12-readings``: ``[c12]`` through the
+    plain products (cuBLAS) and the trained rounds' wall time."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False",
+              file=sys.stderr)
+        return 2
+    from repro_torch.device import fp32_strict
+    fp32_strict()
+    dev = torch.device("cuda")
+    log(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                        "--format=csv,noheader"], capture_output=True,
+                       text=True, check=True).stdout.strip())
+    if (ROOT / "src/repro_torch/kernels/cohort_gemm.py").exists():
+        c12_engines(dev, plain=True)
+    c12_round_times(dev)
+    return 0
+
+
+C13_CHECK = dict(num_layers=2, num_experts=16, experts_per_token=2,
+                 capacity_factor=1.25)
+C13_BATCH = 4
+C13_STEPS = 8
+C13_NEAR_TIE = 1e-6
+
+
+def c13_moe_fp32(dev) -> None:
+    """ROADMAP C13: qwen3-moe at 2 layers, full width, 16 experts top-2
+    at the reference's capacity factor 1.25, in fp32 on the card and on
+    the CPU (the compute dtype set to fp32 for this phase, the path
+    ``tests/test_torch_zoo.py`` holds against the reference): 4 rows of
+    64 random tokens, 8 greedy tokens each.  Every MoE call's routes
+    (top-2 experts a token), dropped assignments and the greedy tokens
+    must be equal; where a route differs its CPU top-2 gap (the 2nd and
+    3rd probability over the 2nd) is logged, a near-tie being one below
+    1e-6."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import get_arch
+    from repro_torch.models import moe, registry, transformer
+    from repro_torch.serve import engine
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_arch("qwen3-moe-30b-a3b"), **C13_CHECK)
+    dtype = transformer.COMPUTE_DTYPE
+    apply_moe = moe.apply_moe
+    calls = {"cpu": [], "card": []}
+    side = ["cpu"]
+
+    def recording(cfg_, p_, x_):
+        t = x_.shape[0] * x_.shape[1]
+        logits = F.linear(x_.reshape(t, -1), p_["router"].to(x_.dtype)
+                          ).float()
+        probs = torch.softmax(logits, -1)
+        sel = torch.sort(probs, dim=-1, descending=True, stable=True
+                         ).indices[:, :cfg_.experts_per_token]
+        pos = moe._positions_in_expert(sel.reshape(-1), cfg_.num_experts)
+        kept = pos < moe.moe_capacity(cfg_, t)
+        calls[side[0]].append((sel.cpu(), kept.cpu(), probs.cpu()))
+        return apply_moe(cfg_, p_, x_)
+
+    transformer.COMPUTE_DTYPE = torch.float32
+    moe.apply_moe = recording
+    try:
+        params = registry.init_params(torch.Generator(device=dev)
+                                      .manual_seed(0), cfg)
+        p_cpu = tree_to(params, "cpu")
+        tokens = torch.randint(0, cfg.vocab_size, (C13_BATCH, 64),
+                               generator=torch.Generator().manual_seed(1))
+        toks_cpu, _ = engine.generate(cfg, p_cpu, {"tokens": tokens},
+                                      C13_STEPS)
+        side[0] = "card"
+        toks_card, _ = engine.generate(cfg, params,
+                                       {"tokens": tokens.to(dev)}, C13_STEPS)
+    finally:
+        transformer.COMPUTE_DTYPE = dtype
+        moe.apply_moe = apply_moe
+    k = cfg.experts_per_token
+    moved = dropped = 0
+    first = None
+    for i, ((sc, kc, pc), (sd, kd, _)) in enumerate(zip(calls["cpu"],
+                                                        calls["card"])):
+        diff = (sc.sort(-1).values != sd.sort(-1).values).any(-1)
+        moved += int(diff.sum())
+        dropped += int((~kc).sum())
+        if first is None and (bool(diff.any()) or not torch.equal(kc, kd)):
+            srt = pc.sort(-1, descending=True).values
+            gap = (srt[:, k - 1] - srt[:, k]) / srt[:, k - 1]
+            first = (i, [float(g) for g in gap[diff]][:8],
+                     int((kc != kd).sum()))
+    same_tokens = torch.equal(toks_cpu, toks_card.cpu())
+    # equal, or the first divergence sits on an fp32 near-tie of the
+    # router (and everything after it may follow it)
+    ok = (len(calls["cpu"]) == len(calls["card"]) > 0
+          and (same_tokens if first is None
+               else bool(first[1]) and max(first[1]) < C13_NEAR_TIE))
+    log(f"[c13] qwen3-moe {cfg.num_layers} layers full width, "
+        f"{cfg.num_experts} experts top-{k}, capacity factor "
+        f"{cfg.capacity_factor}, fp32, B={C13_BATCH}, {C13_STEPS} greedy "
+        f"tokens: {len(calls['card'])} MoE calls a side, assignments "
+        f"dropped on the CPU {dropped}, tokens routed elsewhere on the "
+        f"card {moved}, first differing call "
+        f"{'none' if first is None else first} (call, top-{k} gaps of its "
+        f"moved tokens, drops that differ); greedy tokens equal "
+        f"{same_tokens}; {time.perf_counter() - t0:.1f}s "
+        f"{'OK' if ok else 'FAIL'}")
+    del params, p_cpu
+    torch.cuda.empty_cache()
+    if not ok:
+        raise AssertionError("C13: qwen3-moe in fp32 on the card routes, "
+                             "drops or decodes unlike the CPU")
 
 
 def fl_sim_cli(args, out_path) -> tuple:
@@ -1750,9 +1998,9 @@ def paper_clis() -> None:
             ["--paper-profile", "--scheme", "dcs", "--rounds", "1"],
             Path(tmp) / "paper.json")
         left = sorted(os.listdir(tmp))
-    launches = json.loads(next(line for line in lines
+    launches = prefix_launches(json.loads(next(line for line in lines
                                if line.startswith("[fl_sim] launches "))
-                          .split("launches ", 1)[1])
+                          .split("launches ", 1)[1]))
     row = paper["dcs"][0]
     cols = comm_columns(paper_config("dcs"), 30, row["n_selected"])
     ok = (sorted(fast) == sorted(OVERHEAD_KEYS) and list(paper) == ["dcs"]
@@ -1769,15 +2017,23 @@ def paper_clis() -> None:
         raise AssertionError("fl_sim --out is wrong")
 
 
-def large_fleet_rank(mesh, cfg, run):
+def large_fleet_rank(mesh, cfg, run, event_run=None):
     """One rank of the large fleet's 4-way mesh: round 0 with the launch
     counts reset just before and read just after, then ``probe_loss``
-    timed on the rank's region while the other ranks time theirs."""
+    timed on the rank's region while the other ranks time theirs; with
+    ``event_run``, then ``LARGE_EVENT_ROUNDS`` rounds of the event server
+    under it from the same initial params (``event/...`` keys)."""
     from repro_torch.fl.rounds import FLSimulation
     from repro_torch.kernels import ops
     from repro_torch.launch import fl_sim
     sim = FLSimulation(cfg, run=run, mesh=mesh)
+    params0 = {k: v.clone() for k, v in sim.params.items()}
     out = fl_sim.drive_rounds(sim, 1)
+    if event_run is not None:
+        ev = with_run(sim, event_run)
+        ev.params = params0
+        out.update({f"event/{k}": v for k, v in
+                    event_rounds(ev, LARGE_EVENT_ROUNDS).items()})
     st = sim.statics
     probe = (sim.params, st.probe_images, st.probe_labels, st.probe_seg,
              st.probe_counts)
@@ -1787,21 +2043,28 @@ def large_fleet_rank(mesh, cfg, run):
     return out
 
 
-def mesh_large_fleet(dev, big0):
+def mesh_large_fleet(dev, big0, big):
     """The large fleet on 4 ranks of the one card for round 0 through
     ``elect="auto"`` (the ring halo: one hop, 2h + 1 = 3 <= 4).  Each
     rank launches ``probe_loss``, ``fuzzy_eval`` and ``windowed_counts``
     once and ``probe_fuzzy`` never; unless a rank flags overflow, the
     round's masks and the ranks' evals equal phase 5's single-device
     round 0 bit for bit (an overflowed round re-runs through the gather
-    seam, whose masks are the dense election's too).  Returns the
-    launches summed over the ranks."""
+    seam, whose masks are the dense election's too).  Then, on the same
+    ranks, ``[mesh event]``'s large fleet: ``LARGE_EVENT_ROUNDS`` rounds
+    of the event server at churn 0.2 against the same rounds on one
+    device (``big`` under that run, from the initial weights;
+    ``compare_event``).  Returns the round-0 launches summed over the
+    ranks."""
     import numpy as np
     from repro_torch.fl.runconfig import RunConfig
     from repro_torch.launch.mesh import spawn_ranks
     t0 = time.perf_counter()
+    event_run = RunConfig(mesh="clients=4", overlap_rounds=False,
+                          churn_rate=EVENT_RUN["churn_rate"])
     ranks = spawn_ranks(large_fleet_rank, 4, dev.type, args=(
-        large_fleet_config("uniform"), RunConfig(mesh="clients=4")))
+        large_fleet_config("uniform"), RunConfig(mesh="clients=4"),
+        event_run))
     spawn_s = time.perf_counter() - t0
     n = big0["mask"].shape[0]
     evals = np.concatenate([r["evals0"] for r in ranks])[:n]
@@ -1820,8 +2083,9 @@ def mesh_large_fleet(dev, big0):
             if not over else
             {"probe_loss": 2, "fuzzy_eval": 2, "windowed_counts": 1,
              "neighbor_elect": 1})
-    launch_ok = all(r["launches"] == {k: want.get(k, 0)
-                                      for k in r["launches"]} for r in ranks)
+    launch_ok = all(prefix_launches(r["launches"]) == {
+        k: want.get(k, 0) for k in prefix_launches(r["launches"])}
+        for r in ranks)
     ok = masks and same_evals and launch_ok and ranks[0]["rows"][0][
         "n_selected"] > 0
     log(f"[check] mesh clients=4 large fleet round 0 ({spawn_s:.1f}s with "
@@ -1831,6 +2095,17 @@ def mesh_large_fleet(dev, big0):
         f"{json.dumps(ranks[0]['rows'][0])} {'OK' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError("the 4-rank large fleet differs from one device")
+    import torch
+    from repro_torch.configs.mnist_cnn import CONFIG
+    from repro_torch.models.cnn import init_cnn
+    ev = with_run(big, dataclasses.replace(event_run, mesh=None))
+    ev.params = init_cnn(torch.Generator().manual_seed(big.cfg.seed),
+                         CONFIG, dev)
+    single = event_rounds(ev, LARGE_EVENT_ROUNDS)
+    compare_event("large fleet, churn 0.2", [
+        {k[len("event/"):]: v for k, v in r.items()
+         if k.startswith("event/")} for r in ranks], single,
+        LARGE_EVENT_ROUNDS)
     return {k: sum(r["launches"][k] for r in ranks)
             for k in ranks[0]["launches"]}
 
@@ -1850,7 +2125,7 @@ SWEEP_PAPER_SEEDS_ARGV = ["--paper-profile", "--seeds", "2", "--rounds",
 EQ8_TRAP_SCALE = 1024.0
 
 
-def sweep_kernels(dev) -> dict:
+def sweep_kernels(dev, big, bfeats) -> dict:
     """Phase 5f's kernels: one ``dcs`` group of ``SWEEP_SEEDS`` fast-cell
     seeds (``fast_cell_config``), round 0.  The seed-batched
     ``probe_fuzzy`` and ``neighbor_elect`` against S single launches on
@@ -1861,8 +2136,9 @@ def sweep_kernels(dev) -> dict:
     (Eq. 8 per seed, never over the union).  The seed-batched prefix
     against S single-seed prefixes on the same simulations: every output
     bit-equal.  Then CUDA-event times (batched against S singles, bounds
-    scaled by S) and the prefix's wall time a round.  Returns the
-    readings and the calls phase 6 profiles."""
+    scaled by S) and the prefix's wall time a round; then
+    ``seed_axis_kernels`` on the same seeds and ``big``'s regions.
+    Returns the readings and the calls phase 6 profiles."""
     import numpy as np
     import torch
     from repro_torch.core.rules import build_rule_table
@@ -2012,6 +2288,7 @@ def sweep_kernels(dev) -> dict:
             f"{ms:.4f} ms, {n_s} single launches {single_ms:.4f} ms, "
             f"bound {n_s} x {b_ms:.3g} = {n_s * b_ms:.3g} ms ({b_by})")
     reading["prefix_ms"] = med
+    reading.update(seed_axis_kernels(dev, st, params, n, f, big, bfeats))
     return reading
 
 
@@ -2027,7 +2304,7 @@ def sweep_cli(argv, out_path) -> tuple:
     with contextlib.redirect_stdout(buf):
         rc = sweep.main(list(argv) + ["--out", str(out_path)])
     secs = time.perf_counter() - t0
-    launches = dict(build.LAUNCHES)
+    launches = prefix_launches(dict(build.LAUNCHES))
     for line in buf.getvalue().strip().splitlines():
         log(f"[sweep cli] {line}")
     if rc != 0:
@@ -2067,7 +2344,7 @@ def check_sweep_csv(label: str, text: str, n_rows: int, cfg_fn) -> None:
         raise AssertionError(f"sweep {label}: bad CSV")
 
 
-def sweep_phase(dev) -> dict:
+def sweep_phase(dev, big, bfeats) -> dict:
     """Phase 5f: ``sweep_kernels``, then the sweep through its CLI entry
     point (``main``), on the card: ``SWEEP_FAST_ARGV`` twice, with
     ``--no-vmap`` and with ``--workers 2`` (two spawned processes
@@ -2078,11 +2355,12 @@ def sweep_phase(dev) -> dict:
     then ``SWEEP_PAPER_ARGV`` (one ``probe_fuzzy`` a group, one
     ``neighbor_elect``; Table 3's comm columns) and
     ``SWEEP_PAPER_SEEDS_ARGV``, which raises the reference's partition
-    error (C10).  Returns ``sweep_kernels``' readings with the batched
-    fast run's launches."""
+    error (C10); then ``mesh_sweep`` against the default run's CSV.
+    Returns ``sweep_kernels``' readings with the batched fast run's
+    launches and the mesh sweep's rank 0's (``mesh_launches``)."""
     import tempfile
     from repro_torch.launch.sweep import fast_cell_config, paper_cell_config
-    reading = sweep_kernels(dev)
+    reading = sweep_kernels(dev, big, bfeats)
     n_s, rounds, groups = SWEEP_SEEDS, 2, 3
     want = {"probe_fuzzy": groups * rounds, "neighbor_elect": rounds}
     with tempfile.TemporaryDirectory() as tmp:
@@ -2126,6 +2404,7 @@ def sweep_phase(dev) -> dict:
     if not ok:
         raise AssertionError("the sweep on the card is wrong")
     reading["launches"] = launches["default"]
+    reading["mesh_launches"] = mesh_sweep(texts["default"])
     return reading
 
 
@@ -2200,7 +2479,8 @@ def schedule_run(sim, params0, n_rounds: int, overlap: bool, stretch=None):
     rows = run_schedule(sim.driver(), sim, n_rounds, overlap=overlap,
                         stretch=stretch, on_row=on_row)
     torch.cuda.synchronize()
-    return rows, sim.params, times, masks, dict(build.LAUNCHES)
+    return (rows, sim.params, times, masks,
+            prefix_launches(dict(build.LAUNCHES)))
 
 
 def same_params(a, b) -> bool:
@@ -2322,7 +2602,7 @@ def event_checks(dev) -> tuple:
         for name, sim in (("card", card), ("cpu", cpu)):
             hosts[name] = sim._host(sim.selection_state(r, fields))
             if name == "card":
-                launches = dict(build.LAUNCHES)
+                launches = prefix_launches(dict(build.LAUNCHES))
             srv[name]._dispatch_training(r, hosts[name], fields)
             acc, n_test = evaluate_accuracy_async(
                 sim.params, sim.test_images, sim.test_labels, batch=256)
@@ -3008,6 +3288,419 @@ def preemption(dev, big) -> None:
     log(f"[preempt] phase 5h in {time.perf_counter() - t0:.1f}s")
 
 
+
+# the cohort GEMM (ROADMAP C12) at the fast profile's local-SGD step, a
+# cohort of C_GEMM clients, 20 samples a step: conv1's and conv2's
+# forward, conv2's weight and input gradients, fc1's forward and weight
+# gradient; conv2's input gradient is the timed one (one library call,
+# ``torch.matmul``, computes the same function)
+C_GEMM, B_GEMM = 4, 20
+
+
+def cohort_gemm_phase(dev) -> tuple:
+    """``cohort_gemm`` against its plain version at the path's products
+    (within 1e-5 of scale, bit-repeatable, each client's block equal to
+    a launch of that client alone), then timed at conv2's input
+    gradient beside its plain version and ``torch.matmul``.  Returns
+    (max abs error, (ms, plain ms, bound ms, by), library ms)."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    g = torch.Generator(device=dev).manual_seed(26)
+    c, b = C_GEMM, B_GEMM
+
+    def rnd(*shape):
+        return torch.randn(*shape, device=dev, generator=g)
+    w1, w2 = rnd(c, 32, 25), rnd(c, 64, 800)
+    cols1, cols2 = rnd(b, c, 1, 25, 784), rnd(b, c, 1, 800, 196)
+    g2 = rnd(b, c, 64, 196)
+    x1, f1 = rnd(c, b, 3136), rnd(c, 512, 3136)
+    gy1 = rnd(c, b, 512)
+    cases = {
+        "conv1 forward": (w1[None, :, None].expand(b, c, 1, 32, 25), cols1,
+                          rnd(c, 32)[None, :, :, None].expand(b, c, 32, 784)),
+        "conv2 forward": (w2[None, :, None].expand(b, c, 1, 64, 800), cols2,
+                          rnd(c, 64)[None, :, :, None].expand(b, c, 64, 196)),
+        "conv2 weight gradient": (g2.permute(1, 0, 2, 3)[None],
+                                  cols2[:, :, 0].permute(1, 0, 3, 2)[None],
+                                  None),
+        "conv2 input gradient": (w2.transpose(1, 2)[None, :, None].expand(
+            b, c, 1, 800, 64), g2[:, :, None], None),
+        "fc1 forward": (x1[None, :, None], f1.transpose(1, 2)[None, :, None],
+                        rnd(c, 512)[None, :, None, :].expand(1, c, b, 512)),
+        "fc1 weight gradient": (gy1.transpose(1, 2)[None, :, None],
+                                x1[None, :, None], None),
+    }
+    err = 0.0
+    for label, (a, bm, bias) in cases.items():
+        got, again = ops.cohort_gemm(a, bm, bias), ops.cohort_gemm(a, bm,
+                                                                    bias)
+        want = ref.cohort_gemm_ref(a, bm, bias)
+        last = ops.cohort_gemm(a[:, -1:], bm[:, -1:],
+                               None if bias is None else bias[:, -1:])
+        torch.cuda.synchronize()
+        e = scaled_err(got, want)
+        err = max(err, float((got - want).abs().max()))
+        ok = (e <= 1e-5 and torch.equal(got, again)
+              and torch.equal(last[:, 0], got[:, -1])
+              and bool(torch.isfinite(got).all()))
+        log(f"[check] cohort_gemm {label} a{tuple(a.shape)} "
+            f"b{tuple(bm.shape)}: max err / scale {e:.3g} (tol 1e-5), "
+            f"bit-repeatable and one client alone bit-equal {ok}")
+        if not ok:
+            raise AssertionError(f"cohort_gemm {label} disagrees")
+    a, bm, _ = cases["conv2 input gradient"]
+    ms = time_ms(lambda: ops.cohort_gemm(a, bm), 50)
+    plain_ms = time_ms(lambda: ref.cohort_gemm_ref(a, bm), 50)
+    lib_ms = time_ms(lambda: torch.matmul(a, bm), 50)
+    z, k, m, n = b * c, 64, 800, 196
+    b_ms, b_by = bound(4 * (c * m * k + z * k * n + z * m * n),
+                       2 * z * m * n * k)
+    log(f"[time] cohort_gemm conv2 input gradient (C={c}, {b} samples: "
+        f"{z} products of {m}x{k} by {k}x{n}): kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, torch.matmul {lib_ms:.4f} ms, bound "
+        f"{b_ms:.6f} ms ({b_by})")
+    return err, (ms, plain_ms, b_ms, b_by), lib_ms
+
+
+def seed_axis_kernels(dev, st, params, n, feats, big, bfeats) -> dict:
+    """``probe_loss`` and ``fuzzy_eval`` with a leading axis of
+    ``SWEEP_SEEDS`` seeds, one launch each: ``probe_loss`` at the sweep's
+    fast packs (``st``, ``params`` stacked, N = ``n``) and at the 4-way
+    mesh's large-fleet regions (the 4 regions of ``big``'s pack as 4
+    seeds, each with its own weights, N = 4096), ``fuzzy_eval`` at P =
+    30 (the seeds' ``feats``) and P = 4096 (``bfeats`` scaled per seed),
+    with each seed's own Eq. 8 maxima and with external ones.  Each
+    seed bit-equal to a launch of it alone, within tolerance of the
+    plain version (losses 1e-5 of the largest, evals 1e-4 on [0, 100]),
+    bit-repeatable; CUDA-event times against S single launches beside
+    S x the single bound.  Returns the readings for the kernels line."""
+    import torch
+    from repro_torch.core.rules import build_rule_table
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models.cnn import init_cnn
+    from repro_torch.configs.mnist_cnn import CONFIG
+    n_s = SWEEP_SEEDS
+    table, levels = build_rule_table()
+    mam = (big.statics.means, big.statics.sigmas, table, levels,
+           big.statics.level_centers)
+    mam_ref = (mam[0], mam[1], torch.as_tensor(table, device=dev),
+               torch.as_tensor(levels, device=dev), mam[4])
+    regions = [big.probe_region(4, d) for d in range(4)]
+    bparams = [init_cnn(torch.Generator().manual_seed(d), CONFIG, dev)
+               for d in range(n_s)]
+    counts = big.statics.probe_counts
+    loss_cases = {
+        f"fast packs S={st.probe_images.shape[1]} N={n}": (
+            params, st.probe_images, st.probe_labels, st.probe_seg,
+            st.probe_counts, n),
+        f"large-fleet 4-way regions S={regions[0][0].shape[0]} "
+        f"N={big.n}": (
+            {k: torch.stack([p[k] for p in bparams]) for k in bparams[0]},
+            torch.stack([r[0] for r in regions]),
+            torch.stack([r[1] for r in regions]),
+            torch.stack([r[2] for r in regions]),
+            counts[None].expand(n_s, -1).contiguous(), big.n)}
+    param_bytes = sum(t[0].numel() * 4 for t in params.values())
+    reading, err = {}, 0.0
+    for label, (p, im, lb, sg, ct, nn) in loss_cases.items():
+        call = lambda: ops.probe_loss(p, im, lb, sg, ct, n_clients=nn)
+        singles = lambda: [ops.probe_loss(
+            {k: v[i] for k, v in p.items()}, im[i], lb[i], sg[i], ct[i],
+            n_clients=nn) for i in range(n_s)]
+        got, again, one = call(), call(), singles()
+        want = ref.probe_loss_ref(p, im, lb, sg, ct, nn)
+        torch.cuda.synchronize()
+        e = scaled_err(got, want)
+        err = max(err, float((got - want).abs().max()))
+        ok = (all(torch.equal(got[i], o) for i, o in enumerate(one))
+              and torch.equal(got, again) and e <= 1e-5)
+        log(f"[check] probe_loss seeds S={n_s} {label}: bit-equal to {n_s} "
+            f"single launches and bit-repeatable "
+            f"{ok and e <= 1e-5}, max err / scale against the plain "
+            f"version {e:.3g} (tol 1e-5) {'OK' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"seed-batched probe_loss {label} is wrong")
+        s_rows = im.shape[1]
+        b_ms, b_by = probe_bounds(s_rows * (28 * 28 * 4 + 8) + nn * 8
+                                  + param_bytes, s_rows)[0]
+        ms, single_ms = (time_ms(call, 5), time_ms(singles, 5))
+        reading.setdefault("probe_loss", {
+            "S": n_s, "shape": label, "ms": ms,
+            f"single_x{n_s}_ms": single_ms, "bound_ms": n_s * b_ms,
+            "bound_by": b_by})
+        log(f"[time] probe_loss seeds S={n_s} {label}: one launch {ms:.4f} "
+            f"ms, {n_s} single launches {single_ms:.4f} ms, bound {n_s} x "
+            f"{b_ms:.4f} = {n_s * b_ms:.4f} ms ({b_by})")
+    scale = torch.tensor([1.0, 1.01, 0.97, 1.03], device=dev)[:, None, None]
+    fe_cases = {f"P={n}": feats.contiguous(),
+                f"P={bfeats.shape[0]}": (bfeats[None] * scale).contiguous()}
+    for label, x in fe_cases.items():
+        for external in (False, True):
+            cm = (x.max(dim=1).values * 1.05).contiguous() if external \
+                else None
+            call = lambda: ops.fuzzy_eval(x, *mam, normalize=True,
+                                          col_maxima=cm)
+            singles = lambda: [ops.fuzzy_eval(
+                x[i], *mam, normalize=True,
+                col_maxima=None if cm is None else cm[i])
+                for i in range(n_s)]
+            got, again, one = call(), call(), singles()
+            want = ref.fuzzy_eval_ref(x, *mam_ref, normalize=True,
+                                      col_maxima=cm)
+            torch.cuda.synchronize()
+            e = float((got - want).abs().max())
+            err = max(err, e)
+            ok = (all(torch.equal(got[i], o) for i, o in enumerate(one))
+                  and torch.equal(got, again) and e <= 1e-4)
+            which = "external maxima" if external else "own maxima"
+            log(f"[check] fuzzy_eval seeds S={n_s} {label} {which}: "
+                f"bit-equal to {n_s} single launches and bit-repeatable, "
+                f"max abs err against the plain version {e:.3g} (tol 1e-4 "
+                f"on [0, 100]) {'OK' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"seed-batched fuzzy_eval {label} "
+                                     f"{which} is wrong")
+            p = x.shape[1]
+            b_ms, b_by = bound(p * 20, p * (MAMDANI_OPS + EQ8_OPS))
+            ms, single_ms = time_ms(call, 200), time_ms(singles, 200)
+            if external:
+                reading.setdefault("fuzzy_eval", {
+                    "S": n_s, "shape": f"{label} external maxima", "ms": ms,
+                    f"single_x{n_s}_ms": single_ms, "bound_ms": n_s * b_ms,
+                    "bound_by": b_by})
+            log(f"[time] fuzzy_eval seeds S={n_s} {label} {which}: one "
+                f"launch {ms:.4f} ms, {n_s} single launches "
+                f"{single_ms:.4f} ms, bound {n_s} x {b_ms:.3g} = "
+                f"{n_s * b_ms:.3g} ms ({b_by})")
+    reading["err"] = err
+    return reading
+
+
+MESH_SWEEP_ARGV = SWEEP_FAST_ARGV + ["--mesh", "clients=2"]
+
+
+def mesh_sweep(single_csv: str) -> dict:
+    """``[mesh sweep]``: ``python -m repro_torch.launch.sweep
+    MESH_SWEEP_ARGV`` (2 ranks on the card, rank 0 writing the CSV)
+    against phase 5f's single-device CSV of the same grid: every row's
+    integer columns equal, accuracy within 1e-5 (the mean evaluation a
+    reading: round 1 starts from FedAvg sums added in another order);
+    each rank launches ``probe_loss`` and ``fuzzy_eval`` once a round a
+    group (for all its seeds), ``neighbor_elect`` once a round of the
+    ``dcs`` group and ``probe_fuzzy`` never.  Returns the per-rank
+    launches."""
+    import tempfile
+    from repro_torch.launch import sweep
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp) / "mesh.csv"
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.sweep",
+             *MESH_SWEEP_ARGV, "--out", str(out)], cwd=ROOT,
+            env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+            capture_output=True, text=True, timeout=600)
+        secs = time.perf_counter() - t0
+        for line in proc.stdout.strip().splitlines():
+            log(f"[mesh sweep] {line}")
+        if proc.returncode != 0:
+            log(proc.stderr[-4000:])
+            raise AssertionError(f"sweep {MESH_SWEEP_ARGV} exited "
+                                 f"{proc.returncode}")
+        text = out.read_text()
+    mine, want = sweep.parse_csv_rows(text), sweep.parse_csv_rows(single_csv)
+    ints = ("round", "seed", "n_selected", "n_aggregated", "n_straggler",
+            "n_active")
+    same = (mine is not None and len(mine) == len(want) and all(
+        all(a[k] == b[k] for k in ints + ("scheme",))
+        and abs(a["accuracy"] - b["accuracy"]) <= 1e-5
+        for a, b in zip(mine, want)))
+    acc_gap = max(abs(a["accuracy"] - b["accuracy"])
+                  for a, b in zip(mine, want))
+    ev_gap = max(abs(a["mean_eval_selected"] - b["mean_eval_selected"])
+                 for a, b in zip(mine, want))
+    ranks = [json.loads(line.split("launches ", 1)[1].split(
+        ", host-staged")[0]) for line in proc.stdout.splitlines()
+        if line.startswith("[sweep] rank ")]
+    groups, rounds = 3, 2
+    want_l = {"probe_loss": groups * rounds, "fuzzy_eval": groups * rounds,
+              "neighbor_elect": rounds}
+    launch_ok = len(ranks) == 2 and all(
+        prefix_launches(r) == {k: want_l.get(k, 0) for k in
+                               prefix_launches(r)}
+        and r["cohort_gemm"] > 0 for r in ranks)
+    ok = (same and launch_ok and "[sweep] client mesh: {'clients': 2}"
+          in proc.stdout)
+    log(f"[check] mesh sweep {' '.join(MESH_SWEEP_ARGV)} ({secs:.1f}s): "
+        f"{len(mine)} rows, integer columns equal to the single-device "
+        f"sweep's and accuracy within 1e-5 {same} (largest accuracy gap "
+        f"{acc_gap:.3g}, mean evaluation gap {ev_gap:.3g}, a reading); "
+        f"launches per rank {ranks} (want {want_l}: one probe_loss and one "
+        f"fuzzy_eval a round a group for all its seeds) "
+        f"{'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the sweep on the mesh differs from one device")
+    return ranks[0]
+
+
+def with_run(sim, run):
+    """``sim`` as built under ``run`` without building its dataset again:
+    a shallow copy with the run config, the prefix's stage config and
+    fresh bookkeeping."""
+    import copy
+    import numpy as np
+    new = copy.copy(sim)
+    new.run_cfg = run.resolved()
+    new.stage_cfg = new.run_cfg.to_stage_config(sim.cfg, n_clients=sim.n)
+    new.participation = np.zeros_like(sim.participation)
+    new.last_mask = None
+    return new
+
+
+def event_rounds(sim, n_rounds: int) -> dict:
+    """``n_rounds`` serial rounds of ``sim.driver()`` (resuming from the
+    run config's snapshots when it says so): the rows, each round's mask
+    and params (``r{round}.{name}``) run here, the launches and, on a
+    mesh, the host-staged collectives."""
+    import numpy as np
+    from repro_torch.fl.rounds import run_resumable
+    from repro_torch.kernels import build
+    out = {}
+
+    def on_row(r, host, row):
+        out[f"mask{r}"] = np.asarray(sim.last_mask)
+        out.update({f"r{r}.{k}": v.cpu().numpy()
+                    for k, v in sim.params.items()})
+    build.reset_launches()
+    rows = run_resumable(sim.driver(), sim, n_rounds, overlap=False,
+                         on_row=on_row)
+    out.update(rows=rows, launches=dict(build.LAUNCHES),
+               staged=dict(sim.mesh.staged) if sim.mesh else {})
+    return out
+
+
+def event_rank(mesh, cfg, run, n_rounds: int) -> dict:
+    """One rank of ``[mesh event]`` / ``[mesh resume]``."""
+    from repro_torch.fl.rounds import FLSimulation
+    return event_rounds(FLSimulation(cfg, run=run, mesh=mesh), n_rounds)
+
+
+EVENT_INT_KEYS = ("round", "n_selected", "n_aggregated", "n_straggler",
+                  "n_active", "stale_frac", "n_effective",
+                  "rounds_behind_hist")
+
+
+def compare_event(label: str, ranks, single, n_rounds: int) -> None:
+    """K ranks' event-server rounds against one device's: every rank's
+    rows equal, the rows' integer and async columns and each round's
+    mask equal to one device's, accuracy within 1e-5; the params gap per
+    round logged."""
+    import numpy as np
+    rows = ranks[0]["rows"]
+    gaps, same = [], all(r["rows"] == rows for r in ranks)
+    for r in range(n_rounds):
+        a, b = rows[r], single["rows"][r]
+        same = same and all(a[k] == b[k] for k in EVENT_INT_KEYS) and abs(
+            a["accuracy"] - b["accuracy"]) <= 1e-5 and np.array_equal(
+            ranks[0][f"mask{r}"], single[f"mask{r}"])
+        keys = [k for k in single if k.startswith(f"r{r}.")]
+        gaps.append(max(float(np.abs(ranks[0][k] - single[k]).max())
+                        for k in keys))
+    agg = sum(r["n_aggregated"] for r in rows)
+    ok = same and agg > 0
+    log(f"[check] mesh event {label}, {n_rounds} rounds on {len(ranks)} "
+        f"ranks vs one device: rows' integer and async columns, masks and "
+        f"accuracy (tol 1e-5) equal {same}; aggregated {agg}; params max "
+        f"abs gap per round {[f'{g:.3g}' for g in gaps]} (a reading); rank "
+        f"0 launches {ranks[0]['launches']}, host-staged "
+        f"{ranks[0]['staged']} {'OK' if ok else 'FAIL'}")
+    log(f"[mesh event] {label} rows {json.dumps(rows)}")
+    if not ok:
+        raise AssertionError(f"the mesh event server ({label}) differs "
+                             f"from one device")
+
+
+MESH_EVENT_ROUNDS = 3
+LARGE_EVENT_ROUNDS = 2
+
+
+def mesh_event(dev) -> tuple:
+    """``[mesh event]``, the fast profile on 2 ranks with phase 5g's
+    event server (churn 0.2, weighted lambda 0.5, a 1.5-period cadence)
+    for ``MESH_EVENT_ROUNDS`` rounds against the same run on one device
+    (``compare_event``).  Returns (the event run config, the 2 ranks'
+    results) for ``mesh_resume``."""
+    from repro_torch.fl.rounds import FLSimulation
+    from repro_torch.fl.runconfig import RunConfig
+    from repro_torch.launch.mesh import spawn_ranks
+    cfg = fast_config_dcs(MESH_EVENT_ROUNDS)
+    run = RunConfig(overlap_rounds=False, **EVENT_RUN,
+                    agg_cadence_s=EVENT_CADENCE_PERIODS * cfg.deadline_s)
+    single = event_rounds(FLSimulation(cfg, run=run, device=dev),
+                          MESH_EVENT_ROUNDS)
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(event_rank, 2, dev.type, args=(
+        cfg, dataclasses.replace(run, mesh="clients=2"), MESH_EVENT_ROUNDS))
+    log(f"[mesh event] fast profile on 2 ranks: "
+        f"{time.perf_counter() - t0:.1f}s with start-up")
+    compare_event("fast profile, churn 0.2, weighted lambda 0.5, cadence "
+                  f"{EVENT_CADENCE_PERIODS} periods", ranks, single,
+                  MESH_EVENT_ROUNDS)
+    return cfg, run, ranks
+
+
+def mesh_resume(dev, cfg, run, ranks) -> None:
+    """``[mesh resume]``: the 2-rank event server of ``mesh_event``
+    killed by ``sigkill@checkpoint-saved:round=0`` (rank 0, after it
+    wrote round 0's snapshot, whose pool holds pending partial sums
+    ``num`` / ``den``), then resumed by 2 fresh ranks: rows and the final
+    params' sha256 equal to the uninterrupted run's."""
+    import tempfile
+    from repro_torch.launch.mesh import spawn_ranks
+    from repro_torch.train.checkpoint import RoundCheckpointer, load_state
+    mrun = dataclasses.replace(run, mesh="clients=2")
+    last = MESH_EVENT_ROUNDS - 1
+    import torch
+
+    def digest(res):
+        return params_digest({k[len(f"r{last}."):]: torch.as_tensor(v)
+                              for k, v in res.items()
+                              if k.startswith(f"r{last}.")})
+    want = digest(ranks[0])
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = dataclasses.replace(mrun, checkpoint_dir=tmp)
+        os.environ["REPRO_FAULTS"] = "sigkill@checkpoint-saved:round=0"
+        try:
+            spawn_ranks(event_rank, 2, dev.type,
+                        args=(cfg, ck, MESH_EVENT_ROUNDS))
+            killed = "ran to its end"
+        except RuntimeError as err:
+            killed = ("rank 0 killed by SIGKILL" if "rank 0 (exit -9)"
+                      in str(err) else str(err)[-300:])
+        finally:
+            del os.environ["REPRO_FAULTS"]
+        state, extra = load_state(RoundCheckpointer(tmp).path_for(0))
+        pending = [it for items in state["pending"].values()
+                   for it in items]
+        res = spawn_ranks(event_rank, 2, dev.type, args=(
+            cfg, dataclasses.replace(ck, resume=True), MESH_EVENT_ROUNDS))
+    got = [digest(r) for r in res]
+    pool_ok = bool(pending) and all({"num", "den"} <= set(it)
+                                    for it in pending)
+    ok = (killed == "rank 0 killed by SIGKILL" and pool_ok
+          and all(r["rows"] == ranks[0]["rows"] for r in res)
+          and all(g == want for g in got))
+    log(f"[check] mesh resume: the 2-rank event server {killed} after "
+        f"round 0's snapshot ({len(pending)} pending pool entries, each "
+        f"with num and den {pool_ok}); 2 fresh ranks resumed at round "
+        f"{extra['next_round']}: rows equal the uninterrupted run's "
+        f"{all(r['rows'] == ranks[0]['rows'] for r in res)}, params sha256 "
+        f"{got[0][:16]} == {want[:16]} {all(g == want for g in got)} "
+        f"{'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the mesh event server does not resume bit "
+                             "for bit")
+
+
 # phase 6's small kernels: the CUDA kernels each wrapper launches
 SMALL_KERNEL_NAMES = {"fuzzy_eval": ("fuzzy_eval_kernel",),
                       "neighbor_elect": ("neighbor_elect_kernel",),
@@ -3358,6 +4051,7 @@ def main() -> int:
         event_ms[(name, shape)] = ms
         log(f"[time] {name} {shape}: kernel {ms:.4f} ms, plain "
             f"{plain_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by})")
+    err_gemm, timings["cohort_gemm"], gemm_lib_ms = cohort_gemm_phase(dev)
     for (b, t) in wkv_cases:
         d_ms, d_by = wkv_design_bound(b, t, WKV_H)
         f_ms, f_by = wkv_bound(b, t, WKV_H)
@@ -3624,6 +4318,7 @@ def main() -> int:
     gc.collect()                      # the jamba weights are gone
     torch.cuda.empty_cache()
     zoo = zoo_phase(dev)
+    c13_moe_fp32(dev)
 
     # -- 5d. the client mesh, with probe_loss -------------------------------
     gc.collect()
@@ -3632,7 +4327,8 @@ def main() -> int:
         dev, big, big_probe, bfeats0, main_probe, feats_main)
     nccl_world_one(dev, sim, params0, fields0, fast0)
     mesh_fast(dev)
-    mesh_launches = mesh_large_fleet(dev, big0)
+    mesh_launches = mesh_large_fleet(dev, big0, big)
+    mesh_resume(dev, *mesh_event(dev))
 
     # -- 5e. the paper's profile, the loop engine, FedProx, --out -----------
     gc.collect()
@@ -3640,12 +4336,13 @@ def main() -> int:
     paper_launches = paper_round(dev)
     engines_and_prox(dev)
     c8_step_check(dev)
+    c12_engines(dev)
     paper_clis()
 
     # -- 5f. the multi-seed sweep: seed-batched probe_fuzzy and election --
     gc.collect()
     torch.cuda.empty_cache()
-    sweep_reading = sweep_phase(dev)
+    sweep_reading = sweep_phase(dev, big, bfeats0)
 
     # -- 5g. the round drivers: round-ahead by default, the event server --
     gc.collect()
@@ -3664,7 +4361,8 @@ def main() -> int:
                 "wkv6": served["wkv6"],
                 "flash_attention": served_dense["flash_attention"],
                 "selective_scan": served_hybrid["selective_scan"],
-                "probe_loss": mesh_launches["probe_loss"]}
+                "probe_loss": mesh_launches["probe_loss"],
+                "cohort_gemm": fused["cohort_gemm"]}
     if (min(launches.values()) <= 0 or unfused["neighbor_elect"] <= 0
             or windowed["probe_fuzzy"] != 2 + n_over
             or paper_launches["probe_fuzzy"] != 1):
@@ -3759,12 +4457,18 @@ def main() -> int:
                            err_scan),
         "probe_loss": ("src/repro_torch/csrc/probe_loss.cu",
                        "src/repro/kernels/probe_fuzzy.py:203", err_loss),
+        # no Pallas kernel: the reference's local SGD is XLA's products
+        # under vmap (value_and_grad at fl/client.py:300)
+        "cohort_gemm": ("src/repro_torch/csrc/cohort_gemm.cu",
+                        "src/repro/fl/client.py:300 (XLA, no Pallas "
+                        "kernel)", err_gemm),
     }
     timings["flash_attention"] = flash_timing[:4]
     timings["selective_scan"] = scan_timing
     timings["probe_loss"] = loss_timing
-    library = {"flash_attention": flash_timing[4]}
-    kernels = []
+    library = {"flash_attention": flash_timing[4],
+               "cohort_gemm": gemm_lib_ms}
+    kernels, others = [], []
     for name in build.KERNELS:
         src, replaces, err = meta[name]
         ms, plain_ms, b_ms, b_by = timings[name]
@@ -3774,8 +4478,11 @@ def main() -> int:
                  "bound_ms": b_ms, "bound_by": b_by,
                  "library_ms": library.get(name)}
         if name in sweep_reading:        # the sweep's seed-batched launch
-            entry["seeds"] = dict(sweep_reading[name],
-                                  launches=sweep_reading["launches"][name])
+            # probe_loss and fuzzy_eval run seed-batched on the mesh
+            # sweep: its rank 0's launches
+            runs = sweep_reading["mesh_launches" if name in (
+                "probe_loss", "fuzzy_eval") else "launches"]
+            entry["seeds"] = dict(sweep_reading[name], launches=runs[name])
         if name == "flash_attention":    # phase 5i's paths
             entry["paths"] = [
                 dict(zip(("ms", "plain_ms", "bound_ms", "bound_by",
@@ -3788,8 +4495,13 @@ def main() -> int:
                       WHISPER_ENC_FLASH),
                      ("paligemma-3b prefix-LM prefill", "paligemma-3b",
                       PALIGEMMA_FLASH)), zoo["timing"])]
-        kernels.append(entry)
-    print(json.dumps({"kernels": kernels}), flush=True)
+        if name == "cohort_gemm":        # ports no Pallas kernel
+            entry["reference"] = entry.pop("replaces")
+            others.append(entry)
+        else:
+            kernels.append(entry)
+    print(json.dumps({"kernels": kernels, "other_kernels": others}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                               "count": count}}), flush=True)
     return 0
@@ -3798,4 +4510,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--preempt-child"]:
         sys.exit(preempt_child(sys.argv[2]))
+    if sys.argv[1:] == ["--c12-readings"]:
+        sys.exit(c12_readings())
     sys.exit(main())

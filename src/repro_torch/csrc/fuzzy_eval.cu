@@ -36,6 +36,15 @@
 //   at large P split is 1 and every thread takes a participant.
 // - A row comes in one 16-byte load; memberships and level maxima stay
 //   in registers.
+// - Seeds (the multi-seed sweep on the client mesh, as the reference's
+//   vmap over seeds gives fuzzy_eval_pallas a leading axis): x (seeds, P,
+//   4) in one launch, blockIdx.y the seed, each seed scaled by its own
+//   Eq. 8 maxima (its own rows', or its row of external maxima).  max is
+//   exact and a split only regroups the rules' max, so each seed's
+//   evaluations are bit-equal to a launch of that seed alone.
+// - External maxima (normalize 3; the client mesh's all-reduced ones):
+//   x / max(maxima, 1e-9) clipped to [0, 1], a division as the fused
+//   kernels' finish divides, so the evaluations are theirs bit for bit.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -58,6 +67,7 @@ namespace cg = cooperative_groups;
 __global__ void __launch_bounds__(FE_THREADS)
 fuzzy_eval_kernel(const float4* __restrict__ x, int p, int normalize,
                   int split, float* __restrict__ partial,
+                  const float* __restrict__ colmax,
                   const float* __restrict__ means,
                   const float* __restrict__ sigmas,
                   const float* __restrict__ centers,
@@ -67,12 +77,17 @@ fuzzy_eval_kernel(const float4* __restrict__ x, int p, int normalize,
   __shared__ int2 pair_at[MAMDANI_MAX_RULES];   // a rule's two rows below
   __shared__ int level_at[MAMDANI_OUT + 1];     // each level's first rule
   __shared__ float red[4][FE_WARPS];
+  // Eq. 8's reciprocal maxima (normalize 1, 2), or the external maxima
+  // themselves (normalize 3, which divides)
   __shared__ float inv_max[4];
   // the pairwise minima, then (once the rules are done) the split
   // warps' level maxima
   __shared__ float pairs[FE_PAIRS][FE_THREADS];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
+  const long seed = blockIdx.y;
+  x += seed * p;
+  out += seed * p;
   // the memberships' and COG's tables; the rules go to pair_at instead
   mamdani_load(tab, means, sigmas, centers, rules, 0);
   for (int r = threadIdx.x; r < n_rules; r += FE_THREADS) {
@@ -84,7 +99,10 @@ fuzzy_eval_kernel(const float4* __restrict__ x, int p, int normalize,
   }
   if (threadIdx.x <= MAMDANI_OUT)
     level_at[threadIdx.x] = rules[n_rules + threadIdx.x];
-  if (normalize) {
+  if (normalize == 3) {
+    if (threadIdx.x < 4)
+      inv_max[threadIdx.x] = fmaxf(colmax[seed * 4 + threadIdx.x], 1e-9f);
+  } else if (normalize) {
     // normalize 2: every CTA folds every row's maxima itself (a small
     // grid, where the rows are cheaper to read again than a grid-wide
     // barrier); 1: the rows this CTA strides over, then the CTAs'
@@ -110,13 +128,14 @@ fuzzy_eval_kernel(const float4* __restrict__ x, int p, int normalize,
       for (int w = 1; w < FE_WARPS; ++w) mv = fmaxf(mv, red[threadIdx.x][w]);
     }
     if (normalize == 1 && gridDim.x > 1) {
-      if (threadIdx.x < 4) partial[blockIdx.x * 4 + threadIdx.x] = mv;
+      float* mine = partial + seed * gridDim.x * 4;
+      if (threadIdx.x < 4) mine[blockIdx.x * 4 + threadIdx.x] = mv;
       cg::this_grid().sync();
-      // the CTAs' maxima, column t % 4 in thread t, folded over the
-      // lanes of a column and then the warps
+      // the seed's CTAs' maxima, column t % 4 in thread t, folded over
+      // the lanes of a column and then the warps
       mv = -INFINITY;
       for (int i = threadIdx.x; i < (int)gridDim.x * 4; i += FE_THREADS)
-        mv = fmaxf(mv, partial[i]);
+        mv = fmaxf(mv, mine[i]);
 #pragma unroll
       for (int o = 4; o < 32; o <<= 1)
         mv = fmaxf(mv, __shfl_xor_sync(0xffffffffu, mv, o));
@@ -144,7 +163,11 @@ fuzzy_eval_kernel(const float4* __restrict__ x, int p, int normalize,
     if (i < p) {
       const float4 r = x[i];
       v[0] = r.x; v[1] = r.y; v[2] = r.z; v[3] = r.w;
-      if (normalize) {
+      if (normalize == 3) {           // external maxima: divide
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          v[k] = fminf(fmaxf(v[k] / inv_max[k], 0.0f), 1.0f);
+      } else if (normalize) {
 #pragma unroll
         for (int k = 0; k < 4; ++k)
           v[k] = fminf(fmaxf(v[k] * inv_max[k], 0.0f), 1.0f);
@@ -226,22 +249,30 @@ struct FuzzyOperands {
   float* partial;            // fuzzy_eval_scratch_floats() floats
 };
 
-extern "C" int fuzzy_eval_launch(const void* x, int p, int normalize,
+// normalize: 0 none, 1 each seed's own column maxima, 3 the external
+// maxima `colmax` (seeds, 4); x (seeds, P, 4), out (seeds, P)
+extern "C" int fuzzy_eval_launch(const void* x, int p, int seeds,
+                                 int normalize, const void* colmax,
                                  const FuzzyOperands* ops, void* out,
                                  void* stream) {
   int n_rules = ops->n_rules;
-  if (p <= 0 || n_rules <= 0 || n_rules > MAMDANI_MAX_RULES)
+  if (p <= 0 || seeds <= 0 || seeds > 65535 || n_rules <= 0 ||
+      n_rules > MAMDANI_MAX_RULES || (normalize == 3 && colmax == nullptr) ||
+      normalize < 0 || normalize > 3 || normalize == 2)
     return (int)cudaErrorInvalidValue;
   const int resident = resident_ctas();
   if (resident <= 0) return (int)cudaErrorInvalidDevice;
   // split a participant's rules while the card has threads to spare
   int split = 1;
-  while (split < FE_MAX_SPLIT &&
-         (long long)p * split * 2 <= (long long)resident * FE_THREADS)
+  while (split < FE_MAX_SPLIT && (long long)p * seeds * split * 2 <=
+                                     (long long)resident * FE_THREADS)
     split *= 2;
   const int rows_per_cta = 32 * (FE_WARPS / split);
   const int needed = (p + rows_per_cta - 1) / rows_per_cta;
-  int grid = needed < resident ? needed : resident;
+  // a seed's CTAs: all the seeds' together within what the card holds
+  // at once (the cooperative launch's limit)
+  const int per_seed = resident / seeds > 0 ? resident / seeds : 1;
+  int grid = needed < per_seed ? needed : per_seed;
   cudaStream_t st = (cudaStream_t)stream;
   const float4* xv = (const float4*)x;
   float* part = ops->partial;
@@ -249,19 +280,21 @@ extern "C" int fuzzy_eval_launch(const void* x, int p, int normalize,
   const float* sp = ops->sigmas;
   const float* cp = ops->centers;
   const int* rp = ops->rules;
+  const float* cm = (const float*)colmax;
   float* op = (float*)out;
-  if (normalize && grid > 1 &&
+  if (normalize == 1 && grid > 1 &&
       (long long)p * grid <= (long long)FE_REDUNDANT_READS)
     normalize = 2;
   if (normalize == 1 && grid > 1) {
     void* args[] = {(void*)&xv, (void*)&p, (void*)&normalize,
-                    (void*)&split, (void*)&part, (void*)&mp, (void*)&sp,
-                    (void*)&cp, (void*)&rp, (void*)&n_rules, (void*)&op};
+                    (void*)&split, (void*)&part, (void*)&cm, (void*)&mp,
+                    (void*)&sp, (void*)&cp, (void*)&rp, (void*)&n_rules,
+                    (void*)&op};
     return (int)cudaLaunchCooperativeKernel((const void*)fuzzy_eval_kernel,
-                                            dim3(grid), dim3(FE_THREADS),
-                                            args, 0, st);
+                                            dim3(grid, seeds),
+                                            dim3(FE_THREADS), args, 0, st);
   }
-  fuzzy_eval_kernel<<<grid, FE_THREADS, 0, st>>>(
-      xv, p, normalize, split, part, mp, sp, cp, rp, n_rules, op);
+  fuzzy_eval_kernel<<<dim3(grid, seeds), FE_THREADS, 0, st>>>(
+      xv, p, normalize, split, part, cm, mp, sp, cp, rp, n_rules, op);
   return (int)cudaGetLastError();
 }

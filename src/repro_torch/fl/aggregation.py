@@ -8,7 +8,8 @@ local objective, which the local trainer takes as the gradient term
 ``mesh`` (``launch/mesh.py``), the leading client axis holds only this
 rank's share of the cohort, and the sums finish with an all-reduce over
 the ranks, so the average lands on every rank without the ranks' model
-stacks ever being gathered.
+stacks ever being gathered.  The weighted sums accumulate in fp64, so
+the average does not depend on how the cohort is split.
 """
 from __future__ import annotations
 
@@ -34,15 +35,14 @@ def _psum_flat(mesh: ClientMesh, parts: Dict[str, torch.Tensor]
 
 
 def fedavg(models: Sequence[Params], weights: Sequence[float]) -> Params:
-    """Eq. 2 over a list of models: the sample-quantity-weighted
-    average, each leaf summed in fp32 in list order."""
+    """Eq. 2 over a list of models (the loop engine): ``fedavg_masked``
+    of their stack, in list order."""
     first = models[0]
-    w = torch.as_tensor(weights, dtype=torch.float32,
-                        device=next(iter(first.values())).device)
-    w = w / torch.clamp(w.sum(), min=1e-9)
-    return {k: torch.tensordot(w, torch.stack([m[k] for m in models])
-                               .float(), dims=1).to(leaf.dtype)
-            for k, leaf in first.items()}
+    dev = next(iter(first.values())).device
+    return fedavg_masked({k: torch.stack([m[k] for m in models])
+                          for k in first},
+                         torch.as_tensor(weights, dtype=torch.float32,
+                                         device=dev))
 
 
 def prox_grad(params: Params, global_params: Params, mu: float) -> Params:
@@ -55,17 +55,10 @@ def fedavg_masked(stacked_models: Params, weights: torch.Tensor,
                   mesh: Optional[ClientMesh] = None) -> Params:
     """FedAvg over a leading client axis with (possibly zero) weights
     (C,): padding rows at weight zero drop out.  With ``mesh``, the
-    weight total and then the weighted model sum each finish with an
-    all-reduce over the ranks."""
-    tot = weights.sum()
-    if mesh is not None:
-        tot = psum(mesh, tot)
-    w = weights / torch.clamp(tot, min=1e-9)
-    parts = {k: torch.tensordot(w, leaf.float(), dims=1)
-             for k, leaf in stacked_models.items()}
-    if mesh is not None:
-        parts = _psum_flat(mesh, parts)
-    return {k: parts[k].to(leaf.dtype) for k, leaf in stacked_models.items()}
+    sums finish with an all-reduce over the ranks.  ``fedavg_finish``
+    of ``fedavg_sums``."""
+    return fedavg_finish(*fedavg_sums(stacked_models, weights, mesh),
+                         stacked_models)
 
 
 def fedavg_sums(stacked_models: Params, weights: torch.Tensor,
@@ -74,11 +67,26 @@ def fedavg_sums(stacked_models: Params, weights: torch.Tensor,
     """The unnormalized half of Eq. 2: ``(sum_i w_i * model_i, sum_i
     w_i)``, all-reduced over the ranks with ``mesh``.  The grouped
     trainer adds these across capacity groups and divides once, so a
-    round of several groups is still one weighted average."""
-    parts = {k: torch.tensordot(weights, leaf.float(), dims=1)
+    round of several groups is still one weighted average.
+
+    The sums accumulate in fp64, where each product of an fp32 weight
+    and an fp32 parameter is exact: the fp32 average then comes out the
+    same however the cohort is split (into capacity groups, padded
+    buckets, list order or the ranks' slices), up to an fp64 rounding
+    that meets an fp32 rounding boundary.  In fp32 those orders left
+    ulps that the next round's SGD grew into other test predictions."""
+    w = weights.double()
+    parts = {k: torch.tensordot(w, leaf.double(), dims=1)
              for k, leaf in stacked_models.items()}
-    parts["__total__"] = weights.sum().reshape(1)
+    parts["__total__"] = w.sum().reshape(1)
     if mesh is not None:
         parts = _psum_flat(mesh, parts)
     tot = parts.pop("__total__")[0]
     return parts, tot
+
+
+def fedavg_finish(num: Params, den: torch.Tensor, like: Params) -> Params:
+    """Eq. 2 from ``fedavg_sums``' (num, den): num / den (den clamped
+    to 1e-9), in ``like``'s dtypes."""
+    inv = 1.0 / torch.clamp(den, min=1e-9)
+    return {k: (num[k] * inv).to(like[k].dtype) for k in num}

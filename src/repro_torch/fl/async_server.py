@@ -32,8 +32,17 @@ With no churn, "drop" and the cadence at the round period every
 surviving update lands at tick r + 1, which fires in round r: the
 server is the round barrier, detected up front, and delegates training
 and rows to ``FLSimulation`` verbatim, so its rows are the sync
-driver's bit for bit.  On the client mesh only that case runs; the
-reference's sharded pool is ROADMAP A11 (rest).
+driver's bit for bit.
+
+On the client mesh (``FLSimulation(mesh=)``) the pool holds the
+reference's sharded form: for each landing tick of a round the ranks
+train that tick's cohort (each rank its slice,
+``pipeline.train_groups_sharded``) with the tick's staleness factor
+folded into the cohort weights (``weight_scale``), and the pool keeps
+the all-reduced partial sums ``(num, den)`` and the tick's anchor mass,
+tracked on the host from the clients' |D_i|.  A tick adds its partials,
+then ``anchor * params`` and the anchor mass, and finishes Eq. 2 with
+``pipeline.aggregate_sharded``.  Every rank holds the same pool.
 
 ``capture_state`` / ``restore_state`` carry the wrapped simulation's
 state, the pending landing-tick pool and the open per-round stats in the
@@ -53,7 +62,6 @@ from repro_torch.device import to_device
 from repro_torch.fl import pipeline
 from repro_torch.fl.aggregation import fedavg_masked
 from repro_torch.fl.rounds import FLSimulation, close_round, run_resumable
-from repro_torch.fl.runconfig import unported_event_pool
 from repro_torch.fl.timing import staleness_weight
 
 # rounds-behind histogram bins: delays 0, 1, 2, 3+ (aggregated updates)
@@ -88,8 +96,6 @@ class EventDrivenServer:
                 "the event-driven pool path trains through the batched "
                 f"engine; engine={self.run_cfg.engine!r} only supports "
                 "the sync-equivalent configuration")
-        if not self.sync_equivalent and sim.mesh is not None:
-            raise unported_event_pool()
         # landing tick -> pending entries, in enqueue order
         self._pending: Dict[int, List[Dict]] = {}
         self._stats: Dict[int, Dict] = {}
@@ -139,13 +145,35 @@ class EventDrivenServer:
         if not train_mask.any():
             return
         land = self.landing_ticks(host["t_done"])
+        lam = self.run_cfg.staleness_lambda
+        perms = lambda i: fields.perms[i]
+        if sim.mesh is not None:
+            # one all-reduced partial (num, den) per landing tick, the
+            # tick's staleness factor folded into the cohort weights, the
+            # anchor mass tracked here from the same |D_i|
+            for k in np.unique(land[train_mask]):
+                bucket = train_mask & (land == k)
+                delay = max(0, self._tick_round(int(k)) - rnd)
+                s = staleness_weight(lam, delay) if self.weighted else 1.0
+                trained = pipeline.train_groups_sharded(
+                    sim.params, sim.device_groups(), sim._group_steps,
+                    bucket, perms, sim.mesh, weight_scale=float(s),
+                    **sim._train_args())
+                if trained is None:
+                    continue
+                num, den = trained
+                w_data = float(sim.n_valid[bucket].sum())
+                self._pending.setdefault(int(k), []).append({
+                    "src": rnd, "num": num, "den": den,
+                    "anchor": float(w_data * (1.0 - s)),
+                    "n": int(bucket.sum()), "delay": delay,
+                    "scale": float(s)})
+            return
         entries = pipeline.train_groups(
             sim.params, sim.device_groups(), sim._group_steps, train_mask,
-            lambda i: fields.perms[i], return_entries=True,
-            **sim._train_args())
+            perms, return_entries=True, **sim._train_args())
         merged, w, row_ids = entries
         land_rows = land[row_ids]            # padding rows keep weight 0
-        lam = self.run_cfg.staleness_lambda
         for k in np.unique(land_rows[w > 0]):
             delay = max(0, self._tick_round(int(k)) - rnd)
             s = staleness_weight(lam, delay) if self.weighted else 1.0
@@ -161,12 +189,28 @@ class EventDrivenServer:
     def _process_due_ticks(self, rnd: int) -> None:
         """Fire every tick due by the end of round ``rnd``, in tick
         order, each its own FedAvg over the updates landing there.  An
-        empty or zero-weight tick leaves the global model untouched."""
+        empty or zero-weight tick leaves the global model untouched.  On
+        the mesh a tick sums its entries' partials, adds the anchor row's
+        (``anchor * params``, ``anchor``) and finishes Eq. 2."""
         sim = self.sim
         stats = self._stats[rnd]
         for k in self._due_ticks(rnd):
             items = self._pending.pop(k)
             anchor = sum(it["anchor"] for it in items)
+            if sim.mesh is not None:
+                num, den = items[0]["num"], items[0]["den"]
+                for it in items[1:]:
+                    num = {key: num[key] + it["num"][key] for key in num}
+                    den = den + it["den"]
+                if anchor > 0.0:             # the discounted mass
+                    a = float(np.float32(anchor))
+                    num = {key: num[key] + a * sim.params[key].to(
+                        num[key].dtype) for key in num}
+                    den = den + a
+                sim.params = pipeline.aggregate_sharded(sim.params,
+                                                        (num, den))
+                self._count(stats, items)
+                continue
             w = np.concatenate([it["w"] for it in items])
             if float(w.sum()) + anchor <= 0.0:
                 continue                     # zero-weight tick: no-op
@@ -179,20 +223,28 @@ class EventDrivenServer:
                 w = np.append(w, np.float32(anchor))
             sim.params = fedavg_masked(
                 merged, to_device(torch.from_numpy(w), sim.device))
-            for it in items:
-                stats["n_agg"] += it["n"]
-                if it["delay"] >= 1:
-                    stats["n_stale"] += it["n"]
-                stats["eff"] += it["n"] * it["scale"]
-                stats["hist"][min(it["delay"], HIST_BINS - 1)] += it["n"]
+            self._count(stats, items)
+
+    @staticmethod
+    def _count(stats: Dict, items: List[Dict]) -> None:
+        """A fired tick's updates into its round's stats."""
+        for it in items:
+            stats["n_agg"] += it["n"]
+            if it["delay"] >= 1:
+                stats["n_stale"] += it["n"]
+            stats["eff"] += it["n"] * it["scale"]
+            stats["hist"][min(it["delay"], HIST_BINS - 1)] += it["n"]
 
     # -- preemption safety ----------------------------------------------
     def capture_state(self) -> Dict:
         """The simulation's state plus the server's own: the pending
-        landing-tick pool (each entry's ``merged`` stacks on the host in
-        the reference's layout, a leading cohort axis; ``w`` float32; the
-        scalars coerced) and the open per-round stat accumulators."""
-        pending = {str(k): [_coerce_entry(it, params_to_numpy)
+        landing-tick pool (each entry's ``merged`` stacks, or on the mesh
+        its partial sums ``num``, on the host in the reference's layout;
+        ``den`` in its own dtype, float64 as ``fedavg_sums`` keeps it, so
+        a resumed tick divides as the uninterrupted one; ``w`` float32;
+        the scalars coerced) and the open per-round stat accumulators."""
+        to_host = lambda t: t.detach().cpu().numpy()
+        pending = {str(k): [_coerce_entry(it, params_to_numpy, to_host)
                             for it in items]
                    for k, items in self._pending.items()}
         return {"sim": self.sim.capture_state(), "pending": pending,
@@ -200,11 +252,14 @@ class EventDrivenServer:
 
     def restore_state(self, state: Dict,
                       extra: Optional[Dict] = None) -> None:
-        """Restore a ``capture_state`` snapshot (the pool's stacks onto
-        the simulation's device)."""
+        """Restore a ``capture_state`` snapshot (the pool's stacks or
+        partial sums onto the simulation's device)."""
         self.sim.restore_state(state["sim"], extra)
-        onto = lambda m: params_from_jax(m, device=self.sim.device)
-        self._pending = {int(k): [_coerce_entry(it, onto) for it in items]
+        dev = self.sim.device
+        onto = lambda m: params_from_jax(m, device=dev)
+        den = lambda v: torch.tensor(np.asarray(v), device=dev)
+        self._pending = {int(k): [_coerce_entry(it, onto, den)
+                                  for it in items]
                          for k, items in state["pending"].items()}
         self._stats = {int(r): s
                        for r, s in _coerce_stats(state["stats"]).items()}
@@ -243,11 +298,13 @@ class EventDrivenServer:
                              resume=resume)
 
 
-def _coerce_entry(entry: Dict, merged) -> Dict:
-    """A pool entry with ``merged`` passed through ``merged`` (to the
-    host's layout or back onto the device), ``w`` float32 and the
-    scalars coerced."""
-    return {name: (merged(v) if name == "merged"
+def _coerce_entry(entry: Dict, params, den) -> Dict:
+    """A pool entry with its model stacks or partial sums (``merged``,
+    ``num``) passed through ``params`` and its weight total ``den``
+    through ``den`` (to the host's layout or back onto the device),
+    ``w`` float32 and the scalars coerced."""
+    return {name: (params(v) if name in ("merged", "num")
+                   else den(v) if name == "den"
                    else np.asarray(v, np.float32) if name == "w"
                    else _ENTRY_SCALARS[name](v))
             for name, v in entry.items()}

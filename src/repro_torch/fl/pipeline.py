@@ -53,6 +53,14 @@ global, each an explicit collective:
 
 Every rank draws the round's global ``RoundFields`` and slices its own
 clients, so K ranks see the draws of one device.
+``selection_prefix_seeds_sharded`` is the sweep's form (S seeds' fleets
+sharded over the same ranks: one ``probe_loss`` and one ``fuzzy_eval``
+launch, one all-reduce of the (S, N) losses and one of the (S, 4)
+maxima), and ``selection_prefix_sharded`` its one-seed case; with
+``churn_rate > 0`` they gate evaluation and selection and report
+``t_done`` / ``alive_at_done`` as the single-device prefix does.
+``train_groups_sharded(weight_scale=)`` folds the event server's
+staleness factor into a landing tick's cohort weights.
 """
 from __future__ import annotations
 
@@ -67,7 +75,8 @@ import torch
 from repro_torch.core.rules import build_rule_table
 from repro_torch.core.selection import selection_stats
 from repro_torch.device import to_device
-from repro_torch.fl.aggregation import fedavg_masked, fedavg_sums
+from repro_torch.fl.aggregation import (fedavg_finish, fedavg_masked,
+                                        fedavg_sums)
 from repro_torch.fl.client import dataset_loss_packed, local_train_batch
 from repro_torch.fl.mobility import coverage_active
 from repro_torch.fl.mobility import positions as mobility_positions
@@ -165,7 +174,8 @@ def aux_features(st: RoundStatics, cfg: StageConfig, pos: torch.Tensor,
 
 def evaluate(st: RoundStatics, feats_raw: torch.Tensor) -> torch.Tensor:
     """Fuzzy evaluation stage (paper §5): raw (N, 4) -> (N,) on [0, 100],
-    Eq. 8 inside the kernel (``normalize=True``)."""
+    Eq. 8 inside the kernel (``normalize=True``); (seeds, N, 4) ->
+    (seeds, N) in one launch, Eq. 8 over each seed's own clients."""
     table, levels = _rules()
     return kops.fuzzy_eval(feats_raw, st.means, st.sigmas, table, levels,
                            st.level_centers, normalize=True)
@@ -259,10 +269,11 @@ def selection_prefix_seeds(st: RoundStatics, params: Params, rnd: int,
 
     Mobility, the Reno predictor, the aux features, the scheme's
     ``select`` and the Eq. 6 deadline run once on (S, N) tensors; the
-    fused probe and the dense election launch once for all seeds.  Per
-    seed: the unfused probe and its Mamdani kernel, the windowed
-    election (each seed raises its own overflow flag) and the
-    mean-evaluation statistic (a float sum, kept in one seed's order).
+    fused probe (or the unfused probe's Mamdani kernel) and the dense
+    election launch once for all seeds.  Per seed: the unfused probe,
+    the windowed election (each seed raises its own overflow flag) and
+    the mean-evaluation statistic (a float sum, kept in one seed's
+    order).
     The reference's ``selection_prefix_seeds_donated`` lets XLA reuse
     the stacked params' buffer; PyTorch frees it when the caller drops
     it, so it has no counterpart here."""
@@ -294,8 +305,8 @@ def selection_prefix_seeds(st: RoundStatics, params: Params, rnd: int,
                     st.probe_seg[i], st.probe_counts[i],
                     n_clients=cfg.n_clients)
                 feats.append(torch.cat([aux[i], lf[:, None]], dim=1))
-            evals = torch.stack([evaluate(st, f) for f in feats])
             feats = torch.stack(feats)
+            evals = evaluate(st, feats)       # one launch, Eq. 8 a seed
         if churn:                  # departed clients report no evaluation
             active = coverage_active(pos, road_length_m=cfg.road_length_m,
                                      churn_rate=cfg.churn_rate)
@@ -451,82 +462,136 @@ def pad_to_shards(n: int, shards: int) -> int:
     return -(-n // shards) * shards
 
 
-def selection_prefix_sharded(st: RoundStatics, params: Params, rnd: int,
-                             fields: RoundFields, *, cfg: StageConfig,
-                             mesh: ClientMesh) -> Dict[str, torch.Tensor]:
-    """``selection_prefix`` on one rank of the client mesh.
+def _gather_clients(mesh: ClientMesh, x: torch.Tensor, n: int
+                    ) -> torch.Tensor:
+    """The ranks' (S, shard_n) shards as the global (S, N), in one
+    all-gather (``jax.lax.all_gather(..., tiled=True)`` on the client
+    axis)."""
+    return all_gather(mesh, x.t().contiguous()).t()[:, :n].contiguous()
 
-    ``st`` holds the global (N,) statics and this rank's probe region
-    (``FLSimulation`` builds it on a rank); ``fields`` the round's
-    global draws.  Returns the rank's (shard_n,) shard of ``pos``,
-    ``feats``, ``evals``, ``mask`` and ``survivors`` (padding slots
-    last), and the all-reduced ``n_selected``, ``n_straggler``,
-    ``n_survivor``, ``mean_eval_selected`` and ``elect_overflow``.  With
-    the same draws the masks are ``selection_prefix``'s."""
+
+def selection_prefix_seeds_sharded(st: RoundStatics, params: Params,
+                                   rnd: int, fields: RoundFields, *,
+                                   cfg: StageConfig, mesh: ClientMesh
+                                   ) -> Dict[str, torch.Tensor]:
+    """``selection_prefix_seeds`` on one rank of the client mesh: S
+    seeds' prefixes, every seed's client axis sharded over the same
+    ranks (the reference's ``selection_prefix_seeds_sharded``).
+
+    ``st`` holds the S seeds' global (S, N) statics and this rank's
+    region of each seed's probe pack (``stack_statics`` of the seeds'
+    ``FLSimulation``s built on the rank), ``params`` the stacked (S,
+    ...) weights, ``fields`` the seeds' global draws (``stack_fields``).
+    A round makes one ``probe_loss`` launch, one all-reduce of the (S,
+    N) loss lanes, one all-reduce with max of the (S, 4) Eq. 8 maxima,
+    one ``fuzzy_eval`` launch, then the election: through the gather
+    seam (the (S, N) evals and positions all-gathered, ``select`` on
+    every rank, the dense election one launch for all seeds) or, under
+    ``elect="windowed"``, the scheme's sharded form per seed.  Returns
+    the rank's (S, shard_n) shards of ``pos``, ``feats``, ``evals``,
+    ``mask``, ``survivors``, ``t_done`` and ``alive_at_done`` (padding
+    slots last) and the all-reduced (S,) ``n_selected``,
+    ``n_straggler``, ``n_survivor``, ``n_active``,
+    ``mean_eval_selected`` and ``elect_overflow``; each seed's outputs
+    are those of ``selection_prefix_sharded`` on that seed alone.
+
+    With ``churn_rate > 0`` (the event-driven server) departed clients
+    report no evaluation and are never selected, and ``t_done`` /
+    ``alive_at_done`` give each client's upload instant and its
+    presence then; at 0 the prefix runs exactly the churn-free ops."""
     k, i = mesh.size, mesh.rank
     n = cfg.n_clients
     shard_n = pad_to_shards(n, k) // k
     dev = st.x0.device
+    n_seeds = st.x0.shape[0]
     gid = i * shard_n + torch.arange(shard_n, device=dev)
     valid = gid < n                          # False on dummy pad clients
     ctx = ShardCtx(mesh=mesh, n=n, n_shards=k, shard_n=shard_n,
                    pad=k * shard_n - n, gid=gid, valid=valid)
     mine = ctx.mine
+    churn = cfg.churn_rate > 0.0
 
     t_s = torch.tensor(float(rnd), dtype=torch.float32,
                        device=dev) * cfg.timing.deadline_s
+    fields = RoundFields(*(to_device(getattr(fields, name), dev)
+                           for name in _PREFIX_FIELDS))
     slowdown, n_valid = mine(st.slowdown, 1.0), mine(st.n_valid)
+    x0, speeds, phase = mine(st.x0), mine(st.speeds), mine(st.jitter_phase)
     with torch.no_grad():
-        pos = mobility_positions(
-            mine(st.x0), mine(st.speeds), mine(st.jitter_phase), t_s,
-            road_length_m=cfg.road_length_m, speed_jitter=cfg.speed_jitter)
+        pos = mobility_positions(x0, speeds, phase, t_s,
+                                 road_length_m=cfg.road_length_m,
+                                 speed_jitter=cfg.speed_jitter)
         ta = predicted_throughput_from_fields(
             cfg.network, pos, mine(fields.channel_shadow),
             mine(fields.loss_u))
-        # Eq. 7 over this rank's region; the all-reduce adds exact zeros
-        # from the ranks that do not own a client
-        probe = (params, st.probe_images, st.probe_labels, st.probe_seg,
-                 st.probe_counts)
+        # Eq. 7 over this rank's regions, every seed in one launch; the
+        # all-reduce adds exact zeros from the ranks that do not own a
+        # client
         if cfg.fused_probe:
-            lf_part = kops.probe_loss(*probe, n_clients=n)
+            lf_part = kops.probe_loss(params, st.probe_images,
+                                      st.probe_labels, st.probe_seg,
+                                      st.probe_counts, n_clients=n)
         else:
-            lf_part = dataset_loss_packed(*probe, n_clients=n)
+            lf_part = torch.stack([dataset_loss_packed(
+                {key: v[s].clone() for key, v in params.items()},
+                st.probe_images[s], st.probe_labels[s], st.probe_seg[s],
+                st.probe_counts[s], n_clients=n) for s in range(n_seeds)])
         lf = mine(psum(mesh, lf_part))
-        feats = torch.stack([n_valid, ta, 1.0 / slowdown, lf], dim=1).float()
+        feats = torch.stack([n_valid, ta, 1.0 / slowdown, lf],
+                            dim=-1).float()
 
-        # Eq. 8 against the fleet's maxima, all-reduced with max
+        # Eq. 8 against each seed's fleet maxima, all-reduced with max
         col_max = pmax(mesh, torch.where(
             valid[:, None], feats, torch.full_like(feats, -math.inf)
-        ).max(dim=0).values)
+        ).max(dim=-2).values)
         table, levels = _rules()
         evals = kops.fuzzy_eval(feats, st.means, st.sigmas, table, levels,
                                 st.level_centers, normalize=True,
                                 col_maxima=col_max)
         evals = torch.where(valid, evals, torch.zeros_like(evals))
+        if churn:                  # departed clients report no evaluation
+            active = coverage_active(pos, road_length_m=cfg.road_length_m,
+                                     churn_rate=cfg.churn_rate)
+            evals = torch.where(active, evals, torch.zeros_like(evals))
 
         # selection: the scheme's sharded form under elect="windowed",
         # else the gather seam (also the fallback of an overflowed round)
         scheme = get_scheme(cfg.scheme)
         sharded = None
         if cfg.elect == "windowed" and scheme.select_sharded is not None:
-            sharded = scheme.select_sharded(cfg, ctx, pos, evals, fields)
+            sharded = [scheme.select_sharded(cfg, ctx, pos[s], evals[s],
+                                             seed_fields(fields, s))
+                       for s in range(n_seeds)]
+            if any(res is None for res in sharded):
+                sharded = None
         if sharded is not None:
-            mask, ovf = sharded
+            mask = torch.stack([m for m, _ in sharded])
             mask = torch.where(valid, mask, torch.zeros_like(mask))
-            elect_overflow = pmax(mesh, ovf.to(torch.int32))
-            n_sel = psum(mesh, mask.sum())
+            if churn:
+                mask = torch.where(active, mask, torch.zeros_like(mask))
+            elect_overflow = pmax(mesh, torch.stack(
+                [o for _, o in sharded]).to(torch.int32))
+            n_sel = psum(mesh, mask.sum(dim=-1))
+            ev_sel = psum(mesh, torch.stack([(evals[s] * mask[s]).sum()
+                                             for s in range(n_seeds)]))
             mean_ev_sel = torch.where(
-                n_sel > 0, psum(mesh, (evals * mask).sum())
-                / torch.clamp(n_sel, min=1), torch.zeros((), device=dev))
+                n_sel > 0, ev_sel / torch.clamp(n_sel, min=1),
+                torch.zeros((), device=dev))
         else:
-            ev_g = all_gather(mesh, evals)[:n]
-            pos_g = all_gather(mesh, pos)[:n]
+            ev_g = _gather_clients(mesh, evals, n)
+            pos_g = _gather_clients(mesh, pos, n)
             mask_g = select(cfg, pos_g, ev_g, fields)
+            if churn:
+                act_g = _gather_clients(mesh, active.to(torch.int32), n) > 0
+                mask_g = torch.where(act_g, mask_g, torch.zeros_like(mask_g))
             mask = mine(mask_g)
-            elect_overflow = torch.zeros((), dtype=torch.int32, device=dev)
-            stats = selection_stats(mask_g, ev_g)
-            n_sel, mean_ev_sel = (stats["n_selected"],
-                                  stats["mean_eval_selected"])
+            elect_overflow = torch.zeros(n_seeds, dtype=torch.int32,
+                                         device=dev)
+            stats = [selection_stats(mask_g[s], ev_g[s])
+                     for s in range(n_seeds)]
+            n_sel = torch.stack([x["n_selected"] for x in stats])
+            mean_ev_sel = torch.stack([x["mean_eval_selected"]
+                                       for x in stats])
 
         # Eq. 6 deadline, on this rank's clients
         train_t = training_time_s(cfg.timing, slowdown, n_valid)
@@ -536,12 +601,51 @@ def selection_prefix_sharded(st: RoundStatics, params: Params, rnd: int,
         selected = mask > 0
         survivors = selected & ok & valid
         n_straggler, n_survivor = psum(mesh, torch.stack([
-            (selected & ~ok & valid).sum(), survivors.sum()]))
+            (selected & ~ok & valid).sum(dim=-1), survivors.sum(dim=-1)]))
+        # the event server's inputs, on this rank's clients
+        t_done = t_s + train_t + upload_t
+        if churn:
+            alive_at_done = coverage_active(
+                mobility_positions(x0, speeds, phase, t_done,
+                                   road_length_m=cfg.road_length_m,
+                                   speed_jitter=cfg.speed_jitter),
+                road_length_m=cfg.road_length_m, churn_rate=cfg.churn_rate)
+            n_active = psum(mesh, (active & valid).sum(dim=-1))
+        else:
+            alive_at_done = torch.ones_like(survivors)
+            n_active = torch.full((n_seeds,), n, dtype=torch.int64,
+                                  device=dev)
     return {"pos": pos, "feats": feats, "evals": evals, "mask": mask,
             "survivors": survivors, "n_straggler": n_straggler,
-            "n_selected": n_sel, "n_survivor": n_survivor,
-            "mean_eval_selected": mean_ev_sel,
+            "t_done": t_done, "alive_at_done": alive_at_done,
+            "n_active": n_active, "n_selected": n_sel,
+            "n_survivor": n_survivor, "mean_eval_selected": mean_ev_sel,
             "elect_overflow": elect_overflow}
+
+
+def selection_prefix_sharded(st: RoundStatics, params: Params, rnd: int,
+                             fields: RoundFields, *, cfg: StageConfig,
+                             mesh: ClientMesh) -> Dict[str, torch.Tensor]:
+    """``selection_prefix`` on one rank of the client mesh:
+    ``selection_prefix_seeds_sharded`` of one seed.
+
+    ``st`` holds the global (N,) statics and this rank's probe region
+    (``FLSimulation`` builds it on a rank); ``fields`` the round's
+    global draws.  Returns the rank's (shard_n,) shard of ``pos``,
+    ``feats``, ``evals``, ``mask``, ``survivors``, ``t_done`` and
+    ``alive_at_done`` (padding slots last), and the all-reduced
+    ``n_selected``, ``n_straggler``, ``n_survivor``, ``n_active``,
+    ``mean_eval_selected`` and ``elect_overflow``.  With the same draws
+    the masks are ``selection_prefix``'s."""
+    one = RoundStatics(**{
+        f.name: getattr(st, f.name) if f.name in _SHARED_STATICS
+        else getattr(st, f.name).unsqueeze(0)
+        for f in dataclasses.fields(RoundStatics)})
+    out = selection_prefix_seeds_sharded(
+        one, {key: v.unsqueeze(0) for key, v in params.items()}, rnd,
+        RoundFields(*(getattr(fields, name).unsqueeze(0)
+                      for name in _PREFIX_FIELDS)), cfg=cfg, mesh=mesh)
+    return {key: v[0] for key, v in out.items()}
 
 
 def cohort_bucket_sharded(k: int, shards: int) -> int:
@@ -578,14 +682,19 @@ def train_groups_sharded(params: Params, groups: Sequence[ClientGroup],
                          group_steps: Sequence[int], survivors: np.ndarray,
                          perms: Callable[[int], torch.Tensor],
                          mesh: ClientMesh, *, epochs: int, batch_size: int,
-                         lr: float, prox_mu: float = 0.0
+                         lr: float, prox_mu: float = 0.0,
+                         weight_scale: float = 1.0
                          ) -> Optional[Tuple[Params, torch.Tensor]]:
     """``train_groups`` on the client mesh: per capacity group, each rank
     trains its slice of the surviving cohort; the Eq. 2 numerator and
     denominator add across ranks (all-reduce in ``fedavg_sums``) and
     across groups.  ``survivors`` is the round's global (N,) mask, the
     same on every rank.  Returns ``(sum_i w_i model_i, sum_i w_i)``, or
-    None for an empty round."""
+    None for an empty round.
+
+    ``weight_scale`` multiplies every cohort weight (in fp32): the
+    event-driven server's staleness factor for one landing tick, whose
+    updates share one delay.  At 1.0 the weights are untouched."""
     if not survivors.any():
         return None
     num_tot, den_tot = None, None
@@ -597,6 +706,8 @@ def train_groups_sharded(params: Params, groups: Sequence[ClientGroup],
         bucket = cohort_bucket_sharded(k, mesh.size)
         idx = np.concatenate([cohort, np.full(bucket - k, cohort[0])])
         w = g.n_valid[idx].astype(np.float32)
+        if weight_scale != 1.0:
+            w *= np.float32(weight_scale)
         w[k:] = 0.0                          # padding duplicates drop out
         num, den = train_group_cohort_sharded(
             params, g, group_steps[gi], idx, w, perms, mesh, epochs=epochs,
@@ -616,6 +727,4 @@ def aggregate_sharded(params: Params,
     round returns the global model unchanged."""
     if trained is None:
         return params
-    num, den = trained
-    inv = 1.0 / torch.clamp(den, min=1e-9)
-    return {key: (num[key] * inv).to(p.dtype) for key, p in params.items()}
+    return fedavg_finish(*trained, params)

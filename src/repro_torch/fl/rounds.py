@@ -359,13 +359,23 @@ class FLSimulation:
     def _host(self, state: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
         """The prefix's outputs on the host.  On a mesh, the round's mask
         and survivors first cross the ranks in one all-gather: the cohort
-        gather and the row need the whole fleet's."""
+        gather and the row need the whole fleet's; under the event server
+        (``server="event"``) so do each client's presence at its upload
+        instant and, in a second all-gather, the instant itself (the
+        pool's landing ticks)."""
         host = {k: v.cpu().numpy() for k, v in state.items()}
         if self.mesh is not None:
-            both = all_gather(self.mesh, torch.stack(
-                [state["mask"], state["survivors"].to(torch.int32)], 1))
-            both = both[:self.n].cpu().numpy()
-            host["mask"], host["survivors"] = both[:, 0], both[:, 1] > 0
+            event = self.run_cfg.server == "event"
+            cols = [state["mask"], state["survivors"].to(torch.int32)]
+            if event:
+                cols.append(state["alive_at_done"].to(torch.int32))
+            got = all_gather(self.mesh, torch.stack(cols, 1))
+            got = got[:self.n].cpu().numpy()
+            host["mask"], host["survivors"] = got[:, 0], got[:, 1] > 0
+            if event:
+                host["alive_at_done"] = got[:, 2] > 0
+                host["t_done"] = all_gather(
+                    self.mesh, state["t_done"])[:self.n].cpu().numpy()
         return host
 
     def resolve_elect_overflow(self, rnd: int, host: Dict[str, np.ndarray],

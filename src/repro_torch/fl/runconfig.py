@@ -13,9 +13,8 @@ snapshots the round state every ``checkpoint_every`` rounds
 snapshot first (``rounds.resume_rows``): a resumed run's rows, masks and
 params are the uninterrupted run's bit for bit.  The knobs the port
 does not implement yet raise ``NotImplementedError`` naming the ROADMAP
-item that brings them (the multi-host launch and the event server's
-sharded pool A11; the persistent compilation cache A14); none is
-silently ignored.
+item that brings them (the multi-host launch A11b; the persistent
+compilation cache A14); none is silently ignored.
 
 Async axis (any non-default value promotes ``server`` to "event"):
 
@@ -46,14 +45,6 @@ AUTO_WINDOWED_MIN_CLIENTS = 512
 
 def _unported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
-
-
-def unported_event_pool() -> NotImplementedError:
-    """The event server on the client mesh beyond its sync-equivalent
-    case: the reference's sharded pool (per-tick psum'd partials)."""
-    return _unported("the event-driven server's sharded pool (churn, "
-                     "weighted staleness or a cadence other than the round "
-                     "period on --mesh clients=K)", "A11 (rest)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -110,8 +101,8 @@ class RunConfig:
                              f"{self.agg_cadence_s}")
         if self.multihost:
             raise _unported("--multihost (torchrun over several hosts, "
-                            "launch/multihost.py, faults.py)", "A11 (rest)")
-        k = mesh_clients(self.mesh)          # a bad spec raises here
+                            "launch/multihost.py, faults.py)", "A11b")
+        mesh_clients(self.mesh)              # a bad spec raises here
         if self.checkpoint_every < 1:
             raise ValueError(f"checkpoint_every must be >= 1: "
                              f"{self.checkpoint_every}")
@@ -135,8 +126,6 @@ class RunConfig:
             raise ValueError("staleness='weighted' trains stragglers "
                              "through the batched engine; engine="
                              f"{self.engine!r} is not supported")
-        if k > 1 and (self.churn_rate > 0.0 or self.staleness == "weighted"):
-            raise unported_event_pool()
         if server != self.server:
             return dataclasses.replace(self, server=server)
         return self

@@ -30,7 +30,8 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 KERNELS = ("probe_fuzzy", "fuzzy_eval", "neighbor_elect", "windowed_counts",
-           "wkv6", "flash_attention", "selective_scan", "probe_loss")
+           "wkv6", "flash_attention", "selective_scan", "probe_loss",
+           "cohort_gemm")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
               "-lineinfo")
@@ -39,14 +40,15 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # f = float); every function returns a cudaError_t as int
 _SIGNATURES = {
     "probe_fuzzy": {"probe_fuzzy_launch": "ipppipppippppppppppppippppppppp"},
-    "fuzzy_eval": {"fuzzy_eval_launch": "piippp",
+    "fuzzy_eval": {"fuzzy_eval_launch": "piiipppp",
                    "fuzzy_eval_scratch_floats": ""},
     "neighbor_elect": {"neighbor_elect_launch": "ippiffipp"},
     "windowed_counts": {"windowed_counts_launch": "pppiiiffipp"},
     "wkv6": {"wkv6_launch": "ppppppiiiiipppp"},
     "flash_attention": {"flash_attention_launch": "ppppiiiiiiiiiifp"},
     "selective_scan": {"selective_scan_launch": "ppppppiiiiippp"},
-    "probe_loss": {"probe_loss_launch": "pppipipppppppppppppppp"},
+    "probe_loss": {"probe_loss_launch": "ipppipipppppppppppppppp"},
+    "cohort_gemm": {"cohort_gemm_launch": "pp"},
 }
 _CTYPE = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
 

@@ -2,7 +2,9 @@
 ``repro/kernels/fuzzy_eval.py::fuzzy_eval_pallas``).
 
 ``fuzzy_eval_cuda`` launches ``csrc/fuzzy_eval.cu`` once a call, Eq. 8
-included; its plain version is ``kernels/ref.py::fuzzy_eval_ref``.
+(or the scaling by external maxima) included, for one set of rows or
+for S seeds' sets at once; its plain version is
+``kernels/ref.py::fuzzy_eval_ref``.
 ``kernels/ops.py`` picks between them by the tensor's device.
 
 The host path is kept short, since at the paths' sizes (P = 30 to 4096)
@@ -22,7 +24,7 @@ fused probe kernels read them in the table's order.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -145,21 +147,37 @@ def _operands(lib, means, sigmas, level_centers, rule_table, rule_levels,
 def fuzzy_eval_cuda(x: torch.Tensor, means: torch.Tensor,
                     sigmas: torch.Tensor, rule_table: np.ndarray,
                     rule_levels: np.ndarray, level_centers: torch.Tensor,
-                    normalize: bool = False) -> torch.Tensor:
+                    normalize: bool = False,
+                    col_maxima: Optional[torch.Tensor] = None
+                    ) -> torch.Tensor:
     """x (P, 4) fp32 on CUDA -> evaluations (P,).  ``normalize=True``
     applies Eq. 8 (column maxima, reciprocal multiply) in the same
-    launch."""
-    build.require(x, "x", (None, 4), torch.float32)
+    launch; ``col_maxima`` (4,) scales by those maxima instead (x /
+    max(maxima, 1e-9), clipped to [0, 1], as the fused kernels divide).
+
+    x (seeds, P, 4) evaluates every seed in one launch, each scaled by
+    its own maxima (its rows', or its row of ``col_maxima`` (seeds,
+    4)), -> (seeds, P), each seed bit-equal to a launch of it alone."""
+    lead = tuple(x.shape[:-2])
+    if len(lead) > 1:
+        raise ValueError(f"x: at most one leading (seed) axis, got "
+                         f"{tuple(x.shape)}")
+    build.require(x, "x", lead + (None, 4), torch.float32)
+    if col_maxima is not None:
+        build.require(col_maxima, "col_maxima", lead + (4,), torch.float32)
     dev = x.device
     lib = build.load("fuzzy_eval")
     stream = build.stream_ptr(x)
     block = _operands(lib, means, sigmas, level_centers, rule_table,
                       rule_levels, dev, stream)
-    p = x.shape[0]
-    out = torch.empty(p, dtype=torch.float32, device=dev)
-    if p == 0:
+    seeds, p = (lead or (1,))[0], x.shape[-2]
+    out = torch.empty(lead + (p,), dtype=torch.float32, device=dev)
+    if p == 0 or seeds == 0:
         return out
-    build.check(lib.fuzzy_eval_launch(x.data_ptr(), p, int(normalize), block,
-                                      out.data_ptr(), stream), "fuzzy_eval")
+    mode = 3 if col_maxima is not None else int(normalize)
+    build.check(lib.fuzzy_eval_launch(
+        x.data_ptr(), p, seeds, mode,
+        col_maxima.data_ptr() if col_maxima is not None else None, block,
+        out.data_ptr(), stream), "fuzzy_eval")
     build.LAUNCHES["fuzzy_eval"] += 1
     return out

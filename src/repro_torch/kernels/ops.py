@@ -40,17 +40,20 @@ def fuzzy_eval(x: torch.Tensor, means: torch.Tensor, sigmas: torch.Tensor,
     the all-reduced global maxima, so each rank normalizes against the
     whole fleet.  The scaling divides and then clips, as the fused
     kernel's finish does, so with the same maxima the evaluations are
-    the fused kernel's bit for bit."""
-    if normalize and col_maxima is not None:
-        x = torch.clamp(x / torch.clamp(col_maxima, min=1e-9), 0.0, 1.0)
-        normalize = False
+    the fused kernel's bit for bit.  x (seeds, P, 4), with col_maxima
+    (seeds, 4), evaluates S seeds at once, each on its own maxima ->
+    (seeds, P)."""
+    if not normalize:
+        col_maxima = None
     if _on_cuda(x):
         from repro_torch.kernels.fuzzy_eval import fuzzy_eval_cuda
         return fuzzy_eval_cuda(x, means, sigmas, rule_table, rule_levels,
-                               level_centers, normalize=normalize)
+                               level_centers, normalize=normalize,
+                               col_maxima=col_maxima)
     return ref.fuzzy_eval_ref(x, means, sigmas,
                               *_rules_on(x, rule_table, rule_levels),
-                              level_centers, normalize=normalize)
+                              level_centers, normalize=normalize,
+                              col_maxima=col_maxima)
 
 
 def probe_fuzzy(params, images, labels, seg, counts, aux, means, sigmas,
@@ -79,13 +82,27 @@ def probe_loss(params, images, labels, seg, counts, *,
     """The fused fast path's probe half alone: packed Eq. 7 probe
     samples -> (N,) per-client mean losses.  The client mesh runs it on
     each rank's probe region; the all-reduce that merges the ranks'
-    loss lanes stays outside the kernel."""
+    loss lanes stays outside the kernel.  Stacked (seeds, ...) weights
+    and packs run all seeds in one launch -> (seeds, N)."""
     if _on_cuda(images):
         from repro_torch.kernels.probe_loss import probe_loss_cuda
         return probe_loss_cuda(params, images, labels, seg, counts,
                                n_clients=n_clients)
     return ref.probe_loss_ref(params, images, labels, seg, counts,
                               n_clients)
+
+
+def cohort_gemm(a: torch.Tensor, b: torch.Tensor,
+                bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``sum_r a[:, :, r] @ b[:, :, r] (+ bias)`` over strided (Z1, Z2,
+    R, M, K) and (Z1, Z2, R, K, N) views -> (Z1, Z2, M, N); on the card
+    each output's sum runs in an order set by the product's own sizes,
+    whatever Z2, the cohort axis, is (the cohort's local SGD, ROADMAP
+    C12)."""
+    if _on_cuda(a):
+        from repro_torch.kernels.cohort_gemm import cohort_gemm_cuda
+        return cohort_gemm_cuda(a, b, bias)
+    return ref.cohort_gemm_ref(a, b, bias)
 
 
 def neighbor_elect(pos: torch.Tensor, evals: torch.Tensor, *,

@@ -5,7 +5,9 @@
 fused kernel (``csrc/probe_phases.cuh``), then the Eq. 7 mean.  Its
 plain version is ``kernels/ref.py::probe_loss_ref``.  The client mesh's
 sharded prefix runs it on each rank's probe region
-(``fl/pipeline.py::selection_prefix_sharded``).
+(``fl/pipeline.py::selection_prefix_sharded``), and the seed-batched
+sharded prefix (``selection_prefix_seeds_sharded``) on S seeds' regions
+in one launch.
 """
 from __future__ import annotations
 
@@ -24,15 +26,24 @@ def probe_loss_cuda(params, images: torch.Tensor, labels: torch.Tensor,
 
     images (S, 28, 28, 1) fp32; labels, seg (S,) int32 (seg ==
     n_clients marks padding rows); counts (N,) int32.  A client with no
-    row in ``seg`` gets 0."""
-    s, n = images.shape[0], n_clients
-    check_probe_operands(params, images, labels, seg, counts, n)
+    row in ``seg`` gets 0.
+
+    images (seeds, S, 28, 28, 1) give every operand a leading axis of
+    seeds (stacked (seeds, ...) weights, counts (seeds, N)); one launch
+    takes them all and returns (seeds, N), each seed's row bit-equal to
+    a launch of that seed alone."""
+    lead, n = tuple(images.shape[:-4]), n_clients
+    if len(lead) > 1:
+        raise ValueError(f"images: at most one leading (seed) axis, got "
+                         f"{tuple(images.shape)}")
+    check_probe_operands(params, images, labels, seg, counts, n, lead)
+    seeds, s = (lead or (1,))[0], images.shape[len(lead)]
     dev = images.device
-    scratch = probe_scratch(s, n, dev)
-    lf = torch.empty(n, dtype=torch.float32, device=dev)
+    scratch = probe_scratch(s, n, dev, seeds)
+    lf = torch.empty(lead + (n,), dtype=torch.float32, device=dev)
     lib = build.load("probe_loss")
     build.check(lib.probe_loss_launch(
-        images.data_ptr(), labels.data_ptr(), seg.data_ptr(), s,
+        seeds, images.data_ptr(), labels.data_ptr(), seg.data_ptr(), s,
         counts.data_ptr(), n, *(params[k].data_ptr() for k in PARAM_SHAPES),
         *(t.data_ptr() for t in scratch), lf.data_ptr(),
         build.stream_ptr(images)), "probe_loss")

@@ -27,14 +27,26 @@ def _f32(v: float, like: torch.Tensor) -> torch.Tensor:
 def fuzzy_eval_ref(x: torch.Tensor, means: torch.Tensor,
                    sigmas: torch.Tensor, rule_table: torch.Tensor,
                    rule_levels: torch.Tensor, level_centers: torch.Tensor,
-                   normalize: bool = False) -> torch.Tensor:
+                   normalize: bool = False,
+                   col_maxima: Optional[torch.Tensor] = None
+                   ) -> torch.Tensor:
     """Mamdani inference: x (P, 4) in [0, 1] -> evaluations (P,).
 
     Gaussian memberships (4 variables x 3 levels), min-conjunction over
     the 81 rules, max-aggregation per output level, COG over the level
     centers.  ``normalize=True`` takes raw columns and applies Eq. 8
-    (x / column max, clipped to [0, 1]) first."""
-    if normalize:                                            # Eq. 8
+    (x / column max, clipped to [0, 1]) first; ``col_maxima`` (4,)
+    divides by those maxima instead.  x (seeds, P, 4) evaluates each
+    seed on its own (its own maxima, or its row of ``col_maxima``
+    (seeds, 4)) -> (seeds, P)."""
+    if x.dim() == 3:
+        return torch.stack([fuzzy_eval_ref(
+            x[i], means, sigmas, rule_table, rule_levels, level_centers,
+            normalize, None if col_maxima is None else col_maxima[i])
+            for i in range(x.shape[0])])
+    if col_maxima is not None:
+        x = torch.clamp(x / torch.clamp(col_maxima, min=1e-9), 0.0, 1.0)
+    elif normalize:                                          # Eq. 8
         maxima = torch.clamp(x.max(dim=0).values, min=1e-9)
         x = torch.clamp(x / maxima, 0.0, 1.0)
     d = (x[..., :, None] - means) / sigmas
@@ -50,13 +62,30 @@ def fuzzy_eval_ref(x: torch.Tensor, means: torch.Tensor,
     return num / den
 
 
+def cohort_gemm_ref(a: torch.Tensor, b: torch.Tensor,
+                    bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``sum_r a[:, :, r] @ b[:, :, r] (+ bias)`` for a (Z1, Z2, R, M,
+    K) and b (Z1, Z2, R, K, N) views -> a contiguous (Z1, Z2, M, N):
+    ``torch.matmul`` and a sum over R, in whatever order the library
+    picks."""
+    out = torch.matmul(a, b).sum(2)
+    return (out + bias if bias is not None else out).contiguous()
+
+
 def probe_loss_ref(params, images: torch.Tensor, labels: torch.Tensor,
                    seg: torch.Tensor, counts: torch.Tensor, n_clients: int,
                    chunk: int = 4096) -> torch.Tensor:
     """Eq. 7 over a packed sample tensor -> (N,) mean losses: the
     unfused prefix's probe (``fl/client.py::dataset_loss_packed``) in
     forward passes of ``chunk`` samples, which bounds memory and does
-    not change the arithmetic per sample."""
+    not change the arithmetic per sample.  Images (seeds, S, 28, 28, 1)
+    give every operand a leading axis of seeds: (seeds, N), each seed
+    on its own."""
+    if images.dim() == 5:
+        return torch.stack([probe_loss_ref(
+            {k: v[i] for k, v in params.items()}, images[i], labels[i],
+            seg[i], counts[i], n_clients, chunk)
+            for i in range(images.shape[0])])
     return dataset_loss_packed(params, images, labels, seg, counts,
                                n_clients, batch=chunk)
 
@@ -87,9 +116,9 @@ def probe_fuzzy_ref(params, images, labels, seg, counts, aux, means,
         return feats, fuzzy_eval_ref(feats, means, sigmas, rule_table,
                                      rule_levels, level_centers,
                                      normalize=True)
-    x = torch.clamp(feats / torch.clamp(col_maxima, min=1e-9), 0.0, 1.0)
-    return feats, fuzzy_eval_ref(x, means, sigmas, rule_table, rule_levels,
-                                 level_centers)
+    return feats, fuzzy_eval_ref(feats, means, sigmas, rule_table,
+                                 rule_levels, level_centers,
+                                 col_maxima=col_maxima)
 
 
 def neighbor_elect_ref(pos: torch.Tensor, evals: torch.Tensor, *,

@@ -39,7 +39,7 @@ event                  fired by                               params
 =====================  =====================================  ==========
 
 The reference's ``mh-child-start`` belongs to its multi-host launcher,
-which the port does not have yet (ROADMAP A11, rest).
+which the port does not have yet (ROADMAP A11b).
 
 Nothing here imports torch: the plan is re-read from the environment on
 every ``fire``/``active``, so subprocesses inherit schedules without any

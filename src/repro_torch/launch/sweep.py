@@ -51,10 +51,19 @@ rows the partial CSV already holds, restarts an unfinished group from
 its newest good snapshot, and writes the uninterrupted run's CSV byte
 for byte.
 
+``--mesh clients=K`` runs the grid on K ranks of the client mesh
+(``launch/mesh.py``), as the reference's sweep runs inside its client
+mesh: each rank holds its shard of every seed's fleet and its region of
+every seed's probe pack, a group's round makes one
+``pipeline.selection_prefix_seeds_sharded`` (one ``probe_loss`` and one
+``fuzzy_eval`` launch for all its seeds), the ranks train their slices
+of each seed's cohort, and rank 0 alone writes the CSV and the group
+snapshots.  With ``--workers N`` each worker process runs its groups on
+K ranks of its own.
+
 The knobs the port does not have yet raise ``NotImplementedError``
-naming their ROADMAP item before any work is done: ``--mesh clients=K``
-(the sharded seed-batched prefix) and ``--multihost``: A11;
-``--jit-cache-dir``: A14.
+naming their ROADMAP item before any work is done: ``--multihost``:
+A11b; ``--jit-cache-dir``: A14.
 """
 from __future__ import annotations
 
@@ -81,7 +90,8 @@ from repro_torch.fl.runconfig import RunConfig, add_run_arguments
 from repro_torch.ioutil import write_atomic
 from repro_torch.kernels import build
 from repro_torch.launch import faults
-from repro_torch.launch.mesh import mesh_clients
+from repro_torch.launch.mesh import (ClientMesh, describe, mesh_clients,
+                                     spawn_ranks)
 from repro_torch.train.checkpoint import RoundCheckpointer
 
 SCHEMES = ("dcs", "ccs-fuzzy", "random")
@@ -159,7 +169,8 @@ def run_seed_group(scheme: str, classes_per_client: int, distribution: str,
                    prefix_s: Optional[List[float]] = None,
                    checkpoint_dir: Optional[str] = None,
                    checkpoint_every: int = 1,
-                   resume: bool = False) -> List[Dict]:
+                   resume: bool = False,
+                   mesh: Optional[ClientMesh] = None) -> List[Dict]:
     """Run every seed of one cell group for ``rounds`` rounds.
 
     With more than one seed and statics that stack (the seeds share a
@@ -179,15 +190,17 @@ def run_seed_group(scheme: str, classes_per_client: int, distribution: str,
     ``checkpoint_every`` rounds, after the round's rows: every seed's
     driver state in one ``RoundCheckpointer`` entry (``{"seeds":
     [...]}``) with the rows so far; ``resume`` restores the newest good
-    snapshot and runs only the rounds after it, bit-identically."""
+    snapshot and runs only the rounds after it, bit-identically.
+
+    On a rank of the client mesh (``mesh``, the run config's ``--mesh
+    clients=K``) every seed's simulation is built on the rank, the
+    group's prefix is ``pipeline.selection_prefix_seeds_sharded``, and
+    only rank 0 writes the snapshots; every rank returns the rows."""
     run = (run if run is not None else RunConfig()).resolved()
-    if mesh_clients(run.mesh) > 1:
-        raise NotImplementedError(
-            "the sweep on the client mesh (selection_prefix_seeds_sharded)"
-            " is not ported yet (ROADMAP A11)")
     sims = [FLSimulation(cfg_fn(scheme, classes_per_client, distribution,
                                 seed), run=run, device=device,
-                         fields=fields_fn(seed) if fields_fn else None)
+                         fields=fields_fn(seed) if fields_fn else None,
+                         mesh=mesh)
             for seed in seeds]
     if not sims:
         return []
@@ -216,8 +229,14 @@ def run_seed_group(scheme: str, classes_per_client: int, distribution: str,
         # a fresh stack of the seeds' current (post-FedAvg) params
         params = {k: torch.stack([s.params[k] for s in sims])
                   for k in sims[0].params}
-        outs = pipeline.selection_prefix_seeds(
-            stacked, params, r, pipeline.stack_fields(fields), cfg=cfg0)
+        if sims[0].mesh is not None:
+            outs = pipeline.selection_prefix_seeds_sharded(
+                stacked, params, r, pipeline.stack_fields(fields),
+                cfg=cfg0, mesh=sims[0].mesh)
+        else:
+            outs = pipeline.selection_prefix_seeds(
+                stacked, params, r, pipeline.stack_fields(fields),
+                cfg=cfg0)
         return [{k: v[i] for k, v in outs.items()} for i in range(len(sims))]
 
     def meta(seed: int, row: Dict) -> Dict:
@@ -255,7 +274,7 @@ def run_seed_group(scheme: str, classes_per_client: int, distribution: str,
             rows.append(meta(seed, drv._round_row(r, host, acc, n_test)))
         checkpoint_round(lambda: {"seeds": [drv.capture_state()
                                             for drv in drivers]},
-                         ckpt, r, rows)
+                         ckpt, r, rows, lead=mesh is None or mesh.rank == 0)
         fields = nxt
         t0 = time.perf_counter()
     return rows
@@ -399,17 +418,34 @@ def completed_job_rows(parsed: Optional[List[Dict]],
     return out
 
 
-def _run_group_worker(args: Tuple) -> Tuple[List[Dict], List[float]]:
+def _group_rank(mesh: ClientMesh, args: Tuple) -> Dict:
+    """One rank of a worker's client mesh: the group's rows (as JSON)
+    and prefix seconds."""
+    rows, prefix_s = _run_group_worker(args, mesh)
+    return {"rows": rows, "prefix_s": prefix_s}
+
+
+def _run_group_worker(args: Tuple, mesh: Optional[ClientMesh] = None
+                      ) -> Tuple[List[Dict], List[float]]:
     """Top-level (picklable) worker: one cell group, in a spawned
-    process on the same device, with its snapshot directory."""
+    process on the same device, with its snapshot directory; on ``mesh``
+    as one of its ranks.  A worker of a mesh run (``--workers N`` with
+    ``--mesh clients=K``) spawns K ranks of its own and returns rank
+    0's rows, as each of the reference's workers builds its own client
+    mesh."""
     (scheme, classes, dist, seeds, rounds, cfg_fn, vmap_prefix, run,
      device, fields_fn, ckpt_dir, ckpt_every, resume) = args
+    k = mesh_clients(run.mesh)
+    if mesh is None and k > 1:
+        first = spawn_ranks(_group_rank, k, device, args=(args,))[0]
+        return first["rows"], first["prefix_s"]
     prefix_s: List[float] = []
     rows = run_seed_group(scheme, classes, dist, seeds, rounds,
                           cfg_fn=cfg_fn, vmap_prefix=vmap_prefix, run=run,
                           device=device, fields_fn=fields_fn,
                           prefix_s=prefix_s, checkpoint_dir=ckpt_dir,
-                          checkpoint_every=ckpt_every, resume=resume)
+                          checkpoint_every=ckpt_every, resume=resume,
+                          mesh=mesh)
     return rows, prefix_s
 
 
@@ -421,7 +457,8 @@ def sweep(schemes: Sequence[str], classes_list: Sequence[int],
           out_path: Optional[str] = None, *, device=None,
           fields_fn: Optional[FieldsFn] = None,
           checkpoint_dir: Optional[str] = None, checkpoint_every: int = 1,
-          resume: bool = False) -> List[Dict]:
+          resume: bool = False,
+          mesh: Optional[ClientMesh] = None) -> List[Dict]:
     """Run the whole grid and return aggregated tidy rows.
 
     ``runs`` is the scenario axis (default: the single synchronous
@@ -438,8 +475,15 @@ def sweep(schemes: Sequence[str], classes_list: Sequence[int],
     reads ``out_path`` back: completed groups are skipped (their rows
     pass through verbatim; ``_FMT`` parses and formats idempotently),
     unfinished ones restart from their snapshots, and the final CSV is
-    the uninterrupted run's byte for byte."""
-    log = log or (lambda s: None)
+    the uninterrupted run's byte for byte.
+
+    On a rank of the client mesh (``mesh``; every rank runs this with
+    the same arguments) the groups run on the mesh and only rank 0
+    logs, writes the partial CSV and clears snapshots; ``workers > 1``
+    does not apply there (each worker of a mesh run spawns its own
+    ranks, ``_run_group_worker``)."""
+    lead = mesh is None or mesh.rank == 0
+    log = (log or (lambda s: None)) if lead else (lambda s: None)
     runs = tuple(r.resolved() for r in runs) if runs else (
         RunConfig().resolved(),)
     jobs: List[Tuple[Group, RunConfig]] = [
@@ -471,7 +515,7 @@ def sweep(schemes: Sequence[str], classes_list: Sequence[int],
     # a completed group's snapshots are stale: drop them, so a later
     # corruption there can never shadow the CSV's finished rows
     for job in jobs:
-        if _job_key(*job[0], job[1]) in done and group_dir(job):
+        if _job_key(*job[0], job[1]) in done and group_dir(job) and lead:
             RoundCheckpointer(group_dir(job)).clear()
     work = [(*job[0], tuple(seeds), rounds, cfg_fn, vmap_prefix, job[1],
              None if device is None else str(device), fields_fn,
@@ -487,10 +531,10 @@ def sweep(schemes: Sequence[str], classes_list: Sequence[int],
         group reruns from its snapshots."""
         (s, c, d), run = job
         rows.extend(got)
-        if out_path:
+        if out_path and lead:
             write_atomic(out_path,
                          rows_to_csv(aggregate_rows(rows) + done_rows))
-        if group_dir(job):
+        if group_dir(job) and lead:
             RoundCheckpointer(group_dir(job)).clear()
         faults.fire("group-done", index=index)
         accs = [r["accuracy"] for r in got if r["round"] == rounds - 1]
@@ -501,7 +545,7 @@ def sweep(schemes: Sequence[str], classes_list: Sequence[int],
             f"[{', '.join(f'{t:.4f}' for t in prefix_s)}]"
             + (f", {seconds:.1f}s)" if seconds is not None else ")"))
 
-    if workers > 1:
+    if workers > 1 and mesh is None:
         import multiprocessing as mp
         from concurrent.futures import ProcessPoolExecutor
         with ProcessPoolExecutor(
@@ -513,7 +557,7 @@ def sweep(schemes: Sequence[str], classes_list: Sequence[int],
         return aggregate_rows(rows) + done_rows
     for (i, job), args in zip(todo, work):
         t0 = time.time()
-        got, prefix_s = _run_group_worker(args)
+        got, prefix_s = _run_group_worker(args, mesh)
         finish_group(i, job, got, prefix_s, time.time() - t0)
     return aggregate_rows(rows) + done_rows
 
@@ -608,10 +652,6 @@ def main(argv=None) -> int:
     # sweep's own (run_seed_group), not each simulation's
     base_run = dataclasses.replace(full_run, checkpoint_dir=None,
                                    checkpoint_every=1, resume=False)
-    if mesh_clients(base_run.mesh) > 1:
-        raise NotImplementedError(
-            "--mesh clients=K in the sweep (selection_prefix_seeds_sharded)"
-            " is not ported yet (ROADMAP A11)")
     if (args.churn_rates is None and args.staleness_lambdas is None
             and args.agg_cadences is None):
         runs = [base_run]
@@ -623,27 +663,56 @@ def main(argv=None) -> int:
                              args.agg_cadences
                              or (base_run.agg_cadence_s or 0.0,))
     device = resolve_device(args.device)
+    k = mesh_clients(base_run.mesh)
 
     t0 = time.time()
     build.reset_launches()
-    rows = sweep(schemes, classes_list, distributions,
-                 seeds=range(args.seeds), rounds=args.rounds, cfg_fn=cfg_fn,
-                 vmap_prefix=not args.no_vmap, workers=args.workers,
-                 runs=runs, log=lambda s: print(s, flush=True),
-                 out_path=args.out, device=device,
-                 checkpoint_dir=full_run.checkpoint_dir,
-                 checkpoint_every=full_run.checkpoint_every,
-                 resume=full_run.resume)
-    write_atomic(args.out, rows_to_csv(rows))
-    print(f"[sweep] wrote {len(rows)} rows "
+    kw = dict(seeds=range(args.seeds), rounds=args.rounds, cfg_fn=cfg_fn,
+              vmap_prefix=not args.no_vmap, workers=args.workers, runs=runs,
+              out_path=args.out, device=device,
+              checkpoint_dir=full_run.checkpoint_dir,
+              checkpoint_every=full_run.checkpoint_every,
+              resume=full_run.resume)
+    if k > 1:
+        print(f"[sweep] client mesh: {{'clients': {k}}} over {k} ranks "
+              f"({describe(k, device)})", flush=True)
+    if k > 1 and args.workers <= 1:
+        ranks = spawn_ranks(_sweep_rank, k, device,
+                            args=(schemes, classes_list, distributions),
+                            kwargs=kw)
+        n_rows = int(ranks[0]["n_rows"])
+    else:
+        rows = sweep(schemes, classes_list, distributions,
+                     log=lambda s: print(s, flush=True), **kw)
+        write_atomic(args.out, rows_to_csv(rows))
+        n_rows = len(rows)
+    print(f"[sweep] wrote {n_rows} rows "
           f"({len(schemes)}x{len(classes_list)}x{len(distributions)} "
           f"cells x {len(runs)} scenarios x {args.seeds} seeds x "
           f"{args.rounds} rounds) to {args.out} on {device} in "
           f"{time.time() - t0:.0f}s", flush=True)
-    if device.type == "cuda" and args.workers <= 1:
+    if k > 1 and args.workers <= 1:
+        for r, rank in enumerate(ranks):
+            print(f"[sweep] rank {r} on {rank['device']}: launches "
+                  f"{json.dumps(rank['launches'])}, host-staged "
+                  f"collectives {json.dumps(rank['staged'])}", flush=True)
+    elif device.type == "cuda" and args.workers <= 1:
         print(f"[sweep] launches {json.dumps(dict(build.LAUNCHES))}",
               flush=True)
     return 0
+
+
+def _sweep_rank(mesh: ClientMesh, schemes, classes_list, distributions,
+                **kw) -> Dict:
+    """One rank of ``--mesh clients=K``: the whole grid on the mesh;
+    rank 0 prints the log and writes the CSV.  Returns the row count,
+    this rank's device, kernel launches and host-staged collectives."""
+    rows = sweep(schemes, classes_list, distributions,
+                 log=lambda s: print(s, flush=True), mesh=mesh, **kw)
+    if mesh.rank == 0:
+        write_atomic(kw["out_path"], rows_to_csv(rows))
+    return {"n_rows": len(rows), "device": str(mesh.device),
+            "launches": dict(build.LAUNCHES), "staged": dict(mesh.staged)}
 
 
 if __name__ == "__main__":

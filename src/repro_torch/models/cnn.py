@@ -59,20 +59,27 @@ def cnn_forward(params: Params, images: torch.Tensor) -> torch.Tensor:
     return F.linear(x, params["fc2.w"], params["fc2.b"])
 
 
+def _gemm(a, b, bias=None):
+    """``kernels.ops.cohort_gemm`` (imported here: the kernels' plain
+    versions import this module)."""
+    from repro_torch.kernels import ops
+    return ops.cohort_gemm(a, b, bias)
+
+
 class _StackedConvGemm(torch.autograd.Function):
     """A cohort's same-padded convolution as patches times weights: x (B,
     C*I, H, W) client-major channels, w (C, O, I, k, k), b (C, O) -> (B,
-    C*O, H, W).  One batched GEMM over the (sample, client) pairs, each
-    an fp32 product of a sample's patches and its client's weights (the
-    weights copied over the batch), so the output needs no permute.  The
-    backward is written out: the weight gradient is GEMMs of K = H*W
-    summed over the batch (a GEMM over the clients alone would have K =
-    B*H*W, which cuBLAS runs without split-K), the input gradient GEMMs
-    and ``fold``'s fixed-order sums, with fewer host-side ops than
-    autograd's trace of the same form.  A client's result does not
-    depend on how many clients share the call beyond the order of those
-    sums.  The patches are strided views of the padded input gathered by
-    one copy (``F.unfold`` on CUDA launches a kernel per sample)."""
+    C*O, H, W).  Every product is one ``cohort_gemm`` over the (sample,
+    client) pairs, the weights a broadcast view over the batch: the
+    forward (K = I*k*k), the weight gradient (K = H*W, the batch sum its
+    R axis), the bias gradient (a product with a broadcast one) and the
+    input gradient (K = O), then ``fold``'s fixed-order sums.  On the
+    card each sum's order is set by the product's own sizes, never by
+    the cohort's, so a client's outputs and gradients are the same bits
+    whether it trains alone, in a cohort bucket or in a rank's slice of
+    one (ROADMAP C8, C12).  The
+    patches are strided views of the padded input gathered by one copy
+    (``F.unfold`` on CUDA launches a kernel per sample)."""
 
     @staticmethod
     def forward(ctx, x, w, b):
@@ -80,27 +87,30 @@ class _StackedConvGemm(torch.autograd.Function):
         c, o, i, k = w.shape[:4]
         win = F.pad(x, (k // 2,) * 4).unfold(2, k, 1).unfold(3, k, 1)
         cols = win.reshape(bsz, c, i, h, wd, k, k).permute(
-            0, 1, 2, 5, 6, 3, 4).reshape(bsz * c, i * k * k, h * wd)
-        wb = w.reshape(1, c, o, i * k * k).expand(
-            bsz, c, o, i * k * k).reshape(bsz * c, o, i * k * k)
-        out = torch.bmm(wb, cols).view(bsz, c, o, h * wd) + b[None, :, :,
-                                                              None]
-        ctx.save_for_backward(cols, wb)
+            0, 1, 2, 5, 6, 3, 4).reshape(bsz, c, 1, i * k * k, h * wd)
+        wm = w.reshape(c, o, i * k * k)
+        out = _gemm(wm[None, :, None].expand(bsz, c, 1, o, i * k * k), cols,
+                    b[None, :, :, None].expand(bsz, c, o, h * wd))
+        ctx.save_for_backward(cols, wm)
         ctx.shape = (bsz, c, o, i, k, h, wd)
         return out.view(bsz, c * o, h, wd)
 
     @staticmethod
     def backward(ctx, gy):
-        cols, wb = ctx.saved_tensors
+        cols, wm = ctx.saved_tensors
         bsz, c, o, i, k, h, wd = ctx.shape
-        g = gy.reshape(bsz * c, o, h * wd)
-        gw = torch.bmm(g, cols.transpose(1, 2)).view(
-            bsz, c, o, i * k * k).sum(0).view(c, o, i, k, k)
-        gb = g.view(bsz, c, o, h * wd).sum((0, 3))
+        ikk, hw = i * k * k, h * wd
+        g = gy.reshape(bsz, c, o, hw)
+        # sum over the batch (R) of g (O, HW) @ cols^T (HW, IKK)
+        g_r = g.permute(1, 0, 2, 3)[None]            # (1, C, B, O, HW)
+        gw = _gemm(g_r, cols[:, :, 0].permute(1, 0, 3, 2)[None]
+                   ).view(c, o, i, k, k)
+        gb = _gemm(g_r, g.new_ones(()).expand(1, c, bsz, hw, 1)).view(c, o)
         gx = None
         if ctx.needs_input_grad[0]:
-            gcols = torch.bmm(wb.transpose(1, 2), g)
-            gx = F.fold(gcols.view(bsz, c * i * k * k, h * wd), (h, wd), k,
+            gcols = _gemm(wm.transpose(1, 2)[None, :, None].expand(
+                bsz, c, 1, ikk, o), g[:, :, None])
+            gx = F.fold(gcols.view(bsz, c * ikk, hw), (h, wd), k,
                         padding=k // 2)
         return gx, gw, gb
 
@@ -111,17 +121,52 @@ def _stacked_conv_gemm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor
     return _StackedConvGemm.apply(x, w, b)
 
 
+class _StackedLinear(torch.autograd.Function):
+    """A cohort's dense layer: x (C, B, In), w (C, Out, In), b (C, Out)
+    -> x w^T + b (C, B, Out), forward and backward (the input gradient,
+    K = Out; the weight gradient, K = B; the bias gradient, a product
+    with a broadcast one) each one ``cohort_gemm``, so on the card a
+    client's outputs and gradients do not depend on the cohort's size
+    (ROADMAP C12)."""
+
+    @staticmethod
+    def forward(ctx, x, w, b):
+        c, bsz = x.shape[:2]
+        out = _gemm(x[None, :, None], w.transpose(1, 2)[None, :, None],
+                    b[None, :, None, :].expand(1, c, bsz, w.shape[1]))
+        ctx.save_for_backward(x, w)
+        return out[0]
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, w = ctx.saved_tensors
+        c, bsz = x.shape[:2]
+        g = gy[None, :, None]                        # (1, C, 1, B, Out)
+        gx = _gemm(g, w[None, :, None])[0]
+        gw = _gemm(gy.transpose(1, 2)[None, :, None], x[None, :, None])[0]
+        gb = _gemm(gy.new_ones(()).expand(1, c, 1, 1, bsz), g)[0, :, 0]
+        return gx, gw, gb
+
+
+def _stacked_linear(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor
+                    ) -> torch.Tensor:
+    """``_StackedLinear``: the card's form of the cohort's dense layer."""
+    return _StackedLinear.apply(x, w, b)
+
+
 def cnn_forward_stacked(params: Params, images: torch.Tensor
                         ) -> torch.Tensor:
     """A cohort of models at once: every leaf carries a leading client
     axis C, images are (C, B, 28, 28, 1) -> logits (C, B, 10).
 
     On the CPU the convolutions run as one grouped convolution (group =
-    client).  On the card they run as ``_stacked_conv_gemm``: cuDNN picks
-    its algorithm by the group count, and at one group it computes
-    conv2's weight gradient with Winograd, whose fp32 rounding error
-    (~1e-4 in that gradient) made a client trained alone (the loop
-    engine) drift from the same client in a cohort (ROADMAP C8)."""
+    client) and the dense layers as ``baddbmm``.  On the card every
+    product is a ``cohort_gemm`` (``_stacked_conv_gemm``,
+    ``_stacked_linear``), whose sums run in an order set by the product's
+    own sizes: cuDNN picked its convolution algorithm by the group count
+    (Winograd at one group, ROADMAP C8) and cuBLAS its GEMM kernel by the
+    batch count (C12), so a client trained alone (the loop engine)
+    drifted from the same client in a cohort."""
     c, b = images.shape[:2]
     x = images.permute(1, 0, 4, 2, 3).reshape(b, -1, *images.shape[2:4])
     for name in ("conv1", "conv2"):
@@ -135,6 +180,9 @@ def cnn_forward_stacked(params: Params, images: torch.Tensor
         x = F.max_pool2d(F.relu(x), 2)
     h, wd = x.shape[-2:]
     x = x.reshape(b, c, -1, h, wd).permute(1, 0, 3, 4, 2).reshape(c, b, -1)
+    if x.is_cuda:
+        x = F.relu(_stacked_linear(x, params["fc1.w"], params["fc1.b"]))
+        return _stacked_linear(x, params["fc2.w"], params["fc2.b"])
     x = F.relu(torch.baddbmm(params["fc1.b"][:, None, :], x,
                              params["fc1.w"].transpose(1, 2)))
     return torch.baddbmm(params["fc2.b"][:, None, :], x,

@@ -8,7 +8,7 @@ experts run as batched products, and each token sums its k weighted
 outputs.  The expert products are jnp in the reference, outside any
 Pallas kernel, and plain ``torch`` products here.  The reference's
 expert-parallel ``shard_map`` path comes with the sharded axis (ROADMAP
-A11).
+A11b).
 
 Layouts: ``router`` is ``(E, D)`` (``(out, in)``, as every dense
 weight of the port); the expert stacks ``wi``, ``wg`` (E, D, F) and
@@ -123,4 +123,4 @@ def _apply_moe_ep(cfg, p: Params, x: torch.Tensor, mesh=None):
     """The reference's expert-parallel ``shard_map`` program."""
     raise NotImplementedError(
         "expert-parallel MoE (shard_map over a 'model' mesh axis) comes "
-        "with the sharded axis over torch.distributed, ROADMAP A11")
+        "with the sharded axis over torch.distributed, ROADMAP A11b")

@@ -37,6 +37,7 @@ from repro_torch.fl.timing import staleness_weight
 from repro_torch.launch import sweep
 from test_torch_round import N, _cfgs, _eval_margin, reference_fields
 from test_torch_sweep import _tiny
+from torch_threads import torch_intra_op_threads  # noqa: F401
 
 ROUNDS = 3
 PERIOD = 60.0                          # FLSimConfig.deadline_s

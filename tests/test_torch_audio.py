@@ -36,6 +36,7 @@ from repro_torch.configs import get_arch, scaled_down
 from repro_torch.convert import audio_params_from_jax
 from repro_torch.models import attention, registry, transformer
 from repro_torch.serve import engine
+from torch_threads import torch_intra_op_threads  # noqa: F401
 
 ARCH = "whisper-medium"
 CFG = scaled_down(get_arch(ARCH))

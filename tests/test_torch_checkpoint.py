@@ -37,6 +37,7 @@ from repro_torch.fl.rounds import FLSimulation, run_schedule
 from repro_torch.launch import faults
 from repro_torch.train import checkpoint as ckpt
 from test_torch_round import _cfgs, reference_fields
+from torch_threads import torch_intra_op_threads  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 

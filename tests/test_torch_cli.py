@@ -29,6 +29,7 @@ from repro.launch import sweep as ref_sweep
 from repro_torch.configs import ARCH_IDS
 from repro_torch.fl.runconfig import RunConfig
 from repro_torch.launch import fl_sim, serve, sweep
+from torch_threads import torch_intra_op_threads  # noqa: F401
 
 # options one parser has and the other has not: the reference's hidden
 # --multihost child flags; the port's device and ring-halo capacity
@@ -57,8 +58,9 @@ def _parsed(main, argv):
 
 
 def _runs(monkeypatch, argv):
-    """Run the port's CLI on ``argv`` with the simulation stubbed: the
-    ``RunConfig`` it built."""
+    """Run the port's CLI on ``argv`` with the simulation (and, with
+    ``--mesh clients=K``, the ranks) stubbed: the ``RunConfig`` it
+    built."""
     runs = []
 
     class Stub:
@@ -72,8 +74,14 @@ def _runs(monkeypatch, argv):
         return {"rows": rows, "launches": {}, "prefix_s": [0.0] * n,
                 "round_s": [0.0] * n}
 
+    def spawn(fn, k, device, *, args, kwargs):
+        runs.append(args[1])
+        return [dict(drive(None, args[2]), device="cpu", staged={})
+                for _ in range(k)]
+
     monkeypatch.setattr(fl_sim, "FLSimulation", Stub)
     monkeypatch.setattr(fl_sim, "drive_rounds", drive)
+    monkeypatch.setattr(fl_sim, "spawn_ranks", spawn)
     assert fl_sim.main(argv + ["--device", "cpu"]) == 0
     return runs
 
@@ -88,8 +96,8 @@ FL_SIM_CASES = [
     (["--checkpoint-every", "5"], None),
     (["--resume", "--checkpoint-dir", "ckpt"], None),
     (["--jit-cache-dir", "none"], "A14"),
-    (["--multihost", "2"], "A11"),
-    (["--mesh", "clients=2", "--churn-rate", "0.2"], "A11"),
+    (["--multihost", "2"], "A11b"),
+    (["--mesh", "clients=2", "--churn-rate", "0.2"], None),
 ]
 
 

@@ -14,6 +14,7 @@ from repro_torch.convert import params_from_jax, params_to_numpy
 from repro_torch.models.cnn import (_stacked_conv_gemm, cnn_forward,
                                     cnn_forward_stacked, cnn_sample_losses,
                                     count_params, init_cnn)
+from torch_threads import torch_intra_op_threads  # noqa: F401
 
 
 def _ref_params(seed=0):
@@ -107,3 +108,41 @@ def test_card_conv_form_equals_grouped_conv(clients, in_ch, out_ch):
                       torch.autograd.grad((got * up).sum(), [x, w, b])):
         np.testing.assert_allclose(gg.numpy(), gw.numpy(), rtol=0,
                                    atol=1e-12 * float(gw.abs().max()))
+
+
+# the fast profile's local-SGD products at 20 samples a step, as
+# ``models/cnn.py`` hands them to ``cohort_gemm``: (R, K, M, N, Z1) and
+# the runs ``gemm_splits`` cuts each output's sum into
+SGD_PRODUCTS = {
+    "conv1 forward": ((1, 25, 32, 784, 20), 1),
+    "conv2 forward": ((1, 800, 64, 196, 20), 1),
+    "conv2 input gradient": ((1, 64, 800, 196, 20), 1),
+    "conv1 weight gradient": ((20, 784, 32, 25, 1), 64),
+    "conv2 weight gradient": ((20, 196, 64, 800, 1), 5),
+    "conv2 bias gradient": ((20, 196, 64, 1, 1), 64),
+    "fc1 forward": ((1, 3136, 20, 512, 1), 8),
+    "fc1 input gradient": ((1, 512, 20, 3136, 1), 2),
+    "fc1 weight gradient": ((1, 20, 512, 3136, 1), 1),
+}
+
+
+@pytest.mark.parametrize("product", sorted(SGD_PRODUCTS))
+def test_cohort_gemm_splits_are_a_clients_own(product):
+    """``gemm_splits``: the long sums of one client's product (fc1's
+    forward, the convolutions' weight and bias gradients) are cut into
+    enough runs of k steps to give the client ~64 CTAs, the wide
+    products stay one run, and the kernel's cut of the R x ceil(K / 16)
+    steps into runs covers each step once with at least 4 a run.  The
+    count takes no cohort size, so a client's sums keep their order
+    however many clients share the launch."""
+    from repro_torch.kernels.cohort_gemm import (SPLIT_MIN_STEPS, TILE_K,
+                                                 gemm_splits)
+    (r, k, m, n, z1), want = SGD_PRODUCTS[product]
+    splits = gemm_splits(r, k, m, n, z1)
+    assert splits == want
+    steps = r * -(-k // TILE_K)
+    runs = [(steps * s // splits, steps * (s + 1) // splits)
+            for s in range(splits)]
+    assert runs[0][0] == 0 and runs[-1][1] == steps
+    assert all(a[1] == b[0] for a, b in zip(runs, runs[1:]))
+    assert splits == 1 or min(t1 - t0 for t0, t1 in runs) >= SPLIT_MIN_STEPS

@@ -40,6 +40,7 @@ from repro_torch.convert import dense_params_from_jax
 from repro_torch.kernels import ops, ref
 from repro_torch.models import layers, registry, transformer
 from repro_torch.serve import engine
+from torch_threads import torch_intra_op_threads  # noqa: F401
 
 CFG = scaled_down(get_arch("gemma-2b"))
 REF_CFG = ref_scaled_down(ref_get_arch("gemma-2b"))

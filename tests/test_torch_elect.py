@@ -17,6 +17,7 @@ from repro.kernels import ref as ref_kref
 from repro.kernels.neighbor_elect import windowed_counts_pallas
 from repro_torch.core import elect
 from repro_torch.kernels import build, ops, ref
+from torch_threads import torch_intra_op_threads  # noqa: F401
 
 CR, E_TAU = 200.0, 30.0
 

@@ -874,12 +874,14 @@ def test_sgd_step_alone_and_in_a_cohort_agree_op_by_op(cuda, deterministic):
     """One local-SGD step of a client trained alone (the loop engine's
     cohort of one) and in its round-0 cohort of four (the batched
     engine's), op by op: the stacked convolutions, the logits, the loss
-    and every gradient within 1e-5 of their scale.  With cuDNN's grouped
-    convolution, conv2's weight gradient at one group ran through
-    Winograd and missed this by ~10x (ROADMAP C8)."""
+    and every gradient bit for bit, every product a ``cohort_gemm``
+    whose sums run in an order set by their own sizes (ROADMAP C8, C12;
+    cuBLAS's batched GEMMs gave ~1e-6, cuDNN's grouped convolution
+    ~1e-4)."""
     import torch.nn.functional as F
     from repro_torch.fl.pipeline import cohort_bucket
-    from repro_torch.models.cnn import _stacked_conv_gemm, sample_nll
+    from repro_torch.models.cnn import (_stacked_conv_gemm, _stacked_linear,
+                                        sample_nll)
     sim = _engines_fixture(cuda)["batched"]
     fields = sim.round_fields(0)
     surv = sim._host(sim.selection_state(0, fields))["survivors"]
@@ -907,10 +909,8 @@ def test_sgd_step_alone_and_in_a_cohort_agree_op_by_op(cuda, deterministic):
             out[name] = x.reshape(b, c, -1, *x.shape[-2:]).transpose(0, 1)
             x = F.max_pool2d(F.relu(x), 2)
         x = x.reshape(b, c, -1, 7, 7).permute(1, 0, 3, 4, 2).reshape(c, b, -1)
-        x = F.relu(torch.baddbmm(p["fc1.b"][:, None, :], x,
-                                 p["fc1.w"].transpose(1, 2)))
-        out["logits"] = torch.baddbmm(p["fc2.b"][:, None, :], x,
-                                      p["fc2.w"].transpose(1, 2))
+        x = F.relu(_stacked_linear(x, p["fc1.w"], p["fc1.b"]))
+        out["logits"] = _stacked_linear(x, p["fc2.w"], p["fc2.b"])
         out["loss"] = sample_nll(out["logits"], labels).mean(-1)
         grads = torch.autograd.grad(out["loss"].sum(), list(p.values()))
         out.update({"grad " + k: v for k, v in zip(p, grads)})
@@ -919,9 +919,106 @@ def test_sgd_step_alone_and_in_a_cohort_agree_op_by_op(cuda, deterministic):
     alone, in_cohort = step(idx[:1]), step(idx)
     assert len(idx) == 4
     for k, want in in_cohort.items():
-        err = float((alone[k] - want).abs().max()
-                    / want.abs().max().clamp(min=1e-30))
-        assert err <= 1e-5, (k, err)
+        assert torch.equal(alone[k], want), k
+
+
+def test_engine_contract_holds_over_three_fast_rounds(cuda):
+    """ROADMAP C12: 3 fast ``dcs`` rounds in the loop and the batched
+    engine on the same draws, with the default algorithms, hold the
+    reference's engine contract (``tests/test_engine_parity.py``): masks,
+    ``n_selected``, ``n_aggregated`` and ``n_straggler`` equal, accuracy
+    within 1e-5; the params within 1e-6 (only FedAvg's sums differ: the
+    list average in client order, the masked one in group order)."""
+    sims = _engines_fixture(cuda)
+    for rnd in range(3):
+        rows = {e: s.run_round(rnd) for e, s in sims.items()}
+        assert np.array_equal(sims["loop"].last_mask,
+                              sims["batched"].last_mask)
+        for k in ("n_selected", "n_aggregated", "n_straggler"):
+            assert rows["loop"][k] == rows["batched"][k], (rnd, k)
+        assert abs(rows["loop"]["accuracy"]
+                   - rows["batched"]["accuracy"]) <= 1e-5
+        gap = max(float((sims["loop"].params[k]
+                         - sims["batched"].params[k]).abs().max())
+                  for k in sims["loop"].params)
+        assert gap <= 1e-6, (rnd, gap)
+    assert rows["loop"]["n_aggregated"] > 0
+
+
+@pytest.mark.parametrize("z1,z2,r,m,k,n", [(32, 3, 1, 64, 800, 196),
+                                           (1, 5, 1, 32, 3136, 512),
+                                           (1, 3, 32, 64, 196, 800),
+                                           (2, 3, 2, 7, 33, 65),
+                                           (2, 3, 3, 7, 70, 5)])
+def test_cohort_gemm_matches_plain_and_is_batch_invariant(cuda, z1, z2, r,
+                                                          m, k, n):
+    """The cohort GEMM on strided views (a broadcast and a transposed
+    operand, a bias) within 1e-5 of its plain version's scale, bit for bit
+    from call to call, and each cohort member's (Z2) matrices equal to a
+    launch of that member alone; the cases run the kernel with one run
+    of k steps and with 3, 5 and 8 (``gemm_splits``)."""
+    g = torch.Generator(device=cuda).manual_seed(m + k)
+    a = torch.randn(z2, r, m, k, device=cuda, generator=g)[None].expand(
+        z1, z2, r, m, k)
+    b = torch.randn(z1, z2, r, n, k, device=cuda,
+                    generator=g).transpose(3, 4)
+    bias = torch.randn(z2, m, device=cuda, generator=g)[None, :, :, None] \
+        .expand(z1, z2, m, n)
+    before = build.LAUNCHES["cohort_gemm"]
+    got = ops.cohort_gemm(a, b, bias)
+    assert build.LAUNCHES["cohort_gemm"] == before + 1
+    want = ref.cohort_gemm_ref(a, b, bias)
+    assert float((got - want).abs().max() / want.abs().max()) <= 1e-5
+    assert torch.equal(ops.cohort_gemm(a, b, bias), got)
+    one = ops.cohort_gemm(a[:, -1:], b[:, -1:], bias[:, -1:])
+    assert torch.equal(one[:, 0], got[:, -1])
+
+
+def test_probe_loss_seed_axis_is_single_launches(cuda):
+    """``probe_loss`` with a leading axis of 4 seeds: one launch, each
+    seed's row bit-equal to a launch of that seed alone."""
+    fxs = [_probe_inputs(cuda, seed=s) for s in range(4)]
+    n = fxs[0]["n"]
+    stack = lambda key: torch.stack([fx[key] for fx in fxs])
+    params = {k: torch.stack([fx["params"][k] for fx in fxs])
+              for k in fxs[0]["params"]}
+    before = build.LAUNCHES["probe_loss"]
+    got = ops.probe_loss(params, stack("images"), stack("labels"),
+                         stack("seg"), stack("counts"), n_clients=n)
+    assert build.LAUNCHES["probe_loss"] == before + 1
+    for i, fx in enumerate(fxs):
+        alone = ops.probe_loss(fx["params"], fx["images"], fx["labels"],
+                               fx["seg"], fx["counts"], n_clients=n)
+        assert torch.equal(got[i], alone)
+
+
+@pytest.mark.parametrize("external", [False, True])
+@pytest.mark.parametrize("p", [30, 4096, 70_000])
+def test_fuzzy_eval_seed_axis_is_single_launches(cuda, external, p):
+    """``fuzzy_eval`` on (4, P, 4) raw features, Eq. 8 over each seed's
+    own rows or its row of external maxima: one launch, each seed
+    bit-equal to a launch of it alone and within 1e-4 of the plain
+    version."""
+    gen = torch.Generator().manual_seed(p)
+    x = torch.rand(4, p, 4, generator=gen) * torch.tensor([4500., 3e6, 1.,
+                                                           3.])
+    cm = (x.max(dim=1).values * 1.1) if external else None
+    table, levels = build_rule_table()
+    m = _mamdani(cuda)
+    xc, cmc = x.to(cuda), None if cm is None else cm.to(cuda)
+    before = build.LAUNCHES["fuzzy_eval"]
+    got = ops.fuzzy_eval(xc, m[0], m[1], table, levels, m[2],
+                         normalize=True, col_maxima=cmc)
+    assert build.LAUNCHES["fuzzy_eval"] == before + 1
+    for i in range(4):
+        alone = ops.fuzzy_eval(xc[i], m[0], m[1], table, levels, m[2],
+                               normalize=True,
+                               col_maxima=None if cmc is None else cmc[i])
+        assert torch.equal(got[i], alone)
+    want = ops.fuzzy_eval(x, *_mamdani("cpu")[:2], table, levels,
+                          _mamdani("cpu")[2], normalize=True, col_maxima=cm)
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=0,
+                               atol=1e-4)
 
 
 def test_loop_and_batched_engines_agree_in_fp32(cuda, deterministic):

@@ -28,6 +28,7 @@ from repro_torch.core.rules import build_rule_table, verify_anchors
 from repro_torch.data.synthetic import make_dataset, train_test_split
 from repro_torch.fl import mobility, network, partition, timing
 from repro_torch.launch.fl_sim import fast_config
+from torch_threads import torch_intra_op_threads  # noqa: F401
 
 # ``repro.fl`` re-exports a ``partition`` function under the module's name
 ref_part = importlib.import_module("repro.fl.partition")

@@ -47,6 +47,7 @@ from repro_torch.convert import hybrid_params_from_jax
 from repro_torch.kernels import ops, ref
 from repro_torch.models import layers, mamba, moe, registry, transformer
 from repro_torch.serve import engine
+from torch_threads import torch_intra_op_threads  # noqa: F401
 
 ARCH = "jamba-v0.1-52b"
 CFG = scaled_down(get_arch(ARCH))

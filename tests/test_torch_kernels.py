@@ -21,6 +21,7 @@ from repro.models.cnn import init_cnn as ref_init
 from repro_torch.convert import params_from_jax
 from repro_torch.core.rules import build_rule_table
 from repro_torch.kernels import build, ops
+from torch_threads import torch_intra_op_threads  # noqa: F401
 
 
 def _mamdani_np():

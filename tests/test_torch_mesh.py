@@ -53,6 +53,7 @@ from repro_torch.kernels import ops
 from repro_torch.launch import fl_sim
 from repro_torch.launch.mesh import (mesh_clients, parse_mesh_spec,
                                      rank_calls, spawn_ranks)
+from torch_threads import torch_intra_op_threads  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 SPAWN_TIMEOUT = 240.0

@@ -39,6 +39,7 @@ from repro_torch.launch import fl_sim
 from repro_torch.launch.mesh import spawn_ranks
 from test_torch_round import (_cfgs, _check_round, _pair, _ref_init,
                               reference_fields)
+from torch_threads import torch_intra_op_threads  # noqa: F401
 
 SCHEMES = ("dcs", "ccs-fuzzy", "random")
 ROW_KEYS = ("round", "accuracy", "n_selected", "n_aggregated",

@@ -19,6 +19,7 @@ from repro_torch.fl.rounds import FLSimulation
 from repro_torch.launch import fl_sim
 from test_torch_paper import _check_row
 from test_torch_round import _check_round, reference_fields
+from torch_threads import torch_intra_op_threads  # noqa: F401
 
 TRAINED_ROUND = 4
 

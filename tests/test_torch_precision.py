@@ -33,6 +33,7 @@ from repro_torch.fl.runconfig import RunConfig
 from repro_torch.kernels import ref
 from repro_torch.launch.fl_sim import fast_config
 from repro_torch.models.cnn import sample_nll
+from torch_threads import torch_intra_op_threads  # noqa: F401
 
 # --- the split products --------------------------------------------------
 

@@ -29,6 +29,7 @@ from repro_torch.fl.runconfig import RunConfig
 from repro_torch.kernels import ops
 from repro_torch.launch import faults, sweep
 from repro_torch.train.checkpoint import RoundCheckpointer, load_state
+from torch_threads import torch_intra_op_threads  # noqa: F401
 
 N = 10
 EVENT_RUN = RunConfig(server="event", churn_rate=0.3, staleness="weighted",

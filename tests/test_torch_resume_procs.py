@@ -27,6 +27,7 @@ from repro_torch.launch import faults
 from repro_torch.launch.mesh import spawn_ranks
 from repro_torch.train.checkpoint import RoundCheckpointer
 from test_torch_resume import _cfg, _digest
+from torch_threads import torch_intra_op_threads  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 

@@ -35,6 +35,7 @@ from repro_torch.fl.mobility import MobilityConfig
 from repro_torch.fl.partition import PartitionConfig
 from repro_torch.fl.rounds import FLSimConfig, FLSimulation
 from repro_torch.fl.runconfig import RunConfig
+from torch_threads import torch_intra_op_threads  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 N = 10
@@ -281,10 +282,20 @@ def test_cli_without_cuda_raises():
 
 @pytest.mark.parametrize("kw", [
     dict(mesh="clients=4", multihost=2),
-    dict(mesh="clients=2", churn_rate=0.2)])
+    dict(multihost=2)])
 def test_unported_knobs_raise(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A11b"):
         RunConfig(**kw).resolved()
+
+
+def test_mesh_with_churn_resolves_to_the_event_server():
+    """The event server's sharded pool is ported (ROADMAP A11a): on the
+    client mesh, churn, weighted staleness and a cadence resolve as on
+    one device, as the reference's."""
+    for kw in (dict(churn_rate=0.2), dict(staleness="weighted"),
+               dict(agg_cadence_s=90.0)):
+        run = RunConfig(mesh="clients=2", **kw).resolved()
+        assert (run.server, run.mesh) == ("event", "clients=2")
 
 
 # (RunConfig fields shared by both packages; the port adds multihost

@@ -32,6 +32,7 @@ from repro_torch.convert import rwkv_params_from_jax
 from repro_torch.kernels import ops, ref
 from repro_torch.models import registry, rwkv6
 from repro_torch.serve import engine
+from torch_threads import torch_intra_op_threads  # noqa: F401
 
 CFG = scaled_down(get_arch("rwkv6-3b"))
 REF_CFG = ref_scaled_down(ref_get_arch("rwkv6-3b"))

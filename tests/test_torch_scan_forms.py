@@ -28,6 +28,7 @@ from repro.kernels.wkv6 import wkv6_pallas
 from repro.models.rwkv6 import wkv6_chunked
 from repro_torch.kernels import ref
 from repro_torch.kernels.wkv6 import CHUNK
+from torch_threads import torch_intra_op_threads  # noqa: F401
 
 LOG2E = 1.4426950408889634
 LANES = 8                        # SS_LANES in csrc/selective_scan.cu

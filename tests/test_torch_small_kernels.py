@@ -33,6 +33,7 @@ from repro_torch.core import elect
 from repro_torch.core.rules import build_rule_table
 from repro_torch.kernels import fuzzy_eval as fe
 from repro_torch.kernels import ref
+from torch_threads import torch_intra_op_threads  # noqa: F401
 
 CR, E_TAU = 200.0, 30.0
 WC_WARPS, WC_TILE, WC_SUB = 8, 1536, 32     # csrc/windowed_counts.cu

@@ -46,6 +46,7 @@ from repro_torch.fl.runconfig import RunConfig
 from repro_torch.kernels import ref
 from repro_torch.launch import sweep
 from test_torch_round import _eval_margin, _ref_init, reference_fields
+from torch_threads import torch_intra_op_threads  # noqa: F401
 
 SCHEMES = ("dcs", "random")
 SEEDS = (0, 1)
@@ -458,8 +459,7 @@ def test_central_schemes_take_a_seed_axis_with_ties():
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--mesh", "clients=2"], "A11"),
-    (["--multihost", "2"], "A11"),
+    (["--multihost", "2"], "A11b"),
     (["--jit-cache-dir", "none"], "A14")])
 def test_unported_flags_raise_naming_their_item(flags, item, tmp_path,
                                                 monkeypatch):
@@ -531,10 +531,47 @@ def test_async_and_overlap_flags_reach_the_sweep(flags, tmp_path,
         assert a == b
 
 
-def test_seed_group_on_the_client_mesh_names_a11():
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-        sweep.run_seed_group("dcs", 9, "uniform", (0,), 1, cfg_fn=_tiny,
-                             run=RunConfig(mesh="clients=2"), device="cpu")
+@pytest.mark.parametrize("workers", [1, 2])
+def test_cli_runs_the_grid_on_the_client_mesh(workers, tmp_path,
+                                              monkeypatch, capsys):
+    """``--mesh clients=2`` (the ranks stubbed): the reference's banner
+    line, then with one worker one spawn of 2 ranks running the whole
+    grid (``_sweep_rank``, rank 0 writing the CSV) and each rank's
+    launches; with ``--workers 2`` the grid runs here and each worker
+    spawns 2 ranks of its own for its group (``_run_group_worker``)."""
+    calls = []
+
+    def spawn(fn, k, device, *, args=(), kwargs=None, **kw):
+        calls.append((fn, k, args, kwargs))
+        return [{"n_rows": 0, "device": "cpu", "launches": {},
+                 "staged": {}, "rows": [], "prefix_s": []}] * k
+
+    def grid(*a, **kw):
+        for i, (s, c, d) in enumerate((s, c, d) for s in a[0]
+                                      for c in a[1] for d in a[2]):
+            sweep._run_group_worker((s, c, d, tuple(kw["seeds"]),
+                                     kw["rounds"], kw["cfg_fn"], True,
+                                     kw["runs"][0], "cpu", None, None, 1,
+                                     False))
+        return []
+    monkeypatch.setattr(sweep, "spawn_ranks", spawn)
+    monkeypatch.setattr(sweep, "sweep", grid)
+    out = tmp_path / "x.csv"
+    assert sweep.main(["--seeds", "2", "--rounds", "1", "--schemes",
+                       "dcs,random", "--device", "cpu", "--mesh",
+                       "clients=2", "--workers", str(workers), "--out",
+                       str(out)]) == 0
+    text = capsys.readouterr().out
+    assert "[sweep] client mesh: {'clients': 2} over 2 ranks" in text
+    if workers == 1:
+        ((fn, k, args, kwargs),) = calls
+        assert (fn, k) == (sweep._sweep_rank, 2)
+        assert args == (("dcs", "random"), (9,), ("uniform",))
+        assert kwargs["runs"][0].mesh == "clients=2"
+        assert text.count("[sweep] rank ") == 2
+    else:
+        assert [(fn, k) for fn, k, _, _ in calls] == \
+            [(sweep._group_rank, 2)] * 2
 
 
 def test_cli_writes_the_references_csv_and_needs_a_card(tmp_path,

@@ -39,6 +39,7 @@ from repro_torch.convert import dense_params_from_jax
 from repro_torch.models import registry, transformer
 from repro_torch.serve import engine
 from test_torch_hybrid import _record_routes, _rerouted_rows
+from torch_threads import torch_intra_op_threads  # noqa: F401
 
 B, S = 2, 16
 BF16_TOL = 2 ** -5
