@@ -23,10 +23,15 @@ Phases (any failure exits non-zero; no phase's exception is caught):
    shape (B=4, T=64, H=40, N=64, bf16 r/k/v, fp32 w) and at B=1,
    T=4096, then about its time chunk (T = 64, 65, 129 and 4096; B*H 40
    and 160) with decays of exactly 0, 1e-31 and 1 - 2^-24, each within
-   1e-5 of scale and bit-repeatable; ``cohort_gemm`` (the local-SGD
-   products of a cohort of 4, 20 samples a step) within 1e-5 of scale
-   of its plain version, bit-repeatable, one client alone bit-equal to
-   its block of the cohort;
+   1e-5 of scale and bit-repeatable; ``cohort_gemm`` at every product of
+   a local-SGD step (20 samples a client; 11 calls: the four weight
+   gradients carry their bias gradients as row sums), for one client
+   and for a cohort of 4, within 1e-5 of scale of its plain version
+   (the row sums too), bit-repeatable, the cohort's last client alone
+   bit-equal to its block, then each timed: device time a call (calls
+   replayed from a CUDA graph) and eager time beside ``torch.matmul``
+   (``torch.einsum`` where the batch sum is the R axis) and the bounds
+   at the 3xTF32 rate and the fp32 peak;
 4. time each kernel and its plain version with CUDA events and print its
    bound (the larger of bytes over 3.35 TB/s and operations over the
    fp32 peak of 67 TFLOP/s; for the probe, whose conv2 and fc1 run as 3
@@ -164,12 +169,16 @@ Phases (any failure exits non-zero; no phase's exception is caught):
    after it a reading; fp64 training halves within 1e-6) and FedProx
    (mu 0.01), the card against the CPU in fp64 within 1e-6; C8 op by
    op: one local-SGD step alone and in the cohort of four, every op and
-   gradient bit-equal through ``cohort_gemm``, beside its plain version
-   (cuBLAS) and cuDNN's grouped convolution (readings) and the kernels
-   the profiler sees in each; ``[c12]``: 3 fast rounds of the loop and
+   gradient bit-equal through ``cohort_gemm``, beside one batched
+   ``torch.matmul`` over the cohort (cuBLAS, the port's form before C12)
+   and cuDNN's grouped convolution (readings), with each form's step
+   device time and the kernels the profiler sees in each; ``[c12]``: 3
+   fast rounds of the loop and
    the batched engine on the same draws, default algorithms, held to
    the reference's engine contract (masks, counts equal, accuracy
-   within 1e-5); then ``python -m
+   within 1e-5); a trained paper round under the profiler: the card's
+   busy share of its wall, its kernels and host ops by time; then
+   ``python -m
    repro_torch.launch.fl_sim --scheme all --rounds 1 --out`` and
    ``--paper-profile --scheme dcs --rounds 1 --out``: rc 0, every scheme's rows with the reference's keys in
    order, the paper CLI's launch line ``probe_fuzzy`` 1 and
@@ -269,16 +278,23 @@ Phases (any failure exits non-zero; no phase's exception is caught):
    launches, its bf16 error and times, bound and library time); the
    line's ``kernels`` are the eight that port a Pallas kernel, and its
    ``other_kernels`` hold ``cohort_gemm`` (the local-SGD products, which
-   the reference leaves to XLA: timed at conv2's input gradient beside
-   ``torch.matmul``, with the same keys but ``reference`` in place of
-   ``replaces``);
+   the reference leaves to XLA: its headline conv2's input gradient in
+   the cohort of 4, device time beside ``torch.matmul``, with the same
+   keys but ``reference`` in place of ``replaces``, and ``products``:
+   every product of the step at C = 1 and 4, its device and eager time,
+   the library call's, the plain version's and both bounds);
 7. ``{"ok": true, "device": {...}}`` as the last line.
 
 ``--c12-readings`` takes two one-off readings instead (no result line):
 ``[c12]`` through the plain products (cuBLAS), and the trained rounds'
 wall time (fast and paper profile), which uses only entry points older
 than ``cohort_gemm``, so this file run from an older checkout's root
-times that checkout.
+times that checkout.  ``--gemm-readings [SRC]`` times the cohort GEMM
+through the package under SRC (default this checkout's ``src``; an
+older checkout's ``src`` times its kernel with this file's harness):
+every product of a step for one client and a cohort of 4, the trained
+rounds, then ``[c8]``'s step device time through the kernel and
+through cuBLAS (no result line).
 """
 from __future__ import annotations
 
@@ -614,6 +630,35 @@ def time_ms(fn, iters: int, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, calls: int = 20, replays: int = 5) -> float:
+    """Device ms a call of ``fn``: ``calls`` calls captured in one CUDA
+    graph, replayed ``replays`` times between CUDA events, so that the
+    host's cost of a launch (Python, ctypes, allocation) is out of the
+    reading."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / (replays * calls)
 
 
 def kept_pairs(sq, skv, causal, window, prefix) -> int:
@@ -1717,7 +1762,7 @@ def c8_step_check(dev) -> None:
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             step(c_idx)
             torch.cuda.synchronize()
-        names, total = set(), 0.0
+        names, total, by = set(), 0.0, {}
         for ev in prof.key_averages():
             t = getattr(ev, "device_time_total", None)
             t = getattr(ev, "cuda_time_total", 0.0) if t is None else t
@@ -1727,12 +1772,18 @@ def c8_step_check(dev) -> None:
             if any(w in key for w in ("conv", "grad", "winograd", "fprop",
                                       "im2col", "unfold")):
                 names.add(re.split(r"[<(]", key)[0][:56])
-        return sorted(names), total / 1e3
+            if t > 0:
+                name = key.split("(")[0][:60]
+                n, ms = by.get(name, (0, 0.0))
+                by[name] = (n + ev.count, ms + t / 1e3)
+        top = sorted(by.items(), key=lambda kv: -kv[1][1])[:8]
+        return sorted(names), total / 1e3, "; ".join(
+            f"{k} {ms:.4f} ms ({n})" for k, (n, ms) in top)
 
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ops
     gemm, kernel = cnn._stacked_conv_gemm, ops.cohort_gemm
     forms = (("cohort_gemm", gemm, kernel),
-             ("plain (cuBLAS)", gemm, ref.cohort_gemm_ref),
+             ("plain (cuBLAS)", gemm, cublas_gemm),
              ("grouped cuDNN", grouped, kernel))
     torch.use_deterministic_algorithms(True)
     torch.backends.cudnn.deterministic = True
@@ -1745,9 +1796,11 @@ def c8_step_check(dev) -> None:
                                    / want.abs().max().clamp(min=1e-30))
                           for k, want in in_cohort.items()}
             for label, c_idx in (("alone", idx[:1]), ("cohort", idx)):
-                names, ms = conv_kernels(c_idx)
+                names, ms, top = conv_kernels(c_idx)
                 log(f"[c8] {form} step {label} (C={len(c_idx)}): device "
                     f"{ms:.4f} ms; convolution kernels {names}")
+                log(f"[c8] {form} step {label}: device time by kernel "
+                    f"(launches): {top}")
     finally:
         cnn._stacked_conv_gemm, ops.cohort_gemm = gemm, kernel
         torch.use_deterministic_algorithms(False)
@@ -1778,10 +1831,10 @@ def c12_engines(dev, plain: bool = False) -> list:
     import numpy as np
     from repro_torch.fl.rounds import FLSimulation
     from repro_torch.fl.runconfig import RunConfig
-    from repro_torch.kernels import build, ops, ref
+    from repro_torch.kernels import build, ops
     kernel = ops.cohort_gemm
     if plain:
-        ops.cohort_gemm = ref.cohort_gemm_ref
+        ops.cohort_gemm = cublas_gemm
     try:
         sims = {e: FLSimulation(fast_config_dcs(C12_ROUNDS),
                                 run=RunConfig(engine=e), device=dev)
@@ -1846,6 +1899,49 @@ def c12_round_times(dev=None) -> dict:
     return out
 
 
+def round_profile(dev) -> None:
+    """One trained paper-profile round (``paper_config("dcs")``'s round
+    1, serial: its 2 clients of 60 samples, 90 local-SGD steps) under
+    ``torch.profiler``: wall seconds (the profiler's own host cost in
+    them), the card's kernel time and its share of the wall (the rest
+    the card idles, waiting on the host), the kernels by device time and
+    the host's ops by self time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.fl.rounds import FLSimulation
+    from repro_torch.fl.runconfig import RunConfig
+    from repro_torch.launch.fl_sim import paper_config
+    sim = FLSimulation(paper_config("dcs"),
+                       run=RunConfig(overlap_rounds=False), device=dev)
+    sim.run_round(0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        row = sim.run_round(1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kern, busy = {}, 0.0
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            us = e.time_range.elapsed_us()
+            busy += us
+            key = e.name[5:] if e.name.startswith("void ") else e.name
+            key = re.split(r"[(]", key)[0][:48]
+            kern[key] = kern.get(key, 0.0) + us
+    host = {ev.key[:40]: ev.self_cpu_time_total
+            for ev in prof.key_averages() if ev.self_cpu_time_total > 0}
+    top_k = sorted(kern.items(), key=lambda kv: -kv[1])[:6]
+    top_h = sorted(host.items(), key=lambda kv: -kv[1])[:6]
+    log(f"[profile] trained paper round (aggregated {row['n_aggregated']})"
+        f": wall {wall:.4f} s under the profiler, card busy "
+        f"{busy / 1e6:.4f} s ({busy / 1e6 / wall:.1%}); kernels: "
+        + "; ".join(f"{k} {v / 1e3:.2f} ms" for k, v in top_k)
+        + "; host self time: "
+        + "; ".join(f"{k} {v / 1e3:.2f} ms" for k, v in top_h))
+
+
 def c12_readings() -> int:
     """``python3 chip_smoke.py --c12-readings``: ``[c12]`` through the
     plain products (cuBLAS) and the trained rounds' wall time."""
@@ -1863,6 +1959,38 @@ def c12_readings() -> int:
     if (ROOT / "src/repro_torch/kernels/cohort_gemm.py").exists():
         c12_engines(dev, plain=True)
     c12_round_times(dev)
+    return 0
+
+
+def gemm_readings(src=None) -> int:
+    """``python3 chip_smoke.py --gemm-readings [SRC]``: the cohort GEMM's
+    readings through the package under SRC (by default this checkout's
+    ``src``), so that this file times an older checkout's kernel in the
+    same call: every product of a step for one client and for a cohort
+    of 4 (``cohort_gemm_phase``), the trained rounds' wall time
+    (``c12_round_times``), then under the profiler a trained paper
+    round's device share (``round_profile``) and one step's device time
+    alone and in the cohort through the kernel and through cuBLAS
+    (``[c8]``).  No result line."""
+    if src:
+        sys.path.insert(0, str(Path(src).resolve()))
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False",
+              file=sys.stderr)
+        return 2
+    import repro_torch
+    from repro_torch.device import fp32_strict
+    fp32_strict()
+    dev = torch.device("cuda")
+    log(f"[readings] package {Path(repro_torch.__file__).parent}")
+    log(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                        "--format=csv,noheader"], capture_output=True,
+                       text=True, check=True).stdout.strip())
+    cohort_gemm_phase(dev)
+    c12_round_times(dev)
+    round_profile(dev)
+    c8_step_check(dev)
     return 0
 
 
@@ -3289,77 +3417,184 @@ def preemption(dev, big) -> None:
 
 
 
-# the cohort GEMM (ROADMAP C12) at the fast profile's local-SGD step, a
-# cohort of C_GEMM clients, 20 samples a step: conv1's and conv2's
-# forward, conv2's weight and input gradients, fc1's forward and weight
-# gradient; conv2's input gradient is the timed one (one library call,
-# ``torch.matmul``, computes the same function)
+# the cohort GEMM (ROADMAP C12) at the fast profile's local-SGD step:
+# every product of one step, 20 samples a client, for one client alone
+# and for a cohort of C_GEMM; conv2's input gradient in the cohort is the
+# kernels line's headline
 C_GEMM, B_GEMM = 4, 20
+GEMM_HEADLINE = "conv2 input gradient"
+# a step's products by their (R, K, M, N, Z1): the four bias gradients
+# are products of their own where the weight gradient does not carry
+# them as row sums (``cohort_gemm(..., rowsum=True)``)
+STEP_PRODUCTS = {
+    (1, 25, 32, 784, 20): "conv1 forward",
+    (1, 800, 64, 196, 20): "conv2 forward",
+    (1, 3136, 20, 512, 1): "fc1 forward",
+    (1, 512, 20, 10, 1): "fc2 forward",
+    (1, 10, 20, 512, 1): "fc2 input gradient",
+    (1, 20, 10, 512, 1): "fc2 weight gradient",
+    (1, 20, 1, 10, 1): "fc2 bias gradient",
+    (1, 512, 20, 3136, 1): "fc1 input gradient",
+    (1, 20, 512, 3136, 1): "fc1 weight gradient",
+    (1, 20, 1, 512, 1): "fc1 bias gradient",
+    (20, 196, 64, 800, 1): "conv2 weight gradient",
+    (20, 196, 64, 1, 1): "conv2 bias gradient",
+    (1, 64, 800, 196, 20): "conv2 input gradient",
+    (20, 784, 32, 25, 1): "conv1 weight gradient",
+    (20, 784, 32, 1, 1): "conv1 bias gradient",
+}
+
+
+def cublas_gemm(a, b, bias=None, rowsum=False):
+    """The cohort's products as one batched ``torch.matmul`` (cuBLAS,
+    which picks its kernel by the batch count) and a sum over R: the
+    port's form before ROADMAP C12, for readings beside the kernel."""
+    import torch
+    out = torch.matmul(a, b).sum(2)
+    out = (out + bias if bias is not None else out).contiguous()
+    return (out, a.sum(dim=(2, 4))) if rowsum else out
+
+
+def step_products(dev, c: int, seed: int = 27) -> list:
+    """Every ``ops.cohort_gemm`` call of one local-SGD step of a cohort of
+    ``c`` clients at the fast profile's widths (the CNN's init with small
+    per-client offsets, ``B_GEMM`` random images a client, from
+    ``seed``), as ``models/cnn.py`` makes them: ``[(label, a, b, bias,
+    rowsum)]`` in the step's order."""
+    import torch
+    from repro_torch.configs.mnist_cnn import CONFIG
+    from repro_torch.kernels import ops
+    from repro_torch.models import cnn
+    g = torch.Generator().manual_seed(seed)
+    p = {k: (v[None] + 0.01 * torch.randn((c, *v.shape), generator=g))
+         .to(dev).requires_grad_(True)
+         for k, v in cnn.init_cnn(g, CONFIG).items()}
+    images = torch.randn(c, B_GEMM, 28, 28, 1, generator=g).to(dev)
+    labels = torch.randint(0, 10, (c, B_GEMM), generator=g).to(dev)
+    calls, kernel = [], ops.cohort_gemm
+
+    def record(a, b, bias=None, *rowsum):
+        z1, _, r, m, k = a.shape
+        label = STEP_PRODUCTS.get((r, k, m, b.shape[4], z1),
+                                  f"R={r} K={k} M={m} N={b.shape[4]}")
+        if rowsum and rowsum[0]:
+            label += " + bias gradient"
+        calls.append((label, a, b, bias, bool(rowsum and rowsum[0])))
+        return kernel(a, b, bias, *rowsum)
+    ops.cohort_gemm = record
+    try:
+        loss = cnn.sample_nll(cnn.cnn_forward_stacked(p, images),
+                              labels).mean(-1)
+        torch.autograd.grad(loss.sum(), list(p.values()))
+    finally:
+        ops.cohort_gemm = kernel
+    return calls
+
+
+def gemm_work(a, b, bias, rowsum) -> tuple:
+    """(bytes, fp32 operations) of one ``cohort_gemm`` call: each
+    operand's distinct elements (a broadcast axis once) read once, the
+    outputs written once; 2 R K M N a (z1, z2) pair, plus R K M adds a
+    row sum."""
+    def distinct(t):
+        return math.prod(n for n, st in zip(t.shape, t.stride()) if st)
+    z1, z2, r, m, k = a.shape
+    n = b.shape[4]
+    n_bytes = a.element_size() * (
+        distinct(a) + distinct(b) + z1 * z2 * m * n
+        + (distinct(bias) if bias is not None else 0)
+        + (z1 * z2 * m if rowsum else 0))
+    ops_ = 2 * z1 * z2 * r * m * n * k + (z1 * z2 * r * m * k if rowsum
+                                         else 0)
+    return n_bytes, ops_
 
 
 def cohort_gemm_phase(dev) -> tuple:
-    """``cohort_gemm`` against its plain version at the path's products
-    (within 1e-5 of scale, bit-repeatable, each client's block equal to
-    a launch of that client alone), then timed at conv2's input
-    gradient beside its plain version and ``torch.matmul``.  Returns
-    (max abs error, (ms, plain ms, bound ms, by), library ms)."""
+    """``cohort_gemm`` at every product of a local-SGD step, for one
+    client alone and for a cohort of ``C_GEMM``: against its plain
+    version (within 1e-5 of scale, the row sums too), bit-repeatable,
+    and the cohort's last client's block equal to a call of that client
+    alone; then each timed beside the plain version and one library
+    call on the same views (``torch.matmul`` where R is 1,
+    ``torch.einsum`` over (r, k) where the batch sum is the R axis; the
+    bias gradients of a fused call not included): device time a call
+    (``graph_ms``: calls replayed from a CUDA graph) and eager time
+    (back-to-back calls, the host's launch cost included), with its
+    bound at the 3xTF32 rate (operations as 3 TF32 passes at 495
+    TFLOP/s) and at the fp32 peak.  Returns (max abs error, (ms, plain
+    ms, bound ms, by) and library ms of conv2's input gradient in the
+    cohort, the per-product rows)."""
     import torch
     from repro_torch.kernels import ops, ref
-    g = torch.Generator(device=dev).manual_seed(26)
-    c, b = C_GEMM, B_GEMM
+    err, rows, head = 0.0, [], None
+    for c in (1, C_GEMM):
+        calls = step_products(dev, c)
+        tot = {}
+        for label, a, bm, bias, rowsum in calls:
+            extra = (True,) if rowsum else ()     # an older tree: none
 
-    def rnd(*shape):
-        return torch.randn(*shape, device=dev, generator=g)
-    w1, w2 = rnd(c, 32, 25), rnd(c, 64, 800)
-    cols1, cols2 = rnd(b, c, 1, 25, 784), rnd(b, c, 1, 800, 196)
-    g2 = rnd(b, c, 64, 196)
-    x1, f1 = rnd(c, b, 3136), rnd(c, 512, 3136)
-    gy1 = rnd(c, b, 512)
-    cases = {
-        "conv1 forward": (w1[None, :, None].expand(b, c, 1, 32, 25), cols1,
-                          rnd(c, 32)[None, :, :, None].expand(b, c, 32, 784)),
-        "conv2 forward": (w2[None, :, None].expand(b, c, 1, 64, 800), cols2,
-                          rnd(c, 64)[None, :, :, None].expand(b, c, 64, 196)),
-        "conv2 weight gradient": (g2.permute(1, 0, 2, 3)[None],
-                                  cols2[:, :, 0].permute(1, 0, 3, 2)[None],
-                                  None),
-        "conv2 input gradient": (w2.transpose(1, 2)[None, :, None].expand(
-            b, c, 1, 800, 64), g2[:, :, None], None),
-        "fc1 forward": (x1[None, :, None], f1.transpose(1, 2)[None, :, None],
-                        rnd(c, 512)[None, :, None, :].expand(1, c, b, 512)),
-        "fc1 weight gradient": (gy1.transpose(1, 2)[None, :, None],
-                                x1[None, :, None], None),
-    }
-    err = 0.0
-    for label, (a, bm, bias) in cases.items():
-        got, again = ops.cohort_gemm(a, bm, bias), ops.cohort_gemm(a, bm,
-                                                                    bias)
-        want = ref.cohort_gemm_ref(a, bm, bias)
-        last = ops.cohort_gemm(a[:, -1:], bm[:, -1:],
-                               None if bias is None else bias[:, -1:])
-        torch.cuda.synchronize()
-        e = scaled_err(got, want)
-        err = max(err, float((got - want).abs().max()))
-        ok = (e <= 1e-5 and torch.equal(got, again)
-              and torch.equal(last[:, 0], got[:, -1])
-              and bool(torch.isfinite(got).all()))
-        log(f"[check] cohort_gemm {label} a{tuple(a.shape)} "
-            f"b{tuple(bm.shape)}: max err / scale {e:.3g} (tol 1e-5), "
-            f"bit-repeatable and one client alone bit-equal {ok}")
-        if not ok:
-            raise AssertionError(f"cohort_gemm {label} disagrees")
-    a, bm, _ = cases["conv2 input gradient"]
-    ms = time_ms(lambda: ops.cohort_gemm(a, bm), 50)
-    plain_ms = time_ms(lambda: ref.cohort_gemm_ref(a, bm), 50)
-    lib_ms = time_ms(lambda: torch.matmul(a, bm), 50)
-    z, k, m, n = b * c, 64, 800, 196
-    b_ms, b_by = bound(4 * (c * m * k + z * k * n + z * m * n),
-                       2 * z * m * n * k)
-    log(f"[time] cohort_gemm conv2 input gradient (C={c}, {b} samples: "
-        f"{z} products of {m}x{k} by {k}x{n}): kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, torch.matmul {lib_ms:.4f} ms, bound "
-        f"{b_ms:.6f} ms ({b_by})")
-    return err, (ms, plain_ms, b_ms, b_by), lib_ms
+            def kernel():
+                return ops.cohort_gemm(a, bm, bias, *extra)
+
+            def plain():
+                return ref.cohort_gemm_ref(a, bm, bias, *extra)
+            got, again, want = kernel(), kernel(), plain()
+            one = ops.cohort_gemm(a[:, -1:], bm[:, -1:], None if bias is
+                                  None else bias[:, -1:], *extra)
+            torch.cuda.synchronize()
+            outs = [(got, again, want, one)] if not rowsum else list(zip(
+                got, again, want, one))
+            e, ok = 0.0, True
+            for x, y, w, o in outs:
+                e = max(e, scaled_err(x, w))
+                err = max(err, float((x - w).abs().max()))
+                ok = (ok and torch.equal(x, y) and torch.equal(o[:, 0],
+                                                               x[:, -1])
+                      and bool(torch.isfinite(x).all()))
+            ok = ok and e <= 1e-5
+            z1, z2, r, m, k = a.shape
+            n = bm.shape[4]
+            if r == 1:
+                lib, lib_name = (lambda: torch.matmul(a, bm)), "matmul"
+            else:
+                lib, lib_name = (lambda: torch.einsum(
+                    "zcrmk,zcrkn->zcmn", a, bm)), "einsum"
+            ms, lib_ms = graph_ms(kernel), graph_ms(lib)
+            eager_ms, eager_lib_ms = time_ms(kernel, 50), time_ms(lib, 50)
+            plain_ms = time_ms(plain, 10)
+            n_bytes, n_ops = gemm_work(a, bm, bias, rowsum)
+            b_ms, b_by = bound(n_bytes, 3 * n_ops, TF32_FLOP_PER_S)
+            f_ms, f_by = bound(n_bytes, n_ops)
+            for key, v in (("ms", ms), ("library_ms", lib_ms),
+                           ("bound_ms", b_ms), ("eager_ms", eager_ms),
+                           ("eager_library_ms", eager_lib_ms)):
+                tot[key] = tot.get(key, 0.0) + v
+            rows.append({"product": label, "clients": c, "ms": ms,
+                         "eager_ms": eager_ms, "plain_ms": plain_ms,
+                         "library_ms": lib_ms,
+                         "eager_library_ms": eager_lib_ms,
+                         "library": f"torch.{lib_name}", "bound_ms": b_ms,
+                         "bound_by": b_by, "fp32_bound_ms": f_ms,
+                         "err_over_scale": e})
+            log(f"[check] cohort_gemm C={c} {label} (Z1={z1} R={r} M={m} "
+                f"K={k} N={n}): max err / scale {e:.3g} (tol 1e-5), "
+                f"bit-repeatable and one client alone bit-equal {ok}")
+            log(f"[time] cohort_gemm C={c} {label}: device kernel "
+                f"{ms:.4f} ms, torch.{lib_name} {lib_ms:.4f} ms "
+                f"({lib_ms / ms:.2f}x the kernel's); eager (host launch "
+                f"included) {eager_ms:.4f} / {eager_lib_ms:.4f} ms; plain "
+                f"{plain_ms:.4f} ms; bound 3xTF32 {b_ms:.6f} ms ({b_by}), "
+                f"fp32 {f_ms:.6f} ms ({f_by})")
+            if not ok:
+                raise AssertionError(f"cohort_gemm C={c} {label} disagrees")
+            if c == C_GEMM and label == GEMM_HEADLINE:
+                head = ((ms, plain_ms, b_ms, b_by), lib_ms)
+        log(f"[time] cohort_gemm C={c}: the step's {len(calls)} products, "
+            f"device {tot['ms']:.4f} ms (torch's calls "
+            f"{tot['library_ms']:.4f} ms), eager {tot['eager_ms']:.4f} ms "
+            f"({tot['eager_library_ms']:.4f} ms), bound 3xTF32 "
+            f"{tot['bound_ms']:.6f} ms")
+    return err, head[0], head[1], rows
 
 
 def seed_axis_kernels(dev, st, params, n, feats, big, bfeats) -> dict:
@@ -4051,7 +4286,8 @@ def main() -> int:
         event_ms[(name, shape)] = ms
         log(f"[time] {name} {shape}: kernel {ms:.4f} ms, plain "
             f"{plain_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by})")
-    err_gemm, timings["cohort_gemm"], gemm_lib_ms = cohort_gemm_phase(dev)
+    err_gemm, timings["cohort_gemm"], gemm_lib_ms, gemm_rows = \
+        cohort_gemm_phase(dev)
     for (b, t) in wkv_cases:
         d_ms, d_by = wkv_design_bound(b, t, WKV_H)
         f_ms, f_by = wkv_bound(b, t, WKV_H)
@@ -4337,6 +4573,7 @@ def main() -> int:
     engines_and_prox(dev)
     c8_step_check(dev)
     c12_engines(dev)
+    round_profile(dev)
     paper_clis()
 
     # -- 5f. the multi-seed sweep: seed-batched probe_fuzzy and election --
@@ -4497,6 +4734,7 @@ def main() -> int:
                       PALIGEMMA_FLASH)), zoo["timing"])]
         if name == "cohort_gemm":        # ports no Pallas kernel
             entry["reference"] = entry.pop("replaces")
+            entry["products"] = gemm_rows
             others.append(entry)
         else:
             kernels.append(entry)
@@ -4512,4 +4750,6 @@ if __name__ == "__main__":
         sys.exit(preempt_child(sys.argv[2]))
     if sys.argv[1:] == ["--c12-readings"]:
         sys.exit(c12_readings())
+    if sys.argv[1:2] == ["--gemm-readings"]:
+        sys.exit(gemm_readings(*sys.argv[2:3]))
     sys.exit(main())

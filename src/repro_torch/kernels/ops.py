@@ -93,16 +93,17 @@ def probe_loss(params, images, labels, seg, counts, *,
 
 
 def cohort_gemm(a: torch.Tensor, b: torch.Tensor,
-                bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+                bias: Optional[torch.Tensor] = None, rowsum: bool = False):
     """``sum_r a[:, :, r] @ b[:, :, r] (+ bias)`` over strided (Z1, Z2,
-    R, M, K) and (Z1, Z2, R, K, N) views -> (Z1, Z2, M, N); on the card
-    each output's sum runs in an order set by the product's own sizes,
-    whatever Z2, the cohort axis, is (the cohort's local SGD, ROADMAP
-    C12)."""
+    R, M, K) and (Z1, Z2, R, K, N) views -> (Z1, Z2, M, N), and with
+    ``rowsum`` also a's sums over (r, k) -> ``(c, (Z1, Z2, M))`` (a
+    weight gradient and its bias gradient); each output's sum runs in an
+    order set by the product's own sizes, whatever Z2, the cohort axis,
+    is (the cohort's local SGD, ROADMAP C12, C14)."""
     if _on_cuda(a):
         from repro_torch.kernels.cohort_gemm import cohort_gemm_cuda
-        return cohort_gemm_cuda(a, b, bias)
-    return ref.cohort_gemm_ref(a, b, bias)
+        return cohort_gemm_cuda(a, b, bias, rowsum)
+    return ref.cohort_gemm_ref(a, b, bias, rowsum)
 
 
 def neighbor_elect(pos: torch.Tensor, evals: torch.Tensor, *,

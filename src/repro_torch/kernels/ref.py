@@ -7,6 +7,7 @@ for a tensor on the CPU.  Sums over clients go through a one-hot matmul
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Optional, Tuple
 
@@ -62,14 +63,51 @@ def fuzzy_eval_ref(x: torch.Tensor, means: torch.Tensor,
     return num / den
 
 
+@contextlib.contextmanager
+def _one_thread(t: torch.Tensor):
+    """Torch's (and so MKL's) intra-op threads at one inside the block,
+    for a tensor on the CPU."""
+    n = torch.get_num_threads()
+    if t.device.type == "cpu" and n > 1:
+        torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        if torch.get_num_threads() != n:
+            torch.set_num_threads(n)
+
+
 def cohort_gemm_ref(a: torch.Tensor, b: torch.Tensor,
-                    bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    bias: Optional[torch.Tensor] = None,
+                    rowsum: bool = False):
     """``sum_r a[:, :, r] @ b[:, :, r] (+ bias)`` for a (Z1, Z2, R, M,
-    K) and b (Z1, Z2, R, K, N) views -> a contiguous (Z1, Z2, M, N):
-    ``torch.matmul`` and a sum over R, in whatever order the library
-    picks."""
-    out = torch.matmul(a, b).sum(2)
-    return (out + bias if bias is not None else out).contiguous()
+    K) and b (Z1, Z2, R, K, N) views -> a contiguous (Z1, Z2, M, N), and
+    with ``rowsum`` also a's sums over (r, k) (a product with a broadcast
+    one) -> ``(c, (Z1, Z2, M))``: ``torch.matmul``, one call per cohort
+    member (Z2) on fresh contiguous copies of its operands, on the CPU
+    at one intra-op thread, then the R products added in order.  A
+    library GEMM picks its blocking, split-K and threading by the batch
+    count (cuBLAS; MKL) and by the threads it is given (MKL splits a
+    skinny product's K across threads, and may take fewer than it was
+    given), so one call over the cohort gave a member other bits alone
+    than in a cohort, at one thread count than at another, and in one
+    process than in another (ROADMAP C12, C14); a member's call sees
+    the same shapes, strides, alignment and threads whatever Z2 and the
+    thread count are."""
+    fresh = [(a[:, i].clone(memory_format=torch.contiguous_format),
+              b[:, i].clone(memory_format=torch.contiguous_format))
+             for i in range(a.shape[1])]
+    with _one_thread(a):
+        prods = [torch.matmul(x, y) for x, y in fresh]
+    prod = torch.stack(prods, dim=1)
+    out = prod[:, :, 0]
+    for r in range(1, prod.shape[2]):            # R in order, elementwise
+        out = out + prod[:, :, r]
+    out = (out + bias if bias is not None else out).contiguous()
+    if not rowsum:
+        return out
+    ones = a.new_ones(()).expand(*a.shape[:3], a.shape[4], 1)
+    return out, cohort_gemm_ref(a, ones)[..., 0]
 
 
 def probe_loss_ref(params, images: torch.Tensor, labels: torch.Tensor,

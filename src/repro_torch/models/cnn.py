@@ -59,11 +59,11 @@ def cnn_forward(params: Params, images: torch.Tensor) -> torch.Tensor:
     return F.linear(x, params["fc2.w"], params["fc2.b"])
 
 
-def _gemm(a, b, bias=None):
+def _gemm(a, b, bias=None, rowsum=False):
     """``kernels.ops.cohort_gemm`` (imported here: the kernels' plain
     versions import this module)."""
     from repro_torch.kernels import ops
-    return ops.cohort_gemm(a, b, bias)
+    return ops.cohort_gemm(a, b, bias, rowsum)
 
 
 class _StackedConvGemm(torch.autograd.Function):
@@ -72,14 +72,16 @@ class _StackedConvGemm(torch.autograd.Function):
     C*O, H, W).  Every product is one ``cohort_gemm`` over the (sample,
     client) pairs, the weights a broadcast view over the batch: the
     forward (K = I*k*k), the weight gradient (K = H*W, the batch sum its
-    R axis), the bias gradient (a product with a broadcast one) and the
-    input gradient (K = O), then ``fold``'s fixed-order sums.  On the
+    R axis) with the bias gradient (its a operand's row sums, in the
+    same call) and the input gradient (K = O), then ``fold``'s
+    fixed-order sums.  On the
     card each sum's order is set by the product's own sizes, never by
     the cohort's, so a client's outputs and gradients are the same bits
     whether it trains alone, in a cohort bucket or in a rank's slice of
-    one (ROADMAP C8, C12).  The
-    patches are strided views of the padded input gathered by one copy
-    (``F.unfold`` on CUDA launches a kernel per sample)."""
+    one (ROADMAP C8, C12; on the CPU the plain version's call per
+    client, C14).  The patches are strided views of the padded input
+    gathered by one copy (``F.unfold`` on CUDA launches a kernel per
+    sample)."""
 
     @staticmethod
     def forward(ctx, x, w, b):
@@ -103,9 +105,9 @@ class _StackedConvGemm(torch.autograd.Function):
         g = gy.reshape(bsz, c, o, hw)
         # sum over the batch (R) of g (O, HW) @ cols^T (HW, IKK)
         g_r = g.permute(1, 0, 2, 3)[None]            # (1, C, B, O, HW)
-        gw = _gemm(g_r, cols[:, :, 0].permute(1, 0, 3, 2)[None]
-                   ).view(c, o, i, k, k)
-        gb = _gemm(g_r, g.new_ones(()).expand(1, c, bsz, hw, 1)).view(c, o)
+        gw, gb = _gemm(g_r, cols[:, :, 0].permute(1, 0, 3, 2)[None],
+                       rowsum=True)
+        gw, gb = gw.view(c, o, i, k, k), gb.view(c, o)
         gx = None
         if ctx.needs_input_grad[0]:
             gcols = _gemm(wm.transpose(1, 2)[None, :, None].expand(
@@ -117,17 +119,17 @@ class _StackedConvGemm(torch.autograd.Function):
 
 def _stacked_conv_gemm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor
                        ) -> torch.Tensor:
-    """``_StackedConvGemm``: the card's form of the stacked convolution."""
+    """``_StackedConvGemm``: the cohort's stacked convolution."""
     return _StackedConvGemm.apply(x, w, b)
 
 
 class _StackedLinear(torch.autograd.Function):
     """A cohort's dense layer: x (C, B, In), w (C, Out, In), b (C, Out)
     -> x w^T + b (C, B, Out), forward and backward (the input gradient,
-    K = Out; the weight gradient, K = B; the bias gradient, a product
-    with a broadcast one) each one ``cohort_gemm``, so on the card a
-    client's outputs and gradients do not depend on the cohort's size
-    (ROADMAP C12)."""
+    K = Out; the weight gradient, K = B, with the bias gradient, its a
+    operand's row sums) each one ``cohort_gemm``, so a client's
+    outputs and gradients do not depend on the cohort's size (ROADMAP
+    C12, C14)."""
 
     @staticmethod
     def forward(ctx, x, w, b):
@@ -143,14 +145,14 @@ class _StackedLinear(torch.autograd.Function):
         c, bsz = x.shape[:2]
         g = gy[None, :, None]                        # (1, C, 1, B, Out)
         gx = _gemm(g, w[None, :, None])[0]
-        gw = _gemm(gy.transpose(1, 2)[None, :, None], x[None, :, None])[0]
-        gb = _gemm(gy.new_ones(()).expand(1, c, 1, 1, bsz), g)[0, :, 0]
-        return gx, gw, gb
+        gw, gb = _gemm(gy.transpose(1, 2)[None, :, None], x[None, :, None],
+                       rowsum=True)
+        return gx, gw[0], gb[0]
 
 
 def _stacked_linear(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor
                     ) -> torch.Tensor:
-    """``_StackedLinear``: the card's form of the cohort's dense layer."""
+    """``_StackedLinear``: the cohort's dense layer."""
     return _StackedLinear.apply(x, w, b)
 
 
@@ -159,34 +161,24 @@ def cnn_forward_stacked(params: Params, images: torch.Tensor
     """A cohort of models at once: every leaf carries a leading client
     axis C, images are (C, B, 28, 28, 1) -> logits (C, B, 10).
 
-    On the CPU the convolutions run as one grouped convolution (group =
-    client) and the dense layers as ``baddbmm``.  On the card every
-    product is a ``cohort_gemm`` (``_stacked_conv_gemm``,
-    ``_stacked_linear``), whose sums run in an order set by the product's
-    own sizes: cuDNN picked its convolution algorithm by the group count
-    (Winograd at one group, ROADMAP C8) and cuBLAS its GEMM kernel by the
-    batch count (C12), so a client trained alone (the loop engine)
-    drifted from the same client in a cohort."""
+    Every product, forward and backward, is a ``cohort_gemm``
+    (``_stacked_conv_gemm``, ``_stacked_linear``): on the card the
+    kernel, whose sums run in an order set by the product's own sizes,
+    and on the CPU its plain version, one library call per client.  A
+    grouped convolution or one batched GEMM over the cohort picks its
+    algorithm by the group or batch count (cuDNN's Winograd at one
+    group, ROADMAP C8; cuBLAS, C12; on the CPU the grouped convolution
+    and MKL's batched GEMM past one thread, C14), so a client trained
+    alone (the loop engine) drifted from the same client in a cohort."""
     c, b = images.shape[:2]
     x = images.permute(1, 0, 4, 2, 3).reshape(b, -1, *images.shape[2:4])
     for name in ("conv1", "conv2"):
-        w = params[name + ".w"]                          # (C, O, I, k, k)
-        if x.is_cuda:
-            x = _stacked_conv_gemm(x, w, params[name + ".b"])
-        else:
-            x = F.conv2d(x, w.reshape(-1, *w.shape[2:]),
-                         params[name + ".b"].reshape(-1),
-                         padding=w.shape[-1] // 2, groups=c)
+        x = _stacked_conv_gemm(x, params[name + ".w"], params[name + ".b"])
         x = F.max_pool2d(F.relu(x), 2)
     h, wd = x.shape[-2:]
     x = x.reshape(b, c, -1, h, wd).permute(1, 0, 3, 4, 2).reshape(c, b, -1)
-    if x.is_cuda:
-        x = F.relu(_stacked_linear(x, params["fc1.w"], params["fc1.b"]))
-        return _stacked_linear(x, params["fc2.w"], params["fc2.b"])
-    x = F.relu(torch.baddbmm(params["fc1.b"][:, None, :], x,
-                             params["fc1.w"].transpose(1, 2)))
-    return torch.baddbmm(params["fc2.b"][:, None, :], x,
-                         params["fc2.w"].transpose(1, 2))
+    x = F.relu(_stacked_linear(x, params["fc1.w"], params["fc1.b"]))
+    return _stacked_linear(x, params["fc2.w"], params["fc2.b"])
 
 
 def sample_nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:

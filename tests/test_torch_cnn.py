@@ -1,4 +1,6 @@
 """The port's CNN against the JAX reference through ``convert.py``."""
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -111,38 +113,121 @@ def test_card_conv_form_equals_grouped_conv(clients, in_ch, out_ch):
 
 
 # the fast profile's local-SGD products at 20 samples a step, as
-# ``models/cnn.py`` hands them to ``cohort_gemm``: (R, K, M, N, Z1) and
-# the runs ``gemm_splits`` cuts each output's sum into
+# ``models/cnn.py`` hands them to ``cohort_gemm`` (the four weight
+# gradients carry their bias gradients as row sums): (R, K, M, N, Z1),
+# whether Z1 joins N (``gemm_fold``: the weights broadcast over the
+# batch) and the fp32 kernel's tile, runs, ring and chunk (``gemm_plan``)
 SGD_PRODUCTS = {
-    "conv1 forward": ((1, 25, 32, 784, 20), 1),
-    "conv2 forward": ((1, 800, 64, 196, 20), 1),
-    "conv2 input gradient": ((1, 64, 800, 196, 20), 1),
-    "conv1 weight gradient": ((20, 784, 32, 25, 1), 64),
-    "conv2 weight gradient": ((20, 196, 64, 800, 1), 5),
-    "conv2 bias gradient": ((20, 196, 64, 1, 1), 64),
-    "fc1 forward": ((1, 3136, 20, 512, 1), 8),
-    "fc1 input gradient": ((1, 512, 20, 3136, 1), 2),
-    "fc1 weight gradient": ((1, 20, 512, 3136, 1), 1),
+    "conv1 forward": ((1, 25, 32, 784, 20), True, (32, 64, 1, 2, 32)),
+    "conv2 forward": ((1, 800, 64, 196, 20), True, (64, 64, 5, 4, 32)),
+    "conv2 input gradient": ((1, 64, 800, 196, 20), True,
+                             (64, 64, 1, 2, 32)),
+    "conv1 weight gradient": ((20, 784, 32, 25, 1), False,
+                              (32, 32, 16, 4, 64)),
+    "conv2 weight gradient": ((20, 196, 64, 800, 1), False,
+                              (64, 64, 16, 4, 32)),
+    "fc1 forward": ((1, 3136, 20, 512, 1), False, (32, 64, 8, 4, 32)),
+    "fc1 input gradient": ((1, 512, 20, 3136, 1), False, (32, 64, 4, 4, 32)),
+    "fc1 weight gradient": ((1, 20, 512, 3136, 1), False,
+                            (64, 64, 1, 2, 32)),
+    "fc2 forward": ((1, 512, 20, 10, 1), False, (32, 32, 4, 4, 64)),
+    "fc2 input gradient": ((1, 10, 20, 512, 1), False, (32, 64, 1, 2, 32)),
+    "fc2 weight gradient": ((1, 20, 10, 512, 1), False, (16, 64, 1, 2, 32)),
 }
 
 
 @pytest.mark.parametrize("product", sorted(SGD_PRODUCTS))
 def test_cohort_gemm_splits_are_a_clients_own(product):
-    """``gemm_splits``: the long sums of one client's product (fc1's
-    forward, the convolutions' weight and bias gradients) are cut into
-    enough runs of k steps to give the client ~64 CTAs, the wide
-    products stay one run, and the kernel's cut of the R x ceil(K / 16)
-    steps into runs covers each step once with at least 4 a run.  The
-    count takes no cohort size, so a client's sums keep their order
-    however many clients share the launch."""
-    from repro_torch.kernels.cohort_gemm import (SPLIT_MIN_STEPS, TILE_K,
-                                                 gemm_splits)
-    (r, k, m, n, z1), want = SGD_PRODUCTS[product]
-    splits = gemm_splits(r, k, m, n, z1)
-    assert splits == want
-    steps = r * -(-k // TILE_K)
+    """``gemm_plan``: the tile follows the product's M and N (Z1 N where
+    the weights broadcast over the batch), the long sums of one client's
+    product (fc1's forward and input gradient, the forward of conv2, the
+    convolutions' weight gradients) are cut into runs of k chunks, a
+    cluster of up to 8 CTAs (16 for the weight gradients' sums, longer
+    than 8 runs of 16 chunks), to give the client ~256 CTAs, the wide
+    products stay one run, and the kernel's cut of the R x ceil(K / 32)
+    chunks into runs covers each chunk once with at least 4 a run.  The
+    plan takes no cohort size, so a client's sums keep their order
+    however many clients share the launch; ``gemm_fold`` decides on the
+    views of the step's own call (a cohort of 3 and a member alone)."""
+    import inspect
+    from repro_torch.kernels.cohort_gemm import (LONG_RUN, MAX_SPLITS,
+                                                 PORTABLE_SPLITS,
+                                                 SPLIT_MIN_STEPS, TILE_K,
+                                                 gemm_fold, gemm_plan)
+    assert list(inspect.signature(gemm_plan).parameters) == [
+        "r", "k", "m", "n", "z1", "fold"]
+    (r, k, m, n, z1), fold, want = SGD_PRODUCTS[product]
+    bm, bn, splits, stages, bk = gemm_plan(r, k, m, n, z1, fold)
+    assert (bm, bn, splits, stages, bk) == want
+    assert bm >= min(m, 64) and bm in (16, 32, 64) and bn in (32, 64)
+    steps = r * -(-k // bk)                  # the kernel's chunks
     runs = [(steps * s // splits, steps * (s + 1) // splits)
             for s in range(splits)]
     assert runs[0][0] == 0 and runs[-1][1] == steps
     assert all(a[1] == b[0] for a, b in zip(runs, runs[1:]))
-    assert splits == 1 or min(t1 - t0 for t0, t1 in runs) >= SPLIT_MIN_STEPS
+    assert splits == 1 or min(t1 - t0 for t0, t1 in runs) >= (
+        SPLIT_MIN_STEPS * TILE_K // bk)
+    assert 1 <= splits <= MAX_SPLITS
+    assert splits <= PORTABLE_SPLITS or (
+        r * -(-k // TILE_K) > PORTABLE_SPLITS * LONG_RUN)
+    assert (stages == 2) == (bk == TILE_K and max(
+        t1 - t0 for t0, t1 in runs) <= 2)
+    calls = {c: {lab: (a, b, rs) for lab, a, b, _, rs in
+                 _step_calls(c)} for c in (1, 3)}
+    for c in (1, 3):
+        a, b, rs = calls[c][product]
+        assert gemm_fold(a, b, rs) == fold
+        assert gemm_fold(a[:, -1:], b[:, -1:], rs) == fold
+
+
+# a step's calls by product: (R, K, M, N, Z1) and whether they carry row
+# sums -> the names above
+_NAMES = {dims: name for name, (dims, _, _) in SGD_PRODUCTS.items()}
+
+
+@functools.lru_cache(maxsize=None)
+def _step_calls(c: int) -> list:
+    """Every ``cohort_gemm`` call of one local-SGD step of ``c`` clients
+    at the fast profile's widths: [(name, a, b, bias, rowsum)]."""
+    from repro_torch.kernels import ops
+    g = torch.Generator().manual_seed(c)
+    p = {k: v[None].expand(c, *v.shape).clone().requires_grad_(True)
+         for k, v in init_cnn(g, CONFIG).items()}
+    images = torch.randn(c, 20, 28, 28, 1, generator=g)
+    labels = torch.randint(0, 10, (c, 20), generator=g)
+    calls, kernel = [], ops.cohort_gemm
+
+    def record(a, b, bias=None, rowsum=False):
+        z1, _, r, m, k = a.shape
+        calls.append((_NAMES[(r, k, m, b.shape[4], z1)], a, b, bias,
+                      rowsum))
+        return kernel(a, b, bias, rowsum)
+    ops.cohort_gemm = record
+    try:
+        logits = cnn_forward_stacked(p, images)
+        loss = torch.logsumexp(logits, -1) - torch.gather(
+            logits, -1, labels[..., None])[..., 0]
+        torch.autograd.grad(loss.sum(), list(p.values()))
+    finally:
+        ops.cohort_gemm = kernel
+    return calls
+
+
+# the fp64 kernel's runs of 16-wide k steps (``gemm_splits_f64``), at the
+# same products
+F64_SPLITS = {
+    "conv1 forward": 1, "conv2 forward": 1, "conv2 input gradient": 1,
+    "conv1 weight gradient": 64, "conv2 weight gradient": 5,
+    "fc1 forward": 8, "fc1 input gradient": 2, "fc1 weight gradient": 1,
+    "fc2 forward": 8, "fc2 input gradient": 1, "fc2 weight gradient": 1,
+}
+
+
+@pytest.mark.parametrize("product", sorted(F64_SPLITS))
+def test_cohort_gemm_f64_splits_are_a_clients_own(product):
+    """``gemm_splits_f64``, the fp64 CUDA-core tile's runs: enough for
+    ~64 CTAs a client with at least 4 steps a run, from the product's
+    own sizes only."""
+    from repro_torch.kernels.cohort_gemm import gemm_splits_f64
+    (r, k, m, n, z1), _, _ = SGD_PRODUCTS[product]
+    assert gemm_splits_f64(r, k, m, n, z1) == F64_SPLITS[product]

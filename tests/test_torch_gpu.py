@@ -949,14 +949,23 @@ def test_engine_contract_holds_over_three_fast_rounds(cuda):
                                            (1, 5, 1, 32, 3136, 512),
                                            (1, 3, 32, 64, 196, 800),
                                            (2, 3, 2, 7, 33, 65),
-                                           (2, 3, 3, 7, 70, 5)])
+                                           (2, 3, 3, 7, 70, 5),
+                                           (1, 3, 1, 20, 3136, 512),
+                                           (1, 3, 20, 64, 196, 1),
+                                           (1, 3, 1, 20, 512, 10),
+                                           (1, 3, 20, 32, 784, 25),
+                                           (1, 3, 1, 1, 20, 512),
+                                           (20, 3, 1, 800, 64, 196)])
 def test_cohort_gemm_matches_plain_and_is_batch_invariant(cuda, z1, z2, r,
                                                           m, k, n):
     """The cohort GEMM on strided views (a broadcast and a transposed
     operand, a bias) within 1e-5 of its plain version's scale, bit for bit
     from call to call, and each cohort member's (Z2) matrices equal to a
-    launch of that member alone; the cases run the kernel with one run
-    of k steps and with 3, 5 and 8 (``gemm_splits``)."""
+    launch of that member alone; the cases run the kernel at every tile
+    (16 to 64 rows, 32 or 64 columns), with one run of k chunks and
+    with 2, 4 and 8 (``gemm_plan``), and at a step's awkward shapes: M =
+    20 (fc1, fc2), N = 1, N = 10 (fc2), N = 25 with R = 20 (conv1's
+    weight gradient), M = 1, and conv2's input gradient."""
     g = torch.Generator(device=cuda).manual_seed(m + k)
     a = torch.randn(z2, r, m, k, device=cuda, generator=g)[None].expand(
         z1, z2, r, m, k)
@@ -972,6 +981,56 @@ def test_cohort_gemm_matches_plain_and_is_batch_invariant(cuda, z1, z2, r,
     assert torch.equal(ops.cohort_gemm(a, b, bias), got)
     one = ops.cohort_gemm(a[:, -1:], b[:, -1:], bias[:, -1:])
     assert torch.equal(one[:, 0], got[:, -1])
+
+
+@pytest.mark.parametrize("r,m,k,n,a_t", [(20, 64, 196, 800, False),
+                                         (20, 32, 784, 25, False),
+                                         (1, 512, 20, 3136, True),
+                                         (1, 10, 20, 512, True)])
+def test_cohort_gemm_fused_bias_gradient(cuda, r, m, k, n, a_t):
+    """A weight gradient with its bias gradient in one launch, at the
+    step's four (conv2, conv1, fc1, fc2; a transposed where the dense
+    layers' is): the product and a's row sums over (r, k) within 1e-5 of
+    the plain version's scale, bit-repeatable, and a member's alone
+    bit-equal to its block in a cohort of 3."""
+    g = torch.Generator(device=cuda).manual_seed(r + m + n)
+    z2 = 3
+    if a_t:
+        a = torch.randn(1, z2, r, k, m, device=cuda,
+                        generator=g).transpose(3, 4)
+    else:
+        a = torch.randn(1, z2, r, m, k, device=cuda, generator=g)
+    b = torch.randn(1, z2, r, n, k, device=cuda, generator=g).transpose(3, 4)
+    before = build.LAUNCHES["cohort_gemm"]
+    got, rs = ops.cohort_gemm(a, b, rowsum=True)
+    assert build.LAUNCHES["cohort_gemm"] == before + 1
+    want, want_rs = ref.cohort_gemm_ref(a, b, rowsum=True)
+    assert rs.shape == (1, z2, m)
+    assert float((got - want).abs().max() / want.abs().max()) <= 1e-5
+    assert float((rs - want_rs).abs().max() / want_rs.abs().max()) <= 1e-5
+    again, again_rs = ops.cohort_gemm(a, b, rowsum=True)
+    assert torch.equal(again, got) and torch.equal(again_rs, rs)
+    one, one_rs = ops.cohort_gemm(a[:, -1:], b[:, -1:], rowsum=True)
+    assert torch.equal(one[:, 0], got[:, -1])
+    assert torch.equal(one_rs[:, 0], rs[:, -1])
+
+
+def test_cohort_gemm_fp64_matches_plain(cuda):
+    """The fp64 path (the CUDA-core tile, split runs through its slab,
+    the row sums as a second product) within 1e-12 of its plain
+    version's scale, a member alone bit-equal to its block."""
+    g = torch.Generator(device=cuda).manual_seed(64)
+    a = torch.randn(1, 3, 20, 32, 784, device=cuda, generator=g,
+                    dtype=torch.float64)
+    b = torch.randn(1, 3, 20, 25, 784, device=cuda, generator=g,
+                    dtype=torch.float64).transpose(3, 4)
+    got, rs = ops.cohort_gemm(a, b, rowsum=True)
+    want, want_rs = ref.cohort_gemm_ref(a, b, rowsum=True)
+    assert float((got - want).abs().max() / want.abs().max()) <= 1e-12
+    assert float((rs - want_rs).abs().max() / want_rs.abs().max()) <= 1e-12
+    one, one_rs = ops.cohort_gemm(a[:, -1:], b[:, -1:], rowsum=True)
+    assert torch.equal(one[:, 0], got[:, -1])
+    assert torch.equal(one_rs[:, 0], rs[:, -1])
 
 
 def test_probe_loss_seed_axis_is_single_launches(cuda):

@@ -5,8 +5,11 @@ default count (one thread a core) each worker's parallel regions wait
 on threads that the other workers have taken off the cores, and a test
 of many small ops (the loop engine, a round's host work) ran 40x its
 time alone.  A port test module imports ``torch_intra_op_threads``, an
-autouse module fixture, to run at ``THREADS``; its comparisons take the
-same count on both sides (ROADMAP C14: the CPU's sums depend on it).
+autouse module fixture, to run at ``THREADS``: for contention only.  The
+results do not depend on the count: the cohort's local SGD runs its
+products one client at a time at one thread (ROADMAP C14, fixed;
+``tests/test_torch_cohort_cpu.py`` holds a step and the engines at 1, 2
+and 4 threads).
 """
 import contextlib
 
