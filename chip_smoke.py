@@ -3,11 +3,12 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --c12-readings   # one-off readings, see below
+    python3 chip_smoke.py --flash-parent SRC
 
 Phases (any failure exits non-zero; no phase's exception is caught):
 
 1. the card: name, device count, ``nvidia-smi`` name and power limit;
-2. build all nine CUDA kernels from ``src/repro_torch/csrc`` (one
+2. build all ten CUDA kernels from ``src/repro_torch/csrc`` (one
    ``nvcc`` per source, all started together) and print ptxas' register
    / shared-memory report; build the two simulations of the paths (the
    fast profile, 30 vehicles; the large fleet, 4096 vehicles at 1 per
@@ -75,6 +76,30 @@ Phases (any failure exits non-zero; no phase's exception is caught):
    with its default arch, gemma-2b, at full width (18 layers, B=4,
    prompt 64, 32 new tokens), which must launch ``flash_attention`` once
    per layer at prefill and nothing else;
+5t. LM training, after the gemma-2b weights are freed: flash
+   attention's backward (``flash_attention_bwd``) against its plain
+   version (the explicit formulas in fp32) on the forward kernel's o and
+   lse at gemma-2b's training shape (B=2, S=1024, 8 q heads over 1 kv
+   head of 256, causal), minicpm-2b's (36 heads of 64), groups of 4 at
+   128, a window of 256 at S=1024, paligemma's prefix-LM (S=320, prefix
+   256) and an unmasked S=1500 at 64, fp32 within 1e-5 and bf16 within
+   2^-7 of each gradient's largest magnitude, bit-repeatable, with the
+   forward's lse within 1e-5 of the plain lse and its output with lse
+   bit-equal to its output without; timed in bf16 at gemma's and
+   minicpm's training shapes beside its plain version, the fp32 kernels
+   and ``scaled_dot_product_attention``'s backward (its forward and
+   backward less its forward), with its bound (10 Dh operations per
+   kept pair and q head at the bf16 peak, or the bytes of q, k, v, o,
+   dO and lse read and dq, dk, dv written) and the design's own count;
+   one train step of gemma-2b with 2 layers at full width (B=2, S=128,
+   2 microbatches) on the card against the CPU (loss, ce, grad_norm and
+   every parameter's update within 2^-5; 8 ``flash_attention`` and 4
+   ``flash_attention_bwd`` launches); then ``python -m
+   repro_torch.launch.train --arch gemma-2b --steps 4 --batch 2 --seq
+   1024 --grad-accum 2`` at full width and depth in a child process: a
+   finite loss every step, 72 ``flash_attention`` and 36
+   ``flash_attention_bwd`` launches a step and no other kernel, each
+   step's seconds and the peak device memory printed;
 5c. the hybrid family, after the gemma-2b weights are freed:
    ``selective_scan`` against its plain version (fp32 and bf16 inputs,
    y and hT to 1e-5 of their largest magnitude, bit-repeatable) at
@@ -275,8 +300,12 @@ Phases (any failure exits non-zero; no phase's exception is caught):
    ``fuzzy_eval``'s with one too (the mesh sweep's rank-0 launches, no
    device ms), ``flash_attention``'s with a ``paths`` list (phase 5i's
    whisper encoder and paligemma prefill: the shape, the arch's serving
-   launches, its bf16 error and times, bound and library time); the
-   line's ``kernels`` are the eight that port a Pallas kernel, and its
+   launches, its bf16 error and times, bound and library time),
+   ``flash_attention_bwd``'s (the training path's launches, gemma-2b's
+   training shape; ``computes``: the vjp it replaces, its device time,
+   and minicpm-2b's shape in ``paths``); the line's ``kernels`` are the
+   eight that port a Pallas kernel and the backward of
+   ``flash_attention``, and its
    ``other_kernels`` hold ``cohort_gemm`` (the local-SGD products, which
    the reference leaves to XLA: its headline conv2's input gradient in
    the cohort of 4, device time beside ``torch.matmul``, with the same
@@ -294,7 +323,11 @@ through the package under SRC (default this checkout's ``src``; an
 older checkout's ``src`` times its kernel with this file's harness):
 every product of a step for one client and a cohort of 4, the trained
 rounds, then ``[c8]``'s step device time through the kernel and
-through cuBLAS (no result line).
+through cuBLAS (no result line).  ``--flash-parent SRC`` builds the
+``flash_attention.cu`` of the package under SRC (an older checkout's
+``src``) and holds this tree's forward, without and with its lse
+output, bit-equal to it at every flash_attention shape of this file
+(no result line).
 """
 from __future__ import annotations
 
@@ -1107,6 +1140,342 @@ def serve_path(arch: str, expected, dev, argv=None, cfg=None,
         raise AssertionError(f"serving path {arch}: rc {rc}, launches "
                              f"{served}, stats {stats}")
     return served
+
+
+# phase 5t, LM training: flash_attention's backward at the shapes the
+# training path gives it, (B, Sq, Skv, Hq, Hkv, Dh, causal, window,
+# prefix_len): gemma-2b's training shape (8 q heads over 1 kv head of
+# 256), minicpm-2b's (36 heads of 64), groups of 4 at 128, a sliding
+# window, paligemma's prefix-LM and an unmasked sequence
+GEMMA_TRAIN_FLASH = (2, 1024, 1024, 8, 1, 256, True, 0, 0)
+MINICPM_TRAIN_FLASH = (2, 1024, 1024, 36, 36, 64, True, 0, 0)
+FLASH_BWD_CASES = [
+    GEMMA_TRAIN_FLASH,
+    MINICPM_TRAIN_FLASH,
+    (2, 1024, 1024, 32, 8, 128, True, 0, 0),
+    (2, 1024, 1024, 8, 1, 256, True, 256, 0),
+    (2, 320, 320, 8, 1, 256, True, 0, 256),
+    (2, 1500, 1500, 16, 16, 64, False, 0, 0),
+]
+FLASH_BWD_PHASES = (("dq", ("fa_bwd_dq_tc",)), ("dkdv", ("fa_bwd_dkdv_tc",)))
+# the training path: gemma-2b at full width and depth through
+# ``python -m repro_torch.launch.train``; its 2-layer check on the card
+# against the CPU (B = 2, S = 128, 2 microbatches)
+TRAIN_ARGV = ["--arch", "gemma-2b", "--steps", "4", "--batch", "2",
+              "--seq", "1024", "--grad-accum", "2"]
+TRAIN_CHECK = dict(batch=2, seq=128, grad_accum=2)
+
+
+def flash_bwd_bound(case, elem_bytes: int, per_pair: int = 10):
+    """(ms, by) for one backward call: q, k, v, o, dO and lse read and
+    dq, dk, dv written once; ``per_pair`` Dh operations per kept pair and
+    q head (10: the products S, dP, dV, dQ, dK), at the bf16 tensor-core
+    peak for bf16 inputs, the fp32 peak for fp32 ones."""
+    b, sq, skv, hq, hkv, dh, causal, window, prefix = case
+    n_bytes = ((4 * b * sq * hq + 4 * b * skv * hkv) * dh * elem_bytes
+               + 4 * b * hq * sq)
+    n_ops = (per_pair * dh * kept_pairs(sq, skv, causal, window, prefix)
+             * b * hq)
+    return bound(n_bytes, n_ops,
+                 BF16_FLOP_PER_S if elem_bytes == 2 else FP32_FLOP_PER_S)
+
+
+def flash_design_ops(dh: int) -> int:
+    """Dh operations per kept pair and q head that the kernels do: S and
+    dP in both kernels (14); at Dh = 256 each pair of warps that splits a
+    slice's output columns computes the slice's S and dP twice, in
+    both kernels (22)."""
+    return 22 if dh == 256 else 14
+
+
+def flash_bwd_inputs(case, dtype, dev, seed=0):
+    """q, k, v, the forward kernel's o and lse, and a cotangent dO."""
+    import torch
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    kw = dict(zip(("causal", "window", "prefix_len"), case[6:]))
+    q, k, v = flash_inputs(case, dtype, dev, seed=seed)
+    o, lse = flash_attention_cuda(q, k, v, return_lse=True, **kw)
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    do = torch.randn(q.shape, generator=g, device=dev).to(dtype)
+    return (q, k, v, o, lse, do), kw
+
+
+def flash_bwd_checks(dev) -> dict:
+    """flash_attention's backward against its plain version (the
+    explicit formulas in fp32) on the same o, lse and dO at every
+    training case, fp32 within 1e-5 and bf16 within 2^-7 of each
+    gradient's largest magnitude (bf16: P and dS rounded for their
+    products, the gradients once), a second launch equal bit for bit;
+    and the forward's lse within 1e-5 of the plain lse's scale, its
+    output with lse bit-equal to its output without (serving's bits).
+    Returns the max abs error over dq, dk, dv in bf16 a case."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd_cuda, flash_attention_cuda)
+    errs = {}
+    for case in FLASH_BWD_CASES:
+        for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2 ** -7)):
+            (q, k, v, o, lse, do), kw = flash_bwd_inputs(case, dtype, dev)
+            served = flash_attention_cuda(q, k, v, **kw)
+            _, want_lse = ref.flash_attention_lse_ref(q, k, v, **kw)
+            got = flash_attention_bwd_cuda(q, k, v, o, lse, do, **kw)
+            again = flash_attention_bwd_cuda(q, k, v, o, lse, do, **kw)
+            want = ref.flash_attention_bwd_ref(q, k, v, o, lse, do, **kw)
+            torch.cuda.synchronize()
+            lse_err = scaled_err(lse, want_lse)
+            same_out = torch.equal(o, served)
+            err = {n: scaled_err(g, w)
+                   for n, g, w in zip(("dq", "dk", "dv"), got, want)}
+            same = all(torch.equal(a, b) for a, b in zip(got, again))
+            ok = (max(err.values()) <= tol and same and lse_err <= 1e-5
+                  and same_out
+                  and all(g.dtype == dtype and bool(torch.isfinite(g).all())
+                          for g in got))
+            if dtype == torch.bfloat16:
+                errs[case] = max(float((g.float() - w.float()).abs().max())
+                                 for g, w in zip(got, want))
+            log(f"[check] flash_attention_bwd {flash_label(case, dtype)}: "
+                f"max err / scale { {n: float(f'{e:.3g}') for n, e in err.items()} } "
+                f"(tol {tol:.3g}), bit-repeatable {same}; forward lse err / "
+                f"scale {lse_err:.3g} (tol 1e-05), output with lse equal "
+                f"to without {same_out} {'OK' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"flash_attention_bwd {case} {dtype} "
+                                     f"disagrees")
+            del q, k, v, o, lse, do, got, again, want
+    return errs
+
+
+def flash_bwd_times(dev, cases=(GEMMA_TRAIN_FLASH, MINICPM_TRAIN_FLASH),
+                    iters: int = 20):
+    """flash_attention's backward in bf16 (the tensor-core kernels) at
+    gemma-2b's and minicpm-2b's training shapes, with CUDA events, beside
+    its plain version, the fp32 CUDA-core kernels on the same values in
+    fp32, the library's ``scaled_dot_product_attention`` backward (its
+    forward + backward less its forward, GQA, the same mask) and the
+    bounds (10 Dh operations per kept pair and q head, and the design's
+    own count).  Returns ((ms, plain ms, bound ms, bound by, library
+    ms), the kernel call) a case."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_bwd_cuda
+    rows = []
+    for case in cases:
+        args, kw = flash_bwd_inputs(case, torch.bfloat16, dev, seed=2)
+        call = functools.partial(flash_attention_bwd_cuda, *args, **kw)
+        ms = time_ms(call, iters)
+        plain_ms = time_ms(lambda: ref.flash_attention_bwd_ref(*args, **kw),
+                           max(2, iters // 4))
+        fargs = [t.float() for t in args[:4]] + [args[4], args[5].float()]
+        fp32_ms = time_ms(lambda: flash_attention_bwd_cuda(*fargs, **kw),
+                          max(2, iters // 4))
+        q, k, v, _, _, do = args
+        lt = [t.transpose(1, 2).detach().requires_grad_(True)
+              for t in (q, k, v)]
+        dot = do.transpose(1, 2)
+        mask = sdpa_mask(case, dev)
+
+        def lib_fwd():
+            return F.scaled_dot_product_attention(*lt, enable_gqa=True,
+                                                  **mask)
+
+        def lib_fwd_bwd():
+            return torch.autograd.grad(lib_fwd(), lt, dot)
+        lib_ms = time_ms(lib_fwd_bwd, iters) - time_ms(lib_fwd, iters)
+        b_ms, b_by = flash_bwd_bound(case, 2)
+        d_ms, d_by = flash_bwd_bound(case, 2, flash_design_ops(case[5]))
+        log(f"[time] flash_attention_bwd {flash_label(case, torch.bfloat16)}"
+            f": kernel {ms:.4f} ms (tensor cores), fp32 kernel "
+            f"{fp32_ms:.4f} ms (CUDA cores, fp32 inputs), plain "
+            f"{plain_ms:.4f} ms, library (scaled_dot_product_attention's "
+            f"backward) {lib_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by}, 10 "
+            f"Dh a kept pair and head), the design's own work "
+            f"{d_ms:.6f} ms ({d_by}, {flash_design_ops(case[5])} Dh)")
+        rows.append(((ms, plain_ms, b_ms, b_by, lib_ms), call))
+        del fargs, lt, dot, mask
+    return rows
+
+
+def train_check(dev) -> dict:
+    """gemma-2b with 2 layers at full width: one train step, 2
+    microbatches, the card against the port's CPU path from the same
+    fp32 parameters (drawn on the card from seed 0) and batch (bf16
+    compute on both).  The step is the clipped gradient itself (lr 1,
+    AdamW's eps 1, no decay: each element moves by g / (|g| + 1)), so
+    each parameter's update is held within MODEL_TOL of its largest
+    element (plus the two updated values' rounding, 2^-22 of the
+    parameter), the loss, ce and grad_norm within MODEL_TOL relative;
+    ``flash_attention`` launched 2 layers x 2 microbatches x 2 (the
+    recompute) and ``flash_attention_bwd`` 2 x 2 times on the card.
+    Returns the card's launches."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels import build
+    from repro_torch.models import registry
+    from repro_torch.train import optim
+    from repro_torch.train.step import make_train_step
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_arch("gemma-2b"), num_layers=2)
+    shape = ShapeConfig("check", TRAIN_CHECK["seq"], TRAIN_CHECK["batch"],
+                        "train", grad_accum=TRAIN_CHECK["grad_accum"])
+    opt = optim.OptConfig(lr=1.0, warmup_steps=1, total_steps=10, eps=1.0,
+                          weight_decay=0.0)
+    step = make_train_step(cfg, shape, opt)
+    p_dev = registry.init_params(torch.Generator(device=dev).manual_seed(0),
+                                 cfg)
+    p_cpu, before = tree_to(p_dev, "cpu"), tree_to(p_dev, "cpu")
+    batch = registry.make_concrete_batch(
+        cfg, shape, torch.Generator().manual_seed(1), "train")
+    build.reset_launches()
+    t_dev = time.perf_counter()
+    p_dev, _, m_dev = step(p_dev, optim.adamw_init(p_dev),
+                           tree_to(batch, dev))
+    torch.cuda.synchronize()
+    t_dev = time.perf_counter() - t_dev
+    launches = {k: v for k, v in build.LAUNCHES.items() if v}
+    t_cpu = time.perf_counter()
+    p_cpu, _, m_cpu = step(p_cpu, optim.adamw_init(p_cpu), batch)
+    t_cpu = time.perf_counter() - t_cpu
+    rel = {k: abs(float(m_dev[k]) - float(m_cpu[k])) / abs(float(m_cpu[k]))
+           for k in ("loss", "ce", "grad_norm")}
+    worst, upd_err = "", 0.0
+    for (path, d), c, p0 in zip(_leaf_paths(p_dev),
+                                optim.tree_leaves(p_cpu),
+                                optim.tree_leaves(before)):
+        d = d.cpu()
+        scale = float((c - p0).abs().max())
+        err = float(((d - c).abs() - 2 ** -22 * c.abs()).clamp(min=0).max()
+                    / max(scale, 1e-30))
+        if err > upd_err:
+            worst, upd_err = path, err
+    want = {"flash_attention": 2 * 2 * 2, "flash_attention_bwd": 2 * 2}
+    ok = (max(rel.values()) <= MODEL_TOL and upd_err <= MODEL_TOL
+          and launches == want
+          and all(math.isfinite(float(m_dev[k])) for k in rel))
+    log(f"[check] train step gemma-2b 2 layers at full width, B="
+        f"{shape.global_batch} S={shape.seq_len} ga={shape.grad_accum}, "
+        f"cuda vs cpu: loss {float(m_dev['loss']):.6f} / "
+        f"{float(m_cpu['loss']):.6f}, grad_norm "
+        f"{float(m_dev['grad_norm']):.6f} / {float(m_cpu['grad_norm']):.6f}"
+        f", relative errs { {k: float(f'{e:.3g}') for k, e in rel.items()} }"
+        f", updates' max err / scale {upd_err:.3g} (at {worst}; tol "
+        f"{MODEL_TOL}); launches on the card {launches} (want {want}); "
+        f"card {t_dev:.2f}s, cpu {t_cpu:.1f}s; "
+        f"{time.perf_counter() - t0:.1f}s {'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the train step on the card disagrees with "
+                             "the CPU")
+    del p_dev, p_cpu, before
+    return launches
+
+
+def _leaf_paths(tree, path=""):
+    """(key path, leaf) in ``train.optim.tree_leaves`` order."""
+    if isinstance(tree, dict):
+        for k in sorted(tree, key=str):
+            yield from _leaf_paths(tree[k], f"{path}/{k}")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _leaf_paths(v, f"{path}/{i}")
+    else:
+        yield path, tree
+
+
+def train_path(dev) -> dict:
+    """``python -m repro_torch.launch.train`` with TRAIN_ARGV in a child
+    process: gemma-2b at full width and depth (18 layers), 4 steps of 2
+    rows of 1024 tokens in 2 microbatches.  Its last line must show a
+    finite loss at every step and, per step, 72 ``flash_attention``
+    launches (18 layers x 2 microbatches x 2, the recompute) and 36
+    ``flash_attention_bwd`` launches, and no other kernel.  Prints each
+    step's seconds and the peak device memory; returns the stats."""
+    import torch
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated(dev)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src") + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    res = subprocess.run([sys.executable, "-m", "repro_torch.launch.train",
+                          *TRAIN_ARGV], capture_output=True, text=True,
+                         env=env, cwd=ROOT, timeout=900)
+    lines = res.stdout.strip().splitlines()
+    for line in lines:
+        log(f"[train path] {line}")
+    if res.returncode != 0:
+        log(res.stderr[-4000:])
+        raise AssertionError(f"train path: rc {res.returncode}")
+    stats = json.loads(lines[-1])
+    steps = int(TRAIN_ARGV[TRAIN_ARGV.index("--steps") + 1])
+    want = {"flash_attention": 72 * steps, "flash_attention_bwd": 36 * steps}
+    ok = (stats["device"].startswith("cuda") and stats["layers"] == 18
+          and stats["d_model"] == 2048 and len(stats["loss"]) == steps
+          and all(math.isfinite(x) for x in stats["loss"])
+          and stats["launches"] == want)
+    log(f"[train path] gemma-2b 18 layers at full width, "
+        f"{stats['params']} params, B={stats['batch']} S={stats['seq']} "
+        f"ga={stats['grad_accum']}: step seconds "
+        f"{[round(s, 4) for s in stats['step_s']]}, losses "
+        f"{[round(x, 4) for x in stats['loss']]}, peak device memory "
+        f"{stats['peak_mem_bytes'] / 1e9:.2f} GB (this process held "
+        f"{held / 1e9:.2f} GB beside it), launches {stats['launches']} "
+        f"(want {want}); {time.perf_counter() - t0:.1f}s with the start "
+        f"and the weights' draw {'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"train path: stats {stats}")
+    return stats
+
+
+def flash_parent(src: str) -> int:
+    """``--flash-parent SRC``: the forward kernel of the package under
+    SRC (an older checkout's ``src``, its launch without the lse
+    pointer) against this tree's, without and with lse, at
+    flash_attention's shapes (phases 5b and 5i) in fp32 and bf16: the
+    outputs must be equal bit for bit."""
+    import ctypes
+    import torch
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False",
+              file=sys.stderr)
+        return 2
+    lib_path = build.BUILD_DIR / "flash_attention-parent.so"
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, "-o",
+                    str(lib_path), str(Path(src) / "repro_torch" / "csrc"
+                                       / "flash_attention.cu")],
+                   check=True, capture_output=True)
+    fn = ctypes.CDLL(str(lib_path)).flash_attention_launch
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 10
+                   + [ctypes.c_float, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    cases = FLASH_CASES + ZOO_FLASH_CASES + FLASH_BWD_CASES
+    bad = 0
+    for case in cases:
+        b, sq, skv, hq, hkv, dh = case[:6]
+        kw = dict(zip(("causal", "window", "prefix_len"), case[6:]))
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = flash_inputs(case, dtype, "cuda")
+            old = torch.empty_like(q)
+            build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                           old.data_ptr(), b, sq, skv, hq, hkv, dh,
+                           int(dtype == torch.bfloat16), *map(int, case[6:]),
+                           1.0 / math.sqrt(dh),
+                           torch.cuda.current_stream().cuda_stream),
+                        "parent flash_attention")
+            new = flash_attention_cuda(q, k, v, **kw)
+            with_lse, _ = flash_attention_cuda(q, k, v, return_lse=True, **kw)
+            torch.cuda.synchronize()
+            same = torch.equal(old, new) and torch.equal(new, with_lse)
+            bad += not same
+            log(f"[flash parent] {flash_label(case, dtype)}: this tree's "
+                f"output (without and with lse) equal to {src}'s bit for "
+                f"bit {same}")
+    log(f"[flash parent] {len(cases) * 2 - bad} of {len(cases) * 2} equal")
+    return int(bad > 0)
 
 
 def zoo_phase(dev) -> dict:
@@ -4526,6 +4895,15 @@ def main() -> int:
         "gemma-2b", {"flash_attention": get_arch("gemma-2b").num_layers},
         dev, argv=GEMMA_SERVE_ARGV)
 
+    # -- 5t. LM training: flash_attention's backward, a train step, the CLI
+    gc.collect()                      # the gemma-2b weights are gone
+    torch.cuda.empty_cache()
+    err_bwd = flash_bwd_checks(dev)
+    bwd_rows = flash_bwd_times(dev)
+    train_check(dev)
+    gc.collect()
+    trained = train_path(dev)
+
     # -- 5c. the hybrid family: selective_scan, then jamba-v0.1-52b --------
     gc.collect()                      # the gemma-2b weights are gone
     torch.cuda.empty_cache()
@@ -4599,7 +4977,9 @@ def main() -> int:
                 "flash_attention": served_dense["flash_attention"],
                 "selective_scan": served_hybrid["selective_scan"],
                 "probe_loss": mesh_launches["probe_loss"],
-                "cohort_gemm": fused["cohort_gemm"]}
+                "cohort_gemm": fused["cohort_gemm"],
+                "flash_attention_bwd":
+                    trained["launches"]["flash_attention_bwd"]}
     if (min(launches.values()) <= 0 or unfused["neighbor_elect"] <= 0
             or windowed["probe_fuzzy"] != 2 + n_over
             or paper_launches["probe_fuzzy"] != 1):
@@ -4656,6 +5036,20 @@ def main() -> int:
             f"{b_by}); CUDA events over back-to-back wrapper calls "
             f"{event_ms[(name, shape)]:.4f} ms")
 
+    # flash_attention's backward at gemma-2b's and minicpm-2b's training
+    # shapes: device time a launch by kernel (dQ, dK/dV)
+    bwd_device = []
+    for case, (row, call) in zip((GEMMA_TRAIN_FLASH, MINICPM_TRAIN_FLASH),
+                                 bwd_rows):
+        ms = phase_ms(call, FLASH_BWD_PHASES, calls=5, busy=True)
+        bwd_device.append(sum(ms.values()))
+        log(f"[profile] flash_attention_bwd "
+            f"{flash_label(case, torch.bfloat16)}: dQ kernel "
+            f"{ms['dq']:.4f} ms, dK/dV kernel {ms['dkdv']:.4f} ms; device "
+            f"{bwd_device[-1]:.4f} ms a launch; CUDA events over "
+            f"back-to-back wrapper calls {row[0]:.4f} ms; bound "
+            f"{row[2]:.6f} ms ({row[3]})")
+
     # the seed-batched kernels: device time of one launch for the sweep's
     # S seeds against S single launches, beside the bound scaled by S
     for name, phases in (
@@ -4699,12 +5093,19 @@ def main() -> int:
         "cohort_gemm": ("src/repro_torch/csrc/cohort_gemm.cu",
                         "src/repro/fl/client.py:300 (XLA, no Pallas "
                         "kernel)", err_gemm),
+        # the training use of flash_attention_pallas: the reference has
+        # no Pallas backward and differentiates its jnp attention
+        "flash_attention_bwd": ("src/repro_torch/csrc/flash_attention_bwd.cu",
+                                "src/repro/kernels/flash_attention.py:79",
+                                err_bwd[GEMMA_TRAIN_FLASH]),
     }
     timings["flash_attention"] = flash_timing[:4]
     timings["selective_scan"] = scan_timing
     timings["probe_loss"] = loss_timing
+    timings["flash_attention_bwd"] = bwd_rows[0][0][:4]
     library = {"flash_attention": flash_timing[4],
-               "cohort_gemm": gemm_lib_ms}
+               "cohort_gemm": gemm_lib_ms,
+               "flash_attention_bwd": bwd_rows[0][0][4]}
     kernels, others = [], []
     for name in build.KERNELS:
         src, replaces, err = meta[name]
@@ -4732,6 +5133,19 @@ def main() -> int:
                       WHISPER_ENC_FLASH),
                      ("paligemma-3b prefix-LM prefill", "paligemma-3b",
                       PALIGEMMA_FLASH)), zoo["timing"])]
+        if name == "flash_attention_bwd":
+            entry["computes"] = ("the vjp of src/repro/models/attention.py"
+                                 ":48 flash_attention (the reference's "
+                                 "autodiff; no Pallas backward)")
+            entry["shape"] = flash_label(GEMMA_TRAIN_FLASH, torch.bfloat16)
+            entry["device_ms"] = bwd_device[0]
+            entry["paths"] = [
+                dict(zip(("ms", "plain_ms", "bound_ms", "bound_by",
+                          "library_ms"), bwd_rows[1][0]),
+                     path="minicpm-2b training shape",
+                     shape=flash_label(MINICPM_TRAIN_FLASH, torch.bfloat16),
+                     device_ms=bwd_device[1],
+                     max_abs_err=err_bwd[MINICPM_TRAIN_FLASH])]
         if name == "cohort_gemm":        # ports no Pallas kernel
             entry["reference"] = entry.pop("replaces")
             entry["products"] = gemm_rows
@@ -4752,4 +5166,6 @@ if __name__ == "__main__":
         sys.exit(c12_readings())
     if sys.argv[1:2] == ["--gemm-readings"]:
         sys.exit(gemm_readings(*sys.argv[2:3]))
+    if sys.argv[1:2] == ["--flash-parent"] and len(sys.argv) == 3:
+        sys.exit(flash_parent(sys.argv[2]))
     sys.exit(main())

@@ -7,7 +7,8 @@ keeps the NHWC flatten order on both sides — ``cnn_forward`` permutes
 its activation to NHWC before flattening, so no row of fc1 is permuted
 here.  For the LM zoo see ``rwkv_params_from_jax``,
 ``dense_params_from_jax`` (also the moe and vlm families),
-``hybrid_params_from_jax`` and ``audio_params_from_jax``.
+``hybrid_params_from_jax`` and ``audio_params_from_jax``; for the
+optimizer state of LM training ``adamw_state_from_jax``.
 """
 from __future__ import annotations
 
@@ -140,3 +141,14 @@ def audio_params_from_jax(tree: Mapping, device=None) -> Dict:
                       "final_norm": {k: _t(v, device) for k, v in
                                      enc["final_norm"].items()}}
     return out
+
+
+def adamw_state_from_jax(state: Mapping, device=None) -> Dict:
+    """The reference's AdamW state ``{m, v, step}`` of a dense-, moe- or
+    vlm-family model -> the port's: ``m`` and ``v`` mapped as
+    ``dense_params_from_jax`` maps the parameters, ``step`` an int32
+    scalar."""
+    return {"m": dense_params_from_jax(state["m"], device),
+            "v": dense_params_from_jax(state["v"], device),
+            "step": torch.tensor(int(np.asarray(state["step"])),
+                                 dtype=torch.int32)}

@@ -12,7 +12,11 @@
 // < window) and widened by `prefix_len` (kv_pos < prefix_len).  A dropped
 // score is NEG_INF = -1e30, finite, as in the TPU kernel: with -inf a
 // fully dropped tile would give -inf - -inf = NaN.
-// Output: o (B, Sq, Hq, Dh) in q's type, acc / max(l, 1e-30) rounded once.
+// Output: o (B, Sq, Hq, Dh) in q's type, acc / max(l, 1e-30) rounded once;
+// given a non-null `lse` (B, Hq, Sq) fp32, also each row's log-sum-exp of
+// its scaled scores, m + log(max(l, 1e-30)), which the backward
+// (flash_attention_bwd.cu) recomputes P from.  With a null `lse` (serving)
+// the kernels compute what they did before it existed, bit for bit.
 //
 // The TPU kernel's grid is (B * Hq, Sq / 128, Skv / 128) with the kv axis
 // sequential, carrying the running max m, the running sum l and the
@@ -64,6 +68,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "flash_mask.cuh"
 #include "hopper_mma.cuh"
 
 #define FA_BQ 64
@@ -106,7 +111,7 @@ __global__ void __launch_bounds__(FA_THREADS)
 flash_attention_kernel(const float* __restrict__ q,
                        const float* __restrict__ k,
                        const float* __restrict__ v, float* __restrict__ o,
-                       int Sq,
+                       float* __restrict__ lse, int Sq,
                        int Skv, int Hq, int Hkv, int causal, int window,
                        int prefix_len, float scale) {
   static_assert(DH % 64 == 0, "each thread holds DH / 16 columns as float4");
@@ -198,14 +203,8 @@ flash_attention_kernel(const float* __restrict__ q,
 #pragma unroll
         for (int j = 0; j < 2; ++j) {
           const int r = ty + 16 * i, c = tx + 16 * j;
-          const int qp = q0 + r, kp = k0 + c;
-          bool ok = qp < Sq && kp < Skv;
-          if (causal) {
-            bool ca = kp <= qp;
-            if (window > 0) ca = ca && (qp - kp) < window;
-            if (prefix_len > 0) ca = ca || kp < prefix_len;
-            ok = ok && ca;
-          }
+          const bool ok = fa_kept(q0 + r, k0 + c, Sq, Skv, causal, window,
+                                  prefix_len);
           ps[r * LP + c] = ok ? s[i][j] * scale : FA_NEG_INF;
         }
     }
@@ -265,6 +264,9 @@ flash_attention_kernel(const float* __restrict__ q,
     }
   }
   __syncthreads();  // l_s is final
+  if (lse != nullptr && tid < FA_BQ && q0 + tid < Sq)
+    lse[((size_t)b * Hq + h) * Sq + q0 + tid] =
+        m_s[tid] + logf(fmaxf(l_s[tid], 1e-30f));
 
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -283,8 +285,8 @@ flash_attention_kernel(const float* __restrict__ q,
 
 template <int DH>
 static int launch(const void* q, const void* k, const void* v, void* o,
-                  int B, int Sq, int Skv, int Hq, int Hkv, int causal,
-                  int window, int prefix_len, float scale,
+                  float* lse, int B, int Sq, int Skv, int Hq, int Hkv,
+                  int causal, int window, int prefix_len, float scale,
                   cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<DH>();
   cudaError_t err = cudaFuncSetAttribute(
@@ -293,8 +295,8 @@ static int launch(const void* q, const void* k, const void* v, void* o,
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((Sq + FA_BQ - 1) / FA_BQ, Hq, B);
   flash_attention_kernel<DH><<<grid, FA_THREADS, smem, stream>>>(
-      (const float*)q, (const float*)k, (const float*)v, (float*)o, Sq, Skv,
-      Hq, Hkv, causal, window, prefix_len, scale);
+      (const float*)q, (const float*)k, (const float*)v, (float*)o, lse, Sq,
+      Skv, Hq, Hkv, causal, window, prefix_len, scale);
   return (int)cudaGetLastError();
 }
 
@@ -336,7 +338,8 @@ __global__ void __launch_bounds__(TC_THREADS, 1)
 flash_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
                           const __nv_bfloat16* __restrict__ k,
                           const __nv_bfloat16* __restrict__ v,
-                          __nv_bfloat16* __restrict__ o, int Sq, int Skv,
+                          __nv_bfloat16* __restrict__ o,
+                          float* __restrict__ lse, int Sq, int Skv,
                           int Hq, int Hkv, int causal, int window,
                           int prefix_len, float scale_log2) {
   constexpr int NSL = DH / 64;                  // 64-column slabs
@@ -448,16 +451,12 @@ flash_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
       for (int e = 0; e < 4; ++e) {
         float x = s[4 * j + e] * scale_log2;
         if (!whole) {
+          // rows past Sq (qp >= Sq) are kept like row Sq - 1's: never
+          // stored, they only need finite values
           const int kp = k0 + 8 * j + 2 * t4 + (e & 1);
-          const int qp = e < 2 ? qpa : qpb;
-          bool ok = kp < Skv;
-          if (causal) {
-            bool ca = kp <= qp;
-            if (window > 0) ca = ca && (qp - kp) < window;
-            if (prefix_len > 0) ca = ca || kp < prefix_len;
-            ok = ok && ca;
-          }
-          if (!ok) x = FA_NEG_INF;
+          const int qp = min(e < 2 ? qpa : qpb, Sq - 1);
+          if (!fa_kept(qp, kp, Sq, Skv, causal, window, prefix_len))
+            x = FA_NEG_INF;
         }
         s[4 * j + e] = x;
       }
@@ -531,6 +530,17 @@ flash_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
   l_a = fmaxf(l_a, 1e-30f);
   l_b = fmaxf(l_b, 1e-30f);
   const int fa = f0 + ra, fb = fa + 8;
+  if (lse != nullptr && t4 == 0) {
+    // m is in the log2 domain of the scaled scores
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int f = half ? fb : fa;
+      if (f < rows_total)
+        lse[((size_t)b * Hq + (size_t)hk * G + f % G) * Sq + f / G] =
+            ((half ? m_b : m_a) + log2f(half ? l_b : l_a)) *
+            0.6931471805599453f;
+    }
+  }
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int f = half ? fb : fa;
@@ -550,8 +560,8 @@ flash_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
 
 template <int DH>
 static int launch_tc(const void* q, const void* k, const void* v, void* o,
-                     int B, int Sq, int Skv, int Hq, int Hkv, int causal,
-                     int window, int prefix_len, float scale,
+                     float* lse, int B, int Sq, int Skv, int Hq, int Hkv,
+                     int causal, int window, int prefix_len, float scale,
                      cudaStream_t stream) {
   constexpr size_t smem = tc_smem_bytes<DH>();
   cudaError_t err = cudaFuncSetAttribute(
@@ -563,26 +573,28 @@ static int launch_tc(const void* q, const void* k, const void* v, void* o,
   const dim3 grid((unsigned)tiles, Hkv, B);
   flash_attention_tc_kernel<DH><<<grid, TC_THREADS, smem, stream>>>(
       (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
-      (const __nv_bfloat16*)v, (__nv_bfloat16*)o, Sq, Skv, Hq, Hkv, causal,
-      window, prefix_len, scale * 1.4426950408889634f);
+      (const __nv_bfloat16*)v, (__nv_bfloat16*)o, lse, Sq, Skv, Hq, Hkv,
+      causal, window, prefix_len, scale * 1.4426950408889634f);
   return (int)cudaGetLastError();
 }
 
 template <int DH>
 static int launch_dh(int bf16, const void* q, const void* k, const void* v,
-                     void* o, int B, int Sq, int Skv, int Hq, int Hkv,
-                     int causal, int window, int prefix_len, float scale,
-                     cudaStream_t st) {
-  return bf16 ? launch_tc<DH>(q, k, v, o, B, Sq, Skv, Hq, Hkv, causal,
+                     void* o, float* lse, int B, int Sq, int Skv, int Hq,
+                     int Hkv, int causal, int window, int prefix_len,
+                     float scale, cudaStream_t st) {
+  return bf16 ? launch_tc<DH>(q, k, v, o, lse, B, Sq, Skv, Hq, Hkv, causal,
                               window, prefix_len, scale, st)
-              : launch<DH>(q, k, v, o, B, Sq, Skv, Hq, Hkv, causal, window,
-                           prefix_len, scale, st);
+              : launch<DH>(q, k, v, o, lse, B, Sq, Skv, Hq, Hkv, causal,
+                           window, prefix_len, scale, st);
 }
 
 // bf16: 1 if q, k, v and o are bf16 (the tensor-core kernel), 0 if fp32
-// (the CUDA-core kernel); Dh one of 64, 128, 256
+// (the CUDA-core kernel); Dh one of 64, 128, 256; lse (B, Hq, Sq) fp32 or
+// null
 extern "C" int flash_attention_launch(const void* q, const void* k,
-                                      const void* v, void* o, int B, int Sq,
+                                      const void* v, void* o, void* lse,
+                                      int B, int Sq,
                                       int Skv, int Hq, int Hkv, int Dh,
                                       int bf16, int causal, int window,
                                       int prefix_len, float scale,
@@ -593,14 +605,14 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   cudaStream_t st = (cudaStream_t)stream;
   switch (Dh) {
     case 64:
-      return launch_dh<64>(bf16, q, k, v, o, B, Sq, Skv, Hq, Hkv, causal,
-                           window, prefix_len, scale, st);
+      return launch_dh<64>(bf16, q, k, v, o, (float*)lse, B, Sq, Skv, Hq,
+                            Hkv, causal, window, prefix_len, scale, st);
     case 128:
-      return launch_dh<128>(bf16, q, k, v, o, B, Sq, Skv, Hq, Hkv, causal,
-                            window, prefix_len, scale, st);
+      return launch_dh<128>(bf16, q, k, v, o, (float*)lse, B, Sq, Skv, Hq,
+                            Hkv, causal, window, prefix_len, scale, st);
     case 256:
-      return launch_dh<256>(bf16, q, k, v, o, B, Sq, Skv, Hq, Hkv, causal,
-                            window, prefix_len, scale, st);
+      return launch_dh<256>(bf16, q, k, v, o, (float*)lse, B, Sq, Skv, Hq,
+                            Hkv, causal, window, prefix_len, scale, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

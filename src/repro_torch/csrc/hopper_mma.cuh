@@ -1,8 +1,9 @@
 // Hopper building blocks shared by the tensor-core kernels
-// (flash_attention.cu's bf16 path, probe_phases.cuh's conv2 and fc1):
-// cp.async into 128-byte-swizzled shared-memory tiles, wgmma matrix
-// descriptors, the warpgroup-level wgmma instructions the kernels issue,
-// and the TF32 split of an fp32 value.
+// (flash_attention.cu's bf16 path, probe_phases.cuh's conv2 and fc1,
+// flash_attention_bwd.cu's bf16 path): cp.async into 128-byte-swizzled
+// shared-memory tiles, wgmma matrix descriptors, the warpgroup-level
+// wgmma instructions the kernels issue, the warp-level bf16 mma.sync, and
+// the TF32 split of an fp32 value.
 //
 // Tile layout.  Every operand tile that wgmma reads from shared memory
 // is a stack of 128-byte rows, 1024-byte aligned, with the 16-byte chunk
@@ -158,6 +159,24 @@ __device__ __forceinline__ void wgmma_tf32_rs_n128(float (&d)[64],
       : HM_F64
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
         "r"(accumulate));
+}
+
+// d += A B, bf16 in, fp32 accumulators, one warp (mma.sync m16n8k16).  With
+// g = lane / 4 and t = lane % 4, each register holding two bf16 (the lower
+// column or row in the low half): a[0..3] = A (16 x 16, row-major) at (row
+// g, cols 2t, 2t + 1), (g + 8, 2t ..), (g, 2t + 8 ..), (g + 8, 2t + 8 ..);
+// b[0..1] = B (16 x 8) at (rows 2t, 2t + 1, col g), (rows 2t + 8, 2t + 9,
+// col g); d[0..3] = D (16 x 8) at (g, 2t), (g, 2t + 1), (g + 8, 2t),
+// (g + 8, 2t + 1).  The accumulators of two neighbouring n8 tiles are, so
+// packed to bf16 pairs, the A fragment of a k16 step over their columns.
+__device__ __forceinline__ void mma_bf16_16816(float (&d)[4],
+                                               const uint32_t (&a)[4],
+                                               const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
 // fp32 -> TF32 (10 mantissa bits), round to nearest even, as bits

@@ -11,7 +11,8 @@ compiled at import time.
 ``LAUNCHES`` counts the kernel launches of each wrapper: a wrapper adds
 one where it launches its kernel and nowhere else (one per call, also
 where a call runs more than one CUDA kernel, as ``wkv6`` past one time
-chunk does, and where one call takes several seeds, as the sweep's
+chunk and ``flash_attention_bwd`` (its dQ and its dK/dV kernel) do, and
+where one call takes several seeds, as the sweep's
 seed-batched ``probe_fuzzy`` and ``neighbor_elect`` do), so a run can
 show that its main path went through the kernels.
 """
@@ -31,7 +32,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 KERNELS = ("probe_fuzzy", "fuzzy_eval", "neighbor_elect", "windowed_counts",
            "wkv6", "flash_attention", "selective_scan", "probe_loss",
-           "cohort_gemm")
+           "cohort_gemm", "flash_attention_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
               "-lineinfo")
@@ -45,7 +46,9 @@ _SIGNATURES = {
     "neighbor_elect": {"neighbor_elect_launch": "ippiffipp"},
     "windowed_counts": {"windowed_counts_launch": "pppiiiffipp"},
     "wkv6": {"wkv6_launch": "ppppppiiiiipppp"},
-    "flash_attention": {"flash_attention_launch": "ppppiiiiiiiiiifp"},
+    "flash_attention": {"flash_attention_launch": "pppppiiiiiiiiiifp"},
+    "flash_attention_bwd": {
+        "flash_attention_bwd_launch": "ppppppppppiiiiiiiiiifp"},
     "selective_scan": {"selective_scan_launch": "ppppppiiiiippp"},
     "probe_loss": {"probe_loss_launch": "ipppipipppppppppppppppp"},
     "cohort_gemm": {"cohort_gemm_launch": "pp"},

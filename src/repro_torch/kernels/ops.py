@@ -173,14 +173,54 @@ def selective_scan(x: torch.Tensor, dt: torch.Tensor, bmat: torch.Tensor,
         y, h_t = ref.selective_scan_ref(x, dt, bmat, cmat, a, h0)
     return y.to(x.dtype), h_t
 
+class _FlashAttention(torch.autograd.Function):
+    """Flash attention with its hand-written backward: the forward saves
+    q, k, v, the output and each row's log-sum-exp; the backward runs
+    ``flash_attention_bwd_cuda`` on the card (its plain version,
+    ``ref.flash_attention_bwd_ref``, on the CPU).  No fallback: on the
+    card a failure of either kernel raises."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, prefix_len):
+        kw = dict(causal=causal, window=window, prefix_len=prefix_len)
+        if _on_cuda(q):
+            from repro_torch.kernels.flash_attention import \
+                flash_attention_cuda
+            out, lse = flash_attention_cuda(q, k, v, return_lse=True, **kw)
+        else:
+            out, lse = ref.flash_attention_lse_ref(q, k, v, **kw)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.kw = kw
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        do = do.contiguous()
+        if _on_cuda(q):
+            from repro_torch.kernels.flash_attention import \
+                flash_attention_bwd_cuda
+            grads = flash_attention_bwd_cuda(q, k, v, out, lse, do, **ctx.kw)
+        else:
+            grads = ref.flash_attention_bwd_ref(q, k, v, out, lse, do,
+                                                **ctx.kw)
+        return (*grads, None, None, None)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
                     prefix_len: int = 0) -> torch.Tensor:
     """Online-softmax attention over the natural positions: q (B, Sq,
     Hq, Dh), k and v (B, Skv, Hkv, Dh) -> (B, Sq, Hq, Dh) in q's dtype;
     GQA by ``Hq // Hkv``, ``window`` and ``prefix_len`` only when
-    causal."""
+    causal.  Where grad is required of q, k or v, the call is
+    differentiable through the hand-written backward (``_FlashAttention``);
+    otherwise (serving, under ``no_grad``) it is the forward alone."""
     kw = dict(causal=causal, window=window, prefix_len=prefix_len)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _FlashAttention.apply(q.contiguous(), k.contiguous(),
+                                     v.contiguous(), causal, window,
+                                     prefix_len)
     if _on_cuda(q):
         from repro_torch.kernels.flash_attention import flash_attention_cuda
         return flash_attention_cuda(q, k, v, **kw)

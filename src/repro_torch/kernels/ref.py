@@ -294,20 +294,18 @@ def selective_scan_ref(x: torch.Tensor, dt: torch.Tensor,
     y = torch.stack(ys, dim=1) if ys else torch.zeros_like(dtx)
     return y, h
 
-def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        *, causal: bool = True, window: int = 0,
-                        prefix_len: int = 0) -> torch.Tensor:
-    """Masked softmax attention in fp32 over the natural positions
-    0..S-1 of q and kv, with ``flash_attention_pallas``'s mask: causal
-    first, then ``window`` narrowing it and ``prefix_len`` widening it
-    (both only when causal), dropped scores ``NEG_INF``.
-
-    q: (B, Sq, Hq, Dh); k, v: (B, Skv, Hkv, Dh), q head h reading kv
-    head ``h // (Hq // Hkv)`` -> (B, Sq, Hq, Dh) in q's dtype."""
+def _attention_scores(q: torch.Tensor, k: torch.Tensor, *, causal: bool,
+                      window: int, prefix_len: int) -> torch.Tensor:
+    """Scaled, masked scores (B, Hkv, G, Sq, Skv) in fp32 (fp64 for fp64
+    inputs) over the natural positions 0..S-1 of q and kv, with
+    ``flash_attention_pallas``'s mask: causal first, then ``window``
+    narrowing it and ``prefix_len`` widening it (both only when causal),
+    dropped scores ``NEG_INF``.  q head h reads kv head ``h // G``."""
     b, sq, hq, dh = q.shape
     skv, hkv = k.shape[1], k.shape[2]
-    qf = q.float().reshape(b, sq, hkv, hq // hkv, dh)
-    s = torch.einsum("bqhgd,bkhd->bhgqk", qf, k.float()) * (
+    ct = torch.promote_types(q.dtype, torch.float32)
+    qf = q.to(ct).reshape(b, sq, hkv, hq // hkv, dh)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qf, k.to(ct)) * (
         1.0 / math.sqrt(dh))
     if causal:
         qp = torch.arange(sq, device=q.device)[:, None]
@@ -318,6 +316,69 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if prefix_len:
             ok |= kp < prefix_len
         s = s.masked_fill(~ok, NEG_INF)
+    return s
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True, window: int = 0,
+                        prefix_len: int = 0) -> torch.Tensor:
+    """Masked softmax attention in fp32 (``_attention_scores``' mask).
+
+    q: (B, Sq, Hq, Dh); k, v: (B, Skv, Hkv, Dh), q head h reading kv
+    head ``h // (Hq // Hkv)`` -> (B, Sq, Hq, Dh) in q's dtype."""
+    return flash_attention_lse_ref(q, k, v, causal=causal, window=window,
+                                   prefix_len=prefix_len)[0]
+
+
+def flash_attention_lse_ref(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, *, causal: bool = True,
+                            window: int = 0, prefix_len: int = 0
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``flash_attention_ref`` and each q row's log-sum-exp of its
+    scaled, masked scores -> ``(out (B, Sq, Hq, Dh) in q's dtype, lse
+    (B, Hq, Sq) fp32)`` (fp64 for fp64 inputs, as ``gradcheck`` takes
+    them)."""
+    b, sq, hq, dh = q.shape
+    s = _attention_scores(q, k, causal=causal, window=window,
+                          prefix_len=prefix_len)
     p = torch.softmax(s, dim=-1)
-    out = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
-    return out.reshape(b, sq, hq, dh).to(q.dtype)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", p, v.to(s.dtype))
+    lse = torch.logsumexp(s, dim=-1).reshape(b, hq, sq)
+    return out.reshape(b, sq, hq, dh).to(q.dtype), lse
+
+
+def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, o: torch.Tensor,
+                            lse: torch.Tensor, do: torch.Tensor, *,
+                            causal: bool = True, window: int = 0,
+                            prefix_len: int = 0
+                            ) -> Tuple[torch.Tensor, torch.Tensor,
+                                       torch.Tensor]:
+    """The gradients (dq, dk, dv) of ``flash_attention_lse_ref``'s
+    output ``o`` under the cotangent ``do``, by the explicit formulas in
+    fp32 (fp64 for fp64 inputs), with scale = 1 / sqrt(Dh):
+
+        D = rowsum(dO * O),  P = exp(S scale - lse),  dV = P^T dO,
+        dP = dO V^T,  dS = P * (dP - D),  dQ = scale dS K,
+        dK = scale dS^T Q,
+
+    dK and dV summed over each GQA group's q heads; a dropped score is
+    ``NEG_INF``, so its P is 0.  Returns the inputs' dtypes."""
+    b, sq, hq, dh = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    s = _attention_scores(q, k, causal=causal, window=window,
+                          prefix_len=prefix_len)
+    ct = s.dtype
+    scale = 1.0 / math.sqrt(dh)
+    p = torch.exp(s - lse.to(ct).reshape(b, hkv, g, sq)[..., None])
+    dof = do.to(ct).reshape(b, sq, hkv, g, dh)
+    qf = q.to(ct).reshape(b, sq, hkv, g, dh)
+    delta = (dof * o.to(ct).reshape(b, sq, hkv, g, dh)).sum(-1)
+    dv = torch.einsum("bhgqk,bqhgd->bkhd", p, dof)
+    dp = torch.einsum("bqhgd,bkhd->bhgqk", dof, v.to(ct))
+    ds = p * (dp - delta.permute(0, 2, 3, 1)[..., None])
+    dq = torch.einsum("bhgqk,bkhd->bqhgd", ds, k.to(ct)) * scale
+    dk = torch.einsum("bhgqk,bqhgd->bkhd", ds, qf) * scale
+    return (dq.reshape(b, sq, hq, dh).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))

@@ -14,6 +14,7 @@ from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 Params = Dict[str, object]
 
@@ -137,3 +138,52 @@ def apply_mlp(cfg, p: Params, x: torch.Tensor) -> torch.Tensor:
     else:
         raise ValueError(cfg.hidden_act)
     return F.linear(h, p["wo"].to(dt))
+
+
+# --------------------------------------------------------------------------
+# losses
+# --------------------------------------------------------------------------
+
+def _chunk_nll(xc: torch.Tensor, w: torch.Tensor, lc: torch.Tensor,
+               mc: torch.Tensor, softcap: float):
+    """One chunk's (sum of masked NLL, sum of mask): fp32 logits of the
+    chunk's product with ``w`` cast to x's dtype, soft-capped."""
+    logits = F.linear(xc, w.to(xc.dtype)).float()
+    if softcap:
+        logits = torch.tanh(logits / softcap) * softcap
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, lc[..., None].long())[..., 0]
+    return ((logz - gold) * mc).sum(), mc.sum()
+
+
+def chunked_cross_entropy(x: torch.Tensor, embed: torch.Tensor,
+                          labels: torch.Tensor, mask: torch.Tensor,
+                          head: Optional[torch.Tensor] = None,
+                          softcap: float = 0.0, chunk: int = 512):
+    """Cross-entropy without the whole (B, S, V) logits.
+
+    x: (B, S, D) final hidden states; ``head`` (V, D), or the tied
+    ``embed`` (V, D) (both ``(out, in)``, as the port stores them).  The
+    sequence is cut into the largest number of equal chunks not above
+    ``S // chunk``, as the reference's scan does; each chunk's logits
+    exist only while its sums are taken, in backward too (each chunk
+    runs under ``torch.utils.checkpoint``, which recomputes its logits
+    for its gradient).  Returns (sum of NLL over the mask, sum of the
+    mask), each added up chunk by chunk in order from 0."""
+    b, s, d = x.shape
+    w = head if head is not None else embed
+    n_chunks = max(1, s // chunk)
+    while s % n_chunks:                                   # largest divisor
+        n_chunks -= 1
+    c = s // n_chunks
+    tot = cnt = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(n_chunks):
+        sl = slice(i * c, (i + 1) * c)
+        args = (x[:, sl], w, labels[:, sl], mask[:, sl].float(), softcap)
+        if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+            t, n = torch.utils.checkpoint.checkpoint(
+                _chunk_nll, *args, use_reentrant=False)
+        else:
+            t, n = _chunk_nll(*args)
+        tot, cnt = tot + t, cnt + n
+    return tot, cnt

@@ -1,14 +1,14 @@
-"""Model registry (``repro.models.registry``): init / prefill /
-decode_step / cache for an ``ArchConfig``, plus ``serving_params`` and
-``init_serving_params``."""
+"""Model registry (``repro.models.registry``): init / train_loss /
+prefill / decode_step / cache for an ``ArchConfig``, a concrete batch
+for each, plus ``serving_params`` and ``init_serving_params``."""
 from __future__ import annotations
 
 import functools
-from typing import Callable
+from typing import Callable, Dict
 
 import torch
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import COMPUTE_DTYPE, Params
 
@@ -33,6 +33,10 @@ _CAST_IN_BLOCK = {
 
 def init_params(g: torch.Generator, cfg: ArchConfig) -> Params:
     return tfm.init_params(g, cfg)
+
+
+def train_loss_fn(cfg: ArchConfig) -> Callable:
+    return functools.partial(tfm.train_loss, cfg)
 
 
 def prefill_fn(cfg: ArchConfig) -> Callable:
@@ -62,6 +66,31 @@ def stub_inputs(cfg: ArchConfig, batch: int,
     key, n = stubs[cfg.family]
     return {key: torch.randn((batch, n, cfg.d_model), generator=g,
                              device=g.device).to(COMPUTE_DTYPE)}
+
+
+def make_concrete_batch(cfg: ArchConfig, shape: ShapeConfig,
+                        g: torch.Generator, kind: str
+                        ) -> Dict[str, torch.Tensor]:
+    """A random batch of ``shape`` drawn from ``g`` on its device, in the
+    reference's key order: the vlm family's ``prefix`` (B,
+    num_prefix_tokens, D) or the audio family's ``frames`` (B,
+    encoder_seq, D) in the compute dtype, then ``tokens`` and, for
+    ``kind == "train"``, ``targets`` (int64 in [0, vocab)) and ``mask``
+    (ones, fp32); a vlm batch holds ``seq_len - num_prefix_tokens``
+    tokens."""
+    b, s = shape.global_batch, shape.seq_len
+    batch: Dict[str, torch.Tensor] = {}
+    if cfg.family == "vlm":
+        s -= cfg.num_prefix_tokens
+    batch.update(stub_inputs(cfg, b, g))
+    keys = ("tokens", "targets") if kind == "train" else ("tokens",)
+    for key in keys:
+        batch[key] = torch.randint(0, cfg.vocab_size, (b, s), generator=g,
+                                   device=g.device)
+    if kind == "train":
+        batch["mask"] = torch.ones((b, s), dtype=torch.float32,
+                                   device=g.device)
+    return batch
 
 
 def _cast(tree: Params) -> Params:

@@ -9,6 +9,10 @@ reference:
 - vlm (paligemma): the dense decoder over precomputed patch embeddings
   before the tokens, with prefix-LM masking over them at prefill.
 
+Entry points: ``train_loss`` (the dense, moe and vlm families; each
+layer recomputed in backward, as the reference's ``remat=True``),
+``prefill`` and ``decode_step``.
+
 Parameters are a nested dict: ``embed`` (V, D), ``final_norm``,
 ``lm_head`` (V, D) unless tied, ``blocks``, a list with one dict per
 layer in layer order, and for the audio family ``encoder`` (``layers``,
@@ -27,6 +31,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn
@@ -34,8 +39,14 @@ from repro_torch.models import mamba as mam
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv6 as rwkv
 from repro_torch.models.layers import (COMPUTE_DTYPE, Params, apply_mlp,
-                                       apply_norm, dense_init, embed_init,
-                                       init_mlp, init_norm, weak_scalar)
+                                       apply_norm, chunked_cross_entropy,
+                                       dense_init, embed_init, init_mlp,
+                                       init_norm, weak_scalar)
+
+MOE_LB_COEF = 0.01
+MOE_Z_COEF = 0.001
+# the families whose training needs backward kernels still to be written
+_TRAIN_LATER = ("ssm", "hybrid", "audio")
 
 
 def _layer_body(cfg: ArchConfig, i: int) -> Tuple[str, bool]:
@@ -167,12 +178,26 @@ def _residual(cfg: ArchConfig, x: torch.Tensor, y: torch.Tensor
     return x + y * weak_scalar(cfg.residual_scale, y.dtype)
 
 
-def _ffn(cfg: ArchConfig, lp: Params, x: torch.Tensor) -> torch.Tensor:
-    """The layer's MLP, or its MoE (whose aux losses serving drops)."""
+def _zero_aux(device) -> Dict[str, torch.Tensor]:
+    z = torch.zeros((), dtype=torch.float32, device=device)
+    return {"lb_loss": z, "z_loss": z}
+
+
+def _sum_aux(a: Dict[str, torch.Tensor], b: Dict[str, torch.Tensor]
+             ) -> Dict[str, torch.Tensor]:
+    return {k: a[k] + b[k] for k in a}
+
+
+def _ffn(cfg: ArchConfig, lp: Params, x: torch.Tensor
+         ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
+    """The layer's MLP or MoE -> (y, the MoE's {lb_loss, z_loss}, None
+    for an MLP).  Training sums them over the layers (``_sum_aux``, an
+    MLP's as zeros); serving uses y alone."""
     h = apply_norm(cfg, lp["n2"], x)
     if "moe" in lp:
-        return moe_mod.apply_moe(cfg, lp["moe"], h)[0]
-    return apply_mlp(cfg, lp["mlp"], h)
+        y, aux = moe_mod.apply_moe(cfg, lp["moe"], h)
+        return y, {"lb_loss": aux["lb_loss"], "z_loss": aux["z_loss"]}
+    return apply_mlp(cfg, lp["mlp"], h), None
 
 
 def _dense_layer_full(cfg, lp, x, positions, *, window=0, prefix_len=0):
@@ -183,7 +208,7 @@ def _dense_layer_full(cfg, lp, x, positions, *, window=0, prefix_len=0):
                                  window=window, prefix_len=prefix_len,
                                  return_kv=True)
     x = _residual(cfg, x, y)
-    return _residual(cfg, x, _ffn(cfg, lp, x)), kv
+    return _residual(cfg, x, _ffn(cfg, lp, x)[0]), kv
 
 
 def _dense_layer_decode(cfg, lp, x, cache, *, window=0, prefix_len=0):
@@ -191,7 +216,7 @@ def _dense_layer_decode(cfg, lp, x, cache, *, window=0, prefix_len=0):
     y, cache = attn.attn_apply_decode(cfg, lp["attn"], h, cache,
                                       window=window, prefix_len=prefix_len)
     x = _residual(cfg, x, y)
-    return _residual(cfg, x, _ffn(cfg, lp, x)), cache
+    return _residual(cfg, x, _ffn(cfg, lp, x)[0]), cache
 
 
 def _run_dense_stack(cfg, params, x, positions, *, mode, cache=None,
@@ -212,12 +237,37 @@ def _run_dense_stack(cfg, params, x, positions, *, mode, cache=None,
     return x, _kvs_to_cache(cfg, kvs, positions, context)
 
 
+def _dense_layer_train(cfg, lp, x, positions, prefix_len):
+    """A dense or MoE layer over the full sequence without a cache ->
+    (x, lb_loss, z_loss)."""
+    h = apply_norm(cfg, lp["n1"], x)
+    x = _residual(cfg, x, attn.attn_apply_full(cfg, lp["attn"], h, positions,
+                                               prefix_len=prefix_len))
+    y, aux = _ffn(cfg, lp, x)
+    aux = aux or _zero_aux(x.device)
+    return _residual(cfg, x, y), aux["lb_loss"], aux["z_loss"]
+
+
+def _run_dense_stack_train(cfg, params, x, positions, prefix_len):
+    """Every layer in order, each under ``torch.utils.checkpoint`` (its
+    activations recomputed in backward, as ``jax.checkpoint`` does in the
+    reference's scan body); returns (x, the aux losses summed over the
+    layers in order)."""
+    aux = _zero_aux(x.device)
+    for lp in params["blocks"]:
+        x, lb, z = torch.utils.checkpoint.checkpoint(
+            _dense_layer_train, cfg, lp, x, positions, prefix_len,
+            use_reentrant=False)
+        aux = _sum_aux(aux, {"lb_loss": lb, "z_loss": z})
+    return x, aux
+
+
 def _mamba_layer(cfg, lp, x, state):
     """Pre-norm mamba then MLP or MoE; returns (x, the mamba state)."""
     y, state = mam.mamba_apply(cfg, lp["mamba"], apply_norm(cfg, lp["n1"], x),
                                state)
     x = _residual(cfg, x, y)
-    return _residual(cfg, x, _ffn(cfg, lp, x)), state
+    return _residual(cfg, x, _ffn(cfg, lp, x)[0]), state
 
 
 def _run_hybrid_stack(cfg, params, x, positions, *, mode, cache=None,
@@ -357,24 +407,46 @@ def _embed(cfg: ArchConfig, params: Params,
     return x
 
 
+def check_trainable(cfg: ArchConfig) -> None:
+    """Raise for the families whose training is not ported yet: the ssm,
+    hybrid and audio families need the ``wkv6`` and ``selective_scan``
+    backward kernels and whisper's cross-attention backward."""
+    if cfg.family in _TRAIN_LATER:
+        raise NotImplementedError(
+            f"training the {cfg.family} family ({cfg.name}) needs the "
+            f"wkv6 and selective_scan backward kernels and whisper's "
+            f"cross-attention backward: ROADMAP A13c-ii")
+
+
 def forward(cfg: ArchConfig, params: Params,
             batch: Dict[str, torch.Tensor], *, mode: str,
             cache: Optional[Params] = None, window: int = 0,
             context: int = 0) -> Tuple[torch.Tensor, Params]:
-    """mode: 'prefill' | 'decode'.  Returns (hidden (B, S, D), the new
-    cache).  ``window`` masks a sliding window; ``context`` sizes a
-    prefill's cache (both unused by the recurrent family).  A prefill
-    batch holds ``tokens`` and, for the audio family, ``frames`` (B,
-    S_enc, D), for the vlm family ``prefix`` (B, P, D), whose P
-    positions come before the tokens' and attend bidirectionally."""
-    if mode not in ("prefill", "decode"):
-        raise ValueError(f"mode must be 'prefill' or 'decode', got {mode!r}")
+    """mode: 'train' | 'prefill' | 'decode'.  Returns (hidden (B, S, D),
+    the new cache), and in train mode (hidden, {lb_loss, z_loss} summed
+    over the layers): no cache, each layer recomputed in backward.
+    ``window`` masks a sliding window; ``context`` sizes a prefill's
+    cache (both unused by the recurrent family and in train mode).  A
+    prefill or train batch holds ``tokens`` and, for the audio family,
+    ``frames`` (B, S_enc, D), for the vlm family ``prefix`` (B, P, D),
+    whose P positions come before the tokens' and attend
+    bidirectionally.  Training the ssm, hybrid and audio families raises
+    (ROADMAP A13c-ii)."""
+    if mode not in ("train", "prefill", "decode"):
+        raise ValueError(f"mode must be 'train', 'prefill' or 'decode', "
+                         f"got {mode!r}")
+    if mode == "train":
+        check_trainable(cfg)
     x = _embed(cfg, params, batch["tokens"])
     prefix_len = 0
-    if cfg.family == "vlm" and mode == "prefill":
+    if cfg.family == "vlm" and mode != "decode":
         x = torch.cat([batch["prefix"].to(COMPUTE_DTYPE), x], dim=1)
         prefix_len = cfg.num_prefix_tokens
     positions = torch.arange(x.shape[1], device=x.device)
+    if mode == "train":
+        x, aux = _run_dense_stack_train(cfg, params, x, positions,
+                                        prefix_len)
+        return apply_norm(cfg, params["final_norm"], x), aux
     kw = dict(mode=mode, cache=cache, window=window, context=context)
     if cfg.family == "ssm":
         x, cache = _run_rwkv_stack(cfg, params, x, mode=mode, cache=cache)
@@ -396,6 +468,31 @@ def _logits(params, x: torch.Tensor) -> torch.Tensor:
     or the tied embedding."""
     head = params.get("lm_head", params["embed"])
     return F.linear(x, head.to(x.dtype)).float()
+
+
+def train_loss(cfg: ArchConfig, params: Params,
+               batch: Dict[str, torch.Tensor]
+               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Next-token CE over the batch (``tokens``, ``targets``, ``mask``;
+    ``prefix`` for the vlm family), the prefix positions dropped, through
+    ``chunked_cross_entropy`` with the head or the tied embedding; the
+    MoE's aux losses added with the reference's coefficients.  Returns
+    (loss, {ce, loss, tokens, lb_loss, z_loss}), fp32 scalars."""
+    x, aux = forward(cfg, params, batch, mode="train")
+    if cfg.family == "vlm":
+        x = x[:, cfg.num_prefix_tokens:]
+    tot, cnt = chunked_cross_entropy(x, params["embed"], batch["targets"],
+                                     batch["mask"].float(),
+                                     head=params.get("lm_head"),
+                                     softcap=cfg.logit_softcap)
+    ce = tot / torch.clamp_min(cnt, 1.0)
+    loss = ce
+    if cfg.is_moe:
+        loss = (loss + MOE_LB_COEF * aux["lb_loss"]
+                + MOE_Z_COEF * aux["z_loss"])
+    metrics = {"ce": ce, "loss": loss, "tokens": cnt,
+               "lb_loss": aux["lb_loss"], "z_loss": aux["z_loss"]}
+    return loss, metrics
 
 
 def prefill(cfg: ArchConfig, params: Params,

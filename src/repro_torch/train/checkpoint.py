@@ -35,9 +35,12 @@ rounds beyond ``keep``; ``latest_good`` walks the rounds newest first,
 skipping a corrupt or half-written snapshot with a
 ``CheckpointCorruptWarning``, until one loads.
 
-The reference's legacy ``save_checkpoint`` / ``load_checkpoint`` (params,
-optimizer state, step; its treedef check is JAX's) serves LM training
-only and comes with it (ROADMAP A13c).
+``save_checkpoint`` / ``load_checkpoint``: the legacy (params,
+optimizer state, step) API of LM training, on the v2 format.  The
+reference checks JAX ``PyTreeDef`` strings; the port stores each tree's
+leaves as (key path, shape, dtype) rows and checks them against the
+restore template's, then every leaf's shape and dtype again while
+rebuilding, and raises on any mismatch, never casting.
 """
 from __future__ import annotations
 
@@ -214,6 +217,109 @@ def is_valid_checkpoint(path: str) -> bool:
         return True
     except CheckpointCorruptError:
         return False
+
+
+# -- the legacy (params, opt_state, step) API --------------------------------
+
+def _spec(tree: Any, path: str = "") -> List[List[Any]]:
+    """[key path, shape, dtype name] of every leaf, depth first, dicts in
+    key order."""
+    if isinstance(tree, dict):
+        return [row for k in sorted(tree, key=str)
+                for row in _spec(tree[k], f"{path}/{k}")]
+    if isinstance(tree, (list, tuple)):
+        return [row for i, v in enumerate(tree)
+                for row in _spec(v, f"{path}/{i}")]
+    if tree is None:
+        return [[path, None, None]]
+    if torch.is_tensor(tree):
+        return [[path, list(tree.shape), str(tree.dtype)[len("torch."):]]]
+    _, dtype, shape = _leaf_bytes(tree)
+    return [[path, shape, dtype]]
+
+
+def save_checkpoint(path: str, params: Any, opt_state: Optional[Any] = None,
+                    step: int = 0, extra: Optional[Dict] = None) -> None:
+    """Snapshot ``(params, opt_state, step)`` under directory ``path``
+    (atomic, checksummed: the module docstring), with each tree's leaf
+    rows for ``load_checkpoint``'s check."""
+    state = {"params": params}
+    if opt_state is not None:
+        state["opt"] = opt_state
+    meta = {"step": int(step), "extra": extra or {},
+            "params_spec": _spec(params)}
+    if opt_state is not None:
+        meta["opt_spec"] = _spec(opt_state)
+    save_state(path, state, extra=meta)
+
+
+def _restore_like(like: Any, got: Any, path: str) -> Any:
+    """``got`` (a decoded v2 state) rebuilt in the template's containers,
+    each leaf a tensor on the template leaf's device; the structure,
+    shape and dtype checked at every leaf, a mismatch raising with the
+    leaf's key path."""
+    where = path or "<root>"
+    if like is None:
+        if got is not None:
+            raise ValueError(f"structure mismatch at {where}: the "
+                             f"checkpoint has a value where the template "
+                             f"has None")
+        return None
+    if isinstance(like, dict):
+        if not isinstance(got, dict) or sorted(got) != sorted(
+                str(k) for k in like):
+            raise ValueError(
+                f"structure mismatch at {where}: template keys "
+                f"{sorted(str(k) for k in like)} vs checkpoint "
+                f"{sorted(got) if isinstance(got, dict) else type(got)}")
+        return {k: _restore_like(v, got[str(k)], f"{path}/{k}")
+                for k, v in like.items()}
+    if isinstance(like, (tuple, list)):
+        if not isinstance(got, (tuple, list)) or len(got) != len(like):
+            raise ValueError(f"structure mismatch at {where}: template "
+                             f"{type(like).__name__} of {len(like)} vs "
+                             f"checkpoint {type(got).__name__}")
+        return type(like)(_restore_like(v, g, f"{path}/{i}")
+                          for i, (v, g) in enumerate(zip(like, got)))
+    want = like if torch.is_tensor(like) else torch.as_tensor(like)
+    t = got if torch.is_tensor(got) else torch.from_numpy(np.array(got))
+    if tuple(t.shape) != tuple(want.shape):
+        raise ValueError(f"shape mismatch for {where}: checkpoint "
+                         f"{tuple(t.shape)} vs template {tuple(want.shape)}")
+    if t.dtype != want.dtype:
+        raise ValueError(f"dtype mismatch for {where}: checkpoint {t.dtype} "
+                         f"vs template {want.dtype} (refusing to cast)")
+    return t.to(want.device)
+
+
+def load_checkpoint(path: str, params_like: Any,
+                    opt_like: Optional[Any] = None
+                    ) -> Tuple[Any, Optional[Any], int]:
+    """Restore ``(params, opt_state, step)`` into the structure of the
+    templates.  On top of the v2 integrity checks (manifest, checksum),
+    the stored leaf rows (key path, shape, dtype) must equal the
+    template's, and every leaf's shape and dtype are checked again while
+    rebuilding; any mismatch raises ``ValueError``."""
+    state, meta = load_state(path)
+    for key, like in (("params_spec", params_like), ("opt_spec", opt_like)):
+        stored = meta.get(key)
+        if like is None or stored is None:
+            continue
+        want = _spec(like)
+        if stored != want:
+            bad = next((f"{a} vs template {b}" for a, b in zip(stored, want)
+                        if a != b), f"{len(stored)} leaves vs template "
+                                    f"{len(want)}")
+            raise ValueError(f"{key[:-5]} structure mismatch: checkpoint "
+                             f"{bad}")
+    params = _restore_like(params_like, state["params"], "params")
+    opt_state = None
+    if opt_like is not None:
+        if "opt" not in state:
+            raise ValueError("checkpoint has no opt state but opt_like "
+                             "was provided")
+        opt_state = _restore_like(opt_like, state["opt"], "opt")
+    return params, opt_state, int(meta["step"])
 
 
 # -- per-round snapshots ---------------------------------------------------

@@ -5,6 +5,8 @@ that has only PyTorch:
 
     PYTHONPATH=src python -m pytest --noconftest -q -m gpu tests/test_torch_gpu.py
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -616,6 +618,172 @@ def test_flash_attention_kernel_refuses_what_it_was_not_built_for(cuda):
     q, k, v = _flash_inputs(1, 8, 8, 3, 2, 64, torch.float32, cuda)
     with pytest.raises(ValueError, match="kv heads"):
         flash_attention_cuda(q, k, v)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,sq,skv,hq,hkv,dh,causal,window,prefix",
+                         FLASH_CASES[:1] + FLASH_CASES[2:])
+def test_flash_attention_lse_matches_plain_and_keeps_the_output(
+        cuda, b, sq, skv, hq, hkv, dh, causal, window, prefix, dtype):
+    """The forward with its log-sum-exp written: lse within 1e-5 of the
+    largest |lse| of the plain version's (sums in another order), and
+    the output bit-equal to the forward's without it (serving's bits)."""
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    q, k, v = _flash_inputs(b, sq, skv, hq, hkv, dh, dtype, cuda)
+    kw = dict(causal=causal, window=window, prefix_len=prefix)
+    out, lse = flash_attention_cuda(q, k, v, return_lse=True, **kw)
+    _, want = ref.flash_attention_lse_ref(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert lse.shape == (b, hq, sq) and lse.dtype == torch.float32
+    assert _scaled_err(lse, want) <= 1e-5
+    assert torch.equal(out, flash_attention_cuda(q, k, v, **kw))
+
+
+# the backward at chip_smoke.py's training shapes and at edges: (B, Sq,
+# Skv, Hq, Hkv, Dh, causal, window, prefix_len)
+FLASH_BWD_CASES = [
+    (2, 1024, 1024, 8, 1, 256, True, 0, 0),      # gemma-2b training
+    (2, 1024, 1024, 36, 36, 64, True, 0, 0),     # minicpm-2b training
+    (2, 1024, 1024, 32, 8, 128, True, 0, 0),     # Dh 128, groups of 4
+    (2, 1024, 1024, 8, 1, 256, True, 256, 0),    # sliding window
+    (2, 320, 320, 8, 1, 256, True, 0, 256),      # paligemma's prefix-LM
+    (2, 1500, 1500, 16, 16, 64, False, 0, 0),    # unmasked
+    (2, 77, 77, 4, 4, 128, True, 0, 0),          # ragged tiles
+    (2, 200, 200, 8, 2, 64, True, 40, 0),        # a window under a tile
+    (2, 130, 100, 8, 8, 64, True, 0, 70),        # Sq > Skv, prefix
+    (2, 96, 160, 8, 1, 256, False, 0, 0),        # Sq != Skv, not causal
+]
+
+
+def flash_bwd_inputs(case, dtype, device, seed=0):
+    """q, k, v, the forward kernel's o and lse, and a cotangent dO."""
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    b, sq, skv, hq, hkv, dh, causal, window, prefix = case
+    q, k, v = _flash_inputs(b, sq, skv, hq, hkv, dh, dtype, device, seed)
+    kw = dict(causal=causal, window=window, prefix_len=prefix)
+    o, lse = flash_attention_cuda(q, k, v, return_lse=True, **kw)
+    g = torch.Generator().manual_seed(seed + 1)
+    do = torch.randn(q.shape, generator=g).to(dtype).to(device)
+    return (q, k, v, o, lse, do), kw
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", FLASH_BWD_CASES)
+def test_flash_attention_bwd_kernel_matches_plain(cuda, case, dtype):
+    """dq, dk, dv against the plain version's explicit formulas on the
+    same o and lse: fp32 within 1e-5 of each gradient's largest
+    magnitude (sums in another order), bf16 within 2^-7 of it (P and dS
+    rounded to bf16 for their products, the gradients once);
+    bit-repeatable; one launch a call."""
+    from repro_torch.kernels.flash_attention import flash_attention_bwd_cuda
+    args, kw = flash_bwd_inputs(case, dtype, cuda)
+    before = build.LAUNCHES["flash_attention_bwd"]
+    got = flash_attention_bwd_cuda(*args, **kw)
+    assert build.LAUNCHES["flash_attention_bwd"] == before + 1
+    want = ref.flash_attention_bwd_ref(*args, **kw)
+    again = flash_attention_bwd_cuda(*args, **kw)
+    torch.cuda.synchronize()
+    tol = 1e-5 if dtype == torch.float32 else 2 ** -7
+    for name, x, w, y in zip(("dq", "dk", "dv"), got, want, again):
+        assert x.dtype == dtype and x.shape == w.shape, name
+        assert bool(torch.isfinite(x).all()), name
+        assert _scaled_err(x.float(), w.float()) <= tol, name
+        assert torch.equal(x, y), name
+
+
+def test_flash_attention_autograd_runs_the_kernels(cuda):
+    """With grad required, ``ops.flash_attention`` is the autograd
+    Function: one forward launch (with lse) and, in backward, one
+    backward launch whose gradients are the kernel's bit for bit; under
+    no_grad it is the serving call, the same bits and no lse."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd_cuda, flash_attention_cuda)
+    case = (2, 256, 256, 8, 2, 128, True, 0, 0)
+    (q, k, v, o, lse, do), kw = flash_bwd_inputs(case, torch.bfloat16, cuda)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    build.reset_launches()
+    out = ops.flash_attention(*leaves, **kw)
+    assert build.LAUNCHES["flash_attention"] == 1
+    assert torch.equal(out.detach(), o)
+    out.backward(do)
+    assert build.LAUNCHES["flash_attention_bwd"] == 1
+    for x, w in zip(leaves, flash_attention_bwd_cuda(q, k, v, o, lse, do,
+                                                     **kw)):
+        assert torch.equal(x.grad, w)
+    with torch.no_grad():
+        assert torch.equal(ops.flash_attention(*leaves, **kw), o)
+    assert torch.equal(flash_attention_cuda(q, k, v, **kw), o)
+
+
+def test_flash_attention_bwd_refuses_what_it_was_not_built_for(cuda):
+    from repro_torch.kernels.flash_attention import flash_attention_bwd_cuda
+    args, kw = flash_bwd_inputs((1, 8, 8, 2, 1, 64, True, 0, 0),
+                                torch.float32, cuda)
+    q, k, v, o, lse, do = args
+    with pytest.raises(ValueError, match="lse"):
+        flash_attention_bwd_cuda(q, k, v, o, lse.double(), do, **kw)
+    with pytest.raises(ValueError, match="do"):
+        flash_attention_bwd_cuda(q, k, v, o, lse, do[:, :4].contiguous(),
+                                 **kw)
+    with pytest.raises(ValueError, match="expected"):
+        flash_attention_bwd_cuda(q, k, v, o.bfloat16(), lse, do, **kw)
+
+
+def _to(tree, device):
+    if torch.is_tensor(tree):
+        return tree.to(device)
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    return [_to(v, device) for v in tree]
+
+
+@pytest.mark.parametrize("arch,fp32", [("gemma-2b", False),
+                                       ("paligemma-3b", False),
+                                       ("qwen3-moe-30b-a3b", True)])
+def test_train_step_on_the_card_matches_the_cpu(cuda, monkeypatch, arch,
+                                                fp32):
+    """One scaled-down train step (2 layers, d_model 256, head_dim 128,
+    B = 4, S = 64 in 2 microbatches) on the card against the CPU from the
+    same parameters and batch, the step the clipped gradient itself (lr
+    1, eps 1, no decay): loss and grad_norm, and every parameter's update
+    within 2^-5 of its largest element in bf16 (cuBLAS against the CPU's
+    GEMMs, the kernels' bf16 P against the plain fp32), 1e-4 in fp32 (the
+    MoE, whose bf16 router near-ties could send a token elsewhere on one
+    side); 2 x 2 x 2 forward and 2 x 2 backward flash launches."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models import transformer
+    from repro_torch.train import optim
+    from repro_torch.train.step import make_train_step
+    if fp32:
+        monkeypatch.setattr(transformer, "COMPUTE_DTYPE", torch.float32)
+    cfg = scaled_down(get_arch(arch))
+    if cfg.is_moe:      # a capacity that drops nothing
+        cfg = dataclasses.replace(cfg, capacity_factor=cfg.num_experts
+                                  / cfg.experts_per_token)
+    shape = ShapeConfig("t", 64, 4, "train", grad_accum=2)
+    step = make_train_step(cfg, shape, optim.OptConfig(
+        lr=1.0, warmup_steps=1, eps=1.0, weight_decay=0.0))
+    p_dev = registry.init_params(torch.Generator(device=cuda).manual_seed(0),
+                                 cfg)
+    p_cpu, before = _to(p_dev, "cpu"), _to(p_dev, "cpu")
+    batch = registry.make_concrete_batch(cfg, shape,
+                                         torch.Generator().manual_seed(1),
+                                         "train")
+    build.reset_launches()
+    p_dev, _, m_dev = step(p_dev, optim.adamw_init(p_dev), _to(batch, cuda))
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["flash_attention"] == 8
+    assert build.LAUNCHES["flash_attention_bwd"] == 4
+    p_cpu, _, m_cpu = step(p_cpu, optim.adamw_init(p_cpu), batch)
+    tol = 1e-4 if fp32 else 2 ** -5
+    for k in ("loss", "grad_norm"):
+        assert abs(float(m_dev[k]) - float(m_cpu[k])) <= tol * abs(
+            float(m_cpu[k])), k
+    for d, c, p0 in zip(optim.tree_leaves(p_dev), optim.tree_leaves(p_cpu),
+                        optim.tree_leaves(before)):
+        scale = float((c - p0).abs().max())
+        assert bool(((d.cpu() - c).abs() <= tol * scale
+                     + 2 ** -22 * c.abs()).all())
 
 
 def test_gemma_prefill_launches_flash_attention_once_per_layer(cuda):
