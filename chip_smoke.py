@@ -80,15 +80,16 @@ Phases (any failure exits non-zero; no phase's exception is caught):
    attention's backward (``flash_attention_bwd``) against its plain
    version (the explicit formulas in fp32) on the forward kernel's o and
    lse at gemma-2b's training shape (B=2, S=1024, 8 q heads over 1 kv
-   head of 256, causal), minicpm-2b's (36 heads of 64), groups of 4 at
-   128, a window of 256 at S=1024, paligemma's prefix-LM (S=320, prefix
-   256) and an unmasked S=1500 at 64, fp32 within 1e-5 and bf16 within
-   2^-7 of each gradient's largest magnitude, bit-repeatable, with the
-   forward's lse within 1e-5 of the plain lse and its output with lse
-   bit-equal to its output without; timed in bf16 at gemma's and
-   minicpm's training shapes beside its plain version, the fp32 kernels
-   and ``scaled_dot_product_attention``'s backward (its forward and
-   backward less its forward), with its bound (10 Dh operations per
+   head of 256, causal) and its microbatch (B=1, what a step launches),
+   minicpm-2b's (36 heads of 64), groups of 4 at 128, a window of 256
+   at S=1024, paligemma's prefix-LM (S=320, prefix 256) and an unmasked
+   S=1500 at 64, fp32 within 1e-5 and bf16 within 2^-7 of each
+   gradient's largest magnitude, bit-repeatable, with the forward's lse
+   within 1e-5 of the plain lse and its output with lse bit-equal to
+   its output without; timed in bf16 at gemma's training shape and
+   microbatch and minicpm's beside its plain version, the fp32 kernels
+   and ``scaled_dot_product_attention``'s backward (alone, from a
+   retained forward), with its bound (10 Dh operations per
    kept pair and q head at the bf16 peak, or the bytes of q, k, v, o,
    dO and lse read and dq, dk, dv written) and the design's own count;
    one train step of gemma-2b with 2 layers at full width (B=2, S=128,
@@ -324,10 +325,13 @@ older checkout's ``src`` times its kernel with this file's harness):
 every product of a step for one client and a cohort of 4, the trained
 rounds, then ``[c8]``'s step device time through the kernel and
 through cuBLAS (no result line).  ``--flash-parent SRC`` builds the
-``flash_attention.cu`` of the package under SRC (an older checkout's
-``src``) and holds this tree's forward, without and with its lse
-output, bit-equal to it at every flash_attention shape of this file
-(no result line).
+``flash_attention.cu`` and ``flash_attention_bwd.cu`` of the package
+under SRC (an older checkout's ``src``), holds this tree's forward,
+without and with its lse output, bit-equal to it at every
+flash_attention shape of this file, and times both backwards in turns
+beside SDPA's at gemma-2b's training shape and microbatch and
+minicpm-2b's, each within tolerance of the plain version (no result
+line).
 """
 from __future__ import annotations
 
@@ -1145,19 +1149,27 @@ def serve_path(arch: str, expected, dev, argv=None, cfg=None,
 # phase 5t, LM training: flash_attention's backward at the shapes the
 # training path gives it, (B, Sq, Skv, Hq, Hkv, Dh, causal, window,
 # prefix_len): gemma-2b's training shape (8 q heads over 1 kv head of
-# 256), minicpm-2b's (36 heads of 64), groups of 4 at 128, a sliding
-# window, paligemma's prefix-LM and an unmasked sequence
+# 256) and its microbatch of 1 (what a step launches: TRAIN_ARGV's
+# batch of 2 in 2 microbatches), minicpm-2b's (36 heads of 64), groups
+# of 4 at 128, a sliding window, paligemma's prefix-LM and an unmasked
+# sequence
 GEMMA_TRAIN_FLASH = (2, 1024, 1024, 8, 1, 256, True, 0, 0)
+GEMMA_STEP_FLASH = (1, 1024, 1024, 8, 1, 256, True, 0, 0)
 MINICPM_TRAIN_FLASH = (2, 1024, 1024, 36, 36, 64, True, 0, 0)
+FLASH_BWD_TIMED = (GEMMA_TRAIN_FLASH, GEMMA_STEP_FLASH, MINICPM_TRAIN_FLASH)
 FLASH_BWD_CASES = [
     GEMMA_TRAIN_FLASH,
+    GEMMA_STEP_FLASH,
     MINICPM_TRAIN_FLASH,
     (2, 1024, 1024, 32, 8, 128, True, 0, 0),
     (2, 1024, 1024, 8, 1, 256, True, 256, 0),
     (2, 320, 320, 8, 1, 256, True, 0, 256),
     (2, 1500, 1500, 16, 16, 64, False, 0, 0),
 ]
-FLASH_BWD_PHASES = (("dq", ("fa_bwd_dq_tc",)), ("dkdv", ("fa_bwd_dkdv_tc",)))
+# the bf16 backward's kernels; "sum" (the dK/dV partials' ordered sum)
+# runs only where bwd_plan splits a kv tile's work
+FLASH_BWD_PHASES = (("dq", ("fa_bwd_dq_tc",)), ("dkdv", ("fa_bwd_dkdv_tc",)),
+                    ("sum", ("fa_bwd_sum",)))
 # the training path: gemma-2b at full width and depth through
 # ``python -m repro_torch.launch.train``; its 2-layer check on the card
 # against the CPU (B = 2, S = 128, 2 microbatches)
@@ -1182,10 +1194,9 @@ def flash_bwd_bound(case, elem_bytes: int, per_pair: int = 10):
 
 def flash_design_ops(dh: int) -> int:
     """Dh operations per kept pair and q head that the kernels do: S and
-    dP in both kernels (14); at Dh = 256 each pair of warps that splits a
-    slice's output columns computes the slice's S and dP twice, in
-    both kernels (22)."""
-    return 22 if dh == 256 else 14
+    dP in both kernels, once a tile at every Dh (at 256 the dK/dV
+    kernel's two warpgroups each take half the q columns), 14."""
+    return 14
 
 
 def flash_bwd_inputs(case, dtype, dev, seed=0):
@@ -1247,18 +1258,16 @@ def flash_bwd_checks(dev) -> dict:
     return errs
 
 
-def flash_bwd_times(dev, cases=(GEMMA_TRAIN_FLASH, MINICPM_TRAIN_FLASH),
-                    iters: int = 20):
+def flash_bwd_times(dev, cases=FLASH_BWD_TIMED, iters: int = 20):
     """flash_attention's backward in bf16 (the tensor-core kernels) at
-    gemma-2b's and minicpm-2b's training shapes, with CUDA events, beside
-    its plain version, the fp32 CUDA-core kernels on the same values in
-    fp32, the library's ``scaled_dot_product_attention`` backward (its
-    forward + backward less its forward, GQA, the same mask) and the
+    gemma-2b's training shape and microbatch and minicpm-2b's training
+    shape, with CUDA events, beside its plain version, the fp32
+    CUDA-core kernels on the same values in fp32, the library's
+    ``scaled_dot_product_attention`` backward (``sdpa_bwd_ms``) and the
     bounds (10 Dh operations per kept pair and q head, and the design's
     own count).  Returns ((ms, plain ms, bound ms, bound by, library
     ms), the kernel call) a case."""
     import torch
-    import torch.nn.functional as F
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import flash_attention_bwd_cuda
     rows = []
@@ -1271,31 +1280,57 @@ def flash_bwd_times(dev, cases=(GEMMA_TRAIN_FLASH, MINICPM_TRAIN_FLASH),
         fargs = [t.float() for t in args[:4]] + [args[4], args[5].float()]
         fp32_ms = time_ms(lambda: flash_attention_bwd_cuda(*fargs, **kw),
                           max(2, iters // 4))
-        q, k, v, _, _, do = args
-        lt = [t.transpose(1, 2).detach().requires_grad_(True)
-              for t in (q, k, v)]
-        dot = do.transpose(1, 2)
-        mask = sdpa_mask(case, dev)
-
-        def lib_fwd():
-            return F.scaled_dot_product_attention(*lt, enable_gqa=True,
-                                                  **mask)
-
-        def lib_fwd_bwd():
-            return torch.autograd.grad(lib_fwd(), lt, dot)
-        lib_ms = time_ms(lib_fwd_bwd, iters) - time_ms(lib_fwd, iters)
+        lib_ms, lib_device = sdpa_bwd_ms(case, args, iters)
         b_ms, b_by = flash_bwd_bound(case, 2)
         d_ms, d_by = flash_bwd_bound(case, 2, flash_design_ops(case[5]))
         log(f"[time] flash_attention_bwd {flash_label(case, torch.bfloat16)}"
             f": kernel {ms:.4f} ms (tensor cores), fp32 kernel "
             f"{fp32_ms:.4f} ms (CUDA cores, fp32 inputs), plain "
             f"{plain_ms:.4f} ms, library (scaled_dot_product_attention's "
-            f"backward) {lib_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by}, 10 "
-            f"Dh a kept pair and head), the design's own work "
+            f"backward) {lib_ms:.4f} ms (device {lib_device:.4f} ms), bound "
+            f"{b_ms:.6f} ms ({b_by}, 10 Dh a kept pair and head), the "
+            f"design's own work "
             f"{d_ms:.6f} ms ({d_by}, {flash_design_ops(case[5])} Dh)")
         rows.append(((ms, plain_ms, b_ms, b_by, lib_ms), call))
-        del fargs, lt, dot, mask
+        del fargs
     return rows
+
+
+def sdpa_bwd_ms(case, args, iters: int) -> tuple:
+    """The library's ``scaled_dot_product_attention`` backward on
+    ``flash_bwd_inputs``' q, k, v and dO (GQA, ``case``'s mask): one
+    forward kept (``retain_graph``), then its backward alone: (CUDA
+    events over back-to-back calls, torch.profiler's device time of its
+    kernels a call) in ms."""
+    import torch
+    import torch.nn.functional as F
+    q, k, v, _, _, do = args
+    lt = [t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v)]
+    out = F.scaled_dot_product_attention(*lt, enable_gqa=True,
+                                         **sdpa_mask(case, q.device))
+    dot = do.transpose(1, 2)
+
+    def backward():
+        return torch.autograd.grad(out, lt, dot, retain_graph=True)
+    return (time_ms(backward, iters),
+            phase_ms(backward, (("all", ("",)),), calls=5)["all"])
+
+
+def log_flash_bwd_phases(case, call, row) -> float:
+    """The backward's device time a launch at ``case`` by kernel (dQ,
+    dK/dV, the dK/dV sum where the plan splits), from torch.profiler;
+    ``row`` is ``flash_bwd_times``' reading of the same call.  Returns
+    the device ms."""
+    import torch
+    ms = phase_ms(call, FLASH_BWD_PHASES, calls=5, busy=True,
+                  optional=("sum",))
+    total = sum(ms.values())
+    log(f"[profile] flash_attention_bwd {flash_label(case, torch.bfloat16)}"
+        f": dQ kernel {ms['dq']:.4f} ms, dK/dV kernel {ms['dkdv']:.4f} ms, "
+        f"dK/dV sum {ms['sum']:.4f} ms; device {total:.4f} ms a launch "
+        f"(dK/dV {ms['dkdv'] / total:.1%}); CUDA events over back-to-back "
+        f"wrapper calls {row[0]:.4f} ms; bound {row[2]:.6f} ms ({row[3]})")
+    return total
 
 
 def train_check(dev) -> dict:
@@ -1429,28 +1464,47 @@ def train_path(dev) -> dict:
 
 
 def flash_parent(src: str) -> int:
-    """``--flash-parent SRC``: the forward kernel of the package under
-    SRC (an older checkout's ``src``, its launch without the lse
-    pointer) against this tree's, without and with lse, at
-    flash_attention's shapes (phases 5b and 5i) in fp32 and bf16: the
-    outputs must be equal bit for bit."""
+    """``--flash-parent SRC``: the kernels of the package under SRC (an
+    older checkout's ``src``) against this tree's.  The forward (its
+    launch with or without the lse pointer, as SRC's source declares
+    it), without and with lse, at flash_attention's shapes (phases 5b
+    and 5i) and the backward's in fp32 and bf16: the outputs must be
+    equal bit for bit.  The backward, where SRC has one (its first
+    launch signature, without the dK/dV plan), in bf16 at
+    FLASH_BWD_TIMED: both timed in turns (parent, this tree, this tree,
+    parent) beside SDPA's backward, each within 2^-7 of each gradient's
+    largest magnitude of the plain version (bits not compared: the
+    group's summation order differs)."""
     import ctypes
     import torch
-    from repro_torch.kernels import build
-    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels import build, ref
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd_cuda, flash_attention_cuda)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
               file=sys.stderr)
         return 2
-    lib_path = build.BUILD_DIR / "flash_attention-parent.so"
+    csrc = Path(src) / "repro_torch" / "csrc"
     build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, "-o",
-                    str(lib_path), str(Path(src) / "repro_torch" / "csrc"
-                                       / "flash_attention.cu")],
-                   check=True, capture_output=True)
-    fn = ctypes.CDLL(str(lib_path)).flash_attention_launch
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 10
-                   + [ctypes.c_float, ctypes.c_void_p])
+    procs = {}
+    for name in ("flash_attention", "flash_attention_bwd"):
+        if (csrc / f"{name}.cu").exists():
+            out = build.BUILD_DIR / f"{name}-parent.so"
+            procs[name] = (out, subprocess.Popen(
+                [build.nvcc_path(), *build.NVCC_FLAGS, "-o", str(out),
+                 str(csrc / f"{name}.cu")], stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True))
+    libs = {}
+    for name, (out, proc) in procs.items():
+        text, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"parent {name} build failed:\n{text}")
+        libs[name] = ctypes.CDLL(str(out))
+    fn = libs["flash_attention"].flash_attention_launch
+    with_lse = re.search(r"flash_attention_launch\([^)]*\blse\b",
+                         (csrc / "flash_attention.cu").read_text())
+    fn.argtypes = ([ctypes.c_void_p] * (5 if with_lse else 4)
+                   + [ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     cases = FLASH_CASES + ZOO_FLASH_CASES + FLASH_BWD_CASES
     bad = 0
@@ -1461,20 +1515,64 @@ def flash_parent(src: str) -> int:
             q, k, v = flash_inputs(case, dtype, "cuda")
             old = torch.empty_like(q)
             build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                           old.data_ptr(), b, sq, skv, hq, hkv, dh,
+                           old.data_ptr(), *([None] if with_lse else []),
+                           b, sq, skv, hq, hkv, dh,
                            int(dtype == torch.bfloat16), *map(int, case[6:]),
                            1.0 / math.sqrt(dh),
                            torch.cuda.current_stream().cuda_stream),
                         "parent flash_attention")
             new = flash_attention_cuda(q, k, v, **kw)
-            with_lse, _ = flash_attention_cuda(q, k, v, return_lse=True, **kw)
+            with_lse_out, _ = flash_attention_cuda(q, k, v, return_lse=True,
+                                                   **kw)
             torch.cuda.synchronize()
-            same = torch.equal(old, new) and torch.equal(new, with_lse)
+            same = torch.equal(old, new) and torch.equal(new, with_lse_out)
             bad += not same
             log(f"[flash parent] {flash_label(case, dtype)}: this tree's "
                 f"output (without and with lse) equal to {src}'s bit for "
                 f"bit {same}")
     log(f"[flash parent] {len(cases) * 2 - bad} of {len(cases) * 2} equal")
+    if "flash_attention_bwd" not in libs:
+        return int(bad > 0)
+
+    bwd = libs["flash_attention_bwd"].flash_attention_bwd_launch
+    bwd.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 10
+                    + [ctypes.c_float, ctypes.c_void_p])
+    bwd.restype = ctypes.c_int
+    for case in FLASH_BWD_TIMED:
+        b, sq, skv, hq, hkv, dh = case[:6]
+        args, kw = flash_bwd_inputs(case, torch.bfloat16, "cuda", seed=2)
+        outs = [torch.empty_like(t) for t in args[:3]]
+        delta = torch.empty((b, hq, sq), dtype=torch.float32, device="cuda")
+
+        def parent():
+            build.check(bwd(*(t.data_ptr() for t in args), *(
+                t.data_ptr() for t in outs), delta.data_ptr(), b, sq, skv,
+                hq, hkv, dh, 1, *map(int, case[6:]), 1.0 / math.sqrt(dh),
+                torch.cuda.current_stream().cuda_stream),
+                "parent flash_attention_bwd")
+            return outs
+
+        def this():
+            return flash_attention_bwd_cuda(*args, **kw)
+        want = ref.flash_attention_bwd_ref(*args, **kw)
+        errs = {}
+        for label, call in (("parent", parent), ("this tree", this)):
+            got = call()
+            torch.cuda.synchronize()
+            errs[label] = max(scaled_err(g, w) for g, w in zip(got, want))
+        ms = [time_ms(call, 20) for call in (parent, this, this, parent)]
+        lib_ms, lib_device = sdpa_bwd_ms(case, args, 20)
+        ok = max(errs.values()) <= 2 ** -7
+        bad += not ok
+        log(f"[flash parent] flash_attention_bwd "
+            f"{flash_label(case, torch.bfloat16)}: parent {ms[0]:.4f} / "
+            f"{ms[3]:.4f} ms, this tree {ms[1]:.4f} / {ms[2]:.4f} ms, SDPA's "
+            f"backward {lib_ms:.4f} ms (device {lib_device:.4f} ms); max err "
+            f"/ scale against the plain version parent "
+            f"{errs['parent']:.3g}, this tree {errs['this tree']:.3g} (tol "
+            f"{2 ** -7:.3g}) "
+            f"{'OK' if ok else 'FAIL'}")
+        del args, outs, delta, want
     return int(bad > 0)
 
 
@@ -1556,6 +1654,13 @@ def probe_bound(s_rows: int, n: int, params) -> tuple:
 # inside it
 PROFILE_WARMUP_S = 0.5
 PROFILE_PAD_S = 0.25
+PROFILE_ATTEMPTS = 3
+# ``busy`` traces: the card spins at least this long (cycles at the
+# H100's 1.98 GHz boost, so a slower clock only spins longer) plus twice
+# the calls' host time (at most BUSY_SPIN_MAX_S) before the measured
+# calls, which queue behind it
+BUSY_SPIN_S, BUSY_SPIN_MAX_S = 0.02, 0.5
+SPIN_CYCLES_PER_S = 1.98e9
 
 
 def phase_ms(fn, phases, calls: int = 1, *, optional=(),
@@ -1571,16 +1676,21 @@ def phase_ms(fn, phases, calls: int = 1, *, optional=(),
     A trace counts only if every phase not named in ``optional`` shows
     at least ``calls`` kernels (each call launches each phase's kernels;
     a session that dropped part of its calls shows fewer) and, with
-    ``busy`` (kernels long enough to keep the card busy between
-    back-to-back calls), if the traced total is at least half the CUDA
-    events' time of the same calls.  A trace that fails is taken once
-    more, and a second failure raises."""
+    ``busy``, if the traced total is at least half the CUDA events' time
+    of the same calls.  With ``busy`` the calls queue behind a spin of
+    the card (``BUSY_SPIN_S`` and the warm-up's longest host time of
+    ``calls`` calls), so they run back to back whatever the host's
+    speed: a wrapper whose host time nears its kernels' (the bf16
+    backward's) would otherwise leave the card idle between calls, and
+    the events would time the host.  A trace that fails is taken again,
+    ``PROFILE_ATTEMPTS`` times in all, and the last failure raises."""
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
     fn()
     torch.cuda.synchronize()
-    for attempt in range(2):
+    for attempt in range(PROFILE_ATTEMPTS):
         traces = []
+        host_s = 0.0
         start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
         with profile(activities=[ProfilerActivity.CUDA],
                      schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
@@ -1588,10 +1698,15 @@ def phase_ms(fn, phases, calls: int = 1, *, optional=(),
                      ) as prof:
             t0 = time.perf_counter()
             while time.perf_counter() - t0 < PROFILE_WARMUP_S:
+                t1 = time.perf_counter()
                 fn()
+                host_s = max(host_s, time.perf_counter() - t1)
                 torch.cuda.synchronize()
             prof.step()
             time.sleep(PROFILE_PAD_S)
+            if busy:
+                torch.cuda._sleep(int(SPIN_CYCLES_PER_S * min(
+                    BUSY_SPIN_MAX_S, BUSY_SPIN_S + 2 * calls * host_s)))
             start.record()
             for _ in range(calls):
                 fn()
@@ -1620,8 +1735,11 @@ def phase_ms(fn, phases, calls: int = 1, *, optional=(),
             f"{seen} kernels for {calls} calls (phases short: {short}), "
             f"device {total:.4f} ms a call against CUDA events "
             f"{event_ms:.4f} ms")
-    raise AssertionError("torch.profiler's trace missed kernels of "
-                         f"{[name for name, _ in phases]}")
+    raise AssertionError(
+        f"torch.profiler's trace failed {PROFILE_ATTEMPTS} times for "
+        f"{[name for name, _ in phases]}: the last saw {seen} kernels for "
+        f"{calls} calls (phases short: {short}), device {total:.4f} ms a "
+        f"call against CUDA events {event_ms:.4f} ms")
 
 
 def log_probe_phases(label: str, fn, event_ms: float) -> None:
@@ -5036,19 +5154,10 @@ def main() -> int:
             f"{b_by}); CUDA events over back-to-back wrapper calls "
             f"{event_ms[(name, shape)]:.4f} ms")
 
-    # flash_attention's backward at gemma-2b's and minicpm-2b's training
-    # shapes: device time a launch by kernel (dQ, dK/dV)
-    bwd_device = []
-    for case, (row, call) in zip((GEMMA_TRAIN_FLASH, MINICPM_TRAIN_FLASH),
-                                 bwd_rows):
-        ms = phase_ms(call, FLASH_BWD_PHASES, calls=5, busy=True)
-        bwd_device.append(sum(ms.values()))
-        log(f"[profile] flash_attention_bwd "
-            f"{flash_label(case, torch.bfloat16)}: dQ kernel "
-            f"{ms['dq']:.4f} ms, dK/dV kernel {ms['dkdv']:.4f} ms; device "
-            f"{bwd_device[-1]:.4f} ms a launch; CUDA events over "
-            f"back-to-back wrapper calls {row[0]:.4f} ms; bound "
-            f"{row[2]:.6f} ms ({row[3]})")
+    # flash_attention's backward at FLASH_BWD_TIMED: device time a launch
+    # by kernel (dQ, dK/dV, the dK/dV sum)
+    bwd_device = [log_flash_bwd_phases(case, call, row)
+                  for case, (row, call) in zip(FLASH_BWD_TIMED, bwd_rows)]
 
     # the seed-batched kernels: device time of one launch for the sweep's
     # S seeds against S single launches, beside the bound scaled by S
@@ -5141,11 +5250,14 @@ def main() -> int:
             entry["device_ms"] = bwd_device[0]
             entry["paths"] = [
                 dict(zip(("ms", "plain_ms", "bound_ms", "bound_by",
-                          "library_ms"), bwd_rows[1][0]),
-                     path="minicpm-2b training shape",
-                     shape=flash_label(MINICPM_TRAIN_FLASH, torch.bfloat16),
-                     device_ms=bwd_device[1],
-                     max_abs_err=err_bwd[MINICPM_TRAIN_FLASH])]
+                          "library_ms"), bwd_rows[i][0]),
+                     path=path, shape=flash_label(case, torch.bfloat16),
+                     device_ms=bwd_device[i], max_abs_err=err_bwd[case])
+                for i, (path, case) in enumerate(
+                    (("gemma-2b training microbatch (the step's launch)",
+                      GEMMA_STEP_FLASH),
+                     ("minicpm-2b training shape", MINICPM_TRAIN_FLASH)),
+                    start=1)]
         if name == "cohort_gemm":        # ports no Pallas kernel
             entry["reference"] = entry.pop("replaces")
             entry["products"] = gemm_rows

@@ -16,66 +16,89 @@
 //
 // Input: q, o, dO (B, Sq, Hq, Dh); k, v (B, Skv, Hkv, Dh), all fp32 or all
 // bf16; lse (B, Hq, Sq) fp32.  Output: dq, dk, dv in the inputs' type,
-// and delta (B, Hq, Sq) fp32 (D above, scratch).  Two launches on one
-// stream: the dQ kernel, one block per (q tile, q head, batch), loops
-// over the kv tiles in order and writes its rows' D first; then the dK/dV
-// kernel, one block per (kv tile, kv head, batch), loops over the q tiles
-// in order and, inside each, over the group's q heads in order, so the
-// group's sum stays inside the block.  Both recompute S and P from q, k
-// and lse.  No atomics and every sum in a fixed order: results repeat
-// bit for bit.  Tiles that the mask drops for every pair are skipped
-// (fa_tile_kept).
+// and delta (B, Hq, Sq) fp32 (D above, scratch).  No atomics and every
+// sum in a fixed order: results repeat bit for bit.  Tiles that the mask
+// drops for every pair are skipped (fa_tile_kept).
 //
 // Bound on the H100: 10 Dh operations per kept (q, kv) pair and q head
 // (the products S, dP, dV, dQ, dK) against reading q, k, v, o, dO and lse
-// and writing dq, dk and dv once; the design recomputes S and dP in both
-// kernels (14 Dh).  At gemma-2b's training shape (S = 1024, 8 q heads over
-// one kv head of 256) the operations bound it.
+// and writing dq, dk and dv once; the design recomputes S and dP in the
+// dQ pass (14 Dh).  At gemma-2b's training shape (S = 1024, 8 q heads
+// over one kv head of 256) the operations bound it.
 //
 // bf16 (the *_tc kernels): bf16 operands and fp32 accumulators on the
-// tensor cores through mma.sync m16n8k16, one warp a 16-row slice.  Tiles
-// sit in shared memory row-major with 16 bytes of padding a row, which
-// makes every fragment load a conflict-free 32-bit read; a product whose
-// B operand runs along the other axis (dQ += dS K, dV += P^T dO, dK +=
-// dS^T Q) reads a transposed copy written while the tile is loaded.  P
-// and dS stay in registers: an accumulator fragment of S is, packed to
-// bf16, the A fragment of the next product.  P is rounded to bf16 for
-// P^T dO, as the forward rounds it for P V; dS is rounded to bf16 for its
-// two products.  Registers at Dh = 256: the dK and dV accumulators of a
-// 64-row kv tile take 2 x 64 x 256 fp32, 256 a thread at 4 warps; the
-// blocks take 8 warps there, each pair of warps splitting the output
-// columns of one 16-row slice (both compute the slice's S and dP: the
-// design's count above does not include that) and 32-row q tiles, so a
-// thread holds 128 accumulators and 32 of S and dP.
+// tensor cores through wgmma, 64-row tiles.  Every tile sits in shared
+// memory as the forward keeps K and V (128-byte swizzled slabs of 64
+// columns, hopper_mma.cuh).  The tiles a block walks (K and V in the dQ
+// kernel; Q and dO in the dK/dV kernel) come through a 2-stage ring that
+// one thread fills by TMA (a tensor map a tensor, an mbarrier a stage);
+// the rest by cp.async.  Every product reads its operands where they
+// lie: an operand that runs along the other axis (K for dQ += dS K; Q
+// and dO for dK += dS^T Q and dV += P^T dO) through the descriptor's
+// MN-major mode, so nothing is copied transposed.  P is rounded to bf16
+// for P^T dO, as the forward rounds it for P V; dS is rounded to bf16
+// for dQ and dK.
 //
+// Both kernels run their products on NWG warpgroups (2 at Dh 128 and 256,
+// else 1): each computes NP = 64 / NWG of the 64 columns of S and dP
+// (once a tile), writes its columns of the bf16 operand of the next
+// products (dS; P^T and dS^T) into a shared-memory A tile (K-major) and,
+// after a barrier, multiplies the whole tile into its Dh / NWG of the
+// output's columns (ss, B MN-major): at Dh = 256 64 + 64 accumulators a
+// thread in the dK/dV kernel, 64 in the dQ kernel.
+// - fa_bwd_dq_tc, one block per 64 (position, q head) rows of one kv
+//   head's group (position-major, as the forward's tile; its heads share
+//   the K and V tiles), the longest rows first over every (batch, kv
+//   head): writes its rows' D, then walks the kept kv tiles in order:
+//   S = Q K^T and dP = dO V^T, dS, dQ += dS K.
+// - fa_bwd_dkdv_tc, one block per (kv tile, q-tile run, head share) of a
+//   (batch, kv head), the plan's order (FaBwd; the longest first): it
+//   walks its run's kept q tiles in order and, inside each, its share of
+//   the group's q heads in order: S^T = K Q^T and dP^T = V dO^T, P^T and
+//   dS^T, dV += P^T dO and dK += dS^T Q.  A block alone on its kv tile
+//   writes dk and dv.
+// - fa_bwd_sum: where the plan splits a kv tile (MQA: gemma-2b's one kv
+//   head would give 16 blocks at a batch of 1), each block writes its
+//   fp32 dK and dV partial to a scratch slot and this pass adds a tile's
+//   slots in order (runs, then shares) and rounds once.
+
 // fp32 (the *_f32 kernels): CUDA cores, 256 threads, 32 x 32 score tiles
 // in shared memory (each thread a 2 x 2 block of S and dP, float4 reads
 // along Dh), the output rows of a block 32, each thread Dh / 8 columns of
 // one row; all in fp32 (the fp32 checks' tolerance, 1e-5, leaves no room
-// for TF32).
+// for TF32).  Two launches: the dQ kernel (a block per (q tile, q head,
+// batch), writing D first), then the dK/dV kernel (a block per (kv tile,
+// kv head, batch) carrying the group).
+#include <cuda.h>  // CUtensorMap (the encoder is fetched at run time)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
 #include "flash_mask.cuh"
 #include "hopper_mma.cuh"
 
 #define FB_LOG2E 1.4426950408889634f
+#define FB_NEG_INF (-1e30f)       // the forward's dropped score
 
 typedef __nv_bfloat16 bf16;
 
 // ---- bf16 on the tensor cores ----------------------------------------------
-#define TB_Q 64     // dQ kernel: q rows a block
-#define TB_K 64     // kv rows a tile (both kernels; a block of the dK/dV one)
-#define TB_QK 32    // dK/dV kernel: q rows a tile
-#define TB_PAD 8    // bf16 padding a shared-memory row (16 bytes)
+#define TB_ROWS 64                // rows of a q or kv tile (a wgmma's M)
+#define TB_SLAB (TB_ROWS * 128)   // bytes of a tile's 64-column slab
+#define TB_HEAD_SPLITS 8          // the most splits of a group's q heads
 
 template <int D>
 struct TcShape {
-  static constexpr int NS = D == 256 ? 2 : 1;  // output-column slices
-  static constexpr int THREADS = 128 * NS;     // 4 row slices x NS
-  static constexpr int DS = D / NS;            // output columns a warp
-  static constexpr int LD = D + TB_PAD;        // a row-major tile's stride
+  static constexpr int NSL = D / 64;                 // slabs of a tile
+  static constexpr uint32_t TILE = NSL * TB_SLAB;    // bytes of a tile
+  // warpgroups of a block; each owns WSL slabs of the output's columns
+  // (dQ; dK and dV) and NP of the 64 columns of S and dP (dQ: kv; dK/dV:
+  // q, of S^T and dP^T)
+  static constexpr int NWG = D >= 128 ? 2 : 1;
+  static constexpr int THREADS = 128 * NWG;
+  static constexpr int WSL = NSL / NWG;
+  static constexpr int NP = 64 / NWG;
 };
 
 __device__ __forceinline__ uint32_t pack2(float lo, float hi) {
@@ -83,307 +106,641 @@ __device__ __forceinline__ uint32_t pack2(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&h);
 }
 
-__device__ __forceinline__ uint32_t ld_pair(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+__device__ __forceinline__ float2 unpack2(uint32_t w) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w));
 }
 
-// ROWS rows of D bf16 (row r at src + r stride for r < n, zeros past n)
-// into dst [ROWS][D + TB_PAD] and, unless dstT is null, transposed into
-// dstT [D][ROWS + TB_PAD].  A warp's threads take neighbouring 16-byte
-// chunks of a row, or, when transposing, one chunk of neighbouring rows,
-// so that their 2-byte stores into dstT fall on neighbouring addresses
-// (along a row they would all fall on one bank)
-template <int D, int ROWS, int THREADS>
-__device__ __forceinline__ void tc_rows(bf16* dst, bf16* dstT,
-                                        const bf16* __restrict__ src,
-                                        size_t stride, int n) {
-  constexpr int CH = D / 8;
-  for (int e = threadIdx.x; e < ROWS * CH; e += THREADS) {
-    const int r = dstT != nullptr ? e % ROWS : e / CH;
-    const int c = (dstT != nullptr ? e / ROWS : e - r * CH) * 8;
-    uint4 x = make_uint4(0u, 0u, 0u, 0u);
-    if (r < n)
-      x = *reinterpret_cast<const uint4*>(src + (size_t)r * stride + c);
-    *reinterpret_cast<uint4*>(dst + r * (D + TB_PAD) + c) = x;
-    if (dstT != nullptr) {
-      const uint32_t w[4] = {x.x, x.y, x.z, x.w};
+// 4 bytes global -> shared; zero-filled when !valid (src not read)
+__device__ __forceinline__ void cp_async4z(uint32_t dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+// (ordered before the fence and barrier that publish it: all three are
+// volatile asm)
+__device__ __forceinline__ void st_shared_u32(uint32_t addr, uint32_t x) {
+  asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(addr), "r"(x));
+}
+
+// The ring's barriers: one mbarrier a stage, one arrival a phase (the
+// thread that issues the stage's copies, with their bytes)
+__device__ __forceinline__ void mbar_init(uint32_t bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+__device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// A 64-row tile of head h at row `row` of batch b of a (B, S, H, D) bf16
+// tensor, by TMA: one 64 x 64 box a slab, 128-byte swizzled as
+// hopper_mma.cuh lays tiles out, rows past S zero-filled; its bytes
+// complete on `bar`
+template <int D>
+__device__ __forceinline__ void tma_tile(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int h, int row,
+                                         int b) {
 #pragma unroll
-      for (int i = 0; i < 8; ++i)
-        dstT[(c + i) * (ROWS + TB_PAD) + r] = __ushort_as_bfloat16(
-            (unsigned short)(w[i >> 1] >> (16 * (i & 1))));
-    }
+  for (int n = 0; n < D / 64; ++n)
+    asm volatile(
+        "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+        "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(
+            dst + n * TB_SLAB),
+        "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(64 * n), "r"(h),
+        "r"(row), "r"(b)
+        : "memory");
+}
+
+// S and dP (S^T and dP^T) over a warpgroup's NP columns: m64n64 or
+// m64n32
+__device__ __forceinline__ void mma_np(float (&d)[32], uint64_t da,
+                                       uint64_t db, int accumulate) {
+  wgmma_bf16_ss_n64(d, da, db, accumulate);
+}
+__device__ __forceinline__ void mma_np(float (&d)[16], uint64_t da,
+                                       uint64_t db, int accumulate) {
+  wgmma_bf16_ss_n32(d, da, db, accumulate);
+}
+
+// TB_ROWS rows of D bf16 into D / 64 swizzled slabs of TB_SLAB bytes; row
+// r's source is src_row(r), or zeros when it returns nullptr (the copy
+// then reads nothing; `any` stands in as its address)
+template <int D, int THREADS, typename F>
+__device__ __forceinline__ void tile_load(uint32_t dst, const bf16* any,
+                                          F src_row) {
+  constexpr int CH = D / 8;                    // 16-byte chunks a row
+  for (int e = threadIdx.x; e < TB_ROWS * CH; e += THREADS) {
+    const int r = e / CH, c = e - r * CH;
+    const bf16* row = src_row(r);
+    cp_async16(dst + (c >> 3) * TB_SLAB + swz(r, c & 7),
+               row != nullptr ? row + c * 8 : any, row != nullptr);
   }
 }
 
-// the A fragment of rows r0 .. r0 + 15, columns k0 .. k0 + 15 of a
-// row-major tile with stride ld
-__device__ __forceinline__ void frag_a(uint32_t (&a)[4], const bf16* t,
-                                       int ld, int r0, int k0, int g,
-                                       int q4) {
-  const bf16* p = t + (r0 + g) * ld + k0 + 2 * q4;
-  a[0] = ld_pair(p);
-  a[1] = ld_pair(p + 8 * ld);
-  a[2] = ld_pair(p + 8);
-  a[3] = ld_pair(p + 8 * ld + 8);
+__host__ __device__ __forceinline__ int fb_min(int a, int b) {
+  return a < b ? a : b;
 }
 
-// the B fragment of columns n0 .. n0 + 7 and k rows k0 .. k0 + 15, read
-// from a tile that holds B transposed (row n, k along the row)
-__device__ __forceinline__ void frag_b(uint32_t (&b)[2], const bf16* t,
-                                       int ld, int n0, int k0, int g,
-                                       int q4) {
-  const bf16* p = t + (n0 + g) * ld + k0 + 2 * q4;
-  b[0] = ld_pair(p);
-  b[1] = ld_pair(p + 8);
-}
+// A launch's shapes, mask and plan.  The plan (bwd_plan in
+// kernels/flash_attention.py, whose helpers mirror these) cuts the dK/dV
+// work of kv tile j, its q tiles [0, nqt), into kv_nr runs over the
+// causally kept [j, nqt) (the first also takes [0, j)), the same count
+// for every tile so that a block finds its work in O(1), and each run's
+// q heads into hsplit equal shares; a (batch, kv head)'s blocks are (j,
+// run, share) in that order (the longest first).  Where a tile has more
+// than one block, each writes an fp32 partial to its slot (its number)
+// and fa_bwd_sum adds a tile's slots in order; a short tile's empty runs
+// write zeros.  dQ is not split: a block a row tile.
+struct FaBwd {
+  int B, Sq, Skv, Hq, Hkv, G;
+  int nqt, nkt, ntile;            // q tiles, kv tiles, dQ row tiles
+  int causal, window, prefix_len;
+  int hsplit, kv_nr;
+  float scale;
+};
 
-// s = X[r0 .. r0 + 15] Y^T over D: X and Y row-major [.][D + TB_PAD], the
-// NT n8 tiles of s Y's rows 0 .. 8 NT - 1
-template <int D, int NT>
-__device__ __forceinline__ void warp_xyt(float (&s)[NT][4], const bf16* x,
-                                         int r0, const bf16* y, int g,
-                                         int q4) {
-  constexpr int LD = D + TB_PAD;
-#pragma unroll
-  for (int j = 0; j < NT; ++j)
-    s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.0f;
-#pragma unroll 4
-  for (int kk = 0; kk < D; kk += 16) {
-    uint32_t a[4];
-    frag_a(a, x, LD, r0, kk, g, q4);
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      uint32_t bb[2];
-      frag_b(bb, y, LD, 8 * j, kk, g, q4);
-      mma_bf16_16816(s[j], a, bb);
-    }
-  }
-}
-
-// acc += bf16(p) Z[:, c0 .. c0 + 8 NO - 1]: p a warp's 16 x 8 NK fragments
-// (k = its columns), Z read through its transpose zt [D][ldt]
-template <int NK, int NO>
-__device__ __forceinline__ void warp_pz(float (&acc)[NO][4],
-                                        const float (&p)[NK][4],
-                                        const bf16* zt, int ldt, int c0,
-                                        int g, int q4) {
-#pragma unroll
-  for (int kk = 0; kk < NK / 2; ++kk) {
-    const uint32_t a[4] = {pack2(p[2 * kk][0], p[2 * kk][1]),
-                           pack2(p[2 * kk][2], p[2 * kk][3]),
-                           pack2(p[2 * kk + 1][0], p[2 * kk + 1][1]),
-                           pack2(p[2 * kk + 1][2], p[2 * kk + 1][3])};
-#pragma unroll
-    for (int n = 0; n < NO; ++n) {
-      uint32_t bb[2];
-      frag_b(bb, zt, ldt, c0 + 8 * n, 16 * kk, g, q4);
-      mma_bf16_16816(acc[n], a, bb);
-    }
-  }
+// the first tile of run r of nr over a kept range [lo, lo + len) of [0,
+// n): 0 for the first run, n past the last
+__host__ __device__ __forceinline__ int fa_cut(int lo, int len, int nr,
+                                               int r, int n) {
+  if (r == 0) return 0;
+  if (r == nr) return n;
+  return fb_min(n, lo + (r * len + nr - 1) / nr);
 }
 
 template <int D>
 constexpr size_t dq_tc_smem() {
-  return (size_t)(2 * TB_Q + 2 * TB_K) * (D + TB_PAD) * 2 +
-         (size_t)D * (TB_K + TB_PAD) * 2 + 2 * TB_Q * 4;
+  // Q and dO, then 2 stages of K and V (64 x D tiles); dS (64 x 64); the
+  // rows' lse and D; their offsets in q and in lse; the stages'
+  // barriers; 1024 bytes of slack for the swizzle's alignment
+  return (size_t)6 * TcShape<D>::TILE + TB_SLAB + 2 * TB_ROWS * 4 +
+         2 * TB_ROWS * 8 + 16 + 1024;
 }
 
 template <int D>
 __global__ void __launch_bounds__(TcShape<D>::THREADS, 1)
-fa_bwd_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
-             const bf16* __restrict__ v, const bf16* __restrict__ o,
+fa_bwd_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ o,
              const float* __restrict__ lse, const bf16* __restrict__ dO,
-             bf16* __restrict__ dq, float* __restrict__ delta, int Sq,
-             int Skv, int Hq, int Hkv, int causal, int window,
-             int prefix_len, float scale) {
+             bf16* __restrict__ dq, float* __restrict__ delta, const FaBwd f,
+             const __grid_constant__ CUtensorMap tm_k,
+             const __grid_constant__ CUtensorMap tm_v) {
   using T = TcShape<D>;
-  constexpr int LD = T::LD, LDT = TB_K + TB_PAD, NO = T::DS / 8;
-  constexpr int NT = TB_K / 8;
+  constexpr int WSL = T::WSL, NP = T::NP, TH = T::THREADS;
+  constexpr uint32_t TILE = T::TILE;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* qs = reinterpret_cast<bf16*>(smem_raw);   // TB_Q x LD
-  bf16* dos = qs + TB_Q * LD;                      // TB_Q x LD
-  bf16* ks = dos + TB_Q * LD;                      // TB_K x LD
-  bf16* vs = ks + TB_K * LD;                       // TB_K x LD
-  bf16* kts = vs + TB_K * LD;                      // D x LDT
-  float* lse_s = reinterpret_cast<float*>(kts + D * LDT);  // log2 domain
-  float* dl_s = lse_s + TB_Q;
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t pad = (1024u - (raw & 1023u)) & 1023u;
+  const uint32_t qs = raw + pad, dos = qs + TILE;
+  const uint32_t kv0 = dos + TILE;     // stage s: K at kv0 + 2 s TILE, V after
+  const uint32_t dss = kv0 + 4 * TILE;
+  float* lse_s = reinterpret_cast<float*>(smem_raw + pad + 6 * TILE +
+                                          TB_SLAB);  // the log2 domain
+  float* dl_s = lse_s + TB_ROWS;
+  size_t* row_q = reinterpret_cast<size_t*>(dl_s + TB_ROWS);
+  size_t* row_l = row_q + TB_ROWS;
+  const uint32_t bars = smem_u32(row_l + TB_ROWS);   // a stage's: bars + 8 s
 
-  // the longest rows first (causal: the last q tile keeps every kv tile)
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * TB_Q;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int hk = h / (Hq / Hkv);
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, q4 = lane & 3;
-  const int r0 = 16 * (warp & 3), c0 = T::DS * (warp >> 2);
-  const size_t q_stride = (size_t)Hq * D, kv_stride = (size_t)Hkv * D;
-  const size_t q_base = ((size_t)b * Sq + q0) * q_stride + (size_t)h * D;
-  const int nq = min(TB_Q, Sq - q0);
+  const int Sq = f.Sq, Skv = f.Skv, Hq = f.Hq, G = f.G, nkt = f.nkt;
+  const int causal = f.causal, window = f.window, prefix_len = f.prefix_len;
+  const int rows_total = Sq * G;       // (position, head) pairs
+  // this block's row tile, the longest first (causal: the last tile
+  // keeps every kv tile), across every (batch, kv head)
+  const int nbh = f.B * f.Hkv;
+  const int bh = (int)(blockIdx.x % nbh), b = bh / f.Hkv, hk = bh % f.Hkv;
+  const int f0 = (f.ntile - 1 - (int)(blockIdx.x / nbh)) * TB_ROWS;
+  const int pos_lo = f0 / G, pos_hi = fb_min(Sq - 1, (f0 + TB_ROWS - 1) / G);
 
-  tc_rows<D, TB_Q, T::THREADS>(qs, nullptr, q + q_base, q_stride, nq);
-  tc_rows<D, TB_Q, T::THREADS>(dos, nullptr, dO + q_base, q_stride, nq);
+  const int tid = threadIdx.x, wg = tid >> 7, wi = (tid >> 5) & 3;
+  const int lane = tid & 31, g4 = lane >> 2, t4 = lane & 3;
+  const size_t q_stride = (size_t)Hq * D;
+  // each row's offset in q (position r / G, head r % G of the group) and
+  // in lse; the ring's barriers
+  if (tid < TB_ROWS) {
+    const int r = f0 + tid, pos = r / G, h = hk * G + r % G;
+    row_q[tid] = ((size_t)b * Sq + pos) * q_stride + (size_t)h * D;
+    row_l[tid] = ((size_t)b * Hq + h) * Sq + pos;
+  }
+  if (tid == 0) {
+    mbar_init(bars);
+    mbar_init(bars + 8);
+    mbar_init_fence();
+  }
   __syncthreads();
-  // D = rowsum(dO * O) in fp32: a warp a row, lanes over Dh in a fixed
-  // order, lane 0's sum of the butterfly
-  for (int r = warp; r < TB_Q; r += T::THREADS / 32) {
-    float acc = 0.0f;
-    if (r < nq) {
-      const bf16* orow = o + q_base + (size_t)r * q_stride;
-      for (int d = lane; d < D; d += 32)
-        acc = fmaf(__bfloat162float(dos[r * LD + d]),
-                   __bfloat162float(orow[d]), acc);
+
+  auto next_kept = [&](int kt) {
+    while (kt < nkt &&
+           !fa_tile_kept(pos_lo, pos_hi + 1, kt * TB_ROWS,
+                         fb_min(kt * TB_ROWS + TB_ROWS, Skv), causal, window,
+                         prefix_len))
+      ++kt;
+    return kt;
+  };
+  // K and V of kv tile kt into a stage, by one thread
+  auto load_kv = [&](int kt, int stage) {
+    if (tid != 0) return;
+    const uint32_t ks = kv0 + 2 * stage * TILE, bar = bars + 8 * stage;
+    mbar_expect(bar, 2 * TILE);
+    tma_tile<D>(ks, &tm_k, bar, hk, kt * TB_ROWS, b);
+    tma_tile<D>(ks + TILE, &tm_v, bar, hk, kt * TB_ROWS, b);
+  };
+
+  // Q, dO and the first kept kv tile
+  tile_load<D, TH>(qs, q, [&](int r) -> const bf16* {
+    return f0 + r < rows_total ? q + row_q[r] : nullptr;
+  });
+  tile_load<D, TH>(dos, dO, [&](int r) -> const bf16* {
+    return f0 + r < rows_total ? dO + row_q[r] : nullptr;
+  });
+  int kt = next_kept(0);
+  if (kt < nkt) load_kv(kt, 0);
+  cp_async_commit();
+
+  // D = rowsum(dO * O) in fp32 while the copies fly: a row's 16-byte
+  // chunks on CH neighbouring lanes, each 8 products in order, then a
+  // butterfly over the CH lanes; every load of the warp's rows issued
+  // before the first sum
+  {
+    constexpr int CH = D / 8, RPP = 32 / CH;   // rows a warp a pass
+    constexpr int PASSES = TB_ROWS / (TH / 32) / RPP;
+    const int sub = lane / CH, c = lane % CH;
+    uint4 xs[PASSES], ys[PASSES];
+    float ls[PASSES];
+#pragma unroll
+    for (int i = 0; i < PASSES; ++i) {
+      const int rr = ((tid >> 5) * PASSES + i) * RPP + sub;
+      xs[i] = ys[i] = make_uint4(0u, 0u, 0u, 0u);
+      ls[i] = 0.0f;
+      if (f0 + rr < rows_total) {
+        const size_t off = row_q[rr] + 8 * c;
+        xs[i] = *reinterpret_cast<const uint4*>(dO + off);
+        ys[i] = *reinterpret_cast<const uint4*>(o + off);
+        if (c == 0) ls[i] = lse[row_l[rr]];
+      }
     }
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      acc += __shfl_xor_sync(0xffffffffu, acc, off);
-    if (lane == 0) {
-      const size_t row = ((size_t)b * Hq + h) * Sq + q0 + r;
-      dl_s[r] = acc;
-      lse_s[r] = r < nq ? lse[row] * FB_LOG2E : 0.0f;
-      if (r < nq) delta[row] = acc;
+    for (int i = 0; i < PASSES; ++i) {
+      const int rr = ((tid >> 5) * PASSES + i) * RPP + sub;
+      const uint32_t xw[4] = {xs[i].x, xs[i].y, xs[i].z, xs[i].w};
+      const uint32_t yw[4] = {ys[i].x, ys[i].y, ys[i].z, ys[i].w};
+      float acc = 0.0f;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 a = unpack2(xw[e]), bb = unpack2(yw[e]);
+        acc = fmaf(a.x, bb.x, acc);
+        acc = fmaf(a.y, bb.y, acc);
+      }
+#pragma unroll
+      for (int off = CH / 2; off > 0; off >>= 1)
+        acc += __shfl_xor_sync(0xffffffffu, acc, off);
+      if (c == 0) {
+        dl_s[rr] = acc;
+        lse_s[rr] = ls[i] * FB_LOG2E;
+        if (f0 + rr < rows_total) delta[row_l[rr]] = acc;
+      }
     }
   }
 
-  const float sl2 = scale * FB_LOG2E;
-  float acc[NO][4];
+  // this thread's rows of the 64: ra = 16 wi + g4 and rb = ra + 8
+  const int ra = wi * 16 + g4, rb = ra + 8;
+  const int qpa = (f0 + ra) / G, qpb = (f0 + rb) / G;
+  const float sl2 = f.scale * FB_LOG2E;
+  float acc[WSL][32];
 #pragma unroll
-  for (int n = 0; n < NO; ++n)
-    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.0f;
-  const int nkt = (Skv + TB_K - 1) / TB_K;
-  for (int kt = 0; kt < nkt; ++kt) {
-    const int k0 = kt * TB_K, nk = min(TB_K, Skv - k0);
-    if (!fa_tile_kept(q0, q0 + nq, k0, k0 + nk, causal, window, prefix_len))
-      continue;
-    __syncthreads();  // the previous tile is consumed; D and lse are set
-    const size_t kv_base =
-        ((size_t)b * Skv + k0) * kv_stride + (size_t)hk * D;
-    tc_rows<D, TB_K, T::THREADS>(ks, kts, k + kv_base, kv_stride, nk);
-    tc_rows<D, TB_K, T::THREADS>(vs, nullptr, v + kv_base, kv_stride, nk);
-    __syncthreads();
+  for (int n = 0; n < WSL; ++n)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[n][i] = 0.0f;
 
-    float s[NT][4], dp[NT][4];
-    warp_xyt<D, NT>(s, qs, r0, ks, g, q4);     // S = Q K^T
-    warp_xyt<D, NT>(dp, dos, r0, vs, g, q4);   // dP = dO V^T
+  int stage = 0;
+  for (int t = 0; kt < nkt; ++t) {
+    const int nxt = next_kept(kt + 1);
+    cp_async_wait<0>();        // this thread's copies of Q and dO landed
+    mbar_wait(bars + 8 * stage, (t >> 1) & 1);   // tile kt landed
+    fence_proxy_async();
+    __syncthreads();           // Q and dO everyone's; tile kt-1 consumed
+    if (nxt < nkt) load_kv(nxt, stage ^ 1);
+    cp_async_commit();
+
+    const uint32_t ks = kv0 + 2 * stage * TILE, vs = ks + TILE;
+    const int k0 = kt * TB_ROWS;
+
+    // S = Q K^T and dP = dO V^T over this warpgroup's NP kv columns (two
+    // chains of products interleaved)
+    float s[NP / 2], dp[NP / 2];
+    wg_fence();
 #pragma unroll
-    for (int j = 0; j < NT; ++j)
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t off = (kk >> 2) * TB_SLAB + (kk & 3) * 32;
+      const uint32_t cols = off + wg * NP * 128;
+      mma_np(s, desc_kmajor(qs + off), desc_kmajor(ks + cols), kk > 0);
+      mma_np(dp, desc_kmajor(dos + off), desc_kmajor(vs + cols), kk > 0);
+    }
+    wg_commit();
+    wg_wait<0>();
+    fence_regs(s);
+    fence_regs(dp);
+
+    // P, then dS = P (dP - D) in fp32, into shared memory in bf16 (a
+    // K-major A tile: q rows, kv columns along the row); the mask where
+    // the tile is not kept whole
+    bool whole = f0 + TB_ROWS <= rows_total && k0 + TB_ROWS <= Skv;
+    if (causal)
+      whole = whole &&
+              ((k0 + TB_ROWS - 1 <= pos_lo &&
+                (window == 0 || pos_hi - k0 < window)) ||
+               (prefix_len > 0 && k0 + TB_ROWS <= prefix_len));
+    if (!whole)                // a dropped pair's P is exp2(-1e30) = 0
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = r0 + g + 8 * (e >> 1), c = 8 * j + 2 * q4 + (e & 1);
-        const float p = fa_kept(q0 + r, k0 + c, Sq, Skv, causal, window,
-                                prefix_len)
-                            ? exp2f(s[j][e] * sl2 - lse_s[r])
-                            : 0.0f;
-        s[j][e] = p * (dp[j][e] - dl_s[r]);    // dS
-      }
-    warp_pz<NT, NO>(acc, s, kts, LDT, c0, g, q4);   // dQ += dS K
+      for (int i = 0; i < NP / 2; ++i)
+        if (!fa_kept(i & 2 ? qpb : qpa, k0 + wg * NP + 8 * (i >> 2) +
+                                            2 * t4 + (i & 1),
+                     Sq, Skv, causal, window, prefix_len))
+          s[i] = FB_NEG_INF;
+    const float la = lse_s[ra], lb = lse_s[rb];
+    const float da = dl_s[ra], db = dl_s[rb];
+#pragma unroll
+    for (int jj = 0; jj < NP / 8; ++jj) {
+      const int c = wg * NP + 8 * jj + 2 * t4;    // kv columns c, c + 1
+      float dsv[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        dsv[e] = exp2f(s[4 * jj + e] * sl2 - (e < 2 ? la : lb)) *
+                 (dp[4 * jj + e] - (e < 2 ? da : db));
+      st_shared_u32(dss + swz(ra, c >> 3) + 4 * t4, pack2(dsv[0], dsv[1]));
+      st_shared_u32(dss + swz(rb, c >> 3) + 4 * t4, pack2(dsv[2], dsv[3]));
+    }
+    fence_proxy_async();       // the writes, visible to wgmma
+    __syncthreads();           // every warpgroup's columns of dS written
+
+    // dQ += dS K over this warpgroup's slabs
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint64_t sdesc = desc_kmajor(dss + kk * 32);
+#pragma unroll
+      for (int n = 0; n < WSL; ++n)
+        wgmma_bf16_ss_n64_tb(
+            acc[n], sdesc,
+            desc_mnmajor(ks + (wg * WSL + n) * TB_SLAB + kk * 2048));
+    }
+    wg_commit();
+    wg_wait<0>();
+#pragma unroll
+    for (int n = 0; n < WSL; ++n) fence_regs(acc[n]);
+    kt = nxt;
+    stage ^= 1;
   }
 
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
-    const int r = r0 + g + 8 * half;
-    if (r >= nq) continue;
-    bf16* dst = dq + q_base + (size_t)r * q_stride + c0 + 2 * q4;
+    const int r = half ? rb : ra;
+    if (f0 + r >= rows_total) continue;
+    bf16* dst = dq + row_q[r] + wg * WSL * 64 + 2 * t4;
 #pragma unroll
-    for (int n = 0; n < NO; ++n)
-      *reinterpret_cast<uint32_t*>(dst + 8 * n) =
-          pack2(acc[n][2 * half] * scale, acc[n][2 * half + 1] * scale);
+    for (int n = 0; n < WSL; ++n)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        *reinterpret_cast<uint32_t*>(dst + n * 64 + 8 * j) =
+            pack2(acc[n][4 * j + 2 * half] * f.scale,
+                  acc[n][4 * j + 2 * half + 1] * f.scale);
   }
 }
 
 template <int D>
 constexpr size_t dkdv_tc_smem() {
-  return (size_t)(2 * TB_K + 2 * TB_QK) * (D + TB_PAD) * 2 +
-         (size_t)2 * D * (TB_QK + TB_PAD) * 2 + 2 * TB_QK * 4;
+  // K and V, then 2 stages of Q and dO (64 x D tiles); P^T and dS^T (64 x
+  // 64); 2 stages of the q rows' lse, then of their D; the stages'
+  // barriers; slack
+  return (size_t)6 * TcShape<D>::TILE + 2 * TB_SLAB + 4 * TB_ROWS * 4 + 16 +
+         1024;
 }
 
 template <int D>
 __global__ void __launch_bounds__(TcShape<D>::THREADS, 1)
-fa_bwd_dkdv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
-               const bf16* __restrict__ v, const float* __restrict__ lse,
-               const float* __restrict__ delta, const bf16* __restrict__ dO,
-               bf16* __restrict__ dk, bf16* __restrict__ dv, int Sq,
-               int Skv, int Hq, int Hkv, int causal, int window,
-               int prefix_len, float scale) {
+fa_bwd_dkdv_tc(const float* __restrict__ lse, const float* __restrict__ delta,
+               bf16* __restrict__ dk, bf16* __restrict__ dv,
+               float* __restrict__ part, const FaBwd f,
+               const __grid_constant__ CUtensorMap tm_q,
+               const __grid_constant__ CUtensorMap tm_do,
+               const __grid_constant__ CUtensorMap tm_k,
+               const __grid_constant__ CUtensorMap tm_v) {
   using T = TcShape<D>;
-  constexpr int LD = T::LD, LDT = TB_QK + TB_PAD, NO = T::DS / 8;
-  constexpr int NQ = TB_QK / 8;
+  constexpr int WSL = T::WSL, NP = T::NP, TH = T::THREADS;
+  constexpr uint32_t TILE = T::TILE;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* ks = reinterpret_cast<bf16*>(smem_raw);   // TB_K x LD
-  bf16* vs = ks + TB_K * LD;                       // TB_K x LD
-  bf16* qs = vs + TB_K * LD;                       // TB_QK x LD
-  bf16* dos = qs + TB_QK * LD;                     // TB_QK x LD
-  bf16* qts = dos + TB_QK * LD;                    // D x LDT
-  bf16* dots = qts + D * LDT;                      // D x LDT
-  float* lse_s = reinterpret_cast<float*>(dots + D * LDT);  // log2 domain
-  float* dl_s = lse_s + TB_QK;
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t pad = (1024u - (raw & 1023u)) & 1023u;
+  const uint32_t ks = raw + pad, vs = ks + TILE;
+  const uint32_t ring = vs + TILE;  // stage s: Q at ring + 2 s TILE, dO after
+  const uint32_t pts = ring + 4 * TILE, dsts = pts + TB_SLAB;
+  const uint32_t rows_a = dsts + TB_SLAB;   // lse [2][64], then D [2][64]
+  const float* rows_s =
+      reinterpret_cast<const float*>(smem_raw + pad + 6 * TILE + 2 * TB_SLAB);
+  const uint32_t bars = rows_a + 4 * TB_ROWS * 4;   // a stage's: bars + 8 s
 
-  const int k0 = blockIdx.x * TB_K, hk = blockIdx.y, b = blockIdx.z;
-  const int G = Hq / Hkv;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, q4 = lane & 3;
-  const int r0 = 16 * (warp & 3), c0 = T::DS * (warp >> 2);
-  const size_t q_stride = (size_t)Hq * D, kv_stride = (size_t)Hkv * D;
-  const size_t kv_base = ((size_t)b * Skv + k0) * kv_stride + (size_t)hk * D;
-  const int nk = min(TB_K, Skv - k0);
-  tc_rows<D, TB_K, T::THREADS>(ks, nullptr, k + kv_base, kv_stride, nk);
-  tc_rows<D, TB_K, T::THREADS>(vs, nullptr, v + kv_base, kv_stride, nk);
+  const int Sq = f.Sq, Skv = f.Skv, Hq = f.Hq, nqt = f.nqt;
+  const int causal = f.causal, window = f.window, prefix_len = f.prefix_len;
+  const int hpg = f.G / f.hsplit;
+  // this block's kv tile j, q-tile run and head share (the plan's order)
+  const int nbh = f.B * f.Hkv;
+  const int item = (int)(blockIdx.x / nbh), bh = (int)(blockIdx.x % nbh);
+  const int b = bh / f.Hkv, hk = bh % f.Hkv;
+  const int j = item / (f.kv_nr * f.hsplit);
+  const int run = item / f.hsplit % f.kv_nr, split = item % f.hsplit;
+  const int left = nqt - j > 0 ? nqt - j : 0;
+  const int qa = fa_cut(j, left, f.kv_nr, run, nqt);
+  const int qb = fa_cut(j, left, f.kv_nr, run + 1, nqt);
+  const int k0 = j * TB_ROWS, nk = fb_min(TB_ROWS, Skv - k0);
+  const int h0 = hk * f.G + split * hpg;  // the share's first q head
 
-  const float sl2 = scale * FB_LOG2E;
-  float dka[NO][4], dva[NO][4];
-#pragma unroll
-  for (int n = 0; n < NO; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dka[n][e] = dva[n][e] = 0.0f;
+  const int tid = threadIdx.x, wg = tid >> 7, wi = (tid >> 5) & 3;
+  const int lane = tid & 31, g4 = lane >> 2, t4 = lane & 3;
+  const size_t kv_stride = (size_t)f.Hkv * D;
+  const size_t kv_off = ((size_t)b * Skv + k0) * kv_stride + (size_t)hk * D;
 
-  const int nqt = (Sq + TB_QK - 1) / TB_QK;
-  for (int qt = 0; qt < nqt; ++qt) {
-    const int q0 = qt * TB_QK, nq = min(TB_QK, Sq - q0);
-    if (!fa_tile_kept(q0, q0 + nq, k0, k0 + nk, causal, window, prefix_len))
-      continue;
-    for (int gi = 0; gi < G; ++gi) {
-      const int h = hk * G + gi;
-      const size_t q_base = ((size_t)b * Sq + q0) * q_stride + (size_t)h * D;
-      __syncthreads();  // the previous tile is consumed (K, V loaded)
-      tc_rows<D, TB_QK, T::THREADS>(qs, qts, q + q_base, q_stride, nq);
-      tc_rows<D, TB_QK, T::THREADS>(dos, dots, dO + q_base, q_stride, nq);
-      if (tid < TB_QK) {
-        const size_t row = ((size_t)b * Hq + h) * Sq + q0 + tid;
-        lse_s[tid] = tid < nq ? lse[row] * FB_LOG2E : 0.0f;
-        dl_s[tid] = tid < nq ? delta[row] : 0.0f;
+  auto next_q = [&](int qt) {
+    while (qt < qb &&
+           !fa_tile_kept(qt * TB_ROWS, fb_min(qt * TB_ROWS + TB_ROWS, Sq), k0,
+                         k0 + nk, causal, window, prefix_len))
+      ++qt;
+    return qt;
+  };
+  // Q and dO of q tile qt, head h0 + gi into stage st by one thread's
+  // TMA (with K and V, `extra` bytes, on the first), the rows' lse and D
+  // by cp.async
+  auto load_unit = [&](int qt, int gi, int st, uint32_t extra) {
+    const int q0 = qt * TB_ROWS;
+    if (tid == 0) {
+      const uint32_t qs = ring + 2 * st * TILE, bar = bars + 8 * st;
+      mbar_expect(bar, 2 * TILE + extra);
+      if (extra) {
+        tma_tile<D>(ks, &tm_k, bar, hk, k0, b);
+        tma_tile<D>(vs, &tm_v, bar, hk, k0, b);
       }
-      __syncthreads();
-
-      float s[NQ][4], dp[NQ][4];
-      warp_xyt<D, NQ>(s, ks, r0, qs, g, q4);    // S^T = K Q^T
-      warp_xyt<D, NQ>(dp, vs, r0, dos, g, q4);  // dP^T = V dO^T
-#pragma unroll
-      for (int j = 0; j < NQ; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int r = r0 + g + 8 * (e >> 1), c = 8 * j + 2 * q4 + (e & 1);
-          const float p = fa_kept(q0 + c, k0 + r, Sq, Skv, causal, window,
-                                  prefix_len)
-                              ? exp2f(s[j][e] * sl2 - lse_s[c])
-                              : 0.0f;
-          s[j][e] = p;
-          dp[j][e] = p * (dp[j][e] - dl_s[c]);   // dS^T
-        }
-      warp_pz<NQ, NO>(dva, s, dots, LDT, c0, g, q4);   // dV += P^T dO
-      warp_pz<NQ, NO>(dka, dp, qts, LDT, c0, g, q4);   // dK += dS^T Q
+      tma_tile<D>(qs, &tm_q, bar, h0 + gi, q0, b);
+      tma_tile<D>(qs + TILE, &tm_do, bar, h0 + gi, q0, b);
     }
+    if (tid < 2 * TB_ROWS) {
+      const int r = tid & (TB_ROWS - 1), which = tid / TB_ROWS;
+      const float* src = which ? delta : lse;
+      const size_t row = ((size_t)b * Hq + h0 + gi) * Sq + q0 + r;
+      cp_async4z(rows_a + ((2 * which + st) * TB_ROWS + r) * 4,
+                 q0 + r < Sq ? src + row : src, q0 + r < Sq);
+    }
+  };
+
+  float dva[WSL][32], dka[WSL][32];
+#pragma unroll
+  for (int n = 0; n < WSL; ++n)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dva[n][i] = dka[n][i] = 0.0f;
+
+  // the ring's barriers; K, V and the first unit
+  if (tid == 0) {
+    mbar_init(bars);
+    mbar_init(bars + 8);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  int qt = next_q(qa), gi = 0, st = 0;
+  if (qt < qb) load_unit(qt, 0, 0, 2 * TILE);
+  cp_async_commit();
+
+  const float sl2 = f.scale * FB_LOG2E;
+  const int ra = wi * 16 + g4;         // this thread's kv rows ra, ra + 8
+  for (int t = 0; qt < qb; ++t) {
+    int nq = qt, ngi = gi + 1;         // the next unit
+    if (ngi == hpg) {
+      ngi = 0;
+      nq = next_q(qt + 1);
+    }
+    cp_async_wait<0>();        // this thread's lse and D of this unit
+    mbar_wait(bars + 8 * st, (t >> 1) & 1);     // its tiles landed
+    __syncthreads();           // everyone's landed; the last unit consumed
+    if (nq < qb) load_unit(nq, ngi, st ^ 1, 0);
+    cp_async_commit();
+
+    const uint32_t qs = ring + 2 * st * TILE, dos = qs + TILE;
+    const float* ls = rows_s + st * TB_ROWS;
+    const float* dl = rows_s + (2 + st) * TB_ROWS;
+    const int q0 = qt * TB_ROWS;
+
+    // S^T = K Q^T and dP^T = V dO^T over this warpgroup's NP q columns
+    // (two chains of products interleaved)
+    float s[NP / 2], dp[NP / 2];
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t off = (kk >> 2) * TB_SLAB + (kk & 3) * 32;
+      const uint32_t cols = off + wg * NP * 128;
+      mma_np(s, desc_kmajor(ks + off), desc_kmajor(qs + cols), kk > 0);
+      mma_np(dp, desc_kmajor(vs + off), desc_kmajor(dos + cols), kk > 0);
+    }
+    wg_commit();
+    wg_wait<0>();
+    fence_regs(s);
+    fence_regs(dp);
+
+    // P^T and dS^T = P^T (dP^T - D) in fp32, into shared memory in bf16
+    // (K-major A tiles: kv rows, q columns along the row); the mask where
+    // the unit is not kept whole
+    bool whole = k0 + TB_ROWS <= Skv && q0 + TB_ROWS <= Sq;
+    if (causal)
+      whole = whole &&
+              ((k0 + TB_ROWS - 1 <= q0 &&
+                (window == 0 || q0 + TB_ROWS - 1 - k0 < window)) ||
+               (prefix_len > 0 && k0 + TB_ROWS <= prefix_len));
+    if (!whole)                // a dropped pair's P is exp2(-1e30) = 0
+#pragma unroll
+      for (int i = 0; i < NP / 2; ++i)
+        if (!fa_kept(q0 + wg * NP + 8 * (i >> 2) + 2 * t4 + (i & 1),
+                     k0 + ra + (i & 2) * 4, Sq, Skv, causal, window,
+                     prefix_len))
+          s[i] = FB_NEG_INF;
+#pragma unroll
+    for (int jj = 0; jj < NP / 8; ++jj) {
+      const int c = wg * NP + 8 * jj + 2 * t4;    // q columns c, c + 1
+      const float l0 = ls[c] * FB_LOG2E, l1 = ls[c + 1] * FB_LOG2E;
+      const float d0 = dl[c], d1 = dl[c + 1];
+      float pv[4], dsv[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        pv[e] = exp2f(s[4 * jj + e] * sl2 - ((e & 1) ? l1 : l0));
+        dsv[e] = pv[e] * (dp[4 * jj + e] - ((e & 1) ? d1 : d0));
+      }
+      const uint32_t o0 = swz(ra, c >> 3) + 4 * t4;
+      const uint32_t o1 = swz(ra + 8, c >> 3) + 4 * t4;
+      st_shared_u32(pts + o0, pack2(pv[0], pv[1]));
+      st_shared_u32(pts + o1, pack2(pv[2], pv[3]));
+      st_shared_u32(dsts + o0, pack2(dsv[0], dsv[1]));
+      st_shared_u32(dsts + o1, pack2(dsv[2], dsv[3]));
+    }
+    fence_proxy_async();       // the writes, visible to wgmma
+    __syncthreads();           // every warpgroup's columns written
+
+    // dV += P^T dO and dK += dS^T Q over this warpgroup's slabs
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint64_t pdesc = desc_kmajor(pts + kk * 32);
+      const uint64_t sdesc = desc_kmajor(dsts + kk * 32);
+#pragma unroll
+      for (int n = 0; n < WSL; ++n) {
+        const uint32_t sl = (wg * WSL + n) * TB_SLAB + kk * 2048;
+        wgmma_bf16_ss_n64_tb(dva[n], pdesc, desc_mnmajor(dos + sl));
+        wgmma_bf16_ss_n64_tb(dka[n], sdesc, desc_mnmajor(qs + sl));
+      }
+    }
+    wg_commit();
+    wg_wait<0>();
+#pragma unroll
+    for (int n = 0; n < WSL; ++n) {
+      fence_regs(dva[n]);
+      fence_regs(dka[n]);
+    }
+    qt = nq;
+    gi = ngi;
+    st ^= 1;
   }
 
+  const int c0 = wg * WSL * 64 + 2 * t4;
+  if (f.kv_nr * f.hsplit == 1) {   // one slot a tile: dk and dv themselves
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = ra + 8 * half;
+      if (r >= nk) continue;
+      const size_t off = kv_off + (size_t)r * kv_stride + c0;
+#pragma unroll
+      for (int n = 0; n < WSL; ++n)
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj) {
+          const int i = 4 * jj + 2 * half;
+          *reinterpret_cast<uint32_t*>(dk + off + n * 64 + 8 * jj) =
+              pack2(dka[n][i] * f.scale, dka[n][i + 1] * f.scale);
+          *reinterpret_cast<uint32_t*>(dv + off + n * 64 + 8 * jj) =
+              pack2(dva[n][i], dva[n][i + 1]);
+        }
+    }
+    return;
+  }
+  // the fp32 partials (unscaled) into slot `item` (j, run, split):
+  // [nbh][nkt][kv_nr][hsplit][64][D] of dK, then of dV
+  const size_t slots = (size_t)f.nkt * f.kv_nr * f.hsplit;
+  float* pk = part + ((size_t)bh * slots + item) * TB_ROWS * D;
+  float* pv = pk + (size_t)nbh * slots * TB_ROWS * D;
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
-    const int r = r0 + g + 8 * half;
-    if (r >= nk) continue;
-    const size_t off = kv_base + (size_t)r * kv_stride + c0 + 2 * q4;
+    const int r = ra + 8 * half;
 #pragma unroll
-    for (int n = 0; n < NO; ++n) {
-      *reinterpret_cast<uint32_t*>(dk + off + 8 * n) =
-          pack2(dka[n][2 * half] * scale, dka[n][2 * half + 1] * scale);
-      *reinterpret_cast<uint32_t*>(dv + off + 8 * n) =
-          pack2(dva[n][2 * half], dva[n][2 * half + 1]);
+    for (int n = 0; n < WSL; ++n)
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+        const int i = 4 * jj + 2 * half;
+        const size_t off = (size_t)r * D + c0 + n * 64 + 8 * jj;
+        *reinterpret_cast<float2*>(pk + off) =
+            make_float2(dka[n][i], dka[n][i + 1]);
+        *reinterpret_cast<float2*>(pv + off) =
+            make_float2(dva[n][i], dva[n][i + 1]);
+      }
+  }
+}
+
+__device__ __forceinline__ void add4(float4& x, const float* p) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  x.x += a.x;
+  x.y += a.y;
+  x.z += a.z;
+  x.w += a.w;
+}
+
+// dk and dv from the partials, a thread 4 columns of one row: a row's
+// kv_nr x hsplit slots added in slot order, dK scaled, each rounded once.
+// The launch holds the quads under 2^31.
+template <int D>
+__global__ void __launch_bounds__(256)
+fa_bwd_sum(const float* __restrict__ part, bf16* __restrict__ dk,
+           bf16* __restrict__ dv, const FaBwd f, int n4) {
+  constexpr int D4 = D / 4;
+  constexpr size_t TILE_F = (size_t)TB_ROWS * D;   // floats a slot
+  const int cnt = f.kv_nr * f.hsplit;
+  const size_t dv_off = (size_t)f.B * f.Hkv * f.nkt * cnt * TILE_F;
+  for (int e = blockIdx.x * blockDim.x + threadIdx.x; e < n4;
+       e += gridDim.x * blockDim.x) {
+    const int c = e % D4 * 4, row = e / D4;   // row: (b, position, kv head)
+    const int hk = row % f.Hkv, bp = row / f.Hkv;
+    const int p = bp % f.Skv, b = bp / f.Skv, j = p / TB_ROWS;
+    const float* src =
+        part + (((size_t)b * f.Hkv + hk) * f.nkt + j) * cnt * TILE_F +
+        (size_t)(p - j * TB_ROWS) * D + c;
+    float4 x = *reinterpret_cast<const float4*>(src);
+    float4 y = *reinterpret_cast<const float4*>(src + dv_off);
+    for (int s = 1; s < cnt; ++s) {
+      add4(x, src + s * TILE_F);
+      add4(y, src + dv_off + s * TILE_F);
     }
+    *reinterpret_cast<uint2*>(dk + 4 * (size_t)e) =
+        make_uint2(pack2(x.x * f.scale, x.y * f.scale),
+                   pack2(x.z * f.scale, x.w * f.scale));
+    *reinterpret_cast<uint2*>(dv + 4 * (size_t)e) =
+        make_uint2(pack2(y.x, y.y), pack2(y.z, y.w));
   }
 }
 
@@ -635,81 +992,198 @@ fa_bwd_dkdv_f32(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // ---- launches ---------------------------------------------------------------
+#define FB_DEVICES 64
+
+// the kernel's dynamic shared memory limit, set once a device (`done`:
+// the kernel's own flags)
 template <typename K>
-static int set_smem(K kernel, size_t bytes) {
-  return (int)cudaFuncSetAttribute(
+static int set_smem(K kernel, size_t bytes, bool (&done)[FB_DEVICES]) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev < FB_DEVICES && done[dev]) return 0;
+  err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err == cudaSuccess && dev < FB_DEVICES) done[dev] = true;
+  return (int)err;
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// libcuda's tensor-map encoder, fetched once through the runtime (the
+// library does not link libcuda)
+static EncodeTiled encoder() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    return cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                   cudaEnableDefault, &found) == cudaSuccess &&
+                   found == cudaDriverEntryPointSuccess
+               ? (EncodeTiled)p
+               : nullptr;
+  }();
+  return fn;
+}
+
+// tma_tile's map of a (B, S, H, D) bf16 tensor: 64 x 64 boxes, 128-byte
+// swizzle, zeros past S
+static int tile_map(CUtensorMap* m, const void* base, int B, int S, int H,
+                    int D) {
+  const EncodeTiled enc = encoder();
+  if (enc == nullptr) return (int)cudaErrorNotSupported;
+  // the encoder needs the device's context current on this thread
+  // (autograd runs the backward on a thread of its own)
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaSetDevice(dev);
+  if (err != cudaSuccess) return (int)err;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)S,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)H * D * 2,
+                                 (cuuint64_t)S * H * D * 2};
+  const cuuint32_t box[4] = {64, 1, TB_ROWS, 1}, unit[4] = {1, 1, 1, 1};
+  return enc(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
+             dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS
+             ? 0
+             : (int)cudaErrorInvalidValue;
+}
+
+// The plan's counts (FaBwd) and the fp32 scratch of the dK/dV partials
+// (floats): where a kv tile has more than one block, 2 x B x Hkv x nkt x
+// kv_nr x hsplit x 64 x Dh.  q_run: the plan's run length.  Returns 0,
+// or an error where the plan does not fit the shapes.
+static int fa_setup(FaBwd& f, int Dh, int q_run, long* floats) {
+  f.G = f.Hq / f.Hkv;
+  f.nqt = (f.Sq + TB_ROWS - 1) / TB_ROWS;
+  f.nkt = (f.Skv + TB_ROWS - 1) / TB_ROWS;
+  const long ntile = ((long)f.Sq * f.G + TB_ROWS - 1) / TB_ROWS;
+  if (f.hsplit < 1 || f.hsplit > TB_HEAD_SPLITS || f.G % f.hsplit != 0 ||
+      q_run < 1)
+    return (int)cudaErrorInvalidValue;
+  f.kv_nr = f.nqt > q_run ? (f.nqt + q_run - 1) / q_run : 1;  // kv tile 0's
+  const long nbh = (long)f.B * f.Hkv, slots = (long)f.nkt * f.kv_nr * f.hsplit;
+  if (slots * nbh > INT_MAX || ntile * nbh > INT_MAX)
+    return (int)cudaErrorInvalidValue;
+  f.ntile = (int)ntile;
+  *floats = slots > f.nkt ? 2 * nbh * slots * TB_ROWS * Dh : 0;
+  return 0;
+}
+
+template <int D>
+static int launch_tc(const void* q, const void* k, const void* v,
+                     const void* o, const float* lse, const void* dO,
+                     void* dq, void* dk, void* dv, float* delta, float* part,
+                     long part_floats, FaBwd f, int q_run,
+                     cudaStream_t st) {
+  static bool set_dq[FB_DEVICES], set_dkdv[FB_DEVICES];
+  long floats = 0;
+  int err = fa_setup(f, D, q_run, &floats);
+  if (err != 0) return err;
+  const long n4 = floats ? (long)f.B * f.Skv * f.Hkv * (D / 4) : 0;
+  if (floats > part_floats || n4 > INT_MAX ||
+      (part == nullptr && floats > 0))
+    return (int)cudaErrorInvalidValue;
+  if ((err = set_smem(fa_bwd_dq_tc<D>, dq_tc_smem<D>(), set_dq)) != 0)
+    return err;
+  if ((err = set_smem(fa_bwd_dkdv_tc<D>, dkdv_tc_smem<D>(), set_dkdv)) != 0)
+    return err;
+  CUtensorMap tm_q, tm_do, tm_k, tm_v;
+  if ((err = tile_map(&tm_q, q, f.B, f.Sq, f.Hq, D)) != 0 ||
+      (err = tile_map(&tm_do, dO, f.B, f.Sq, f.Hq, D)) != 0 ||
+      (err = tile_map(&tm_k, k, f.B, f.Skv, f.Hkv, D)) != 0 ||
+      (err = tile_map(&tm_v, v, f.B, f.Skv, f.Hkv, D)) != 0)
+    return err;
+  const unsigned nbh = (unsigned)(f.B * f.Hkv);
+  fa_bwd_dq_tc<D><<<f.ntile * nbh, TcShape<D>::THREADS, dq_tc_smem<D>(),
+                    st>>>((const bf16*)q, (const bf16*)o, lse,
+                          (const bf16*)dO, (bf16*)dq, delta, f, tm_k, tm_v);
+  if ((err = (int)cudaGetLastError()) != 0) return err;
+  fa_bwd_dkdv_tc<D><<<f.nkt * f.kv_nr * f.hsplit * nbh, TcShape<D>::THREADS,
+                      dkdv_tc_smem<D>(), st>>>(lse, delta, (bf16*)dk,
+                                               (bf16*)dv, part, f, tm_q,
+                                               tm_do, tm_k, tm_v);
+  if ((err = (int)cudaGetLastError()) != 0 || n4 == 0) return err;
+  const long blocks = (n4 + 255) / 256;
+  fa_bwd_sum<D><<<(unsigned)(blocks < 132 * 16 ? blocks : 132 * 16), 256, 0,
+                  st>>>(part, (bf16*)dk, (bf16*)dv, f, (int)n4);
+  return (int)cudaGetLastError();
 }
 
 template <int D>
 static int launch_dh(int bf16_in, const void* q, const void* k,
                      const void* v, const void* o, const float* lse,
                      const void* dO, void* dq, void* dk, void* dv,
-                     float* delta, int B, int Sq, int Skv, int Hq, int Hkv,
-                     int causal, int window, int prefix_len, float scale,
-                     cudaStream_t st) {
+                     float* delta, float* part, long part_floats,
+                     const FaBwd& f, int q_run, cudaStream_t st) {
+  if (bf16_in)
+    return launch_tc<D>(q, k, v, o, lse, dO, dq, dk, dv, delta, part,
+                        part_floats, f, q_run, st);
+  static bool set_dq[FB_DEVICES], set_dkdv[FB_DEVICES];
   int err;
-  if (bf16_in) {
-    constexpr int TH = TcShape<D>::THREADS;
-    if ((err = set_smem(fa_bwd_dq_tc<D>, dq_tc_smem<D>())) != 0) return err;
-    if ((err = set_smem(fa_bwd_dkdv_tc<D>, dkdv_tc_smem<D>())) != 0)
-      return err;
-    fa_bwd_dq_tc<D><<<dim3((Sq + TB_Q - 1) / TB_Q, Hq, B), TH,
-                      dq_tc_smem<D>(), st>>>(
-        (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)o, lse,
-        (const bf16*)dO, (bf16*)dq, delta, Sq, Skv, Hq, Hkv, causal, window,
-        prefix_len, scale);
-    if ((err = (int)cudaGetLastError()) != 0) return err;
-    fa_bwd_dkdv_tc<D><<<dim3((Skv + TB_K - 1) / TB_K, Hkv, B), TH,
-                        dkdv_tc_smem<D>(), st>>>(
-        (const bf16*)q, (const bf16*)k, (const bf16*)v, lse, delta,
-        (const bf16*)dO, (bf16*)dk, (bf16*)dv, Sq, Skv, Hq, Hkv, causal,
-        window, prefix_len, scale);
-    return (int)cudaGetLastError();
-  }
-  if ((err = set_smem(fa_bwd_dq_f32<D>, f32_smem<D>())) != 0) return err;
-  if ((err = set_smem(fa_bwd_dkdv_f32<D>, f32_smem<D>())) != 0) return err;
-  fa_bwd_dq_f32<D><<<dim3((Sq + FB_T - 1) / FB_T, Hq, B), FB_THREADS,
+  if ((err = set_smem(fa_bwd_dq_f32<D>, f32_smem<D>(), set_dq)) != 0)
+    return err;
+  if ((err = set_smem(fa_bwd_dkdv_f32<D>, f32_smem<D>(), set_dkdv)) != 0)
+    return err;
+  fa_bwd_dq_f32<D><<<dim3((f.Sq + FB_T - 1) / FB_T, f.Hq, f.B), FB_THREADS,
                      f32_smem<D>(), st>>>(
       (const float*)q, (const float*)k, (const float*)v, (const float*)o, lse,
-      (const float*)dO, (float*)dq, delta, Sq, Skv, Hq, Hkv, causal, window,
-      prefix_len, scale);
+      (const float*)dO, (float*)dq, delta, f.Sq, f.Skv, f.Hq, f.Hkv,
+      f.causal, f.window, f.prefix_len, f.scale);
   if ((err = (int)cudaGetLastError()) != 0) return err;
-  fa_bwd_dkdv_f32<D><<<dim3((Skv + FB_T - 1) / FB_T, Hkv, B), FB_THREADS,
-                       f32_smem<D>(), st>>>(
+  fa_bwd_dkdv_f32<D><<<dim3((f.Skv + FB_T - 1) / FB_T, f.Hkv, f.B),
+                       FB_THREADS, f32_smem<D>(), st>>>(
       (const float*)q, (const float*)k, (const float*)v, lse, delta,
-      (const float*)dO, (float*)dk, (float*)dv, Sq, Skv, Hq, Hkv, causal,
-      window, prefix_len, scale);
+      (const float*)dO, (float*)dk, (float*)dv, f.Sq, f.Skv, f.Hq, f.Hkv,
+      f.causal, f.window, f.prefix_len, f.scale);
   return (int)cudaGetLastError();
 }
 
 // bf16: 1 if q, k, v, o, dO and the gradients are bf16 (the tensor-core
 // kernels), 0 if fp32 (the CUDA-core kernels); Dh one of 64, 128, 256; lse
-// and delta (B, Hq, Sq) fp32
+// and delta (B, Hq, Sq) fp32.  bf16 only: hsplit and q_run, the plan
+// (kernels/flash_attention.py::bwd_plan), and part, an fp32 scratch of
+// part_floats (at least what fa_setup counts; null where that is 0)
 extern "C" int flash_attention_bwd_launch(
     const void* q, const void* k, const void* v, const void* o,
     const void* lse, const void* dO, void* dq, void* dk, void* dv,
-    void* delta, int B, int Sq, int Skv, int Hq, int Hkv, int Dh, int bf16,
-    int causal, int window, int prefix_len, float scale, void* stream) {
+    void* delta, void* part, long long part_floats, int B, int Sq, int Skv,
+    int Hq, int Hkv, int Dh, int bf16, int causal, int window, int prefix_len,
+    int hsplit, int q_run, float scale, void* stream) {
   if (B < 1 || B > 65535 || Sq < 1 || Skv < 1 || Hq < 1 || Hq > 65535 ||
       Hkv < 1 || Hq % Hkv != 0 || window < 0 || prefix_len < 0)
     return (int)cudaErrorInvalidValue;
+  FaBwd f = {};
+  f.B = B;
+  f.Sq = Sq;
+  f.Skv = Skv;
+  f.Hq = Hq;
+  f.Hkv = Hkv;
+  f.causal = causal;
+  f.window = window;
+  f.prefix_len = prefix_len;
+  f.hsplit = hsplit;
+  f.scale = scale;
   cudaStream_t st = (cudaStream_t)stream;
   const float* l = (const float*)lse;
   float* dl = (float*)delta;
+  float* pt = (float*)part;
   switch (Dh) {
     case 64:
-      return launch_dh<64>(bf16, q, k, v, o, l, dO, dq, dk, dv, dl, B, Sq,
-                           Skv, Hq, Hkv, causal, window, prefix_len, scale,
-                           st);
+      return launch_dh<64>(bf16, q, k, v, o, l, dO, dq, dk, dv, dl, pt,
+                           (long)part_floats, f, q_run, st);
     case 128:
-      return launch_dh<128>(bf16, q, k, v, o, l, dO, dq, dk, dv, dl, B, Sq,
-                            Skv, Hq, Hkv, causal, window, prefix_len, scale,
-                            st);
+      return launch_dh<128>(bf16, q, k, v, o, l, dO, dq, dk, dv, dl, pt,
+                            (long)part_floats, f, q_run, st);
     case 256:
-      return launch_dh<256>(bf16, q, k, v, o, l, dO, dq, dk, dv, dl, B, Sq,
-                            Skv, Hq, Hkv, causal, window, prefix_len, scale,
-                            st);
+      return launch_dh<256>(bf16, q, k, v, o, l, dO, dq, dk, dv, dl, pt,
+                            (long)part_floats, f, q_run, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

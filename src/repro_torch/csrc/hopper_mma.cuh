@@ -2,8 +2,8 @@
 // (flash_attention.cu's bf16 path, probe_phases.cuh's conv2 and fc1,
 // flash_attention_bwd.cu's bf16 path): cp.async into 128-byte-swizzled
 // shared-memory tiles, wgmma matrix descriptors, the warpgroup-level
-// wgmma instructions the kernels issue, the warp-level bf16 mma.sync, and
-// the TF32 split of an fp32 value.
+// wgmma instructions the kernels issue, and the TF32 split of an fp32
+// value.
 //
 // Tile layout.  Every operand tile that wgmma reads from shared memory
 // is a stack of 128-byte rows, 1024-byte aligned, with the 16-byte chunk
@@ -12,7 +12,8 @@
 // keeps K along the row (64 bf16 or 32 fp32 values); the descriptor of
 // a k-step starts 32 bytes further along the row per step, and 8-row
 // groups are 1024 bytes apart (SBO).  An MN-major tile (flash
-// attention's V) keeps N along the row and K down the rows; its k16
+// attention's V; in its backward K, Q and dO) keeps N along the row and
+// K down the rows; its k16
 // step starts 16 rows (2048 bytes) further, its two 8-row K groups are
 // 1024 bytes apart.  Every MN-major product here is 64 wide in N (one
 // swizzle atom), so only the K-group stride matters; both offset fields
@@ -85,12 +86,15 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 // for each 8-column chunk j, d[4 j + e] at row 16 w + l / 4 + 8 (e / 2)
 // and column 8 j + 2 (l % 4) + (e % 2).
 #define HM_F4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
+#define HM_F16 HM_F4(0), HM_F4(4), HM_F4(8), HM_F4(12)
 #define HM_F32                                                            \
   HM_F4(0), HM_F4(4), HM_F4(8), HM_F4(12), HM_F4(16), HM_F4(20),        \
       HM_F4(24), HM_F4(28)
 #define HM_F64                                                            \
   HM_F32, HM_F4(32), HM_F4(36), HM_F4(40), HM_F4(44), HM_F4(48),        \
       HM_F4(52), HM_F4(56), HM_F4(60)
+#define HM_D16                                                       \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
 #define HM_D32                                                       \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, "         \
   "%13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, "     \
@@ -102,6 +106,19 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
   "%37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, "     \
   "%49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, "     \
   "%61, %62, %63}"
+
+// d (+)= A B, bf16, A (64 x 16, K-major) and B (32 x 16, K-major) from
+// shared memory; accumulate = 0 overwrites d
+__device__ __forceinline__ void wgmma_bf16_ss_n32(float (&d)[16],
+                                                  uint64_t da, uint64_t db,
+                                                  int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 " HM_D16
+      ", %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : HM_F16
+      : "l"(da), "l"(db), "r"(accumulate));
+}
 
 // d (+)= A B, bf16, A (64 x 16, K-major) and B (64 x 16, K-major) from
 // shared memory; accumulate = 0 overwrites d
@@ -128,6 +145,19 @@ __device__ __forceinline__ void wgmma_bf16_rs_n64_tb(float (&d)[32],
       ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
       : HM_F32
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d += A B, bf16, A (64 x 16, K-major) and B (16 x 64, MN-major) from
+// shared memory
+__device__ __forceinline__ void wgmma_bf16_ss_n64_tb(float (&d)[32],
+                                                     uint64_t da,
+                                                     uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " HM_D32
+      ", %32, %33, p, 1, 1, 0, 1;\n}\n"
+      : HM_F32
+      : "l"(da), "l"(db), "r"(1));
 }
 
 // d (+)= A B, tf32, A (64 x 8) from registers (a[0..3]: (row l/4, col
@@ -159,24 +189,6 @@ __device__ __forceinline__ void wgmma_tf32_rs_n128(float (&d)[64],
       : HM_F64
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
         "r"(accumulate));
-}
-
-// d += A B, bf16 in, fp32 accumulators, one warp (mma.sync m16n8k16).  With
-// g = lane / 4 and t = lane % 4, each register holding two bf16 (the lower
-// column or row in the low half): a[0..3] = A (16 x 16, row-major) at (row
-// g, cols 2t, 2t + 1), (g + 8, 2t ..), (g, 2t + 8 ..), (g + 8, 2t + 8 ..);
-// b[0..1] = B (16 x 8) at (rows 2t, 2t + 1, col g), (rows 2t + 8, 2t + 9,
-// col g); d[0..3] = D (16 x 8) at (g, 2t), (g, 2t + 1), (g + 8, 2t),
-// (g + 8, 2t + 1).  The accumulators of two neighbouring n8 tiles are, so
-// packed to bf16 pairs, the A fragment of a k16 step over their columns.
-__device__ __forceinline__ void mma_bf16_16816(float (&d)[4],
-                                               const uint32_t (&a)[4],
-                                               const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
 // fp32 -> TF32 (10 mantissa bits), round to nearest even, as bits

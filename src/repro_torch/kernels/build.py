@@ -11,7 +11,8 @@ compiled at import time.
 ``LAUNCHES`` counts the kernel launches of each wrapper: a wrapper adds
 one where it launches its kernel and nowhere else (one per call, also
 where a call runs more than one CUDA kernel, as ``wkv6`` past one time
-chunk and ``flash_attention_bwd`` (its dQ and its dK/dV kernel) do, and
+chunk and ``flash_attention_bwd`` (its dQ kernel, its dK/dV kernel and,
+where the plan splits a kv tile, the sum of its partials) do, and
 where one call takes several seeds, as the sweep's
 seed-batched ``probe_fuzzy`` and ``neighbor_elect`` do), so a run can
 show that its main path went through the kernels.
@@ -38,7 +39,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-lineinfo")
 
 # C signatures: argument kinds in order (p = pointer/stream, i = int,
-# f = float); every function returns a cudaError_t as int
+# l = 64-bit int, f = float); every function returns a cudaError_t as int
 _SIGNATURES = {
     "probe_fuzzy": {"probe_fuzzy_launch": "ipppipppippppppppppppippppppppp"},
     "fuzzy_eval": {"fuzzy_eval_launch": "piiipppp",
@@ -48,12 +49,13 @@ _SIGNATURES = {
     "wkv6": {"wkv6_launch": "ppppppiiiiipppp"},
     "flash_attention": {"flash_attention_launch": "pppppiiiiiiiiiifp"},
     "flash_attention_bwd": {
-        "flash_attention_bwd_launch": "ppppppppppiiiiiiiiiifp"},
+        "flash_attention_bwd_launch": "pppppppppppliiiiiiiiiiiifp"},
     "selective_scan": {"selective_scan_launch": "ppppppiiiiippp"},
     "probe_loss": {"probe_loss_launch": "ipppipipppppppppppppppp"},
     "cohort_gemm": {"cohort_gemm_launch": "pp"},
 }
-_CTYPE = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
+_CTYPE = {"p": ctypes.c_void_p, "i": ctypes.c_int, "l": ctypes.c_longlong,
+          "f": ctypes.c_float}
 
 LAUNCHES: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 _LIBS: Dict[str, ctypes.CDLL] = {}

@@ -12,8 +12,16 @@ and 32 rows).  All in fp32: within 1e-5 of each gradient's largest
 magnitude (sums in other orders; the explicit formulas against
 autodiff's).  The kernels themselves are held against these versions
 on the card (``tests/test_torch_gpu.py``, ``chip_smoke.py``).
+
+The bf16 kernels' split of the dK/dV work (``bwd_plan`` in
+``kernels/flash_attention.py``): its block counts at the training
+shapes, and the decomposition the kernels rely on, each block's fp32
+partial of dK and dV (a kv tile, a run of q tiles, a share of the
+group's q heads) added in the plan's order, against the explicit
+formulas within 1e-6 of scale.
 """
 import functools
+import math
 
 import jax
 import jax.numpy as jnp
@@ -22,6 +30,7 @@ import pytest
 import torch
 
 from repro.models.attention import flash_attention as ref_flash_attention
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops, ref
 from torch_threads import torch_intra_op_threads  # noqa: F401
 
@@ -152,3 +161,129 @@ def test_no_grad_call_is_the_forward_alone():
     assert out.grad_fn is None
     assert torch.equal(out, ref.flash_attention_ref(*map(torch.tensor,
                                                          (q, k, v))))
+
+
+# (B, Sq, Skv, Hq, Hkv, Dh): the training shapes of chip_smoke.py
+# (gemma-2b at B=2 and its microbatch of 1, minicpm-2b), a group of 3 and
+# a group past BWD_HEAD_SPLITS
+PLAN_SHAPES = {
+    "gemma-2b": (2, 1024, 1024, 8, 1, 256),
+    "gemma-2b-microbatch": (1, 1024, 1024, 8, 1, 256),
+    "minicpm-2b": (2, 1024, 1024, 36, 36, 64),
+    "group-of-3": (2, 1024, 1024, 12, 4, 128),
+    "group-of-16": (2, 512, 512, 16, 1, 64),
+}
+
+
+def test_bwd_plan_fills_the_card_at_gemma_microbatch():
+    """gemma-2b's microbatch (B=1, one kv head) gives the dK/dV kernel at
+    least 128 blocks (16 unsplit) and its partials a scratch; at B=2 it
+    has 256 blocks, as has the dQ kernel (a block a tile of 64 (position,
+    head) rows)."""
+    shape = PLAN_SHAPES["gemma-2b-microbatch"]
+    dq_blocks, kv_blocks, scratch = fa.bwd_sizes(fa.bwd_plan(*shape), *shape)
+    assert kv_blocks >= 128 and dq_blocks == 128 and scratch > 0
+    assert fa.bwd_sizes(fa.bwd_plan(*PLAN_SHAPES["gemma-2b"]),
+                        *PLAN_SHAPES["gemma-2b"])[:2] == (256, 256)
+
+
+@pytest.mark.parametrize("name", sorted(PLAN_SHAPES))
+def test_bwd_plan_splits_divide_the_group_and_runs_cover_the_tiles(name):
+    """The head splits divide the group (at most BWD_HEAD_SPLITS); every
+    kv tile's q-tile runs cut [0, nqt) into ranges in order, as many a
+    tile as kv tile 0's, none of tile 0's empty; no split (minicpm-2b:
+    one kv head a q head) needs no scratch."""
+    b, sq, skv, hq, hkv, dh = PLAN_SHAPES[name]
+    plan = fa.bwd_plan(b, sq, skv, hq, hkv, dh)
+    splits, q_run = plan
+    assert (hq // hkv) % splits == 0 and splits <= fa.BWD_HEAD_SPLITS
+    assert q_run >= 1
+    runs = fa.bwd_runs(plan, sq, skv)
+    nqt = -(-sq // fa.BWD_TILE)
+    assert len(runs) == -(-skv // fa.BWD_TILE)
+    assert len({len(c) for c in runs}) == 1
+    for cuts in runs:
+        assert cuts[0] == 0 and cuts[-1] == nqt
+        assert all(a <= c for a, c in zip(cuts, cuts[1:]))
+    assert all(a < c for a, c in zip(runs[0], runs[0][1:]))
+    if name == "minicpm-2b":
+        assert plan == (1, nqt)
+        assert fa.bwd_sizes(plan, *PLAN_SHAPES[name])[2] == 0
+
+
+def test_bwd_plan_depends_on_shapes_alone():
+    """The plan is a function of the six shape integers: recomputed from
+    scratch it is the same, and it has no other input (no mask, no
+    values), so every sum's order, and so the kernels' bits, are fixed
+    by the shapes."""
+    import inspect
+    assert list(inspect.signature(fa.bwd_plan).parameters) == [
+        "b", "sq", "skv", "hq", "hkv", "dh"]
+    first = {n: fa.bwd_plan(*s) for n, s in PLAN_SHAPES.items()}
+    fa.bwd_plan.cache_clear()
+    assert {n: fa.bwd_plan(*s) for n, s in PLAN_SHAPES.items()} == first
+    assert all(isinstance(x, int) for p in first.values() for x in p)
+
+
+# (B, Sq, Skv, Hq, Hkv, Dh, causal, window, prefix_len): shapes whose
+# plan splits the dK/dV work (heads and q runs), small enough for the CPU
+SPLIT_CASES = {
+    "mqa-causal": (1, 300, 300, 8, 1, 64, True, 0, 0),
+    "group-of-3-window": (2, 200, 200, 12, 4, 64, True, 40, 0),
+    "group-of-16-prefix": (1, 130, 100, 16, 1, 64, True, 0, 70),
+    "mqa-unmasked": (1, 96, 160, 8, 1, 64, False, 0, 0),
+}
+
+
+def _split_partials(case, seed=3):
+    """The explicit formulas' dk, dv (fp32) and the same gradients as the
+    kernels add them: each dK/dV block's fp32 partial, added in the
+    plan's slot order (runs, then head shares), then scaled (dk)."""
+    b, sq, skv, hq, hkv, dh, causal, window, prefix = case
+    g = hq // hkv
+    kw = dict(causal=causal, window=window, prefix_len=prefix)
+    rng = np.random.default_rng(seed)
+    q, k, v, do = (torch.tensor(rng.normal(size=sh).astype(np.float32))
+                   for sh in ((b, sq, hq, dh), (b, skv, hkv, dh),
+                              (b, skv, hkv, dh), (b, sq, hq, dh)))
+    o, lse = ref.flash_attention_lse_ref(q, k, v, **kw)
+    want = ref.flash_attention_bwd_ref(q, k, v, o, lse, do, **kw)[1:]
+    # P and dS as the plain version forms them: (B, Hkv, G, Sq, Skv)
+    s = ref._attention_scores(q, k, **kw)
+    p = torch.exp(s - lse.reshape(b, hkv, g, sq)[..., None])
+    dof = do.reshape(b, sq, hkv, g, dh)
+    qf = q.reshape(b, sq, hkv, g, dh)
+    dlt = (dof * o.reshape(b, sq, hkv, g, dh)).sum(-1).permute(0, 2, 3, 1)
+    ds = p * (torch.einsum("bqhgd,bkhd->bhgqk", dof, v) - dlt[..., None])
+
+    plan = fa.bwd_plan(b, sq, skv, hq, hkv, dh)
+    splits, t = plan[0], fa.BWD_TILE
+    dk, dv = torch.zeros_like(k), torch.zeros_like(v)
+    for j, cuts in enumerate(fa.bwd_runs(plan, sq, skv)):
+        ks = slice(j * t, (j + 1) * t)
+        acc_k = torch.zeros_like(k[:, ks])
+        acc_v = torch.zeros_like(v[:, ks])
+        for r in range(len(cuts) - 1):
+            qs = slice(cuts[r] * t, cuts[r + 1] * t)
+            for sh in range(splits):
+                gs = slice(sh * g // splits, (sh + 1) * g // splits)
+                acc_k += torch.einsum("bhgqk,bqhgd->bkhd",
+                                      ds[:, :, gs, qs, ks], qf[:, qs, :, gs])
+                acc_v += torch.einsum("bhgqk,bqhgd->bkhd",
+                                      p[:, :, gs, qs, ks], dof[:, qs, :, gs])
+        dk[:, ks], dv[:, ks] = acc_k / math.sqrt(dh), acc_v
+    return plan, (dk, dv), want
+
+
+@pytest.mark.parametrize("name", sorted(SPLIT_CASES))
+def test_partials_added_in_the_plan_order_give_the_gradients(name):
+    """Each dK/dV block's fp32 partial (a kv tile, a q-tile run, a share
+    of the group's q heads), added in the plan's order and scaled once,
+    equals the explicit formulas' dk and dv within 1e-6 of each one's
+    largest magnitude: the split is exact but for fp32's order of
+    summation."""
+    plan, got, want = _split_partials(SPLIT_CASES[name])
+    runs = fa.bwd_runs(plan, *SPLIT_CASES[name][1:3])
+    assert plan[0] > 1 and len(runs[0]) > 2          # heads and q runs
+    for gname, x, w in zip(("dk", "dv"), got, want):
+        assert _err(x, w.detach().numpy()) <= 1e-6, gname

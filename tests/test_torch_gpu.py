@@ -643,7 +643,10 @@ def test_flash_attention_lse_matches_plain_and_keeps_the_output(
 # Skv, Hq, Hkv, Dh, causal, window, prefix_len)
 FLASH_BWD_CASES = [
     (2, 1024, 1024, 8, 1, 256, True, 0, 0),      # gemma-2b training
+    (1, 1024, 1024, 8, 1, 256, True, 0, 0),      # its microbatch of 1
     (2, 1024, 1024, 36, 36, 64, True, 0, 0),     # minicpm-2b training
+    (2, 1024, 1024, 12, 4, 128, True, 0, 0),     # groups of 3
+    (2, 512, 512, 16, 1, 64, True, 0, 0),        # a group past 8 splits
     (2, 1024, 1024, 32, 8, 128, True, 0, 0),     # Dh 128, groups of 4
     (2, 1024, 1024, 8, 1, 256, True, 256, 0),    # sliding window
     (2, 320, 320, 8, 1, 256, True, 0, 256),      # paligemma's prefix-LM
