@@ -8,7 +8,7 @@
 Phases (any failure exits non-zero; no phase's exception is caught):
 
 1. the card: name, device count, ``nvidia-smi`` name and power limit;
-2. build all ten CUDA kernels from ``src/repro_torch/csrc`` (one
+2. build all twelve CUDA kernels from ``src/repro_torch/csrc`` (one
    ``nvcc`` per source, all started together) and print ptxas' register
    / shared-memory report; build the two simulations of the paths (the
    fast profile, 30 vehicles; the large fleet, 4096 vehicles at 1 per
@@ -92,15 +92,34 @@ Phases (any failure exits non-zero; no phase's exception is caught):
    retained forward), with its bound (10 Dh operations per
    kept pair and q head at the bf16 peak, or the bytes of q, k, v, o,
    dO and lse read and dq, dk, dv written) and the design's own count;
-   one train step of gemma-2b with 2 layers at full width (B=2, S=128,
-   2 microbatches) on the card against the CPU (loss, ce, grad_norm and
-   every parameter's update within 2^-5; 8 ``flash_attention`` and 4
-   ``flash_attention_bwd`` launches); then ``python -m
-   repro_torch.launch.train --arch gemma-2b --steps 4 --batch 2 --seq
-   1024 --grad-accum 2`` at full width and depth in a child process: a
-   finite loss every step, 72 ``flash_attention`` and 36
-   ``flash_attention_bwd`` launches a step and no other kernel, each
-   step's seconds and the peak device memory printed;
+   then the recurrences' backwards, ``wkv6_bwd`` and
+   ``selective_scan_bwd``, against their plain versions (explicit
+   reverse sweeps in fp32) on the forward kernels' saved states:
+   ``wkv6_bwd`` at rwkv6-3b's training microbatch (B=1, T=1024, H=40),
+   at B=2 and at T = 64, 65 and 129, decays of exactly 0, 1e-31 and 1 -
+   2^-24 and a nonzero s0; ``selective_scan_bwd`` at jamba's training
+   microbatch (B=1, T=1024, Di=8192, N=16), at an odd Di and T with N=7,
+   at N=32 and at Di=8200 with exp(dt a) underflowing; each in fp32
+   within 1e-5 and bf16 within 2^-7 of each gradient's largest
+   magnitude, the final state's cotangent given and None,
+   bit-repeatable; both timed in bf16 at the microbatch beside their
+   plain versions, autograd through the plain forwards, the bound and
+   the design's own count (no library call computes either); one train
+   step of gemma-2b, rwkv6-3b, jamba-v0.1-52b (mamba + MoE, then
+   attention + MLP, 4 experts of full width; fp32, ROADMAP C3) and
+   whisper-medium (2 + 2 layers over 1500 frames) with 2 layers at full
+   width (B=2, S=128, 2 microbatches) on the card against the CPU (loss,
+   ce, grad_norm and every parameter's update within 2^-5), each with
+   its launches (the forward kernels twice a layer a microbatch, the
+   backwards once); then ``python -m repro_torch.launch.train --steps 4
+   --batch 2 --grad-accum 2`` at full width and depth in a child process
+   for gemma-2b (``--seq 1024``: 72 ``flash_attention`` and 36
+   ``flash_attention_bwd`` launches a step), rwkv6-3b (``--seq 1024``:
+   128 ``wkv6`` and 64 ``wkv6_bwd``) and whisper-medium (``--seq 448``,
+   its decoder's context: 288 ``flash_attention`` and 144
+   ``flash_attention_bwd``): a finite loss every step, those launches a
+   step and no other kernel, each step's seconds and the peak device
+   memory printed;
 5c. the hybrid family, after the gemma-2b weights are freed:
    ``selective_scan`` against its plain version (fp32 and bf16 inputs,
    y and hT to 1e-5 of their largest magnitude, bit-repeatable) at
@@ -304,9 +323,13 @@ Phases (any failure exits non-zero; no phase's exception is caught):
    launches, its bf16 error and times, bound and library time),
    ``flash_attention_bwd``'s (the training path's launches, gemma-2b's
    training shape; ``computes``: the vjp it replaces, its device time,
-   and minicpm-2b's shape in ``paths``); the line's ``kernels`` are the
-   eight that port a Pallas kernel and the backward of
-   ``flash_attention``, and its
+   and minicpm-2b's shape in ``paths``), ``wkv6_bwd``'s and
+   ``selective_scan_bwd``'s (the rwkv6-3b path's launches and the jamba
+   check's, the microbatch's shape, ``computes``, device time, autograd
+   through the plain forward, the design's own bound); the line's
+   ``kernels`` are the eight that port a Pallas kernel and the
+   backwards of ``flash_attention``, ``wkv6`` and ``selective_scan``,
+   and its
    ``other_kernels`` hold ``cohort_gemm`` (the local-SGD products, which
    the reference leaves to XLA: its headline conv2's input gradient in
    the cohort of 4, device time beside ``torch.matmul``, with the same
@@ -315,6 +338,9 @@ Phases (any failure exits non-zero; no phase's exception is caught):
    the library call's, the plain version's and both bounds);
 7. ``{"ok": true, "device": {...}}`` as the last line.
 
+``--train-readings`` profiles one warm train step of each full-width
+training path (no result line): its wall seconds, the card's kernel
+time by kind and the kernels that take the most.
 ``--c12-readings`` takes two one-off readings instead (no result line):
 ``[c12]`` through the plain products (cuBLAS), and the trained rounds'
 wall time (fast and paper profile), which uses only entry points older
@@ -1170,12 +1196,57 @@ FLASH_BWD_CASES = [
 # runs only where bwd_plan splits a kv tile's work
 FLASH_BWD_PHASES = (("dq", ("fa_bwd_dq_tc",)), ("dkdv", ("fa_bwd_dkdv_tc",)),
                     ("sum", ("fa_bwd_sum",)))
-# the training path: gemma-2b at full width and depth through
-# ``python -m repro_torch.launch.train``; its 2-layer check on the card
-# against the CPU (B = 2, S = 128, 2 microbatches)
-TRAIN_ARGV = ["--arch", "gemma-2b", "--steps", "4", "--batch", "2",
-              "--seq", "1024", "--grad-accum", "2"]
+# the training paths at full width and depth through ``python -m
+# repro_torch.launch.train``, 4 steps of 2 rows in 2 microbatches:
+# gemma-2b and rwkv6-3b at 1024 tokens, whisper-medium at its decoder's
+# published context of 448 (over its 1500 encoder frames); arch ->
+# (argv, layers, d_model, launches a step: each layer's forward twice a
+# microbatch under the recompute, its backward once; whisper's 72
+# attention calls a forward: 24 encoder, 24 decoder self- and 24
+# cross-attention layers)
+TRAIN_STEPS = 4
+TRAIN_PATHS = {
+    "gemma-2b": (["--seq", "1024"], 18, 2048,
+                 {"flash_attention": 72, "flash_attention_bwd": 36}),
+    "rwkv6-3b": (["--seq", "1024"], 32, 2560,
+                 {"wkv6": 128, "wkv6_bwd": 64}),
+    "whisper-medium": (["--seq", "448"], 24, 1024,
+                       {"flash_attention": 288, "flash_attention_bwd": 144}),
+}
+# their 2-layer checks on the card against the CPU (B = 2, S = 128, 2
+# microbatches): arch -> (config changes, fp32 compute, launches).
+# jamba's (mamba + MoE, then attention + MLP; 4 experts of full width, a
+# capacity that drops nothing) computes in fp32 on both sides: in bf16 a
+# router near-tie sends a token to other experts on one side (ROADMAP
+# C3), which no tolerance covers
 TRAIN_CHECK = dict(batch=2, seq=128, grad_accum=2)
+TRAIN_CHECKS = {
+    "gemma-2b": (dict(num_layers=2), False,
+                 {"flash_attention": 8, "flash_attention_bwd": 4}),
+    "rwkv6-3b": (dict(num_layers=2), False, {"wkv6": 8, "wkv6_bwd": 4}),
+    "jamba-v0.1-52b": (
+        dict(JAMBA_CHECK, capacity_factor=2.0), True,
+        {"selective_scan": 4, "selective_scan_bwd": 2, "flash_attention": 4,
+         "flash_attention_bwd": 2}),
+    "whisper-medium": (dict(num_layers=2, encoder_layers=2), False,
+                       {"flash_attention": 24, "flash_attention_bwd": 12}),
+}
+# the recurrences' backwards: wkv6 at (B, T, H), rwkv6-3b's training
+# microbatch (what a step launches), B = 2 and about the 64-step chunk;
+# the selective scan at (B, T, Di, N, underflow), jamba's training
+# microbatch, an odd Di and T with N = 7, N = 32, a Di past a block's 16
+# channels with exp(dt a) underflowing (dt 50 at every 5th step, a -100
+# at every 3rd channel)
+WKV_BWD_STEP = (1, 1024, 40)
+WKV_BWD_CASES = [WKV_BWD_STEP, (2, 1024, 40), (1, 64, 40), (1, 65, 40),
+                 (1, 129, 40)]
+SCAN_BWD_STEP = (1, 1024, 8192, 16, False)
+SCAN_BWD_CASES = [SCAN_BWD_STEP, (3, 77, 300, 7, False),
+                  (1, 1024, 8192, 32, False), (2, 130, 8200, 16, True)]
+WKV_BWD_PHASES = (("sweep", ("wkv6_bwd_kernel",)),
+                  ("sum", ("wkv6_bwd_sum_kernel",)))
+SCAN_BWD_PHASES = (("sweep", ("selective_scan_bwd_kernel",)),
+                   ("sum", ("selective_scan_bwd_sum_kernel",)))
 
 
 def flash_bwd_bound(case, elem_bytes: int, per_pair: int = 10):
@@ -1333,47 +1404,53 @@ def log_flash_bwd_phases(case, call, row) -> float:
     return total
 
 
-def train_check(dev) -> dict:
-    """gemma-2b with 2 layers at full width: one train step, 2
-    microbatches, the card against the port's CPU path from the same
-    fp32 parameters (drawn on the card from seed 0) and batch (bf16
-    compute on both).  The step is the clipped gradient itself (lr 1,
-    AdamW's eps 1, no decay: each element moves by g / (|g| + 1)), so
-    each parameter's update is held within MODEL_TOL of its largest
-    element (plus the two updated values' rounding, 2^-22 of the
-    parameter), the loss, ce and grad_norm within MODEL_TOL relative;
-    ``flash_attention`` launched 2 layers x 2 microbatches x 2 (the
-    recompute) and ``flash_attention_bwd`` 2 x 2 times on the card.
-    Returns the card's launches."""
+def train_check(dev, arch: str) -> dict:
+    """``arch`` with 2 layers at full width (TRAIN_CHECKS): one train
+    step, 2 microbatches, the card against the port's CPU path from the
+    same fp32 parameters (drawn on the card from seed 0) and batch (bf16
+    compute on both, or fp32 where TRAIN_CHECKS says).  The step is the
+    clipped gradient itself (lr 1, AdamW's eps 1, no decay: each element
+    moves by g / (|g| + 1)), so each parameter's update is held within
+    MODEL_TOL of its largest element (plus the two updated values'
+    rounding, 2^-22 of the parameter), the loss, ce and grad_norm within
+    MODEL_TOL relative; the card's launches must be TRAIN_CHECKS' (each
+    layer's forward twice a microbatch, the recompute, its backward
+    once), and no other kernel.  Returns the card's launches."""
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.kernels import build
-    from repro_torch.models import registry
+    from repro_torch.models import registry, transformer
     from repro_torch.train import optim
     from repro_torch.train.step import make_train_step
     t0 = time.perf_counter()
-    cfg = dataclasses.replace(get_arch("gemma-2b"), num_layers=2)
+    changes, fp32, want = TRAIN_CHECKS[arch]
+    cfg = dataclasses.replace(get_arch(arch), **changes)
     shape = ShapeConfig("check", TRAIN_CHECK["seq"], TRAIN_CHECK["batch"],
                         "train", grad_accum=TRAIN_CHECK["grad_accum"])
     opt = optim.OptConfig(lr=1.0, warmup_steps=1, total_steps=10, eps=1.0,
                           weight_decay=0.0)
     step = make_train_step(cfg, shape, opt)
-    p_dev = registry.init_params(torch.Generator(device=dev).manual_seed(0),
-                                 cfg)
-    p_cpu, before = tree_to(p_dev, "cpu"), tree_to(p_dev, "cpu")
-    batch = registry.make_concrete_batch(
-        cfg, shape, torch.Generator().manual_seed(1), "train")
-    build.reset_launches()
-    t_dev = time.perf_counter()
-    p_dev, _, m_dev = step(p_dev, optim.adamw_init(p_dev),
-                           tree_to(batch, dev))
-    torch.cuda.synchronize()
-    t_dev = time.perf_counter() - t_dev
-    launches = {k: v for k, v in build.LAUNCHES.items() if v}
-    t_cpu = time.perf_counter()
-    p_cpu, _, m_cpu = step(p_cpu, optim.adamw_init(p_cpu), batch)
-    t_cpu = time.perf_counter() - t_cpu
+    compute = transformer.COMPUTE_DTYPE
+    transformer.COMPUTE_DTYPE = torch.float32 if fp32 else compute
+    try:
+        p_dev = registry.init_params(
+            torch.Generator(device=dev).manual_seed(0), cfg)
+        p_cpu, before = tree_to(p_dev, "cpu"), tree_to(p_dev, "cpu")
+        batch = registry.make_concrete_batch(
+            cfg, shape, torch.Generator().manual_seed(1), "train")
+        build.reset_launches()
+        t_dev = time.perf_counter()
+        p_dev, _, m_dev = step(p_dev, optim.adamw_init(p_dev),
+                               tree_to(batch, dev))
+        torch.cuda.synchronize()
+        t_dev = time.perf_counter() - t_dev
+        launches = {k: v for k, v in build.LAUNCHES.items() if v}
+        t_cpu = time.perf_counter()
+        p_cpu, _, m_cpu = step(p_cpu, optim.adamw_init(p_cpu), batch)
+        t_cpu = time.perf_counter() - t_cpu
+    finally:
+        transformer.COMPUTE_DTYPE = compute
     rel = {k: abs(float(m_dev[k]) - float(m_cpu[k])) / abs(float(m_cpu[k]))
            for k in ("loss", "ce", "grad_norm")}
     worst, upd_err = "", 0.0
@@ -1386,11 +1463,12 @@ def train_check(dev) -> dict:
                     / max(scale, 1e-30))
         if err > upd_err:
             worst, upd_err = path, err
-    want = {"flash_attention": 2 * 2 * 2, "flash_attention_bwd": 2 * 2}
     ok = (max(rel.values()) <= MODEL_TOL and upd_err <= MODEL_TOL
           and launches == want
           and all(math.isfinite(float(m_dev[k])) for k in rel))
-    log(f"[check] train step gemma-2b 2 layers at full width, B="
+    log(f"[check] train step {arch} {cfg.num_layers} layers"
+        f"{f' (+ {cfg.encoder_layers} encoder layers)' if cfg.encoder_layers else ''}"
+        f" at full width ({'fp32' if fp32 else 'bf16'}), B="
         f"{shape.global_batch} S={shape.seq_len} ga={shape.grad_accum}, "
         f"cuda vs cpu: loss {float(m_dev['loss']):.6f} / "
         f"{float(m_cpu['loss']):.6f}, grad_norm "
@@ -1401,8 +1479,8 @@ def train_check(dev) -> dict:
         f"card {t_dev:.2f}s, cpu {t_cpu:.1f}s; "
         f"{time.perf_counter() - t0:.1f}s {'OK' if ok else 'FAIL'}")
     if not ok:
-        raise AssertionError("the train step on the card disagrees with "
-                             "the CPU")
+        raise AssertionError(f"the {arch} train step on the card disagrees "
+                             f"with the CPU")
     del p_dev, p_cpu, before
     return launches
 
@@ -1419,37 +1497,39 @@ def _leaf_paths(tree, path=""):
         yield path, tree
 
 
-def train_path(dev) -> dict:
-    """``python -m repro_torch.launch.train`` with TRAIN_ARGV in a child
-    process: gemma-2b at full width and depth (18 layers), 4 steps of 2
-    rows of 1024 tokens in 2 microbatches.  Its last line must show a
-    finite loss at every step and, per step, 72 ``flash_attention``
-    launches (18 layers x 2 microbatches x 2, the recompute) and 36
-    ``flash_attention_bwd`` launches, and no other kernel.  Prints each
-    step's seconds and the peak device memory; returns the stats."""
+def train_path(dev, arch: str) -> dict:
+    """``python -m repro_torch.launch.train --arch ARCH --steps 4 --batch
+    2 --grad-accum 2`` (TRAIN_PATHS' sequence) in a child process, at
+    full width and depth.  Its last line must show a finite loss at
+    every step and, per step, TRAIN_PATHS' launches and no other kernel.
+    Prints each step's seconds and the peak device memory; returns the
+    stats."""
     import torch
     t0 = time.perf_counter()
+    gc.collect()
     torch.cuda.empty_cache()
     held = torch.cuda.memory_allocated(dev)
+    extra, layers, width, per_step = TRAIN_PATHS[arch]
+    argv = ["--arch", arch, "--steps", str(TRAIN_STEPS), "--batch", "2",
+            "--grad-accum", "2", *extra]
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src") + os.pathsep
                + os.environ.get("PYTHONPATH", ""))
     res = subprocess.run([sys.executable, "-m", "repro_torch.launch.train",
-                          *TRAIN_ARGV], capture_output=True, text=True,
-                         env=env, cwd=ROOT, timeout=900)
+                          *argv], capture_output=True, text=True,
+                         env=env, cwd=ROOT, timeout=600)
     lines = res.stdout.strip().splitlines()
     for line in lines:
         log(f"[train path] {line}")
     if res.returncode != 0:
         log(res.stderr[-4000:])
-        raise AssertionError(f"train path: rc {res.returncode}")
+        raise AssertionError(f"train path {arch}: rc {res.returncode}")
     stats = json.loads(lines[-1])
-    steps = int(TRAIN_ARGV[TRAIN_ARGV.index("--steps") + 1])
-    want = {"flash_attention": 72 * steps, "flash_attention_bwd": 36 * steps}
-    ok = (stats["device"].startswith("cuda") and stats["layers"] == 18
-          and stats["d_model"] == 2048 and len(stats["loss"]) == steps
+    want = {k: v * TRAIN_STEPS for k, v in per_step.items()}
+    ok = (stats["device"].startswith("cuda") and stats["layers"] == layers
+          and stats["d_model"] == width and len(stats["loss"]) == TRAIN_STEPS
           and all(math.isfinite(x) for x in stats["loss"])
           and stats["launches"] == want)
-    log(f"[train path] gemma-2b 18 layers at full width, "
+    log(f"[train path] {arch} {layers} layers at full width, "
         f"{stats['params']} params, B={stats['batch']} S={stats['seq']} "
         f"ga={stats['grad_accum']}: step seconds "
         f"{[round(s, 4) for s in stats['step_s']]}, losses "
@@ -1459,8 +1539,207 @@ def train_path(dev) -> dict:
         f"(want {want}); {time.perf_counter() - t0:.1f}s with the start "
         f"and the weights' draw {'OK' if ok else 'FAIL'}")
     if not ok:
-        raise AssertionError(f"train path: stats {stats}")
+        raise AssertionError(f"train path {arch}: stats {stats}")
     return stats
+
+
+def wkv_bwd_args(case, dtype, dev, with_ds, seed=0, edge=True):
+    """``wkv_inputs`` at ``case`` (r, k, v in ``dtype``; edge decays),
+    the forward kernel's states, an fp32 cotangent dy and, ``with_ds``,
+    dsT."""
+    import torch
+    from repro_torch.kernels.wkv6 import wkv6_cuda
+    b, t, h = case
+    g = torch.Generator(device=dev).manual_seed(seed)
+    args = list(wkv_inputs(b, t, h, g, dev, edge=edge))
+    args[:3] = [z.to(dtype) for z in args[:3]]
+    _, _, states = wkv6_cuda(*args, keep_states=True)
+    dy = torch.randn(b, t, h, WKV_N, generator=g, device=dev)
+    ds = (torch.randn(b, h, WKV_N, WKV_N, generator=g, device=dev)
+          if with_ds else None)
+    return args, states, dy, ds
+
+
+def scan_bwd_args(case, dtype, dev, with_dh, seed=0):
+    """``scan_inputs`` at ``case`` (exp(dt a) underflowing where the case
+    says), the forward kernel's saved states, an fp32 cotangent dy and,
+    ``with_dh``, dhT."""
+    import torch
+    from repro_torch.kernels.selective_scan import selective_scan_cuda
+    b, t, di, n, underflow = case
+    args = scan_inputs((b, t, di, n), torch.float32, dev, seed=seed)
+    if underflow:
+        args[1][:, ::5] = 50.0
+        args[4][::3] = -100.0
+    args = [z.to(dtype) if i < 4 else z for i, z in enumerate(args)]
+    _, _, states = selective_scan_cuda(*args, keep_states=True)
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    dy = torch.randn(b, t, di, generator=g, device=dev)
+    dh = (torch.randn(b, di, n, generator=g, device=dev) if with_dh
+          else None)
+    return args, states, dy, dh
+
+
+def recurrence_bwd_checks(dev) -> dict:
+    """``wkv6_bwd`` and ``selective_scan_bwd`` against their plain
+    versions (explicit reverse sweeps in fp32) on the same operands and
+    the forward kernels' states, at every WKV_BWD_CASES and
+    SCAN_BWD_CASES case, in fp32 and in bf16 (r, k, v; x, dt, B, C), the
+    final state's cotangent given and not: fp32 within 1e-5 and bf16
+    within 2^-7 of each gradient's largest magnitude (each rounded
+    once), a second launch equal bit for bit.  Returns {name: max abs
+    error over the gradients in bf16 at the training microbatch}."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.selective_scan import selective_scan_bwd_cuda
+    from repro_torch.kernels.wkv6 import wkv6_bwd_cuda
+    runs = ([("wkv6_bwd", c) for c in WKV_BWD_CASES]
+            + [("selective_scan_bwd", c) for c in SCAN_BWD_CASES])
+    names = {"wkv6_bwd": ("dr", "dk", "dv", "dw", "du", "ds0"),
+             "selective_scan_bwd": ("dx", "ddt", "dB", "dC", "da", "dh0")}
+    out = {}
+    for name, case in runs:
+        for dtype, tol, with_ds in ((torch.float32, 1e-5, True),
+                                    (torch.float32, 1e-5, False),
+                                    (torch.bfloat16, 2 ** -7, True),
+                                    (torch.bfloat16, 2 ** -7, False)):
+            if name == "wkv6_bwd":
+                args, states, dy, ds = wkv_bwd_args(case, dtype, dev, with_ds,
+                                                    seed=sum(case))
+                kernel, plain = wkv6_bwd_cuda, ref.wkv6_bwd_ref
+                label = "B={} T={} H={}".format(*case)
+            else:
+                args, states, dy, ds = scan_bwd_args(case, dtype, dev,
+                                                     with_ds, seed=case[1])
+                kernel = selective_scan_bwd_cuda
+                plain = ref.selective_scan_bwd_ref
+                label = ("B={} T={} Di={} N={}".format(*case[:4])
+                         + (" underflowing" if case[4] else ""))
+            got = kernel(*args, states, dy, ds)
+            again = kernel(*args, states, dy, ds)
+            want = plain(*args, dy, ds)
+            torch.cuda.synchronize()
+            err = {n: scaled_err(g, w)
+                   for n, g, w in zip(names[name], got, want)}
+            same = all(torch.equal(a, b) for a, b in zip(got, again))
+            ok = (max(err.values()) <= tol and same
+                  and all(g.dtype == w.dtype and bool(torch.isfinite(g).all())
+                          for g, w in zip(got, want)))
+            if dtype == torch.bfloat16 and case in (WKV_BWD_STEP,
+                                                    SCAN_BWD_STEP):
+                out[name] = max(out.get(name, 0.0), max(
+                    float((g.float() - w.float()).abs().max())
+                    for g, w in zip(got, want)))
+            log(f"[check] {name} {label} {str(dtype).split('.')[-1]}, "
+                f"final state's cotangent {'given' if with_ds else 'None'}: "
+                f"max err / scale { {n: float(f'{e:.3g}') for n, e in err.items()} } "
+                f"(tol {tol:.3g}), bit-repeatable {same} "
+                f"{'OK' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"{name} {case} {dtype} disagrees")
+            del args, states, dy, ds, got, again, want
+    return out
+
+
+def wkv_bwd_bound(b, t, h, design: bool = False):
+    """(ms, by) for one wkv6 backward: bf16 r, k, v, fp32 w and dy read
+    and bf16 dr, dk, dv, fp32 dw written per (b, t, h, n); u, s0 read,
+    du, ds0 written once; 12 fp32 operations per (b, t, h, i, j) (the
+    states rebuilt, dr, dk, dv, dw and dS, 2 each).  ``design``: the work
+    ``csrc/wkv6_bwd.cu`` does beside it: the chunk states read, 8 row
+    groups' dv partials written and read, r, k and dy read again by the
+    sum kernel, 11 operations per (b, t, h, i, j) and 8 adds per dv."""
+    from repro_torch.kernels.wkv6 import CHUNK, ROWS
+    elems = b * t * h * WKV_N
+    n_bytes = elems * (3 * 2 + 4 + 4 + 3 * 2 + 4) + (
+        2 * h * WKV_N + 2 * b * h * WKV_N * WKV_N) * 4
+    n_ops = 12 * WKV_N * elems
+    if design:
+        groups = WKV_N // ROWS
+        chunks = -(-t // CHUNK) if t > CHUNK else 1
+        n_bytes += (elems * (2 * groups * 4 + 2 + 2 + 4)
+                    + b * h * (chunks - 1) * WKV_N * WKV_N * 4)
+        n_ops = 11 * WKV_N * elems + groups * elems
+    return bound(n_bytes, n_ops)
+
+
+def scan_bwd_bound(case, elem_bytes: int, design: bool = False):
+    """(ms, by, {part: ms}) for one selective-scan backward, the largest
+    of three times: the bytes (x, dt, B, C read and dx, ddt, dB, dC
+    written in their type, dy read in fp32; a, h0 read and da, dh0
+    written once in fp32); 18 fp32 operations per (b, t, d, n) (the
+    states rebuilt, 3; the sweep, 15) over the fp32 peak; one exp per (b,
+    t, d, n) over the SFU's rate, counted as operations.  ``design``: the
+    work ``csrc/selective_scan_bwd.cu`` does beside it: two exps per (b,
+    t, d, n) (rebuilt, then again in the sweep), 20 operations, the
+    saved states read, the 16-channel blocks' dB and dC partials written
+    and read, da's B partials."""
+    from repro_torch.kernels.selective_scan import CHANNELS, SAVE
+    b, t, di, n = case[:4]
+    n_bytes = (2 * (2 * b * t * di + 2 * b * t * n) * elem_bytes
+               + b * t * di * 4 + (2 * di * n + 2 * b * di * n) * 4)
+    n_ops, n_exp = 18 * b * t * di * n, b * t * di * n
+    if design:
+        blocks = -(-di // CHANNELS)
+        n_bytes += (2 * 2 * b * blocks * t * n + 2 * b * di * n
+                    + b * (-(-t // SAVE) - 1) * di * n) * 4
+        n_ops, n_exp = 20 * b * t * di * n, 2 * b * t * di * n
+    parts = {"bytes": n_bytes / HBM_BYTES_PER_S * 1e3,
+             "fp32": n_ops / FP32_FLOP_PER_S * 1e3,
+             "exp": n_exp / SFU_EXP_PER_S * 1e3}
+    top = max(parts, key=parts.get)
+    return (parts[top], "bytes" if top == "bytes" else "operations",
+            parts)
+
+
+def recurrence_bwd_times(dev) -> dict:
+    """``wkv6_bwd`` and ``selective_scan_bwd`` in bf16 at the training
+    microbatches, with CUDA events, beside their plain versions, autograd
+    through the plain forwards (forward and backward), the bounds and the
+    designs' own counts; no PyTorch call computes either function
+    (library: none).  Returns {name: {timing: (ms, plain ms, bound ms,
+    bound by), autograd_ms, design_ms, design_by, shape, call}}."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.selective_scan import selective_scan_bwd_cuda
+    from repro_torch.kernels.wkv6 import wkv6_bwd_cuda
+    rows = {}
+    for name in ("wkv6_bwd", "selective_scan_bwd"):
+        if name == "wkv6_bwd":
+            case = WKV_BWD_STEP
+            args, states, dy, _ = wkv_bwd_args(case, torch.bfloat16, dev,
+                                               False, seed=2, edge=False)
+            kernel, plain, fwd = wkv6_bwd_cuda, ref.wkv6_bwd_ref, ref.wkv6_ref
+            (b_ms, b_by), (d_ms, d_by) = (wkv_bwd_bound(*case),
+                                          wkv_bwd_bound(*case, design=True))
+            label = "B={} T={} H={} bf16".format(*case)
+        else:
+            case = SCAN_BWD_STEP
+            args, states, dy, _ = scan_bwd_args(case, torch.bfloat16, dev,
+                                                False, seed=2)
+            kernel = selective_scan_bwd_cuda
+            plain, fwd = ref.selective_scan_bwd_ref, ref.selective_scan_ref
+            b_ms, b_by, _ = scan_bwd_bound(case, 2)
+            d_ms, d_by, _ = scan_bwd_bound(case, 2, design=True)
+            label = "B={} T={} Di={} N={} bf16".format(*case[:4])
+        call = functools.partial(kernel, *args, states, dy)
+        ms = time_ms(call, 20)
+        plain_ms = time_ms(lambda: plain(*args, dy), 2, warmup=1)
+
+        def autograd():
+            leaves = [z.detach().requires_grad_(True) for z in args]
+            y, _ = fwd(*leaves)
+            return torch.autograd.grad(y, leaves, dy)
+        autograd_ms = time_ms(autograd, 2, warmup=1)
+        log(f"[time] {name} {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f}"
+            f" ms, autograd through the plain forward {autograd_ms:.4f} ms, "
+            f"library none, bound {b_ms:.6f} ms ({b_by}), the design's own "
+            f"work {d_ms:.6f} ms ({d_by})")
+        rows[name] = dict(timing=(ms, plain_ms, b_ms, b_by),
+                          autograd_ms=autograd_ms, design_ms=d_ms,
+                          design_by=d_by, shape=label, call=call)
+        del args, states, dy
+    return rows
 
 
 def flash_parent(src: str) -> int:
@@ -2427,6 +2706,85 @@ def round_profile(dev) -> None:
         + "; ".join(f"{k} {v / 1e3:.2f} ms" for k, v in top_k)
         + "; host self time: "
         + "; ".join(f"{k} {v / 1e3:.2f} ms" for k, v in top_h))
+
+
+def train_readings() -> int:
+    """``python3 chip_smoke.py --train-readings``: where a warm train
+    step's time goes, for each TRAIN_PATHS arch at full width and depth
+    (the CLI's step, batch and seed): 2 warm steps, then one step under
+    ``torch.profiler``: its wall seconds (host clock, synchronised), the
+    card's kernel time in it (each kernel once) by kind (the library's
+    GEMMs, the port's hand-written kernels, PyTorch's elementwise
+    kernels, the rest) and the kernels that take the most (no result
+    line)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False",
+              file=sys.stderr)
+        return 2
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.lm import SyntheticLM
+    from repro_torch.device import fp32_strict
+    from repro_torch.models import registry
+    from repro_torch.train import optim
+    from repro_torch.train.step import make_train_step
+    fp32_strict()
+    dev = torch.device("cuda")
+    log(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                        "--format=csv,noheader"], capture_output=True,
+                       text=True, check=True).stdout.strip())
+    ours = ("wkv6", "selective_scan", "fa_", "flash_")
+    for arch, (extra, _, _, _) in TRAIN_PATHS.items():
+        cfg, seq = get_arch(arch), int(extra[1])
+        shape = ShapeConfig("readings", seq, 2, "train", grad_accum=2)
+        step = make_train_step(cfg, shape, optim.OptConfig(
+            total_steps=TRAIN_STEPS, warmup_steps=5, schedule=cfg.lr_schedule))
+        params = registry.init_params(
+            torch.Generator(device=dev).manual_seed(0), cfg)
+        state = optim.adamw_init(params)
+        it = SyntheticLM(cfg.vocab_size, seed=0).batches(2, seq, cfg)
+        batches = [{k: torch.as_tensor(v).to(dev, torch.long if v.dtype.kind
+                                             == "i" else torch.float32)
+                    for k, v in next(it).items()} for _ in range(3)]
+        for batch in batches[:2]:
+            params, state, _ = step(params, state, batch)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            params, state, _ = step(params, state, batches[2])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        by_name = {}
+        kinds = dict.fromkeys(("gemm", "hand-written", "elementwise",
+                               "other"), 0.0)
+        for ev in prof.events():
+            if ev.device_type != DeviceType.CUDA:
+                continue
+            ms = ev.device_time_total / 1e3
+            name = ev.name[5:] if ev.name.startswith("void ") else ev.name
+            by_name[name] = by_name.get(name, 0.0) + ms
+            kind = ("hand-written" if name.startswith(ours) else "gemm"
+                    if any(w in name.lower() for w in (
+                        "gemm", "xmma", "cutlass", "sm90", "nvjet"))
+                    else "elementwise" if "elementwise" in name
+                    else "other")
+            kinds[kind] += ms
+        busy = sum(kinds.values())
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+        log(f"[train readings] {arch} ({cfg.num_layers} layers, B=2 S={seq} "
+            f"ga=2): warm step {wall:.4f} s under the profiler, kernels "
+            f"{busy / 1e3:.4f} s ({busy / 1e3 / wall:.1%} of the wall): "
+            + ", ".join(f"{k} {v / 1e3:.4f} s" for k, v in kinds.items())
+            + "; the most: " + "; ".join(f"{n[:60]} {v:.1f} ms"
+                                         for n, v in top))
+        del params, state, batches, step, prof
+        gc.collect()
+        torch.cuda.empty_cache()
+    return 0
 
 
 def c12_readings() -> int:
@@ -5016,11 +5374,17 @@ def main() -> int:
     # -- 5t. LM training: flash_attention's backward, a train step, the CLI
     gc.collect()                      # the gemma-2b weights are gone
     torch.cuda.empty_cache()
+    t5t = time.perf_counter()
     err_bwd = flash_bwd_checks(dev)
     bwd_rows = flash_bwd_times(dev)
-    train_check(dev)
-    gc.collect()
-    trained = train_path(dev)
+    # the recurrences' backwards (wkv6_bwd, selective_scan_bwd), then a
+    # 2-layer full-width step of each trained family against the CPU and
+    # the full paths
+    err_rec = recurrence_bwd_checks(dev)
+    rec_rows = recurrence_bwd_times(dev)
+    checked = {arch: train_check(dev, arch) for arch in TRAIN_CHECKS}
+    trained = {arch: train_path(dev, arch) for arch in TRAIN_PATHS}
+    log(f"[train] phase 5t in {time.perf_counter() - t5t:.1f}s")
 
     # -- 5c. the hybrid family: selective_scan, then jamba-v0.1-52b --------
     gc.collect()                      # the gemma-2b weights are gone
@@ -5097,7 +5461,10 @@ def main() -> int:
                 "probe_loss": mesh_launches["probe_loss"],
                 "cohort_gemm": fused["cohort_gemm"],
                 "flash_attention_bwd":
-                    trained["launches"]["flash_attention_bwd"]}
+                    trained["gemma-2b"]["launches"]["flash_attention_bwd"],
+                # jamba trains only as its 2-layer check on one card
+                "wkv6_bwd": trained["rwkv6-3b"]["launches"]["wkv6_bwd"],
+                "selective_scan_bwd": checked[JAMBA]["selective_scan_bwd"]}
     if (min(launches.values()) <= 0 or unfused["neighbor_elect"] <= 0
             or windowed["probe_fuzzy"] != 2 + n_over
             or paper_launches["probe_fuzzy"] != 1):
@@ -5159,6 +5526,19 @@ def main() -> int:
     bwd_device = [log_flash_bwd_phases(case, call, row)
                   for case, (row, call) in zip(FLASH_BWD_TIMED, bwd_rows)]
 
+    # the recurrences' backwards at the training microbatches: device
+    # time a launch by kernel (the sweep, the ordered sum)
+    for name, phases in (("wkv6_bwd", WKV_BWD_PHASES),
+                         ("selective_scan_bwd", SCAN_BWD_PHASES)):
+        row = rec_rows[name]
+        ms = phase_ms(row["call"], phases, calls=5)
+        row["device_ms"] = sum(ms.values())
+        log(f"[profile] {name} {row['shape']}: sweep {ms['sweep']:.4f} ms, "
+            f"sum {ms['sum']:.4f} ms; device {row['device_ms']:.4f} ms a "
+            f"launch; CUDA events over back-to-back wrapper calls "
+            f"{row['timing'][0]:.4f} ms; bound {row['timing'][2]:.6f} ms "
+            f"({row['timing'][3]})")
+
     # the seed-batched kernels: device time of one launch for the sweep's
     # S seeds against S single launches, beside the bound scaled by S
     for name, phases in (
@@ -5207,11 +5587,27 @@ def main() -> int:
         "flash_attention_bwd": ("src/repro_torch/csrc/flash_attention_bwd.cu",
                                 "src/repro/kernels/flash_attention.py:79",
                                 err_bwd[GEMMA_TRAIN_FLASH]),
+        # the training uses of wkv6_pallas and selective_scan_pallas: the
+        # reference differentiates its jnp scans
+        "wkv6_bwd": ("src/repro_torch/csrc/wkv6_bwd.cu",
+                     "src/repro/kernels/wkv6.py:62", err_rec["wkv6_bwd"]),
+        "selective_scan_bwd": ("src/repro_torch/csrc/selective_scan_bwd.cu",
+                               "src/repro/kernels/selective_scan.py:68",
+                               err_rec["selective_scan_bwd"]),
     }
+    computes = {
+        "wkv6_bwd": "the vjp of src/repro/models/rwkv6.py:102 wkv6_chunked "
+                    "(the reference's default wkv6, src/repro/kernels/"
+                    "ops.py:33; its autodiff, no Pallas backward)",
+        "selective_scan_bwd": "the vjp of src/repro/models/mamba.py:54 "
+                              "_ssm_scan (the reference's autodiff; no "
+                              "Pallas backward)"}
     timings["flash_attention"] = flash_timing[:4]
     timings["selective_scan"] = scan_timing
     timings["probe_loss"] = loss_timing
     timings["flash_attention_bwd"] = bwd_rows[0][0][:4]
+    for name in computes:
+        timings[name] = rec_rows[name]["timing"]
     library = {"flash_attention": flash_timing[4],
                "cohort_gemm": gemm_lib_ms,
                "flash_attention_bwd": bwd_rows[0][0][4]}
@@ -5258,6 +5654,13 @@ def main() -> int:
                       GEMMA_STEP_FLASH),
                      ("minicpm-2b training shape", MINICPM_TRAIN_FLASH)),
                     start=1)]
+        if name in computes:
+            row = rec_rows[name]
+            entry.update(computes=computes[name], shape=row["shape"],
+                         device_ms=row["device_ms"],
+                         autograd_plain_ms=row["autograd_ms"],
+                         design_bound_ms=row["design_ms"],
+                         design_bound_by=row["design_by"])
         if name == "cohort_gemm":        # ports no Pallas kernel
             entry["reference"] = entry.pop("replaces")
             entry["products"] = gemm_rows
@@ -5276,6 +5679,8 @@ if __name__ == "__main__":
         sys.exit(preempt_child(sys.argv[2]))
     if sys.argv[1:] == ["--c12-readings"]:
         sys.exit(c12_readings())
+    if sys.argv[1:] == ["--train-readings"]:
+        sys.exit(train_readings())
     if sys.argv[1:2] == ["--gemm-readings"]:
         sys.exit(gemm_readings(*sys.argv[2:3]))
     if sys.argv[1:2] == ["--flash-parent"] and len(sys.argv) == 3:

@@ -10,7 +10,11 @@
 //   y_t   = sum_n h[n] * C_t[n]
 // with dt and x converted to fp32 before their product, as the TPU
 // kernel and the model's scan (repro/models/mamba.py:68-76) do.
-// Output: y (B, T, Di) fp32 and the final state hT (B, Di, N) fp32.
+// Output: y (B, T, Di) fp32 and the final state hT (B, Di, N) fp32; with
+// hs given, also the state at every SS_SAVE-step boundary inside the
+// sequence, hs (B, ceil(T / SS_SAVE) - 1, Di, N) fp32 (entry m: after
+// (m + 1) SS_SAVE steps), which the backward (csrc/selective_scan_bwd.cu)
+// rebuilds each chunk's states from.  Writing them changes no result.
 //
 // Bound on the H100: one exp per (b, t, d, n), over the SFU's 16 per SM
 // per clock, is the largest of three bounds at jamba's shapes (N = 16;
@@ -64,9 +68,11 @@
 #define SS_CHUNK 32
 #define SS_GROUP SS_LANES // steps whose y sums are reduced together
 #define SS_PITCH (SS_CHUNK + 4)
+#define SS_SAVE 64          // steps between saved states (kernels/selective_scan.py)
 
 static_assert(SS_GROUP == SS_LANES, "one step of a group per lane");
 static_assert(SS_CHUNK % SS_GROUP == 0, "whole groups in a chunk");
+static_assert(SS_SAVE % SS_CHUNK == 0, "saves fall on chunk starts");
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
@@ -151,7 +157,7 @@ selective_scan_kernel(const TI* __restrict__ x, const TI* __restrict__ dt,
                       const float* __restrict__ a,
                       const float* __restrict__ h0, int T, int Di, int N,
                       int dblocks, float* __restrict__ y,
-                      float* __restrict__ hT) {
+                      float* __restrict__ hT, float* __restrict__ hs) {
   constexpr int S = NS / SS_LANES;               // states a lane holds
   static_assert(S * SS_LANES == NS, "NS must be a multiple of SS_LANES");
   // two chunks' operands (one scanned while the next is stored): x and
@@ -219,6 +225,14 @@ selective_scan_kernel(const TI* __restrict__ x, const TI* __restrict__ dt,
   if (T > 0) fetch(0);
   for (int t0 = 0, buf = 0; t0 < T; t0 += SS_CHUNK, buf ^= 1) {
     const int len = min(SS_CHUNK, T - t0);
+    if (hs != nullptr && t0 > 0 && t0 % SS_SAVE == 0 && valid) {
+      const int saves = (T + SS_SAVE - 1) / SS_SAVE - 1;
+      float* dst =
+          hs + (((size_t)b * saves + t0 / SS_SAVE - 1) * Di + d) * N;
+#pragma unroll
+      for (int s = 0; s < S; ++s)
+        if (n0 + s < N) dst[n0 + s] = h[s];
+    }
     // every warp passed the last barrier after scanning the chunk before
     // the previous one, so buffer buf is free
 #pragma unroll
@@ -260,43 +274,44 @@ selective_scan_kernel(const TI* __restrict__ x, const TI* __restrict__ dt,
 template <typename TI, int NS>
 static void launch(const void* x, const void* dt, const void* bmat,
                    const void* cmat, const void* a, const void* h0, int B,
-                   int T, int Di, int N, void* y, void* hT,
+                   int T, int Di, int N, void* y, void* hT, void* hs,
                    cudaStream_t stream) {
   const int dblocks = (Di + SS_CHANNELS - 1) / SS_CHANNELS;
   selective_scan_kernel<TI, NS><<<B * dblocks, SS_THREADS, 0, stream>>>(
       (const TI*)x, (const TI*)dt, (const TI*)bmat, (const TI*)cmat,
       (const float*)a, (const float*)h0, T, Di, N, dblocks, (float*)y,
-      (float*)hT);
+      (float*)hT, (float*)hs);
 }
 
 template <int NS>
 static void dispatch(const void* x, const void* dt, const void* bmat,
                      const void* cmat, const void* a, const void* h0, int B,
                      int T, int Di, int N, int bf16, void* y, void* hT,
-                     cudaStream_t st) {
+                     void* hs, cudaStream_t st) {
   if (bf16)
     launch<__nv_bfloat16, NS>(x, dt, bmat, cmat, a, h0, B, T, Di, N, y, hT,
-                              st);
+                              hs, st);
   else
-    launch<float, NS>(x, dt, bmat, cmat, a, h0, B, T, Di, N, y, hT, st);
+    launch<float, NS>(x, dt, bmat, cmat, a, h0, B, T, Di, N, y, hT, hs, st);
 }
 
 // bf16: 1 if x, dt, bmat and cmat are bf16, 0 if fp32.  N must be 1..32
-// (padded to 8, 16 or 32 states: 1, 2 or 4 a lane).
+// (padded to 8, 16 or 32 states: 1, 2 or 4 a lane).  hs: null, or the
+// saved states (B, ceil(T / 64) - 1, Di, N) fp32.
 extern "C" int selective_scan_launch(const void* x, const void* dt,
                                      const void* bmat, const void* cmat,
                                      const void* a, const void* h0, int B,
                                      int T, int Di, int N, int bf16, void* y,
-                                     void* hT, void* stream) {
+                                     void* hT, void* hs, void* stream) {
   if (B <= 0 || Di <= 0 || T < 0 || N <= 0 || N > 32 ||
       (long long)B * ((Di + SS_CHANNELS - 1) / SS_CHANNELS) > INT_MAX)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (N <= 8)
-    dispatch<8>(x, dt, bmat, cmat, a, h0, B, T, Di, N, bf16, y, hT, st);
+    dispatch<8>(x, dt, bmat, cmat, a, h0, B, T, Di, N, bf16, y, hT, hs, st);
   else if (N <= 16)
-    dispatch<16>(x, dt, bmat, cmat, a, h0, B, T, Di, N, bf16, y, hT, st);
+    dispatch<16>(x, dt, bmat, cmat, a, h0, B, T, Di, N, bf16, y, hT, hs, st);
   else
-    dispatch<32>(x, dt, bmat, cmat, a, h0, B, T, Di, N, bf16, y, hT, st);
+    dispatch<32>(x, dt, bmat, cmat, a, h0, B, T, Di, N, bf16, y, hT, hs, st);
   return (int)cudaGetLastError();
 }

@@ -11,8 +11,10 @@ compiled at import time.
 ``LAUNCHES`` counts the kernel launches of each wrapper: a wrapper adds
 one where it launches its kernel and nowhere else (one per call, also
 where a call runs more than one CUDA kernel, as ``wkv6`` past one time
-chunk and ``flash_attention_bwd`` (its dQ kernel, its dK/dV kernel and,
-where the plan splits a kv tile, the sum of its partials) do, and
+chunk, ``flash_attention_bwd`` (its dQ kernel, its dK/dV kernel and,
+where the plan splits a kv tile, the sum of its partials), and
+``wkv6_bwd`` and ``selective_scan_bwd`` (a sweep and the ordered sum of
+its partials) do, and
 where one call takes several seeds, as the sweep's
 seed-batched ``probe_fuzzy`` and ``neighbor_elect`` do), so a run can
 show that its main path went through the kernels.
@@ -33,7 +35,8 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 KERNELS = ("probe_fuzzy", "fuzzy_eval", "neighbor_elect", "windowed_counts",
            "wkv6", "flash_attention", "selective_scan", "probe_loss",
-           "cohort_gemm", "flash_attention_bwd")
+           "cohort_gemm", "flash_attention_bwd", "wkv6_bwd",
+           "selective_scan_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
               "-lineinfo")
@@ -50,7 +53,10 @@ _SIGNATURES = {
     "flash_attention": {"flash_attention_launch": "pppppiiiiiiiiiifp"},
     "flash_attention_bwd": {
         "flash_attention_bwd_launch": "pppppppppppliiiiiiiiiiiifp"},
-    "selective_scan": {"selective_scan_launch": "ppppppiiiiippp"},
+    "wkv6_bwd": {"wkv6_bwd_launch": "pppppppppiiiiipppppppp"},
+    "selective_scan": {"selective_scan_launch": "ppppppiiiiipppp"},
+    "selective_scan_bwd": {
+        "selective_scan_bwd_launch": "pppppppppiiiiipppppppp"},
     "probe_loss": {"probe_loss_launch": "ipppipipppppppppppppppp"},
     "cohort_gemm": {"cohort_gemm_launch": "pp"},
 }

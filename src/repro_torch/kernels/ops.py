@@ -145,13 +145,53 @@ def neighbor_elect_windowed(pos: torch.Tensor, evals: torch.Tensor, *,
                           e_tau=e_tau, window=window)
 
 
+def _needs_grad(*ts: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
+class _Wkv6(torch.autograd.Function):
+    """The WKV recurrence with its hand-written backward: the forward
+    keeps its operands and, on the card, its scratch (the state at each
+    chunk boundary); the backward runs ``wkv6_bwd_cuda`` on the card
+    (its plain version, ``ref.wkv6_bwd_ref``, on the CPU).  Returns y
+    and sT in fp32; an unused output's gradient counts as zeros.  No
+    fallback: on the card a failure of either kernel raises."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, s0):
+        ctx.set_materialize_grads(False)
+        if _on_cuda(r):
+            from repro_torch.kernels.wkv6 import wkv6_cuda
+            y, s_t, states = wkv6_cuda(r, k, v, w, u, s0, keep_states=True)
+        else:
+            (y, s_t), states = ref.wkv6_ref(r, k, v, w, u, s0), None
+        ctx.save_for_backward(r, k, v, w, u, s0, states)
+        return y, s_t
+
+    @staticmethod
+    def backward(ctx, dy, ds_t):
+        r, k, v, w, u, s0, states = ctx.saved_tensors
+        dy = (torch.zeros(r.shape, dtype=torch.float32, device=r.device)
+              if dy is None else dy.float().contiguous())
+        ds_t = None if ds_t is None else ds_t.float().contiguous()
+        if _on_cuda(r):
+            from repro_torch.kernels.wkv6 import wkv6_bwd_cuda
+            return wkv6_bwd_cuda(r, k, v, w, u, s0, states, dy, ds_t)
+        return ref.wkv6_bwd_ref(r, k, v, w, u, s0, dy, ds_t)
+
+
 def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
          w: torch.Tensor, u: torch.Tensor, s0: torch.Tensor
          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The RWKV-6 recurrence over a sequence: r, k, v, w (B, T, H, N),
     u (H, N), s0 (B, H, N, N) fp32 -> ``(y (B, T, H, N) in r's dtype,
-    sT (B, H, N, N) fp32)``."""
-    if _on_cuda(r):
+    sT (B, H, N, N) fp32)``.  Where grad is required of an input, the
+    call is differentiable through the hand-written backward
+    (``_Wkv6``); otherwise (serving, under ``no_grad``) it is the
+    forward alone."""
+    if _needs_grad(r, k, v, w, u, s0):
+        y, s_t = _Wkv6.apply(*(t.contiguous() for t in (r, k, v, w, u, s0)))
+    elif _on_cuda(r):
         from repro_torch.kernels.wkv6 import wkv6_cuda
         y, s_t = wkv6_cuda(r, k, v, w, u, s0)
     else:
@@ -159,14 +199,55 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return y.to(r.dtype), s_t
 
 
+class _SelectiveScan(torch.autograd.Function):
+    """The selective scan with its hand-written backward: the forward
+    keeps its operands and, on the card, the state every 64 steps; the
+    backward runs ``selective_scan_bwd_cuda`` on the card (its plain
+    version, ``ref.selective_scan_bwd_ref``, on the CPU).  Returns y and
+    hT in fp32; an unused output's gradient counts as zeros.  No
+    fallback: on the card a failure of either kernel raises."""
+
+    @staticmethod
+    def forward(ctx, x, dt, bmat, cmat, a, h0):
+        ctx.set_materialize_grads(False)
+        if _on_cuda(x):
+            from repro_torch.kernels.selective_scan import \
+                selective_scan_cuda
+            y, h_t, states = selective_scan_cuda(x, dt, bmat, cmat, a, h0,
+                                                 keep_states=True)
+        else:
+            (y, h_t), states = ref.selective_scan_ref(x, dt, bmat, cmat, a,
+                                                      h0), None
+        ctx.save_for_backward(x, dt, bmat, cmat, a, h0, states)
+        return y, h_t
+
+    @staticmethod
+    def backward(ctx, dy, dh_t):
+        x, dt, bmat, cmat, a, h0, states = ctx.saved_tensors
+        dy = (torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+              if dy is None else dy.float().contiguous())
+        dh_t = None if dh_t is None else dh_t.float().contiguous()
+        if _on_cuda(x):
+            from repro_torch.kernels.selective_scan import \
+                selective_scan_bwd_cuda
+            return selective_scan_bwd_cuda(x, dt, bmat, cmat, a, h0, states,
+                                           dy, dh_t)
+        return ref.selective_scan_bwd_ref(x, dt, bmat, cmat, a, h0, dy, dh_t)
+
 
 def selective_scan(x: torch.Tensor, dt: torch.Tensor, bmat: torch.Tensor,
                    cmat: torch.Tensor, a: torch.Tensor, h0: torch.Tensor
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The Mamba-1 selective scan over a sequence: x, dt (B, T, Di),
     bmat, cmat (B, T, N), a (Di, N) fp32, h0 (B, Di, N) fp32 -> ``(y
-    (B, T, Di) in x's dtype, hT (B, Di, N) fp32)``."""
-    if _on_cuda(x):
+    (B, T, Di) in x's dtype, hT (B, Di, N) fp32)``.  Where grad is
+    required of an input, the call is differentiable through the
+    hand-written backward (``_SelectiveScan``); otherwise (serving,
+    under ``no_grad``) it is the forward alone."""
+    if _needs_grad(x, dt, bmat, cmat, a, h0):
+        y, h_t = _SelectiveScan.apply(
+            *(t.contiguous() for t in (x, dt, bmat, cmat, a, h0)))
+    elif _on_cuda(x):
         from repro_torch.kernels.selective_scan import selective_scan_cuda
         y, h_t = selective_scan_cuda(x, dt, bmat, cmat, a, h0)
     else:
@@ -217,7 +298,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     differentiable through the hand-written backward (``_FlashAttention``);
     otherwise (serving, under ``no_grad``) it is the forward alone."""
     kw = dict(causal=causal, window=window, prefix_len=prefix_len)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+    if _needs_grad(q, k, v):
         return _FlashAttention.apply(q.contiguous(), k.contiguous(),
                                      v.contiguous(), causal, window,
                                      prefix_len)

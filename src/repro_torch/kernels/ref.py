@@ -267,6 +267,52 @@ def wkv6_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return y, s
 
 
+def wkv6_bwd_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 w: torch.Tensor, u: torch.Tensor, s0: torch.Tensor,
+                 dy: torch.Tensor, dsT: Optional[torch.Tensor] = None
+                 ) -> Tuple[torch.Tensor, ...]:
+    """The gradients of ``wkv6_ref``'s ``(y, sT)`` under the cotangents
+    ``dy`` (B, T, H, N) and ``dsT`` (B, H, N, N; None: zeros), by an
+    explicit reverse sweep in fp32.  The states S_{t-1} are rebuilt by
+    the forward recurrence (never by dividing by w); then, from dS =
+    dsT, per step t from the last:
+
+        dr_t = S_{t-1} dy_t + u k_t (v_t . dy_t)
+        dk_t = dS v_t + r_t u (v_t . dy_t)
+        dv_t = dS^T k_t + (r_t . (u k_t)) dy_t
+        dw_t[i] = sum_j dS[i, j] S_{t-1}[i, j]
+        du += r_t k_t (v_t . dy_t)
+        dS <- diag(w_t) dS + r_t dy_t^T
+
+    with dS the gradient of the state after step t; ds0 is the last dS.
+    Returns ``(dr, dk, dv, dw, du (H, N), ds0)``: dr, dk and dv in r's
+    dtype, dw in w's, du and ds0 fp32."""
+    rf, kf, vf, wf, dyf = (z.float() for z in (r, k, v, w, dy))
+    uf, s = u.float(), s0.float()
+    t_len = r.shape[1]
+    states = []                                  # S_{t-1} for each t
+    for t in range(t_len):
+        states.append(s)
+        s = (wf[:, t, :, :, None] * s
+             + kf[:, t, :, :, None] * vf[:, t, :, None, :])
+    ds = torch.zeros_like(s) if dsT is None else dsT.float().clone()
+    dr, dk, dv, dw = (torch.zeros_like(rf) for _ in range(4))
+    du = torch.zeros_like(rf[:, 0])               # (B, H, N)
+    for t in reversed(range(t_len)):
+        rt, kt, vt, wt, dyt = (z[:, t] for z in (rf, kf, vf, wf, dyf))
+        vdy = (vt * dyt).sum(-1, keepdim=True)    # (B, H, 1)
+        dr[:, t] = (torch.einsum("bhij,bhj->bhi", states[t], dyt)
+                    + uf * kt * vdy)
+        dk[:, t] = torch.einsum("bhij,bhj->bhi", ds, vt) + rt * uf * vdy
+        dv[:, t] = (torch.einsum("bhij,bhi->bhj", ds, kt)
+                    + (rt * uf * kt).sum(-1, keepdim=True) * dyt)
+        dw[:, t] = (ds * states[t]).sum(-1)
+        du = du + rt * kt * vdy
+        ds = wt[..., :, None] * ds + rt[..., :, None] * dyt[..., None, :]
+    return (dr.to(r.dtype), dk.to(k.dtype), dv.to(v.dtype), dw.to(w.dtype),
+            du.sum(0), ds)
+
+
 
 def selective_scan_ref(x: torch.Tensor, dt: torch.Tensor,
                        bmat: torch.Tensor, cmat: torch.Tensor,
@@ -293,6 +339,58 @@ def selective_scan_ref(x: torch.Tensor, dt: torch.Tensor,
         ys.append(torch.einsum("bdn,bn->bd", h, cf[:, t]))
     y = torch.stack(ys, dim=1) if ys else torch.zeros_like(dtx)
     return y, h
+
+
+def selective_scan_bwd_ref(x: torch.Tensor, dt: torch.Tensor,
+                           bmat: torch.Tensor, cmat: torch.Tensor,
+                           a: torch.Tensor, h0: torch.Tensor,
+                           dy: torch.Tensor,
+                           dhT: Optional[torch.Tensor] = None
+                           ) -> Tuple[torch.Tensor, ...]:
+    """The gradients of ``selective_scan_ref``'s ``(y, hT)`` under the
+    cotangents ``dy`` (B, T, Di) and ``dhT`` (B, Di, N; None: zeros), by
+    an explicit reverse sweep in fp32.  The states h_{t-1} are rebuilt by
+    the forward recurrence (never by dividing by exp(dt a), which
+    underflows); then, from g = dhT, per step t from the last, with
+    alpha = exp(dt_t a) and q = g h_{t-1} alpha:
+
+        g += dy_t C_t                       (the gradient of h_t)
+        dC_t = sum_d dy_t h_t,  dB_t = sum_d g (dt_t x_t)
+        dx_t = dt_t sum_n g B_t
+        ddt_t = x_t sum_n g B_t + sum_n q a
+        da += q dt_t
+        g <- alpha g
+
+    dh0 is the last g.  Returns ``(dx, ddt, dB, dC, da (Di, N), dh0)``:
+    dx, ddt, dB and dC in their inputs' dtypes, da and dh0 fp32."""
+    dtf, xf = dt.float(), x.float()
+    dtx = dtf * xf
+    bf, cf, dyf = bmat.float(), cmat.float(), dy.float()
+    a, h = a.float(), h0.float()
+    t_len = x.shape[1]
+    states = [h]                                  # h_{t-1}, then hT
+    for t in range(t_len):
+        h = (torch.exp(dtf[:, t, :, None] * a) * h
+             + dtx[:, t, :, None] * bf[:, t, None, :])
+        states.append(h)
+    g = torch.zeros_like(h) if dhT is None else dhT.float().clone()
+    dx, ddt = torch.zeros_like(xf), torch.zeros_like(xf)
+    db, dc = torch.zeros_like(bf), torch.zeros_like(cf)
+    da = torch.zeros_like(a)
+    for t in reversed(range(t_len)):
+        alpha = torch.exp(dtf[:, t, :, None] * a)
+        g = g + dyf[:, t, :, None] * cf[:, t, None, :]
+        dc[:, t] = torch.einsum("bdn,bd->bn", states[t + 1], dyf[:, t])
+        db[:, t] = torch.einsum("bdn,bd->bn", g, dtx[:, t])
+        gb = (g * bf[:, t, None, :]).sum(-1)
+        q = g * states[t] * alpha
+        dx[:, t] = gb * dtf[:, t]
+        ddt[:, t] = gb * xf[:, t] + (q * a).sum(-1)
+        da = da + (q * dtf[:, t, :, None]).sum(0)
+        g = alpha * g
+    return (dx.to(x.dtype), ddt.to(dt.dtype), db.to(bmat.dtype),
+            dc.to(cmat.dtype), da, g)
+
 
 def _attention_scores(q: torch.Tensor, k: torch.Tensor, *, causal: bool,
                       window: int, prefix_len: int) -> torch.Tensor:

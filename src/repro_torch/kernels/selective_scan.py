@@ -1,31 +1,41 @@
 """The Mamba-1 selective scan on the card (replaces
-``repro/kernels/selective_scan.py::selective_scan_pallas``).
+``repro/kernels/selective_scan.py::selective_scan_pallas``) and its
+backward, which replaces no Pallas kernel (the reference trains through
+the autodiff of its jnp scan).
 
 ``selective_scan_cuda`` launches ``csrc/selective_scan.cu``; its plain
 version is ``kernels/ref.py::selective_scan_ref``.  Both return ``y``
 and the final state in fp32, as ``selective_scan_pallas`` does;
 ``ops.selective_scan`` casts ``y`` to ``x``'s dtype, as the reference's
-model scan does.
+model scan does.  With ``keep_states`` the forward also returns the
+state every ``SAVE`` steps, which ``selective_scan_bwd_cuda``
+(``csrc/selective_scan_bwd.cu``) rebuilds each chunk's states from; its
+plain version is ``kernels/ref.py::selective_scan_bwd_ref``.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import build
 
 MAX_STATE = 32          # the largest N csrc/selective_scan.cu is built for
+SAVE = 64               # SS_SAVE / SB_C: steps between the saved states
+CHANNELS = 16           # SB_CHANNELS in csrc/selective_scan_bwd.cu
 _TYPES = (torch.float32, torch.bfloat16)
 
 
 def selective_scan_cuda(x: torch.Tensor, dt: torch.Tensor,
                         bmat: torch.Tensor, cmat: torch.Tensor,
-                        a: torch.Tensor, h0: torch.Tensor
-                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+                        a: torch.Tensor, h0: torch.Tensor,
+                        keep_states: bool = False):
     """x, dt (B, T, Di) and bmat, cmat (B, T, N), all fp32 or all bf16,
-    a (Di, N) fp32, h0 (B, Di, N) fp32, all on CUDA and contiguous, N <= ``MAX_STATE`` -> ``(y (B, T, Di) fp32,
-    hT (B, Di, N) fp32)``."""
+    a (Di, N) fp32, h0 (B, Di, N) fp32, all on CUDA and contiguous, N <=
+    ``MAX_STATE`` -> ``(y (B, T, Di) fp32, hT (B, Di, N) fp32)``; with
+    ``keep_states`` also the states after every ``SAVE`` steps inside
+    the sequence, (B, ceil(T / SAVE) - 1, Di, N) fp32, for
+    ``selective_scan_bwd_cuda``."""
     if x.dim() != 3 or x.dtype not in _TYPES:
         raise ValueError(f"selective_scan: x must be (B, T, Di) fp32 or "
                          f"bf16, got {tuple(x.shape)} {x.dtype}")
@@ -41,13 +51,71 @@ def selective_scan_cuda(x: torch.Tensor, dt: torch.Tensor,
     build.require(a, "a", (di, n), torch.float32)
     build.require(h0, "h0", (b, di, n), torch.float32)
     y = torch.empty((b, t, di), dtype=torch.float32, device=x.device)
+    saves = max(-(-t // SAVE) - 1, 0)
+    hs = (torch.empty((b, saves, di, n), dtype=torch.float32,
+                      device=x.device) if keep_states else None)
     if b == 0 or di == 0:
-        return y, h0.clone()
+        return (y, h0.clone()) + ((hs,) if keep_states else ())
     h_t = torch.empty((b, di, n), dtype=torch.float32, device=x.device)
     lib = build.load("selective_scan")
     build.check(lib.selective_scan_launch(
         x.data_ptr(), dt.data_ptr(), bmat.data_ptr(), cmat.data_ptr(),
         a.data_ptr(), h0.data_ptr(), b, t, di, n,
-        int(x.dtype == torch.bfloat16), y.data_ptr(), h_t.data_ptr(), build.stream_ptr(x)), "selective_scan")
+        int(x.dtype == torch.bfloat16), y.data_ptr(), h_t.data_ptr(),
+        hs.data_ptr() if keep_states and saves else None,
+        build.stream_ptr(x)), "selective_scan")
     build.LAUNCHES["selective_scan"] += 1
-    return y, h_t
+    return (y, h_t, hs) if keep_states else (y, h_t)
+
+
+def selective_scan_bwd_cuda(x: torch.Tensor, dt: torch.Tensor,
+                            bmat: torch.Tensor, cmat: torch.Tensor,
+                            a: torch.Tensor, h0: torch.Tensor,
+                            states: torch.Tensor, dy: torch.Tensor,
+                            dhT: Optional[torch.Tensor] = None
+                            ) -> Tuple[torch.Tensor, ...]:
+    """The gradients of ``selective_scan_cuda``'s ``(y, hT)`` under
+    ``dy`` (B, T, Di) fp32 and ``dhT`` (B, Di, N) fp32 or None (zeros),
+    from the forward's operands and its ``states``
+    (``selective_scan_cuda(..., keep_states=True)``) -> ``(dx, ddt, dB,
+    dC, da (Di, N), dh0)``: dx, ddt, dB and dC in x's dtype, da and dh0
+    fp32."""
+    if x.dim() != 3 or x.dtype not in _TYPES:
+        raise ValueError(f"selective_scan_bwd: x must be (B, T, Di) fp32 "
+                         f"or bf16, got {tuple(x.shape)} {x.dtype}")
+    b, t, di = x.shape
+    n = bmat.shape[-1] if bmat.dim() == 3 else -1
+    if not 0 < n <= MAX_STATE:
+        raise ValueError(f"selective_scan_bwd: state dim N = {n} is not "
+                         f"built; the kernel takes 1 <= N <= {MAX_STATE}")
+    build.require(x, "x", (b, t, di), x.dtype)
+    build.require(dt, "dt", (b, t, di), x.dtype)
+    build.require(bmat, "bmat", (b, t, n), x.dtype)
+    build.require(cmat, "cmat", (b, t, n), x.dtype)
+    build.require(a, "a", (di, n), torch.float32)
+    build.require(h0, "h0", (b, di, n), torch.float32)
+    build.require(states, "states", (b, max(-(-t // SAVE) - 1, 0), di, n),
+                  torch.float32)
+    build.require(dy, "dy", (b, t, di), torch.float32)
+    if dhT is not None:
+        build.require(dhT, "dhT", (b, di, n), torch.float32)
+    dx, ddt = torch.empty_like(x), torch.empty_like(dt)
+    dbm, dcm = torch.empty_like(bmat), torch.empty_like(cmat)
+    da = torch.zeros_like(a)
+    dh0 = dhT.clone() if dhT is not None else torch.zeros_like(h0)
+    if b == 0 or di == 0 or t == 0:
+        return dx.zero_(), ddt.zero_(), dbm.zero_(), dcm.zero_(), da, dh0
+    dblocks = -(-di // CHANNELS)
+    scratch = torch.empty(2 * b * dblocks * t * n + b * di * n,
+                          dtype=torch.float32, device=x.device)
+    lib = build.load("selective_scan_bwd")
+    build.check(lib.selective_scan_bwd_launch(
+        x.data_ptr(), dt.data_ptr(), bmat.data_ptr(), cmat.data_ptr(),
+        a.data_ptr(), h0.data_ptr(),
+        states.data_ptr() if states.numel() else None, dy.data_ptr(),
+        dhT.data_ptr() if dhT is not None else None, b, t, di, n,
+        int(x.dtype == torch.bfloat16), dx.data_ptr(), ddt.data_ptr(),
+        dbm.data_ptr(), dcm.data_ptr(), da.data_ptr(), dh0.data_ptr(),
+        scratch.data_ptr(), build.stream_ptr(x)), "selective_scan_bwd")
+    build.LAUNCHES["selective_scan_bwd"] += 1
+    return dx, ddt, dbm, dcm, da, dh0

@@ -1,6 +1,5 @@
-"""Training CLI (``repro.launch.train``): a model of any dense, moe or
-vlm arch id on the synthetic LM stream, on the card unless ``--device
-cpu`` is given.
+"""Training CLI (``repro.launch.train``): a model of any arch id on the
+synthetic LM stream, on the card unless ``--device cpu`` is given.
 
 Usage:
   python -m repro_torch.launch.train --arch gemma-2b --steps 4 --batch 2 \\
@@ -10,14 +9,12 @@ Usage:
 
 The flags, defaults and log lines are the reference's.  Parameters are
 fp32, drawn from a ``torch.Generator`` seeded by ``--seed`` on the
-device; compute is bf16, each layer recomputed in backward, attention
-through ``flash_attention`` and its hand-written backward
-(``kernels/ops.py``).  After the reference's lines the last line is a
-JSON object with each step's seconds (host clock, the step's work
-synchronised), the losses, the kernels' launches and, on the card, the
-peak device memory.  Training the ssm, hybrid and audio families
-(rwkv6-3b, jamba-v0.1-52b, whisper-medium) raises ``NotImplementedError``
-(ROADMAP A13c-ii).
+device; compute is bf16, each layer recomputed in backward, attention,
+the WKV recurrence and the selective scan through their kernels and
+hand-written backwards (``kernels/ops.py``).  After the reference's
+lines the last line is a JSON object with each step's seconds (host
+clock, the step's work synchronised), the losses, the kernels' launches
+and, on the card, the peak device memory.
 """
 from __future__ import annotations
 
@@ -33,7 +30,6 @@ from repro_torch.data.lm import SyntheticLM
 from repro_torch.device import resolve_device, synchronize
 from repro_torch.kernels import build
 from repro_torch.models import registry
-from repro_torch.models import transformer as tfm
 from repro_torch.train.checkpoint import save_checkpoint
 from repro_torch.train.optim import OptConfig, adamw_init, tree_leaves
 from repro_torch.train.step import make_train_step
@@ -62,7 +58,6 @@ def main(argv=None) -> int:
     cfg = get_arch(args.arch)
     if args.reduced:
         cfg = scaled_down(cfg, layers=args.layers, d_model=args.d_model)
-    tfm.check_trainable(cfg)
     shape = ShapeConfig("cli", args.seq, args.batch, "train",
                         grad_accum=args.grad_accum)
     opt_cfg = OptConfig(lr=args.lr, total_steps=args.steps,

@@ -9,9 +9,9 @@ reference:
 - vlm (paligemma): the dense decoder over precomputed patch embeddings
   before the tokens, with prefix-LM masking over them at prefill.
 
-Entry points: ``train_loss`` (the dense, moe and vlm families; each
-layer recomputed in backward, as the reference's ``remat=True``),
-``prefill`` and ``decode_step``.
+Entry points: ``train_loss`` (every family; each layer recomputed in
+backward, as the reference's ``remat=True``), ``prefill`` and
+``decode_step``.
 
 Parameters are a nested dict: ``embed`` (V, D), ``final_norm``,
 ``lm_head`` (V, D) unless tied, ``blocks``, a list with one dict per
@@ -45,8 +45,6 @@ from repro_torch.models.layers import (COMPUTE_DTYPE, Params, apply_mlp,
 
 MOE_LB_COEF = 0.01
 MOE_Z_COEF = 0.001
-# the families whose training needs backward kernels still to be written
-_TRAIN_LATER = ("ssm", "hybrid", "audio")
 
 
 def _layer_body(cfg: ArchConfig, i: int) -> Tuple[str, bool]:
@@ -248,26 +246,56 @@ def _dense_layer_train(cfg, lp, x, positions, prefix_len):
     return _residual(cfg, x, y), aux["lb_loss"], aux["z_loss"]
 
 
+def _recomputed(fn, *args):
+    """``fn(*args)`` under ``torch.utils.checkpoint``: its activations
+    recomputed in backward, as ``jax.checkpoint`` does in the reference's
+    scan bodies."""
+    return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
+
+
 def _run_dense_stack_train(cfg, params, x, positions, prefix_len):
-    """Every layer in order, each under ``torch.utils.checkpoint`` (its
-    activations recomputed in backward, as ``jax.checkpoint`` does in the
-    reference's scan body); returns (x, the aux losses summed over the
-    layers in order)."""
+    """Every layer in order, each recomputed in backward; returns (x,
+    the aux losses summed over the layers in order)."""
     aux = _zero_aux(x.device)
     for lp in params["blocks"]:
-        x, lb, z = torch.utils.checkpoint.checkpoint(
-            _dense_layer_train, cfg, lp, x, positions, prefix_len,
-            use_reentrant=False)
+        x, lb, z = _recomputed(_dense_layer_train, cfg, lp, x, positions,
+                               prefix_len)
+        aux = _sum_aux(aux, {"lb_loss": lb, "z_loss": z})
+    return x, aux
+
+
+def _mamba_layer_train(cfg, lp, x):
+    """A hybrid mamba layer over the full sequence from a zero state ->
+    (x, lb_loss, z_loss)."""
+    x, _, aux = _mamba_layer(cfg, lp, x, None)
+    aux = aux or _zero_aux(x.device)
+    return x, aux["lb_loss"], aux["z_loss"]
+
+
+def _run_hybrid_stack_train(cfg, params, x, positions):
+    """Every layer in order, each by the kind of its place in its group
+    and recomputed in backward (the reference recomputes a group of
+    ``attn_layer_period`` layers at once: the same numbers); returns (x,
+    the aux losses summed over the layers in order)."""
+    aux = _zero_aux(x.device)
+    for i, lp in enumerate(params["blocks"]):
+        if _layer_body(cfg, i)[0] == "mamba":
+            x, lb, z = _recomputed(_mamba_layer_train, cfg, lp, x)
+        else:
+            x, lb, z = _recomputed(_dense_layer_train, cfg, lp, x,
+                                   positions, 0)
         aux = _sum_aux(aux, {"lb_loss": lb, "z_loss": z})
     return x, aux
 
 
 def _mamba_layer(cfg, lp, x, state):
-    """Pre-norm mamba then MLP or MoE; returns (x, the mamba state)."""
+    """Pre-norm mamba then MLP or MoE; returns (x, the mamba state, the
+    MoE's aux losses or None)."""
     y, state = mam.mamba_apply(cfg, lp["mamba"], apply_norm(cfg, lp["n1"], x),
                                state)
     x = _residual(cfg, x, y)
-    return _residual(cfg, x, _ffn(cfg, lp, x)[0]), state
+    y, aux = _ffn(cfg, lp, x)
+    return _residual(cfg, x, y), state, aux
 
 
 def _run_hybrid_stack(cfg, params, x, positions, *, mode, cache=None,
@@ -279,7 +307,7 @@ def _run_hybrid_stack(cfg, params, x, positions, *, mode, cache=None,
     for i, lp in enumerate(params["blocks"]):
         c = cache["layers"][i] if mode == "decode" else None
         if _layer_body(cfg, i)[0] == "mamba":
-            x, c = _mamba_layer(cfg, lp, x, c)
+            x, c, _ = _mamba_layer(cfg, lp, x, c)
         elif mode == "decode":
             x, c = _dense_layer_decode(cfg, lp, x, c, window=window)
         else:
@@ -344,6 +372,16 @@ def _run_rwkv_stack(cfg, params, x, *, mode, cache=None):
     return x, {"layers": states}
 
 
+def _run_rwkv_stack_train(cfg, params, x):
+    """Every block in order from a zero state, each recomputed in
+    backward -> x."""
+    for lp in params["blocks"]:
+        x = _recomputed(rwkv.rwkv_layer_apply, cfg, lp["rwkv"],
+                        {"n1": lp["n1"]["w"], "n2": lp["n2"]["w"]}, x,
+                        None)[0]
+    return x
+
+
 def _sinusoidal(s: int, d: int, device=None) -> torch.Tensor:
     """(s, d) fp32 sinusoidal positions: sines, then cosines."""
     pos = torch.arange(s, dtype=torch.float32, device=device)[:, None]
@@ -352,21 +390,39 @@ def _sinusoidal(s: int, d: int, device=None) -> torch.Tensor:
     return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
-def run_encoder(cfg: ArchConfig, params: Params,
-                frames: torch.Tensor) -> torch.Tensor:
+def _encoder_layer(cfg, lp, x, pos):
+    x = x + attn.attn_apply_full(cfg, lp["attn"],
+                                 apply_norm(cfg, lp["n1"], x), pos,
+                                 causal=False, use_rope=False)
+    return x + apply_mlp(cfg, lp["mlp"], apply_norm(cfg, lp["n2"], x))
+
+
+def run_encoder(cfg: ArchConfig, params: Params, frames: torch.Tensor,
+                train: bool = False) -> torch.Tensor:
     """Whisper's encoder over precomputed frame embeddings (B, S_enc,
     D): sinusoidal positions, then pre-norm bidirectional attention (no
-    rope) and MLP a layer."""
+    rope) and MLP a layer; ``train`` recomputes each layer in
+    backward."""
     x = frames.to(COMPUTE_DTYPE)
     x = x + _sinusoidal(x.shape[1], cfg.d_model, x.device).to(x.dtype)
     pos = torch.arange(x.shape[1], device=x.device)
     enc = params["encoder"]
     for lp in enc["layers"]:
-        x = x + attn.attn_apply_full(cfg, lp["attn"],
-                                     apply_norm(cfg, lp["n1"], x), pos,
-                                     causal=False, use_rope=False)
-        x = x + apply_mlp(cfg, lp["mlp"], apply_norm(cfg, lp["n2"], x))
+        x = (_recomputed(_encoder_layer, cfg, lp, x, pos) if train
+             else _encoder_layer(cfg, lp, x, pos))
     return apply_norm(cfg, enc["final_norm"], x)
+
+
+def _whisper_layer_train(cfg, lp, x, positions, enc):
+    """A decoder layer over the full sequence without a cache: causal
+    self-attention, cross-attention to K/V computed here from ``enc``
+    (so the cross-attention's gradient reaches the encoder), MLP."""
+    x = x + attn.attn_apply_full(cfg, lp["attn"],
+                                 apply_norm(cfg, lp["n1"], x), positions)
+    xk, xv = attn.encoder_kv(cfg, lp["xattn"], enc)
+    x = x + attn.cross_attn_apply(cfg, lp["xattn"],
+                                  apply_norm(cfg, lp["nc"], x), xk, xv)
+    return x + apply_mlp(cfg, lp["mlp"], apply_norm(cfg, lp["n2"], x))
 
 
 def _run_whisper_decoder(cfg, params, x, positions, *, mode, enc=None,
@@ -407,17 +463,6 @@ def _embed(cfg: ArchConfig, params: Params,
     return x
 
 
-def check_trainable(cfg: ArchConfig) -> None:
-    """Raise for the families whose training is not ported yet: the ssm,
-    hybrid and audio families need the ``wkv6`` and ``selective_scan``
-    backward kernels and whisper's cross-attention backward."""
-    if cfg.family in _TRAIN_LATER:
-        raise NotImplementedError(
-            f"training the {cfg.family} family ({cfg.name}) needs the "
-            f"wkv6 and selective_scan backward kernels and whisper's "
-            f"cross-attention backward: ROADMAP A13c-ii")
-
-
 def forward(cfg: ArchConfig, params: Params,
             batch: Dict[str, torch.Tensor], *, mode: str,
             cache: Optional[Params] = None, window: int = 0,
@@ -430,13 +475,10 @@ def forward(cfg: ArchConfig, params: Params,
     prefill or train batch holds ``tokens`` and, for the audio family,
     ``frames`` (B, S_enc, D), for the vlm family ``prefix`` (B, P, D),
     whose P positions come before the tokens' and attend
-    bidirectionally.  Training the ssm, hybrid and audio families raises
-    (ROADMAP A13c-ii)."""
+    bidirectionally."""
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"mode must be 'train', 'prefill' or 'decode', "
                          f"got {mode!r}")
-    if mode == "train":
-        check_trainable(cfg)
     x = _embed(cfg, params, batch["tokens"])
     prefix_len = 0
     if cfg.family == "vlm" and mode != "decode":
@@ -444,8 +486,19 @@ def forward(cfg: ArchConfig, params: Params,
         prefix_len = cfg.num_prefix_tokens
     positions = torch.arange(x.shape[1], device=x.device)
     if mode == "train":
-        x, aux = _run_dense_stack_train(cfg, params, x, positions,
-                                        prefix_len)
+        aux = _zero_aux(x.device)
+        if cfg.family == "ssm":
+            x = _run_rwkv_stack_train(cfg, params, x)
+        elif cfg.family == "hybrid":
+            x, aux = _run_hybrid_stack_train(cfg, params, x, positions)
+        elif cfg.family == "audio":
+            enc = run_encoder(cfg, params, batch["frames"], train=True)
+            for lp in params["blocks"]:
+                x = _recomputed(_whisper_layer_train, cfg, lp, x, positions,
+                                enc)
+        else:
+            x, aux = _run_dense_stack_train(cfg, params, x, positions,
+                                            prefix_len)
         return apply_norm(cfg, params["final_norm"], x), aux
     kw = dict(mode=mode, cache=cache, window=window, context=context)
     if cfg.family == "ssm":

@@ -1400,3 +1400,214 @@ def test_kill_and_resume_on_the_card(cuda, tmp_path, run):
     assert res.run(3, checkpointer=ck, resume=True) == rows
     assert all(torch.equal(full.params[k], res.params[k])
                for k in full.params)
+
+
+# the recurrences' backwards: (B, T, H) for wkv6 (rwkv6-3b's training
+# microbatch, B = 2, the chunk edges) and (B, T, Di, N) for the selective
+# scan (jamba's training microbatch, an odd Di and T with N = 7, N = 32,
+# a Di past a block's 16 channels)
+WKV_BWD_CASES = [(1, 1024, 40), (2, 1024, 40), (1, 64, 40), (1, 65, 40),
+                 (2, 129, 8), (1, 5, 3)]
+SCAN_BWD_CASES = [(1, 1024, 8192, 16), (3, 77, 300, 7), (1, 200, 1024, 32),
+                  (2, 130, 8200, 16)]
+
+
+def _wkv_bwd_args(b, t, h, dtype, w_dtype, device, with_ds, seed=0):
+    """The forward kernel's operands (edge decays) and states, an fp32
+    cotangent dy and, ``with_ds``, dsT."""
+    from repro_torch.kernels.wkv6 import wkv6_cuda
+    args = _wkv_inputs(b, t, h, dtype, w_dtype, device, seed=seed, edge=True)
+    _, _, states = wkv6_cuda(*args, keep_states=True)
+    g = torch.Generator().manual_seed(seed + 1)
+    dy = torch.randn(b, t, h, 64, generator=g).to(device)
+    ds = torch.randn(b, h, 64, 64, generator=g).to(device) if with_ds else None
+    return args, states, dy, ds
+
+
+@pytest.mark.parametrize("with_ds", [False, True])
+@pytest.mark.parametrize("dtype,w_dtype", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.float32),
+    (torch.bfloat16, torch.bfloat16)])
+@pytest.mark.parametrize("b,t,h", WKV_BWD_CASES)
+def test_wkv6_bwd_kernel_matches_plain(cuda, b, t, h, dtype, w_dtype,
+                                       with_ds):
+    """dr, dk, dv, dw, du and ds0 against ``wkv6_bwd_ref`` on the same
+    operands, with decays of exactly 0, 1e-31 and 1 - 2^-24: fp32 within
+    1e-5 of each gradient's largest magnitude (sums in other orders),
+    bf16 within 2^-7 (each gradient rounded once); bit-repeatable; one
+    launch a call."""
+    from repro_torch.kernels.wkv6 import wkv6_bwd_cuda
+    args, states, dy, ds = _wkv_bwd_args(b, t, h, dtype, w_dtype, cuda,
+                                         with_ds, seed=t + b)
+    before = build.LAUNCHES["wkv6_bwd"]
+    got = wkv6_bwd_cuda(*args, states, dy, ds)
+    again = wkv6_bwd_cuda(*args, states, dy, ds)
+    assert build.LAUNCHES["wkv6_bwd"] == before + 2
+    want = ref.wkv6_bwd_ref(*args, dy, ds)
+    torch.cuda.synchronize()
+    tol = 1e-5 if dtype == torch.float32 else 2 ** -7
+    for name, x, w, y in zip(("dr", "dk", "dv", "dw", "du", "ds0"), got,
+                             want, again):
+        assert x.dtype == w.dtype and x.shape == w.shape, name
+        assert bool(torch.isfinite(x).all()), name
+        assert _scaled_err(x.float(), w.float()) <= tol, name
+        assert torch.equal(x, y), name
+
+
+def _scan_bwd_args(b, t, di, n, dtype, device, with_dh, seed=0,
+                   underflow=False):
+    """The forward kernel's operands and saved states, an fp32 cotangent
+    dy and, ``with_dh``, dhT; ``underflow``: every 5th step's dt at 50
+    and every 3rd channel's a at -100, so exp(dt a) underflows to 0."""
+    from repro_torch.kernels.selective_scan import selective_scan_cuda
+    args = _scan_inputs(b, t, di, n, torch.float32, "cpu", seed)
+    if underflow:
+        args[1][:, ::5] = 50.0
+        args[4][::3] = -100.0
+    args = [z.to(dtype).to(device) if i < 4 else z.to(device)
+            for i, z in enumerate(args)]
+    _, _, states = selective_scan_cuda(*args, keep_states=True)
+    g = torch.Generator().manual_seed(seed + 1)
+    dy = torch.randn(b, t, di, generator=g).to(device)
+    dh = torch.randn(b, di, n, generator=g).to(device) if with_dh else None
+    return args, states, dy, dh
+
+
+@pytest.mark.parametrize("underflow", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,t,di,n", SCAN_BWD_CASES)
+def test_selective_scan_bwd_kernel_matches_plain(cuda, b, t, di, n, dtype,
+                                                 underflow):
+    """dx, ddt, dB, dC, da and dh0 against ``selective_scan_bwd_ref`` on
+    the same operands (dhT given where the state underflows, not
+    elsewhere): fp32 within 1e-5 of each gradient's largest magnitude
+    (sums in other orders; the states rebuilt from the forward's, whose
+    exp is the MUFU's), bf16 within 2^-7; bit-repeatable; one launch a
+    call."""
+    from repro_torch.kernels.selective_scan import selective_scan_bwd_cuda
+    args, states, dy, dh = _scan_bwd_args(b, t, di, n, dtype, cuda,
+                                          underflow, seed=t, underflow=
+                                          underflow)
+    before = build.LAUNCHES["selective_scan_bwd"]
+    got = selective_scan_bwd_cuda(*args, states, dy, dh)
+    again = selective_scan_bwd_cuda(*args, states, dy, dh)
+    assert build.LAUNCHES["selective_scan_bwd"] == before + 2
+    want = ref.selective_scan_bwd_ref(*args, dy, dh)
+    torch.cuda.synchronize()
+    tol = 1e-5 if dtype == torch.float32 else 2 ** -7
+    for name, x, w, y in zip(("dx", "ddt", "dB", "dC", "da", "dh0"), got,
+                             want, again):
+        assert x.dtype == w.dtype and x.shape == w.shape, name
+        assert bool(torch.isfinite(x).all()), name
+        assert _scaled_err(x.float(), w.float()) <= tol, name
+        assert torch.equal(x, y), name
+
+
+def test_selective_scan_saves_leave_the_forward_bit_equal(cuda):
+    """The forward with its states saved: y and hT bit-equal to the call
+    without, and each saved state within 1e-5 of the plain scan's state
+    after as many steps."""
+    from repro_torch.kernels.selective_scan import selective_scan_cuda
+    args = _scan_inputs(2, 200, 300, 16, torch.bfloat16, cuda, seed=3)
+    y, h_t = selective_scan_cuda(*args)
+    y2, h_t2, states = selective_scan_cuda(*args, keep_states=True)
+    assert torch.equal(y, y2) and torch.equal(h_t, h_t2)
+    assert states.shape == (2, 3, 300, 16)
+    for m in range(3):
+        steps = 64 * (m + 1)
+        _, want = ref.selective_scan_ref(*(z[:, :steps] for z in args[:4]),
+                                         *args[4:])
+        assert _scaled_err(states[:, m], want) <= 1e-5
+
+
+@pytest.mark.parametrize("op", ["wkv6", "selective_scan"])
+def test_recurrence_autograd_runs_the_kernels(cuda, op):
+    """With grad required, ``ops.wkv6`` and ``ops.selective_scan`` are
+    their autograd Functions: one forward launch, the serving bits, and
+    in backward one backward launch whose gradients are the kernel's bit
+    for bit (the final state's cotangent given); under no_grad the call
+    is the forward alone."""
+    from repro_torch.kernels import selective_scan as ss, wkv6
+    if op == "wkv6":
+        args = _wkv_inputs(1, 130, 4, torch.bfloat16, torch.float32, cuda)
+        fwd, bwd, call = wkv6.wkv6_cuda, wkv6.wkv6_bwd_cuda, ops.wkv6
+    else:
+        args = _scan_inputs(1, 130, 300, 16, torch.bfloat16, cuda)
+        fwd = ss.selective_scan_cuda
+        bwd, call = ss.selective_scan_bwd_cuda, ops.selective_scan
+    y, s_t, states = fwd(*args, keep_states=True)
+    g = torch.Generator().manual_seed(5)
+    dy = torch.randn(y.shape, generator=g).to(args[0].dtype).to(cuda)
+    ds = torch.randn(s_t.shape, generator=g).to(cuda)
+    leaves = [t.clone().requires_grad_(True) for t in args]
+    build.reset_launches()
+    out, last = call(*leaves)
+    assert build.LAUNCHES[op] == 1 and torch.equal(out.detach(),
+                                                   y.to(out.dtype))
+    torch.autograd.backward((out, last), (dy, ds))
+    assert build.LAUNCHES[op + "_bwd"] == 1
+    for x, w in zip(leaves, bwd(*args, states, dy.float(), ds)):
+        assert torch.equal(x.grad, w)
+    with torch.no_grad():
+        out, _ = call(*leaves)
+    assert out.grad_fn is None
+    assert build.LAUNCHES[op] == 2 and build.LAUNCHES[op + "_bwd"] == 2
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-3b", "jamba-v0.1-52b",
+                                  "whisper-medium"])
+def test_family_train_step_on_the_card_matches_the_cpu(cuda, monkeypatch,
+                                                       arch):
+    """One scaled-down train step (2 layers, B = 4, S = 64 in 2
+    microbatches) of the ssm, hybrid and audio families on the card
+    against the CPU from the same parameters and batch, the step the
+    clipped gradient itself (lr 1, eps 1, no decay): loss, grad_norm and
+    every parameter's update within 2^-5 of scale in bf16 (cuBLAS
+    against the CPU's GEMMs); rwkv6 and jamba in fp32 within 1e-4 (the
+    compute dtype monkeypatched): a bf16 router near-tie could send a
+    token elsewhere on one side (ROADMAP C3), and rwkv6's updates are
+    the noisiest in bf16 (its bonus u sums r k (v . dy) over every
+    token): at d_model 256 the two sides' bf16 rounding moved one past
+    2^-5 of its scale.  Launches: each recurrence's forward twice a
+    layer and microbatch (the recompute), its backward once; whisper's
+    2 x (encoder, self- and cross-attention)."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models import transformer
+    from repro_torch.train import optim
+    from repro_torch.train.step import make_train_step
+    fp32 = arch != "whisper-medium"
+    if fp32:
+        monkeypatch.setattr(transformer, "COMPUTE_DTYPE", torch.float32)
+    cfg = scaled_down(get_arch(arch))
+    if cfg.is_moe:
+        cfg = dataclasses.replace(cfg, capacity_factor=cfg.num_experts
+                                  / cfg.experts_per_token)
+    shape = ShapeConfig("t", 64, 4, "train", grad_accum=2)
+    step = make_train_step(cfg, shape, optim.OptConfig(
+        lr=1.0, warmup_steps=1, eps=1.0, weight_decay=0.0))
+    p_dev = registry.init_params(torch.Generator(device=cuda).manual_seed(0),
+                                 cfg)
+    p_cpu, before = _to(p_dev, "cpu"), _to(p_dev, "cpu")
+    batch = registry.make_concrete_batch(cfg, shape,
+                                         torch.Generator().manual_seed(1),
+                                         "train")
+    build.reset_launches()
+    p_dev, _, m_dev = step(p_dev, optim.adamw_init(p_dev), _to(batch, cuda))
+    torch.cuda.synchronize()
+    want = {"rwkv6-3b": {"wkv6": 8, "wkv6_bwd": 4},
+            "jamba-v0.1-52b": {"selective_scan": 4, "selective_scan_bwd": 2,
+                               "flash_attention": 4,
+                               "flash_attention_bwd": 2},
+            "whisper-medium": {"flash_attention": 24,
+                               "flash_attention_bwd": 12}}[arch]
+    assert {k: v for k, v in build.LAUNCHES.items() if v} == want
+    p_cpu, _, m_cpu = step(p_cpu, optim.adamw_init(p_cpu), batch)
+    tol = 1e-4 if fp32 else 2 ** -5
+    for k in ("loss", "grad_norm"):
+        assert abs(float(m_dev[k]) - float(m_cpu[k])) <= tol * abs(
+            float(m_cpu[k])), k
+    for d, c, p0 in zip(optim.tree_leaves(p_dev), optim.tree_leaves(p_cpu),
+                        optim.tree_leaves(before)):
+        scale = float((c - p0).abs().max())
+        assert bool(((d.cpu() - c).abs() <= tol * scale
+                     + 2 ** -22 * c.abs()).all())

@@ -328,17 +328,6 @@ def test_train_loss_and_grads_match_reference_in_bf16(model_runs):
         assert _err(g, w.numpy()) <= BF16_TOL
 
 
-@pytest.mark.parametrize("arch", ["rwkv6-3b", "jamba-v0.1-52b",
-                                  "whisper-medium"])
-def test_unported_families_raise_naming_a13c_ii(arch):
-    cfg = scaled_down(get_arch(arch))
-    with pytest.raises(NotImplementedError, match="A13c-ii"):
-        transformer.train_loss(cfg, {}, {})
-    with pytest.raises(NotImplementedError, match="A13c-ii"):
-        train_cli.main(["--arch", arch, "--reduced", "--device", "cpu",
-                        "--steps", "1"])
-
-
 # --------------------------------------------------------------------------
 # the train step
 # --------------------------------------------------------------------------
