@@ -338,9 +338,6 @@ Phases (any failure exits non-zero; no phase's exception is caught):
    the library call's, the plain version's and both bounds);
 7. ``{"ok": true, "device": {...}}`` as the last line.
 
-``--train-readings`` profiles one warm train step of each full-width
-training path (no result line): its wall seconds, the card's kernel
-time by kind and the kernels that take the most.
 ``--c12-readings`` takes two one-off readings instead (no result line):
 ``[c12]`` through the plain products (cuBLAS), and the trained rounds'
 wall time (fast and paper profile), which uses only entry points older
@@ -1177,8 +1174,10 @@ def serve_path(arch: str, expected, dev, argv=None, cfg=None,
 # prefix_len): gemma-2b's training shape (8 q heads over 1 kv head of
 # 256) and its microbatch of 1 (what a step launches: TRAIN_ARGV's
 # batch of 2 in 2 microbatches), minicpm-2b's (36 heads of 64), groups
-# of 4 at 128, a sliding window, paligemma's prefix-LM and an unmasked
-# sequence
+# of 4 at 128, a sliding window, paligemma's prefix-LM, an unmasked
+# sequence, and whisper-medium's three at its training microbatch of 1
+# (16 heads of 64): the encoder's 1500 frames, the decoder's causal 448
+# tokens and its cross-attention, 448 queries over the 1500 frames
 GEMMA_TRAIN_FLASH = (2, 1024, 1024, 8, 1, 256, True, 0, 0)
 GEMMA_STEP_FLASH = (1, 1024, 1024, 8, 1, 256, True, 0, 0)
 MINICPM_TRAIN_FLASH = (2, 1024, 1024, 36, 36, 64, True, 0, 0)
@@ -1191,6 +1190,9 @@ FLASH_BWD_CASES = [
     (2, 1024, 1024, 8, 1, 256, True, 256, 0),
     (2, 320, 320, 8, 1, 256, True, 0, 256),
     (2, 1500, 1500, 16, 16, 64, False, 0, 0),
+    (1, 1500, 1500, 16, 16, 64, False, 0, 0),
+    (1, 448, 448, 16, 16, 64, True, 0, 0),
+    (1, 448, 1500, 16, 16, 64, False, 0, 0),
 ]
 # the bf16 backward's kernels; "sum" (the dK/dV partials' ordered sum)
 # runs only where bwd_plan splits a kv tile's work
@@ -1214,16 +1216,24 @@ TRAIN_PATHS = {
                        {"flash_attention": 288, "flash_attention_bwd": 144}),
 }
 # their 2-layer checks on the card against the CPU (B = 2, S = 128, 2
-# microbatches): arch -> (config changes, fp32 compute, launches).
-# jamba's (mamba + MoE, then attention + MLP; 4 experts of full width, a
-# capacity that drops nothing) computes in fp32 on both sides: in bf16 a
-# router near-tie sends a token to other experts on one side (ROADMAP
-# C3), which no tolerance covers
+# microbatches): arch -> (config changes, fp32 compute, launches); bf16
+# held within MODEL_TOL, fp32 within TRAIN_FP32_TOL.  jamba's (mamba +
+# MoE, then attention + MLP; 4 experts of full width, a capacity that
+# drops nothing) computes in fp32 on both sides: in bf16 a router
+# near-tie sends a token to other experts on one side (ROADMAP C3),
+# which no tolerance covers.  rwkv6-3b's computes in fp32 too: in bf16
+# u's gradient sums the rounding of every token's r, k and v, so its
+# update moves by a few percent of its scale from one bf16 path to
+# another; TRAIN_WITNESS reads that beside the fp32 check (the card's
+# and the CPU's bf16 steps against each other and against the CPU's
+# fp32 step), and does not hold it
 TRAIN_CHECK = dict(batch=2, seq=128, grad_accum=2)
+TRAIN_FP32_TOL = 1e-4
+TRAIN_WITNESS = ("rwkv6-3b",)
 TRAIN_CHECKS = {
     "gemma-2b": (dict(num_layers=2), False,
                  {"flash_attention": 8, "flash_attention_bwd": 4}),
-    "rwkv6-3b": (dict(num_layers=2), False, {"wkv6": 8, "wkv6_bwd": 4}),
+    "rwkv6-3b": (dict(num_layers=2), True, {"wkv6": 8, "wkv6_bwd": 4}),
     "jamba-v0.1-52b": (
         dict(JAMBA_CHECK, capacity_factor=2.0), True,
         {"selective_scan": 4, "selective_scan_bwd": 2, "flash_attention": 4,
@@ -1411,11 +1421,13 @@ def train_check(dev, arch: str) -> dict:
     compute on both, or fp32 where TRAIN_CHECKS says).  The step is the
     clipped gradient itself (lr 1, AdamW's eps 1, no decay: each element
     moves by g / (|g| + 1)), so each parameter's update is held within
-    MODEL_TOL of its largest element (plus the two updated values'
+    ``tol`` of its largest element (plus the two updated values'
     rounding, 2^-22 of the parameter), the loss, ce and grad_norm within
-    MODEL_TOL relative; the card's launches must be TRAIN_CHECKS' (each
-    layer's forward twice a microbatch, the recompute, its backward
-    once), and no other kernel.  Returns the card's launches."""
+    ``tol`` relative (MODEL_TOL in bf16, TRAIN_FP32_TOL in fp32); the
+    card's launches must be TRAIN_CHECKS' (each layer's forward twice a
+    microbatch, the recompute, its backward once), and no other kernel.
+    For a TRAIN_WITNESS arch, also logs its bf16 steps' distances.
+    Returns the card's launches."""
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.configs.base import ShapeConfig
@@ -1425,6 +1437,7 @@ def train_check(dev, arch: str) -> dict:
     from repro_torch.train.step import make_train_step
     t0 = time.perf_counter()
     changes, fp32, want = TRAIN_CHECKS[arch]
+    tol = TRAIN_FP32_TOL if fp32 else MODEL_TOL
     cfg = dataclasses.replace(get_arch(arch), **changes)
     shape = ShapeConfig("check", TRAIN_CHECK["seq"], TRAIN_CHECK["batch"],
                         "train", grad_accum=TRAIN_CHECK["grad_accum"])
@@ -1432,39 +1445,32 @@ def train_check(dev, arch: str) -> dict:
                           weight_decay=0.0)
     step = make_train_step(cfg, shape, opt)
     compute = transformer.COMPUTE_DTYPE
-    transformer.COMPUTE_DTYPE = torch.float32 if fp32 else compute
-    try:
-        p_dev = registry.init_params(
-            torch.Generator(device=dev).manual_seed(0), cfg)
-        p_cpu, before = tree_to(p_dev, "cpu"), tree_to(p_dev, "cpu")
-        batch = registry.make_concrete_batch(
-            cfg, shape, torch.Generator().manual_seed(1), "train")
-        build.reset_launches()
-        t_dev = time.perf_counter()
-        p_dev, _, m_dev = step(p_dev, optim.adamw_init(p_dev),
-                               tree_to(batch, dev))
-        torch.cuda.synchronize()
-        t_dev = time.perf_counter() - t_dev
-        launches = {k: v for k, v in build.LAUNCHES.items() if v}
-        t_cpu = time.perf_counter()
-        p_cpu, _, m_cpu = step(p_cpu, optim.adamw_init(p_cpu), batch)
-        t_cpu = time.perf_counter() - t_cpu
-    finally:
-        transformer.COMPUTE_DTYPE = compute
+
+    def run(params, batch, dtype):
+        transformer.COMPUTE_DTYPE = dtype
+        try:
+            return step(params, optim.adamw_init(params), batch)
+        finally:
+            transformer.COMPUTE_DTYPE = compute
+
+    dtype = torch.float32 if fp32 else compute
+    p0 = registry.init_params(torch.Generator(device=dev).manual_seed(0), cfg)
+    before = tree_to(p0, "cpu")
+    batch = registry.make_concrete_batch(
+        cfg, shape, torch.Generator().manual_seed(1), "train")
+    build.reset_launches()
+    t_dev = time.perf_counter()
+    p_dev, _, m_dev = run(p0, tree_to(batch, dev), dtype)
+    torch.cuda.synchronize()
+    t_dev = time.perf_counter() - t_dev
+    launches = {k: v for k, v in build.LAUNCHES.items() if v}
+    t_cpu = time.perf_counter()
+    p_cpu, _, m_cpu = run(_copy(before), batch, dtype)
+    t_cpu = time.perf_counter() - t_cpu
     rel = {k: abs(float(m_dev[k]) - float(m_cpu[k])) / abs(float(m_cpu[k]))
            for k in ("loss", "ce", "grad_norm")}
-    worst, upd_err = "", 0.0
-    for (path, d), c, p0 in zip(_leaf_paths(p_dev),
-                                optim.tree_leaves(p_cpu),
-                                optim.tree_leaves(before)):
-        d = d.cpu()
-        scale = float((c - p0).abs().max())
-        err = float(((d - c).abs() - 2 ** -22 * c.abs()).clamp(min=0).max()
-                    / max(scale, 1e-30))
-        if err > upd_err:
-            worst, upd_err = path, err
-    ok = (max(rel.values()) <= MODEL_TOL and upd_err <= MODEL_TOL
-          and launches == want
+    worst, upd_err = update_err(p_dev, p_cpu, before)
+    ok = (max(rel.values()) <= tol and upd_err <= tol and launches == want
           and all(math.isfinite(float(m_dev[k])) for k in rel))
     log(f"[check] train step {arch} {cfg.num_layers} layers"
         f"{f' (+ {cfg.encoder_layers} encoder layers)' if cfg.encoder_layers else ''}"
@@ -1475,14 +1481,54 @@ def train_check(dev, arch: str) -> dict:
         f"{float(m_dev['grad_norm']):.6f} / {float(m_cpu['grad_norm']):.6f}"
         f", relative errs { {k: float(f'{e:.3g}') for k, e in rel.items()} }"
         f", updates' max err / scale {upd_err:.3g} (at {worst}; tol "
-        f"{MODEL_TOL}); launches on the card {launches} (want {want}); "
+        f"{tol}); launches on the card {launches} (want {want}); "
         f"card {t_dev:.2f}s, cpu {t_cpu:.1f}s; "
         f"{time.perf_counter() - t0:.1f}s {'OK' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"the {arch} train step on the card disagrees "
                              f"with the CPU")
-    del p_dev, p_cpu, before
+    if arch in TRAIN_WITNESS:
+        d16 = run(tree_to(before, dev), tree_to(batch, dev),
+                  torch.bfloat16)[0]
+        c16 = run(_copy(before), batch, torch.bfloat16)[0]
+        log(f"[check] train step {arch} in bf16, updates' max err / scale "
+            "(at): " + ", ".join(
+                f"{name} {e:.3g} ({at})" for name, (at, e) in (
+                    ("card bf16 vs cpu bf16", update_err(d16, c16, before)),
+                    ("cpu bf16 vs cpu fp32", update_err(c16, p_cpu, before)),
+                    ("card bf16 vs cpu fp32", update_err(d16, p_cpu, before)),
+                    ("card fp32 vs cpu fp32", (worst, upd_err))))
+            + " (a reading, not held)")
+        del d16, c16
+    del p_dev, p_cpu, p0, before
     return launches
+
+
+def _copy(tree):
+    """A CPU parameter tree's copy (the train step updates in place)."""
+    if isinstance(tree, dict):
+        return {k: _copy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_copy(v) for v in tree]
+    return tree.clone()
+
+
+def update_err(got, want, before) -> tuple:
+    """(key path, error) of the parameter whose update ``got`` is
+    farthest from ``want``'s (both from ``before``, on the CPU): the
+    largest difference less the two updated values' rounding (2^-22 of
+    the parameter), over the largest element of ``want``'s update."""
+    from repro_torch.train.optim import tree_leaves
+    worst, upd_err = "", 0.0
+    for (path, d), c, p0 in zip(_leaf_paths(got), tree_leaves(want),
+                                tree_leaves(before)):
+        d = d.cpu()
+        scale = float((c - p0).abs().max())
+        err = float(((d - c).abs() - 2 ** -22 * c.abs()).clamp(min=0).max()
+                    / max(scale, 1e-30))
+        if err > upd_err:
+            worst, upd_err = path, err
+    return worst, upd_err
 
 
 def _leaf_paths(tree, path=""):
@@ -1498,12 +1544,14 @@ def _leaf_paths(tree, path=""):
 
 
 def train_path(dev, arch: str) -> dict:
-    """``python -m repro_torch.launch.train --arch ARCH --steps 4 --batch
-    2 --grad-accum 2`` (TRAIN_PATHS' sequence) in a child process, at
-    full width and depth.  Its last line must show a finite loss at
-    every step and, per step, TRAIN_PATHS' launches and no other kernel.
-    Prints each step's seconds and the peak device memory; returns the
-    stats."""
+    """The training CLI, ``--arch ARCH --steps 4 --batch 2 --grad-accum
+    2`` (TRAIN_PATHS' sequence), in a child process at full width and
+    depth, its step 2 traced (``train_child``).  Its stats line must
+    show a finite loss at every step and, per step, TRAIN_PATHS'
+    launches and no other kernel.  Prints each step's seconds, the peak
+    device memory and where the traced step's kernel time goes: the
+    card is busy for the kernel seconds of that step over the mean of
+    the untraced warm steps 1 and 3.  Returns the stats."""
     import torch
     t0 = time.perf_counter()
     gc.collect()
@@ -1514,16 +1562,16 @@ def train_path(dev, arch: str) -> dict:
             "--grad-accum", "2", *extra]
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src") + os.pathsep
                + os.environ.get("PYTHONPATH", ""))
-    res = subprocess.run([sys.executable, "-m", "repro_torch.launch.train",
-                          *argv], capture_output=True, text=True,
-                         env=env, cwd=ROOT, timeout=600)
+    res = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"),
+                          "--train-child", *argv], capture_output=True,
+                         text=True, env=env, cwd=ROOT, timeout=600)
     lines = res.stdout.strip().splitlines()
-    for line in lines:
+    for line in lines[:-1]:
         log(f"[train path] {line}")
     if res.returncode != 0:
         log(res.stderr[-4000:])
         raise AssertionError(f"train path {arch}: rc {res.returncode}")
-    stats = json.loads(lines[-1])
+    stats, split = json.loads(lines[-2]), json.loads(lines[-1])
     want = {k: v * TRAIN_STEPS for k, v in per_step.items()}
     ok = (stats["device"].startswith("cuda") and stats["layers"] == layers
           and stats["d_model"] == width and len(stats["loss"]) == TRAIN_STEPS
@@ -1538,8 +1586,16 @@ def train_path(dev, arch: str) -> dict:
         f"{held / 1e9:.2f} GB beside it), launches {stats['launches']} "
         f"(want {want}); {time.perf_counter() - t0:.1f}s with the start "
         f"and the weights' draw {'OK' if ok else 'FAIL'}")
-    if not ok:
-        raise AssertionError(f"train path {arch}: stats {stats}")
+    if not ok or not split["kernel_s"] > 0:
+        raise AssertionError(f"train path {arch}: stats {stats}, traced "
+                             f"kernel seconds {split['kernel_s']}")
+    warm = (stats["step_s"][1] + stats["step_s"][3]) / 2
+    log(f"[train split] {arch}: step 2 traced {stats['step_s'][2]:.4f} s, "
+        f"its kernels {split['kernel_s']:.4f} s: "
+        + ", ".join(f"{k} {v:.4f} s" for k, v in split["kinds"].items())
+        + f"; untraced warm steps 1 and 3 {warm:.4f} s a step, the card "
+        f"busy {split['kernel_s'] / warm:.1%} of it; the most: "
+        + "; ".join(f"{n[:60]} {v * 1e3:.1f} ms" for n, v in split["top"]))
     return stats
 
 
@@ -1548,12 +1604,12 @@ def wkv_bwd_args(case, dtype, dev, with_ds, seed=0, edge=True):
     the forward kernel's states, an fp32 cotangent dy and, ``with_ds``,
     dsT."""
     import torch
-    from repro_torch.kernels.wkv6 import wkv6_cuda
+    from repro_torch.kernels.wkv6 import wkv6_fwd_cuda
     b, t, h = case
     g = torch.Generator(device=dev).manual_seed(seed)
     args = list(wkv_inputs(b, t, h, g, dev, edge=edge))
     args[:3] = [z.to(dtype) for z in args[:3]]
-    _, _, states = wkv6_cuda(*args, keep_states=True)
+    _, _, states = wkv6_fwd_cuda(*args)
     dy = torch.randn(b, t, h, WKV_N, generator=g, device=dev)
     ds = (torch.randn(b, h, WKV_N, WKV_N, generator=g, device=dev)
           if with_ds else None)
@@ -1565,14 +1621,14 @@ def scan_bwd_args(case, dtype, dev, with_dh, seed=0):
     says), the forward kernel's saved states, an fp32 cotangent dy and,
     ``with_dh``, dhT."""
     import torch
-    from repro_torch.kernels.selective_scan import selective_scan_cuda
+    from repro_torch.kernels.selective_scan import selective_scan_fwd_cuda
     b, t, di, n, underflow = case
     args = scan_inputs((b, t, di, n), torch.float32, dev, seed=seed)
     if underflow:
         args[1][:, ::5] = 50.0
         args[4][::3] = -100.0
     args = [z.to(dtype) if i < 4 else z for i, z in enumerate(args)]
-    _, _, states = selective_scan_cuda(*args, keep_states=True)
+    _, _, states = selective_scan_fwd_cuda(*args)
     g = torch.Generator(device=dev).manual_seed(seed + 1)
     dy = torch.randn(b, t, di, generator=g, device=dev)
     dh = (torch.randn(b, di, n, generator=g, device=dev) if with_dh
@@ -2708,83 +2764,58 @@ def round_profile(dev) -> None:
         + "; ".join(f"{k} {v / 1e3:.2f} ms" for k, v in top_h))
 
 
-def train_readings() -> int:
-    """``python3 chip_smoke.py --train-readings``: where a warm train
-    step's time goes, for each TRAIN_PATHS arch at full width and depth
-    (the CLI's step, batch and seed): 2 warm steps, then one step under
-    ``torch.profiler``: its wall seconds (host clock, synchronised), the
-    card's kernel time in it (each kernel once) by kind (the library's
-    GEMMs, the port's hand-written kernels, PyTorch's elementwise
-    kernels, the rest) and the kernels that take the most (no result
-    line)."""
+def train_child(argv) -> int:
+    """``python3 chip_smoke.py --train-child ARGV``: the training CLI
+    (``repro_torch.launch.train``'s main) on ARGV, its step 2 (the
+    third) under torch.profiler (the card's activity alone, from the
+    step's call until it is synchronised; the step's seconds include the
+    trace's processing, the other steps run with no profiler).  After
+    the CLI's lines, one JSON line: that step's kernel time on the card
+    (each kernel once) by kind (the library's GEMMs, the port's
+    hand-written kernels, PyTorch's elementwise kernels, the rest) and
+    the kernels that take the most."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    if not torch.cuda.is_available():
-        print("chip_smoke: torch.cuda.is_available() is False",
-              file=sys.stderr)
-        return 2
-    from repro_torch.configs import get_arch
-    from repro_torch.configs.base import ShapeConfig
-    from repro_torch.data.lm import SyntheticLM
-    from repro_torch.device import fp32_strict
-    from repro_torch.models import registry
-    from repro_torch.train import optim
-    from repro_torch.train.step import make_train_step
-    fp32_strict()
-    dev = torch.device("cuda")
-    log(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                        "--format=csv,noheader"], capture_output=True,
-                       text=True, check=True).stdout.strip())
+    from repro_torch.launch import train
     ours = ("wkv6", "selective_scan", "fa_", "flash_")
-    for arch, (extra, _, _, _) in TRAIN_PATHS.items():
-        cfg, seq = get_arch(arch), int(extra[1])
-        shape = ShapeConfig("readings", seq, 2, "train", grad_accum=2)
-        step = make_train_step(cfg, shape, optim.OptConfig(
-            total_steps=TRAIN_STEPS, warmup_steps=5, schedule=cfg.lr_schedule))
-        params = registry.init_params(
-            torch.Generator(device=dev).manual_seed(0), cfg)
-        state = optim.adamw_init(params)
-        it = SyntheticLM(cfg.vocab_size, seed=0).batches(2, seq, cfg)
-        batches = [{k: torch.as_tensor(v).to(dev, torch.long if v.dtype.kind
-                                             == "i" else torch.float32)
-                    for k, v in next(it).items()} for _ in range(3)]
-        for batch in batches[:2]:
-            params, state, _ = step(params, state, batch)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            params, state, _ = step(params, state, batches[2])
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        by_name = {}
-        kinds = dict.fromkeys(("gemm", "hand-written", "elementwise",
-                               "other"), 0.0)
-        for ev in prof.events():
-            if ev.device_type != DeviceType.CUDA:
-                continue
-            ms = ev.device_time_total / 1e3
-            name = ev.name[5:] if ev.name.startswith("void ") else ev.name
-            by_name[name] = by_name.get(name, 0.0) + ms
-            kind = ("hand-written" if name.startswith(ours) else "gemm"
-                    if any(w in name.lower() for w in (
-                        "gemm", "xmma", "cutlass", "sm90", "nvjet"))
-                    else "elementwise" if "elementwise" in name
-                    else "other")
-            kinds[kind] += ms
-        busy = sum(kinds.values())
-        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-        log(f"[train readings] {arch} ({cfg.num_layers} layers, B=2 S={seq} "
-            f"ga=2): warm step {wall:.4f} s under the profiler, kernels "
-            f"{busy / 1e3:.4f} s ({busy / 1e3 / wall:.1%} of the wall): "
-            + ", ".join(f"{k} {v / 1e3:.4f} s" for k, v in kinds.items())
-            + "; the most: " + "; ".join(f"{n[:60]} {v:.1f} ms"
-                                         for n, v in top))
-        del params, state, batches, step, prof
-        gc.collect()
-        torch.cuda.empty_cache()
-    return 0
+    split, calls = {}, []
+    make = train.make_train_step
+
+    def make_traced(*args, **kw):
+        step = make(*args, **kw)
+
+        def traced(*xs):
+            calls.append(len(calls))
+            if calls[-1] != 2:
+                return step(*xs)
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                out = step(*xs)
+                torch.cuda.synchronize()
+            by_name = {}
+            kinds = dict.fromkeys(("gemm", "hand-written", "elementwise",
+                                   "other"), 0.0)
+            for ev in prof.events():
+                if ev.device_type != DeviceType.CUDA or ev.is_user_annotation:
+                    continue
+                s = ev.device_time_total / 1e6
+                name = ev.name[5:] if ev.name.startswith("void ") else ev.name
+                by_name[name] = by_name.get(name, 0.0) + s
+                kinds["hand-written" if name.startswith(ours) else "gemm"
+                      if any(w in name.lower() for w in (
+                          "gemm", "xmma", "cutlass", "sm90", "nvjet"))
+                      else "elementwise" if "elementwise" in name
+                      else "other"] += s
+            top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+            split.update(step=2, kernel_s=sum(kinds.values()), kinds=kinds,
+                         top=top)
+            return out
+        return traced
+
+    train.make_train_step = make_traced
+    rc = train.main(argv)
+    print(json.dumps(split), flush=True)
+    return rc
 
 
 def c12_readings() -> int:
@@ -5679,8 +5710,8 @@ if __name__ == "__main__":
         sys.exit(preempt_child(sys.argv[2]))
     if sys.argv[1:] == ["--c12-readings"]:
         sys.exit(c12_readings())
-    if sys.argv[1:] == ["--train-readings"]:
-        sys.exit(train_readings())
+    if sys.argv[1:2] == ["--train-child"]:
+        sys.exit(train_child(sys.argv[2:]))
     if sys.argv[1:2] == ["--gemm-readings"]:
         sys.exit(gemm_readings(*sys.argv[2:3]))
     if sys.argv[1:2] == ["--flash-parent"] and len(sys.argv) == 3:

@@ -149,35 +149,50 @@ def _needs_grad(*ts: torch.Tensor) -> bool:
     return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
 
 
-class _Wkv6(torch.autograd.Function):
-    """The WKV recurrence with its hand-written backward: the forward
-    keeps its operands and, on the card, its scratch (the state at each
-    chunk boundary); the backward runs ``wkv6_bwd_cuda`` on the card
-    (its plain version, ``ref.wkv6_bwd_ref``, on the CPU).  Returns y
-    and sT in fp32; an unused output's gradient counts as zeros.  No
-    fallback: on the card a failure of either kernel raises."""
+def _recurrence(op: str) -> tuple:
+    """``op``'s (forward that keeps its states, backward) on the card and
+    their plain versions."""
+    if op == "wkv6":
+        from repro_torch.kernels import wkv6 as cu
+        return (cu.wkv6_fwd_cuda, cu.wkv6_bwd_cuda, ref.wkv6_ref,
+                ref.wkv6_bwd_ref)
+    from repro_torch.kernels import selective_scan as cu
+    return (cu.selective_scan_fwd_cuda, cu.selective_scan_bwd_cuda,
+            ref.selective_scan_ref, ref.selective_scan_bwd_ref)
+
+
+class _Recurrence(torch.autograd.Function):
+    """A recurrence (``op``: ``wkv6`` or ``selective_scan``) with its
+    hand-written backward: the forward keeps its operands and, on the
+    card, the states its kernel saved at chunk boundaries; the backward
+    runs the CUDA backward on the card (its plain version on the CPU).
+    Returns y and the final state in fp32; an unused output's gradient
+    counts as zeros.  No fallback: on the card a failure of either
+    kernel raises."""
 
     @staticmethod
-    def forward(ctx, r, k, v, w, u, s0):
+    def forward(ctx, op, *xs):
         ctx.set_materialize_grads(False)
-        if _on_cuda(r):
-            from repro_torch.kernels.wkv6 import wkv6_cuda
-            y, s_t, states = wkv6_cuda(r, k, v, w, u, s0, keep_states=True)
+        ctx.op = op
+        fwd_cuda, _, fwd_ref, _ = _recurrence(op)
+        if _on_cuda(xs[0]):
+            y, last, states = fwd_cuda(*xs)
         else:
-            (y, s_t), states = ref.wkv6_ref(r, k, v, w, u, s0), None
-        ctx.save_for_backward(r, k, v, w, u, s0, states)
-        return y, s_t
+            (y, last), states = fwd_ref(*xs), None
+        ctx.save_for_backward(*xs, states)
+        return y, last
 
     @staticmethod
-    def backward(ctx, dy, ds_t):
-        r, k, v, w, u, s0, states = ctx.saved_tensors
-        dy = (torch.zeros(r.shape, dtype=torch.float32, device=r.device)
+    def backward(ctx, dy, dlast):
+        *xs, states = ctx.saved_tensors
+        _, bwd_cuda, _, bwd_ref = _recurrence(ctx.op)
+        dy = (torch.zeros(xs[0].shape, dtype=torch.float32,
+                          device=xs[0].device)
               if dy is None else dy.float().contiguous())
-        ds_t = None if ds_t is None else ds_t.float().contiguous()
-        if _on_cuda(r):
-            from repro_torch.kernels.wkv6 import wkv6_bwd_cuda
-            return wkv6_bwd_cuda(r, k, v, w, u, s0, states, dy, ds_t)
-        return ref.wkv6_bwd_ref(r, k, v, w, u, s0, dy, ds_t)
+        dlast = None if dlast is None else dlast.float().contiguous()
+        if _on_cuda(xs[0]):
+            return (None, *bwd_cuda(*xs, states, dy, dlast))
+        return (None, *bwd_ref(*xs, dy, dlast))
 
 
 def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -187,52 +202,17 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     u (H, N), s0 (B, H, N, N) fp32 -> ``(y (B, T, H, N) in r's dtype,
     sT (B, H, N, N) fp32)``.  Where grad is required of an input, the
     call is differentiable through the hand-written backward
-    (``_Wkv6``); otherwise (serving, under ``no_grad``) it is the
+    (``_Recurrence``); otherwise (serving, under ``no_grad``) it is the
     forward alone."""
     if _needs_grad(r, k, v, w, u, s0):
-        y, s_t = _Wkv6.apply(*(t.contiguous() for t in (r, k, v, w, u, s0)))
+        y, s_t = _Recurrence.apply(
+            "wkv6", *(t.contiguous() for t in (r, k, v, w, u, s0)))
     elif _on_cuda(r):
         from repro_torch.kernels.wkv6 import wkv6_cuda
         y, s_t = wkv6_cuda(r, k, v, w, u, s0)
     else:
         y, s_t = ref.wkv6_ref(r, k, v, w, u, s0)
     return y.to(r.dtype), s_t
-
-
-class _SelectiveScan(torch.autograd.Function):
-    """The selective scan with its hand-written backward: the forward
-    keeps its operands and, on the card, the state every 64 steps; the
-    backward runs ``selective_scan_bwd_cuda`` on the card (its plain
-    version, ``ref.selective_scan_bwd_ref``, on the CPU).  Returns y and
-    hT in fp32; an unused output's gradient counts as zeros.  No
-    fallback: on the card a failure of either kernel raises."""
-
-    @staticmethod
-    def forward(ctx, x, dt, bmat, cmat, a, h0):
-        ctx.set_materialize_grads(False)
-        if _on_cuda(x):
-            from repro_torch.kernels.selective_scan import \
-                selective_scan_cuda
-            y, h_t, states = selective_scan_cuda(x, dt, bmat, cmat, a, h0,
-                                                 keep_states=True)
-        else:
-            (y, h_t), states = ref.selective_scan_ref(x, dt, bmat, cmat, a,
-                                                      h0), None
-        ctx.save_for_backward(x, dt, bmat, cmat, a, h0, states)
-        return y, h_t
-
-    @staticmethod
-    def backward(ctx, dy, dh_t):
-        x, dt, bmat, cmat, a, h0, states = ctx.saved_tensors
-        dy = (torch.zeros(x.shape, dtype=torch.float32, device=x.device)
-              if dy is None else dy.float().contiguous())
-        dh_t = None if dh_t is None else dh_t.float().contiguous()
-        if _on_cuda(x):
-            from repro_torch.kernels.selective_scan import \
-                selective_scan_bwd_cuda
-            return selective_scan_bwd_cuda(x, dt, bmat, cmat, a, h0, states,
-                                           dy, dh_t)
-        return ref.selective_scan_bwd_ref(x, dt, bmat, cmat, a, h0, dy, dh_t)
 
 
 def selective_scan(x: torch.Tensor, dt: torch.Tensor, bmat: torch.Tensor,
@@ -242,10 +222,11 @@ def selective_scan(x: torch.Tensor, dt: torch.Tensor, bmat: torch.Tensor,
     bmat, cmat (B, T, N), a (Di, N) fp32, h0 (B, Di, N) fp32 -> ``(y
     (B, T, Di) in x's dtype, hT (B, Di, N) fp32)``.  Where grad is
     required of an input, the call is differentiable through the
-    hand-written backward (``_SelectiveScan``); otherwise (serving,
+    hand-written backward (``_Recurrence``); otherwise (serving,
     under ``no_grad``) it is the forward alone."""
     if _needs_grad(x, dt, bmat, cmat, a, h0):
-        y, h_t = _SelectiveScan.apply(
+        y, h_t = _Recurrence.apply(
+            "selective_scan",
             *(t.contiguous() for t in (x, dt, bmat, cmat, a, h0)))
     elif _on_cuda(x):
         from repro_torch.kernels.selective_scan import selective_scan_cuda
@@ -253,6 +234,7 @@ def selective_scan(x: torch.Tensor, dt: torch.Tensor, bmat: torch.Tensor,
     else:
         y, h_t = ref.selective_scan_ref(x, dt, bmat, cmat, a, h0)
     return y.to(x.dtype), h_t
+
 
 class _FlashAttention(torch.autograd.Function):
     """Flash attention with its hand-written backward: the forward saves

@@ -7,8 +7,8 @@ the autodiff of its jnp scan).
 version is ``kernels/ref.py::selective_scan_ref``.  Both return ``y``
 and the final state in fp32, as ``selective_scan_pallas`` does;
 ``ops.selective_scan`` casts ``y`` to ``x``'s dtype, as the reference's
-model scan does.  With ``keep_states`` the forward also returns the
-state every ``SAVE`` steps, which ``selective_scan_bwd_cuda``
+model scan does.  ``selective_scan_fwd_cuda`` also saves the state every
+``SAVE`` steps, which ``selective_scan_bwd_cuda``
 (``csrc/selective_scan_bwd.cu``) rebuilds each chunk's states from; its
 plain version is ``kernels/ref.py::selective_scan_bwd_ref``.
 """
@@ -28,14 +28,25 @@ _TYPES = (torch.float32, torch.bfloat16)
 
 def selective_scan_cuda(x: torch.Tensor, dt: torch.Tensor,
                         bmat: torch.Tensor, cmat: torch.Tensor,
-                        a: torch.Tensor, h0: torch.Tensor,
-                        keep_states: bool = False):
+                        a: torch.Tensor, h0: torch.Tensor
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x, dt (B, T, Di) and bmat, cmat (B, T, N), all fp32 or all bf16,
     a (Di, N) fp32, h0 (B, Di, N) fp32, all on CUDA and contiguous, N <=
-    ``MAX_STATE`` -> ``(y (B, T, Di) fp32, hT (B, Di, N) fp32)``; with
-    ``keep_states`` also the states after every ``SAVE`` steps inside
-    the sequence, (B, ceil(T / SAVE) - 1, Di, N) fp32, for
-    ``selective_scan_bwd_cuda``."""
+    ``MAX_STATE`` -> ``(y (B, T, Di) fp32, hT (B, Di, N) fp32)``."""
+    return _launch(x, dt, bmat, cmat, a, h0, False)[:2]
+
+
+def selective_scan_fwd_cuda(x: torch.Tensor, dt: torch.Tensor,
+                            bmat: torch.Tensor, cmat: torch.Tensor,
+                            a: torch.Tensor, h0: torch.Tensor
+                            ) -> Tuple[torch.Tensor, ...]:
+    """``selective_scan_cuda`` that also saves the states after every
+    ``SAVE`` steps inside the sequence -> ``(y, hT, states (B, ceil(T /
+    SAVE) - 1, Di, N) fp32)``, for ``selective_scan_bwd_cuda``."""
+    return _launch(x, dt, bmat, cmat, a, h0, True)
+
+
+def _launch(x, dt, bmat, cmat, a, h0, keep_states: bool):
     if x.dim() != 3 or x.dtype not in _TYPES:
         raise ValueError(f"selective_scan: x must be (B, T, Di) fp32 or "
                          f"bf16, got {tuple(x.shape)} {x.dtype}")
@@ -55,7 +66,7 @@ def selective_scan_cuda(x: torch.Tensor, dt: torch.Tensor,
     hs = (torch.empty((b, saves, di, n), dtype=torch.float32,
                       device=x.device) if keep_states else None)
     if b == 0 or di == 0:
-        return (y, h0.clone()) + ((hs,) if keep_states else ())
+        return y, h0.clone(), hs
     h_t = torch.empty((b, di, n), dtype=torch.float32, device=x.device)
     lib = build.load("selective_scan")
     build.check(lib.selective_scan_launch(
@@ -65,7 +76,7 @@ def selective_scan_cuda(x: torch.Tensor, dt: torch.Tensor,
         hs.data_ptr() if keep_states and saves else None,
         build.stream_ptr(x)), "selective_scan")
     build.LAUNCHES["selective_scan"] += 1
-    return (y, h_t, hs) if keep_states else (y, h_t)
+    return y, h_t, hs
 
 
 def selective_scan_bwd_cuda(x: torch.Tensor, dt: torch.Tensor,
@@ -77,7 +88,7 @@ def selective_scan_bwd_cuda(x: torch.Tensor, dt: torch.Tensor,
     """The gradients of ``selective_scan_cuda``'s ``(y, hT)`` under
     ``dy`` (B, T, Di) fp32 and ``dhT`` (B, Di, N) fp32 or None (zeros),
     from the forward's operands and its ``states``
-    (``selective_scan_cuda(..., keep_states=True)``) -> ``(dx, ddt, dB,
+    (``selective_scan_fwd_cuda``'s) -> ``(dx, ddt, dB,
     dC, da (Di, N), dh0)``: dx, ddt, dB and dC in x's dtype, da and dh0
     fp32."""
     if x.dim() != 3 or x.dtype not in _TYPES:

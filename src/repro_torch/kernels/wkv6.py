@@ -6,10 +6,11 @@ recurrence).
 ``wkv6_cuda`` launches ``csrc/wkv6.cu``; its plain version is
 ``kernels/ref.py::wkv6_ref``.  Both return ``y`` and the final state in
 fp32, as ``wkv6_pallas`` does; ``ops.wkv6`` casts ``y`` to ``r``'s
-dtype, as the reference's default path does.  With ``keep_states`` the
-forward also returns its scratch, which holds the state at each chunk
-boundary; ``wkv6_bwd_cuda`` (``csrc/wkv6_bwd.cu``) rebuilds each chunk's
-states from it.  Its plain version is ``kernels/ref.py::wkv6_bwd_ref``.
+dtype, as the reference's default path does.  ``wkv6_fwd_cuda`` is the
+same launch that also returns its scratch, which holds the state at each
+chunk boundary; ``wkv6_bwd_cuda`` (``csrc/wkv6_bwd.cu``) rebuilds each
+chunk's states from it.  Its plain version is
+``kernels/ref.py::wkv6_bwd_ref``.
 """
 from __future__ import annotations
 
@@ -26,14 +27,21 @@ _TYPES = (torch.float32, torch.bfloat16)
 
 
 def wkv6_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-              w: torch.Tensor, u: torch.Tensor, s0: torch.Tensor,
-              keep_states: bool = False):
+              w: torch.Tensor, u: torch.Tensor, s0: torch.Tensor
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """r, k, v (B, T, H, 64) fp32 or bf16 (one type), w (B, T, H, 64)
     fp32 or bf16, u (H, 64) fp32, s0 (B, H, 64, 64) fp32, all on CUDA
     and contiguous -> ``(y (B, T, H, 64) fp32, sT (B, H, 64, 64)
-    fp32)``; with ``keep_states`` also the scratch, whose slot ``m`` of
-    each (b, h) holds the state at the start of chunk ``m + 1`` (empty
-    within one chunk), for ``wkv6_bwd_cuda``."""
+    fp32)``."""
+    return wkv6_fwd_cuda(r, k, v, w, u, s0)[:2]
+
+
+def wkv6_fwd_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  w: torch.Tensor, u: torch.Tensor, s0: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``wkv6_cuda``'s launch -> ``(y, sT, scratch)``: slot ``m`` of the
+    scratch of each (b, h) holds the state at the start of chunk ``m +
+    1`` (empty within one chunk), for ``wkv6_bwd_cuda``."""
     if r.dim() != 4 or r.shape[-1] != HEAD_SIZE or r.dtype not in _TYPES:
         raise ValueError(f"wkv6: r must be (B, T, H, {HEAD_SIZE}) fp32 or "
                          f"bf16, got {tuple(r.shape)} {r.dtype}")
@@ -48,7 +56,7 @@ def wkv6_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     build.require(s0, "s0", (b, h, n, n), torch.float32)
     y = torch.empty((b, t, h, n), dtype=torch.float32, device=r.device)
     if b == 0 or h == 0:
-        return (y, s0.clone()) + ((y.new_empty(0),) if keep_states else ())
+        return y, s0.clone(), y.new_empty(0)
     s_t = torch.empty((b, h, n, n), dtype=torch.float32, device=r.device)
     # past one chunk: each chunk's end state and decay product (phases A-C)
     chunks = -(-t // CHUNK) if t > CHUNK else 0
@@ -62,7 +70,7 @@ def wkv6_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         y.data_ptr(), s_t.data_ptr(), scratch.data_ptr(),
         build.stream_ptr(r)), "wkv6")
     build.LAUNCHES["wkv6"] += 1
-    return (y, s_t, scratch) if keep_states else (y, s_t)
+    return y, s_t, scratch
 
 
 def wkv6_bwd_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -72,8 +80,8 @@ def wkv6_bwd_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   ) -> Tuple[torch.Tensor, ...]:
     """The gradients of ``wkv6_cuda``'s ``(y, sT)`` under ``dy`` (B, T,
     H, 64) fp32 and ``dsT`` (B, H, 64, 64) fp32 or None (zeros), from the
-    forward's operands and its ``states`` (``wkv6_cuda(...,
-    keep_states=True)``) -> ``(dr, dk, dv, dw, du (H, 64), ds0)``: dr,
+    forward's operands and its ``states`` (``wkv6_fwd_cuda``'s scratch)
+    -> ``(dr, dk, dv, dw, du (H, 64), ds0)``: dr,
     dk and dv in r's dtype, dw in w's, du and ds0 fp32."""
     b, t, h, n = r.shape
     if n != HEAD_SIZE or r.dtype not in _TYPES or w.dtype not in _TYPES:

@@ -651,6 +651,7 @@ FLASH_BWD_CASES = [
     (2, 1024, 1024, 8, 1, 256, True, 256, 0),    # sliding window
     (2, 320, 320, 8, 1, 256, True, 0, 256),      # paligemma's prefix-LM
     (2, 1500, 1500, 16, 16, 64, False, 0, 0),    # unmasked
+    (1, 448, 1500, 16, 16, 64, False, 0, 0),     # whisper's cross-attention
     (2, 77, 77, 4, 4, 128, True, 0, 0),          # ragged tiles
     (2, 200, 200, 8, 2, 64, True, 40, 0),        # a window under a tile
     (2, 130, 100, 8, 8, 64, True, 0, 70),        # Sq > Skv, prefix
@@ -1415,9 +1416,9 @@ SCAN_BWD_CASES = [(1, 1024, 8192, 16), (3, 77, 300, 7), (1, 200, 1024, 32),
 def _wkv_bwd_args(b, t, h, dtype, w_dtype, device, with_ds, seed=0):
     """The forward kernel's operands (edge decays) and states, an fp32
     cotangent dy and, ``with_ds``, dsT."""
-    from repro_torch.kernels.wkv6 import wkv6_cuda
+    from repro_torch.kernels.wkv6 import wkv6_fwd_cuda
     args = _wkv_inputs(b, t, h, dtype, w_dtype, device, seed=seed, edge=True)
-    _, _, states = wkv6_cuda(*args, keep_states=True)
+    _, _, states = wkv6_fwd_cuda(*args)
     g = torch.Generator().manual_seed(seed + 1)
     dy = torch.randn(b, t, h, 64, generator=g).to(device)
     ds = torch.randn(b, h, 64, 64, generator=g).to(device) if with_ds else None
@@ -1459,14 +1460,14 @@ def _scan_bwd_args(b, t, di, n, dtype, device, with_dh, seed=0,
     """The forward kernel's operands and saved states, an fp32 cotangent
     dy and, ``with_dh``, dhT; ``underflow``: every 5th step's dt at 50
     and every 3rd channel's a at -100, so exp(dt a) underflows to 0."""
-    from repro_torch.kernels.selective_scan import selective_scan_cuda
+    from repro_torch.kernels.selective_scan import selective_scan_fwd_cuda
     args = _scan_inputs(b, t, di, n, torch.float32, "cpu", seed)
     if underflow:
         args[1][:, ::5] = 50.0
         args[4][::3] = -100.0
     args = [z.to(dtype).to(device) if i < 4 else z.to(device)
             for i, z in enumerate(args)]
-    _, _, states = selective_scan_cuda(*args, keep_states=True)
+    _, _, states = selective_scan_fwd_cuda(*args)
     g = torch.Generator().manual_seed(seed + 1)
     dy = torch.randn(b, t, di, generator=g).to(device)
     dh = torch.randn(b, di, n, generator=g).to(device) if with_dh else None
@@ -1507,10 +1508,11 @@ def test_selective_scan_saves_leave_the_forward_bit_equal(cuda):
     """The forward with its states saved: y and hT bit-equal to the call
     without, and each saved state within 1e-5 of the plain scan's state
     after as many steps."""
-    from repro_torch.kernels.selective_scan import selective_scan_cuda
+    from repro_torch.kernels.selective_scan import (
+        selective_scan_cuda, selective_scan_fwd_cuda)
     args = _scan_inputs(2, 200, 300, 16, torch.bfloat16, cuda, seed=3)
     y, h_t = selective_scan_cuda(*args)
-    y2, h_t2, states = selective_scan_cuda(*args, keep_states=True)
+    y2, h_t2, states = selective_scan_fwd_cuda(*args)
     assert torch.equal(y, y2) and torch.equal(h_t, h_t2)
     assert states.shape == (2, 3, 300, 16)
     for m in range(3):
@@ -1530,12 +1532,12 @@ def test_recurrence_autograd_runs_the_kernels(cuda, op):
     from repro_torch.kernels import selective_scan as ss, wkv6
     if op == "wkv6":
         args = _wkv_inputs(1, 130, 4, torch.bfloat16, torch.float32, cuda)
-        fwd, bwd, call = wkv6.wkv6_cuda, wkv6.wkv6_bwd_cuda, ops.wkv6
+        fwd, bwd, call = wkv6.wkv6_fwd_cuda, wkv6.wkv6_bwd_cuda, ops.wkv6
     else:
         args = _scan_inputs(1, 130, 300, 16, torch.bfloat16, cuda)
-        fwd = ss.selective_scan_cuda
+        fwd = ss.selective_scan_fwd_cuda
         bwd, call = ss.selective_scan_bwd_cuda, ops.selective_scan
-    y, s_t, states = fwd(*args, keep_states=True)
+    y, s_t, states = fwd(*args)
     g = torch.Generator().manual_seed(5)
     dy = torch.randn(y.shape, generator=g).to(args[0].dtype).to(cuda)
     ds = torch.randn(s_t.shape, generator=g).to(cuda)
