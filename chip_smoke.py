@@ -4,6 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --c12-readings   # one-off readings, see below
     python3 chip_smoke.py --flash-parent SRC
+    python3 chip_smoke.py --wkv-parent SRC
 
 Phases (any failure exits non-zero; no phase's exception is caught):
 
@@ -96,8 +97,11 @@ Phases (any failure exits non-zero; no phase's exception is caught):
    ``selective_scan_bwd``, against their plain versions (explicit
    reverse sweeps in fp32) on the forward kernels' saved states:
    ``wkv6_bwd`` at rwkv6-3b's training microbatch (B=1, T=1024, H=40),
-   at B=2 and at T = 64, 65 and 129, decays of exactly 0, 1e-31 and 1 -
-   2^-24 and a nonzero s0; ``selective_scan_bwd`` at jamba's training
+   at B=2, at T = 64, 65, 128 and 129 and at B=3, T=200, H=4 (a ragged
+   last chunk), decays of exactly 0, 1e-31 and 1 - 2^-24 and a nonzero
+   s0, its device time split by phase (A: the rows and the columns
+   kernels, B: the carry, C: the carry terms and du);
+   ``selective_scan_bwd`` at jamba's training
    microbatch (B=1, T=1024, Di=8192, N=16), at an odd Di and T with N=7,
    at N=32 and at Di=8200 with exp(dt a) underflowing; each in fp32
    within 1e-5 and bf16 within 2^-7 of each gradient's largest
@@ -108,7 +112,8 @@ Phases (any failure exits non-zero; no phase's exception is caught):
    step of gemma-2b, rwkv6-3b, jamba-v0.1-52b (mamba + MoE, then
    attention + MLP, 4 experts of full width; fp32, ROADMAP C3) and
    whisper-medium (2 + 2 layers over 1500 frames) with 2 layers at full
-   width (B=2, S=128, 2 microbatches) on the card against the CPU (loss,
+   width (B=2, S=64, rwkv6-3b's S=128 over two of wkv6's chunks, 2
+   microbatches) on the card against the CPU (loss,
    ce, grad_norm and every parameter's update within 2^-5), each with
    its launches (the forward kernels twice a layer a microbatch, the
    backwards once); then ``python -m repro_torch.launch.train --steps 4
@@ -354,7 +359,12 @@ without and with its lse output, bit-equal to it at every
 flash_attention shape of this file, and times both backwards in turns
 beside SDPA's at gemma-2b's training shape and microbatch and
 minicpm-2b's, each within tolerance of the plain version (no result
-line).
+line).  ``--wkv-parent SRC`` builds the ``wkv6_bwd.cu`` of the package
+under SRC with the same helper and times it against this tree's in
+turns in bf16 at rwkv6-3b's training microbatch (B=1, T=1024, H=40),
+both within 2^-7 of each gradient's largest magnitude of the plain
+version (bits not compared: the order of the sums differs), then this
+tree's device time by phase (no result line).
 """
 from __future__ import annotations
 
@@ -1215,8 +1225,11 @@ TRAIN_PATHS = {
     "whisper-medium": (["--seq", "448"], 24, 1024,
                        {"flash_attention": 288, "flash_attention_bwd": 144}),
 }
-# their 2-layer checks on the card against the CPU (B = 2, S = 128, 2
-# microbatches): arch -> (config changes, fp32 compute, launches); bf16
+# their 2-layer checks on the card against the CPU (B = 2, 2 microbatches,
+# S = 64: the CPU's reference step is most of a check's time; rwkv6-3b's
+# S = 128, two of wkv6's 64-step chunks, so the backward's carry over
+# chunks is held against the CPU too): arch -> (config changes, fp32
+# compute, launches); bf16
 # held within MODEL_TOL, fp32 within TRAIN_FP32_TOL.  jamba's (mamba +
 # MoE, then attention + MLP; 4 experts of full width, a capacity that
 # drops nothing) computes in fp32 on both sides: in bf16 a router
@@ -1224,12 +1237,11 @@ TRAIN_PATHS = {
 # which no tolerance covers.  rwkv6-3b's computes in fp32 too: in bf16
 # u's gradient sums the rounding of every token's r, k and v, so its
 # update moves by a few percent of its scale from one bf16 path to
-# another; TRAIN_WITNESS reads that beside the fp32 check (the card's
-# and the CPU's bf16 steps against each other and against the CPU's
-# fp32 step), and does not hold it
-TRAIN_CHECK = dict(batch=2, seq=128, grad_accum=2)
+# another (~5%: the card's and the CPU's bf16 steps against each other
+# and against the CPU's fp32 step, PERF.md)
+TRAIN_CHECK = dict(batch=2, seq=64, grad_accum=2)
+TRAIN_CHECK_SEQ = {"rwkv6-3b": 128}
 TRAIN_FP32_TOL = 1e-4
-TRAIN_WITNESS = ("rwkv6-3b",)
 TRAIN_CHECKS = {
     "gemma-2b": (dict(num_layers=2), False,
                  {"flash_attention": 8, "flash_attention_bwd": 4}),
@@ -1249,12 +1261,14 @@ TRAIN_CHECKS = {
 # at every 3rd channel)
 WKV_BWD_STEP = (1, 1024, 40)
 WKV_BWD_CASES = [WKV_BWD_STEP, (2, 1024, 40), (1, 64, 40), (1, 65, 40),
-                 (1, 129, 40)]
+                 (1, 128, 40), (1, 129, 40), (3, 200, 4)]
 SCAN_BWD_STEP = (1, 1024, 8192, 16, False)
 SCAN_BWD_CASES = [SCAN_BWD_STEP, (3, 77, 300, 7, False),
                   (1, 1024, 8192, 32, False), (2, 130, 8200, 16, True)]
-WKV_BWD_PHASES = (("sweep", ("wkv6_bwd_kernel",)),
-                  ("sum", ("wkv6_bwd_sum_kernel",)))
+WKV_BWD_PHASES = (("A rows", ("wkv6_bwd_rows_kernel",)),
+                  ("A cols", ("wkv6_bwd_cols_kernel",)),
+                  ("B", ("wkv6_bwd_carry_kernel",)),
+                  ("C", ("wkv6_bwd_cross_kernel",)))
 SCAN_BWD_PHASES = (("sweep", ("selective_scan_bwd_kernel",)),
                    ("sum", ("selective_scan_bwd_sum_kernel",)))
 
@@ -1426,7 +1440,6 @@ def train_check(dev, arch: str) -> dict:
     ``tol`` relative (MODEL_TOL in bf16, TRAIN_FP32_TOL in fp32); the
     card's launches must be TRAIN_CHECKS' (each layer's forward twice a
     microbatch, the recompute, its backward once), and no other kernel.
-    For a TRAIN_WITNESS arch, also logs its bf16 steps' distances.
     Returns the card's launches."""
     import torch
     from repro_torch.configs import get_arch
@@ -1439,8 +1452,9 @@ def train_check(dev, arch: str) -> dict:
     changes, fp32, want = TRAIN_CHECKS[arch]
     tol = TRAIN_FP32_TOL if fp32 else MODEL_TOL
     cfg = dataclasses.replace(get_arch(arch), **changes)
-    shape = ShapeConfig("check", TRAIN_CHECK["seq"], TRAIN_CHECK["batch"],
-                        "train", grad_accum=TRAIN_CHECK["grad_accum"])
+    shape = ShapeConfig("check", TRAIN_CHECK_SEQ.get(arch, TRAIN_CHECK["seq"]),
+                        TRAIN_CHECK["batch"], "train",
+                        grad_accum=TRAIN_CHECK["grad_accum"])
     opt = optim.OptConfig(lr=1.0, warmup_steps=1, total_steps=10, eps=1.0,
                           weight_decay=0.0)
     step = make_train_step(cfg, shape, opt)
@@ -1487,19 +1501,6 @@ def train_check(dev, arch: str) -> dict:
     if not ok:
         raise AssertionError(f"the {arch} train step on the card disagrees "
                              f"with the CPU")
-    if arch in TRAIN_WITNESS:
-        d16 = run(tree_to(before, dev), tree_to(batch, dev),
-                  torch.bfloat16)[0]
-        c16 = run(_copy(before), batch, torch.bfloat16)[0]
-        log(f"[check] train step {arch} in bf16, updates' max err / scale "
-            "(at): " + ", ".join(
-                f"{name} {e:.3g} ({at})" for name, (at, e) in (
-                    ("card bf16 vs cpu bf16", update_err(d16, c16, before)),
-                    ("cpu bf16 vs cpu fp32", update_err(c16, p_cpu, before)),
-                    ("card bf16 vs cpu fp32", update_err(d16, p_cpu, before)),
-                    ("card fp32 vs cpu fp32", (worst, upd_err))))
-            + " (a reading, not held)")
-        del d16, c16
     del p_dev, p_cpu, p0, before
     return launches
 
@@ -1701,21 +1702,36 @@ def wkv_bwd_bound(b, t, h, design: bool = False):
     """(ms, by) for one wkv6 backward: bf16 r, k, v, fp32 w and dy read
     and bf16 dr, dk, dv, fp32 dw written per (b, t, h, n); u, s0 read,
     du, ds0 written once; 12 fp32 operations per (b, t, h, i, j) (the
-    states rebuilt, dr, dk, dv, dw and dS, 2 each).  ``design``: the work
-    ``csrc/wkv6_bwd.cu`` does beside it: the chunk states read, 8 row
-    groups' dv partials written and read, r, k and dy read again by the
-    sum kernel, 11 operations per (b, t, h, i, j) and 8 adds per dv."""
-    from repro_torch.kernels.wkv6 import CHUNK, ROWS
+    states rebuilt, dr, dk, dv, dw and G, 2 each).  ``design``: the work
+    ``csrc/wkv6_bwd.cu`` does, its scratch from
+    ``kernels/wkv6.py::bwd_scratch_parts``: the rows kernel reads the
+    operands twice (forward and backward passes) and S_in, the columns
+    kernel r, k, w and dy, phase C k, v, w, S_in and G_out for each
+    chunk but the last; the sub-chunk states, Gloc_start and the fp32
+    partials written and read once, phase B's G read and written; per
+    (b, t, h, i, j) the forward walk (S: 3, dr: 2), the backward's three
+    row dots (sigma, kappa, the step of G: 6), the columns' walk (5) and
+    phase C's two products (4 for each chunk but the last), and per (b,
+    t, h, i) the rows kernel's recurrences (dk, dw, kappa: ~3 SUB a
+    step, taken by each of a row's four threads) and v . dy (2 SUB)."""
+    from repro_torch.kernels.wkv6 import CHUNK, SUB, bwd_scratch_parts
     elems = b * t * h * WKV_N
-    n_bytes = elems * (3 * 2 + 4 + 4 + 3 * 2 + 4) + (
+    io_in = elems * (3 * 2 + 4 + 4)
+    n_bytes = io_in + elems * (3 * 2 + 4) + (
         2 * h * WKV_N + 2 * b * h * WKV_N * WKV_N) * 4
     n_ops = 12 * WKV_N * elems
     if design:
-        groups = WKV_N // ROWS
         chunks = -(-t // CHUNK) if t > CHUNK else 1
-        n_bytes += (elems * (2 * groups * 4 + 2 + 2 + 4)
-                    + b * h * (chunks - 1) * WKV_N * WKV_N * 4)
-        n_ops = 11 * WKV_N * elems + groups * elems
+        carried = elems * (chunks - 1) * CHUNK // max(t, 1)
+        parts = bwd_scratch_parts(b, t, h)
+        n_bytes += (io_in                        # the backward pass again
+                    + elems * (2 + 2 + 4 + 4)    # the columns kernel
+                    + carried * (2 + 2 + 4)      # phase C's k, v, w
+                    + 2 * b * h * chunks * WKV_N * WKV_N * 4   # S_in twice
+                    + 2 * 4 * sum(parts.values())
+                    + 2 * 4 * parts["g_start"])  # phase B
+        n_ops = (16 * WKV_N * elems + 4 * WKV_N * carried
+                 + 4 * 3 * SUB * elems + 2 * SUB * elems)
     return bound(n_bytes, n_ops)
 
 
@@ -1798,6 +1814,124 @@ def recurrence_bwd_times(dev) -> dict:
     return rows
 
 
+def log_bwd_phases(name: str, row: dict, phases) -> dict:
+    """A recurrence backward's device ms a launch by phase
+    (``phase_ms`` over 5 calls queued behind a spin of the card, so a
+    wrapper whose host time nears its kernels' is timed back to back),
+    logged beside its CUDA events, bound and the design's own work;
+    sets ``row["device_ms"]``."""
+    ms = phase_ms(row["call"], phases, calls=5, busy=True)
+    row["device_ms"] = sum(ms.values())
+    row["phase_ms"] = ms
+    split = ", ".join(f"{phase} {ms[phase]:.4f} ms" for phase, _ in phases)
+    log(f"[profile] {name} {row['shape']}: {split}; device "
+        f"{row['device_ms']:.4f} ms a launch; CUDA events over back-to-back "
+        f"wrapper calls {row['timing'][0]:.4f} ms; bound "
+        f"{row['timing'][2]:.6f} ms ({row['timing'][3]}), the design's own "
+        f"work {row['design_ms']:.6f} ms ({row['design_by']})")
+    return ms
+
+
+def parent_libs(src: str, names) -> dict:
+    """The CUDA sources ``names`` of the package under SRC (an older
+    checkout's ``src``) built as this tree's are (one ``nvcc`` each, all
+    started together) and loaded: {name: CDLL} for each name SRC has."""
+    import ctypes
+    from repro_torch.kernels import build
+    csrc = Path(src) / "repro_torch" / "csrc"
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in names:
+        if (csrc / f"{name}.cu").exists():
+            out = build.BUILD_DIR / f"{name}-parent.so"
+            procs[name] = (out, subprocess.Popen(
+                [build.nvcc_path(), *build.NVCC_FLAGS, "-o", str(out),
+                 str(csrc / f"{name}.cu")], stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True))
+    libs = {}
+    for name, (out, proc) in procs.items():
+        text, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"parent {name} build failed:\n{text}")
+        libs[name] = ctypes.CDLL(str(out))
+    return libs
+
+
+def wkv_parent(src: str) -> int:
+    """``--wkv-parent SRC``: the ``wkv6_bwd.cu`` of the package under SRC
+    (an older checkout's ``src``; its C entry point takes this tree's
+    arguments) against this tree's in bf16 at WKV_BWD_STEP, on the
+    operands and forward states ``recurrence_bwd_times`` times: both
+    timed in turns (parent, this tree, this tree, parent), each within
+    2^-7 of each gradient's largest magnitude of the plain version (bits
+    not compared: the order of the sums differs), then this tree's
+    device time by phase.  The parent gets the larger of its first
+    design's scratch (8 row groups' dv partials and du's) and this
+    tree's."""
+    import ctypes
+    import torch
+    from repro_torch.kernels import build, ref
+    from repro_torch.kernels.wkv6 import bwd_scratch_parts, wkv6_bwd_cuda
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False",
+              file=sys.stderr)
+        return 2
+    log(f"[card] {torch.cuda.get_device_name(0)}; nvidia-smi: " +
+        subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                        "--format=csv,noheader"], capture_output=True,
+                       text=True, check=True).stdout.strip())
+    libs = parent_libs(src, ("wkv6_bwd",))
+    if "wkv6_bwd" not in libs:
+        raise RuntimeError(f"{src} has no wkv6_bwd.cu")
+    fn = libs["wkv6_bwd"].wkv6_bwd_launch
+    fn.argtypes = [build._CTYPE[c] for c in
+                   build._SIGNATURES["wkv6_bwd"]["wkv6_bwd_launch"]]
+    fn.restype = ctypes.c_int
+    b, t, h = WKV_BWD_STEP
+    args, states, dy, _ = wkv_bwd_args(WKV_BWD_STEP, torch.bfloat16, "cuda",
+                                       False, seed=2, edge=False)
+    r, k, v, w, u, s0 = args
+    outs = [torch.empty_like(z) for z in (r, k, v, w)]
+    du = torch.empty((h, WKV_N), dtype=torch.float32, device="cuda")
+    ds0 = torch.empty_like(s0)
+    scratch = torch.empty(max(8 * b * t * h * WKV_N + b * h * WKV_N,
+                              sum(bwd_scratch_parts(b, t, h).values())),
+                          dtype=torch.float32, device="cuda")
+
+    def parent():
+        build.check(fn(*(z.data_ptr() for z in args), states.data_ptr(),
+                       dy.data_ptr(), None, b, t, h, 1, 0,
+                       *(z.data_ptr() for z in outs), du.data_ptr(),
+                       ds0.data_ptr(), scratch.data_ptr(),
+                       torch.cuda.current_stream().cuda_stream),
+                    "parent wkv6_bwd")
+        return (*outs, du, ds0)
+
+    def this():
+        return wkv6_bwd_cuda(*args, states, dy)
+    want = ref.wkv6_bwd_ref(*args, dy)
+    errs = {}
+    for label, call in (("parent", parent), ("this tree", this)):
+        got = call()
+        torch.cuda.synchronize()
+        errs[label] = max(scaled_err(g, x) for g, x in zip(got, want))
+    ms = [time_ms(call, 20) for call in (parent, this, this, parent)]
+    ok = max(errs.values()) <= 2 ** -7
+    label = "B={} T={} H={} bf16".format(*WKV_BWD_STEP)
+    log(f"[wkv parent] wkv6_bwd {label}: parent {ms[0]:.4f} / {ms[3]:.4f} "
+        f"ms, this tree {ms[1]:.4f} / {ms[2]:.4f} ms; max err / scale "
+        f"against the plain version parent {errs['parent']:.3g}, this tree "
+        f"{errs['this tree']:.3g} (tol {2 ** -7:.3g}) "
+        f"{'OK' if ok else 'FAIL'}")
+    (b_ms, b_by), (d_ms, d_by) = (wkv_bwd_bound(*WKV_BWD_STEP),
+                                  wkv_bwd_bound(*WKV_BWD_STEP, design=True))
+    log_bwd_phases("wkv6_bwd", dict(call=this, shape=label,
+                                    timing=(ms[1], None, b_ms, b_by),
+                                    design_ms=d_ms, design_by=d_by),
+                   WKV_BWD_PHASES)
+    return int(not ok)
+
+
 def flash_parent(src: str) -> int:
     """``--flash-parent SRC``: the kernels of the package under SRC (an
     older checkout's ``src``) against this tree's.  The forward (its
@@ -1820,21 +1954,7 @@ def flash_parent(src: str) -> int:
               file=sys.stderr)
         return 2
     csrc = Path(src) / "repro_torch" / "csrc"
-    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for name in ("flash_attention", "flash_attention_bwd"):
-        if (csrc / f"{name}.cu").exists():
-            out = build.BUILD_DIR / f"{name}-parent.so"
-            procs[name] = (out, subprocess.Popen(
-                [build.nvcc_path(), *build.NVCC_FLAGS, "-o", str(out),
-                 str(csrc / f"{name}.cu")], stdout=subprocess.PIPE,
-                stderr=subprocess.STDOUT, text=True))
-    libs = {}
-    for name, (out, proc) in procs.items():
-        text, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"parent {name} build failed:\n{text}")
-        libs[name] = ctypes.CDLL(str(out))
+    libs = parent_libs(src, ("flash_attention", "flash_attention_bwd"))
     fn = libs["flash_attention"].flash_attention_launch
     with_lse = re.search(r"flash_attention_launch\([^)]*\blse\b",
                          (csrc / "flash_attention.cu").read_text())
@@ -4851,6 +4971,15 @@ def main() -> int:
         f"cuda {torch.version.cuda}")
     log(smi)                          # name, power limit (nvidia-smi)
 
+    # each phase's wall seconds, logged where the next begins (the run's
+    # time limit is what an added phase has to fit in)
+    t_phase = [time.perf_counter()]
+
+    def phase_done(name: str) -> None:
+        now = time.perf_counter()
+        log(f"[time] phase {name} in {now - t_phase[0]:.1f}s")
+        t_phase[0] = now
+
     # -- 2. build ------------------------------------------------------------
     t0 = time.perf_counter()
     paths = build.build_all()
@@ -4903,6 +5032,8 @@ def main() -> int:
                torch.as_tensor(levels, device=dev), st.level_centers)
     main_probe = (sim.params, st.probe_images, st.probe_labels,
                   st.probe_seg, st.probe_counts, aux0)
+
+    phase_done("2")
 
     # -- 3. kernels against their plain versions -----------------------------
     def check_probe(label, inputs, n, col_maxima=None):
@@ -5092,6 +5223,8 @@ def main() -> int:
                                  f"disagrees")
         del args, y, y2, s_t, s_t2, want_y, want_s
 
+    phase_done("3")
+
     # -- 4. timing -----------------------------------------------------------
     param_bytes = sum(t.numel() * 4 for t in sim.params.values())
     probe_bytes = (s_main * (28 * 28 * 4 + 8) + n_main * (4 + 12 + 16 + 4)
@@ -5206,6 +5339,8 @@ def main() -> int:
         log(f"[time] election N={n} window {window}: windowed "
             f"{win_ms:.4f} ms, dense kernel {dense_ms:.4f} ms, "
             f"windowed/dense {win_ms / dense_ms:.3f}")
+
+    phase_done("4")
 
     # -- 5. the main path ------------------------------------------------------
     # the round-0 prefix on the card against the port's CPU plain path
@@ -5392,6 +5527,8 @@ def main() -> int:
     serve_path("rwkv6-3b", {"wkv6": get_arch("rwkv6-3b").num_layers}, dev,
                argv=LONG_SERVE_ARGV)
 
+    phase_done("5")
+
     # -- 5b. the dense family: flash_attention, then gemma-2b ----------------
     gc.collect()                      # the rwkv6 weights are gone
     torch.cuda.empty_cache()
@@ -5401,6 +5538,8 @@ def main() -> int:
     served_dense = serve_path(
         "gemma-2b", {"flash_attention": get_arch("gemma-2b").num_layers},
         dev, argv=GEMMA_SERVE_ARGV)
+
+    phase_done("5b")
 
     # -- 5t. LM training: flash_attention's backward, a train step, the CLI
     gc.collect()                      # the gemma-2b weights are gone
@@ -5416,6 +5555,8 @@ def main() -> int:
     checked = {arch: train_check(dev, arch) for arch in TRAIN_CHECKS}
     trained = {arch: train_path(dev, arch) for arch in TRAIN_PATHS}
     log(f"[train] phase 5t in {time.perf_counter() - t5t:.1f}s")
+
+    phase_done("5t")
 
     # -- 5c. the hybrid family: selective_scan, then jamba-v0.1-52b --------
     gc.collect()                      # the gemma-2b weights are gone
@@ -5441,11 +5582,15 @@ def main() -> int:
                        "flash_attention": kinds.count("attn")}, dev,
                cfg=jamba16, **JAMBA_LONG_SERVE)
 
+    phase_done("5c")
+
     # -- 5i. the rest of the LM zoo: flash_attention's other paths --------
     gc.collect()                      # the jamba weights are gone
     torch.cuda.empty_cache()
     zoo = zoo_phase(dev)
     c13_moe_fp32(dev)
+
+    phase_done("5i")
 
     # -- 5d. the client mesh, with probe_loss -------------------------------
     gc.collect()
@@ -5457,6 +5602,8 @@ def main() -> int:
     mesh_launches = mesh_large_fleet(dev, big0, big)
     mesh_resume(dev, *mesh_event(dev))
 
+    phase_done("5d")
+
     # -- 5e. the paper's profile, the loop engine, FedProx, --out -----------
     gc.collect()
     torch.cuda.empty_cache()
@@ -5467,15 +5614,21 @@ def main() -> int:
     round_profile(dev)
     paper_clis()
 
+    phase_done("5e")
+
     # -- 5f. the multi-seed sweep: seed-batched probe_fuzzy and election --
     gc.collect()
     torch.cuda.empty_cache()
     sweep_reading = sweep_phase(dev, big, bfeats0)
 
+    phase_done("5f")
+
     # -- 5g. the round drivers: round-ahead by default, the event server --
     gc.collect()
     torch.cuda.empty_cache()
     round_drivers(dev, big, bpos0, bevals0, window_big)
+
+    phase_done("5g")
 
     # -- 5h. preemption: checkpoints, kills and resumes ---------------------
     gc.collect()
@@ -5558,17 +5711,12 @@ def main() -> int:
                   for case, (row, call) in zip(FLASH_BWD_TIMED, bwd_rows)]
 
     # the recurrences' backwards at the training microbatches: device
-    # time a launch by kernel (the sweep, the ordered sum)
+    # time a launch by phase (wkv6_bwd: A, B, C; the scan: the sweep, the
+    # ordered sum)
     for name, phases in (("wkv6_bwd", WKV_BWD_PHASES),
                          ("selective_scan_bwd", SCAN_BWD_PHASES)):
         row = rec_rows[name]
-        ms = phase_ms(row["call"], phases, calls=5)
-        row["device_ms"] = sum(ms.values())
-        log(f"[profile] {name} {row['shape']}: sweep {ms['sweep']:.4f} ms, "
-            f"sum {ms['sum']:.4f} ms; device {row['device_ms']:.4f} ms a "
-            f"launch; CUDA events over back-to-back wrapper calls "
-            f"{row['timing'][0]:.4f} ms; bound {row['timing'][2]:.6f} ms "
-            f"({row['timing'][3]})")
+        log_bwd_phases(name, row, phases)
 
     # the seed-batched kernels: device time of one launch for the sweep's
     # S seeds against S single launches, beside the bound scaled by S
@@ -5587,6 +5735,8 @@ def main() -> int:
             f"{rd['device_ms']:.4f} ms a seed-batched launch, "
             f"{rd[single_key]:.4f} ms for {rd['S']} single launches; bound "
             f"{rd['bound_ms']:.6f} ms ({rd['bound_by']})")
+
+    phase_done("5h and the [profile] readings")
 
     # -- 6. the kernels line ---------------------------------------------------
     meta = {
@@ -5689,6 +5839,7 @@ def main() -> int:
             row = rec_rows[name]
             entry.update(computes=computes[name], shape=row["shape"],
                          device_ms=row["device_ms"],
+                         device_phase_ms=row["phase_ms"],
                          autograd_plain_ms=row["autograd_ms"],
                          design_bound_ms=row["design_ms"],
                          design_bound_by=row["design_by"])
@@ -5716,4 +5867,6 @@ if __name__ == "__main__":
         sys.exit(gemm_readings(*sys.argv[2:3]))
     if sys.argv[1:2] == ["--flash-parent"] and len(sys.argv) == 3:
         sys.exit(flash_parent(sys.argv[2]))
+    if sys.argv[1:2] == ["--wkv-parent"] and len(sys.argv) == 3:
+        sys.exit(wkv_parent(sys.argv[2]))
     sys.exit(main())

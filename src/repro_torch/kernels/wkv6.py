@@ -8,13 +8,25 @@ recurrence).
 fp32, as ``wkv6_pallas`` does; ``ops.wkv6`` casts ``y`` to ``r``'s
 dtype, as the reference's default path does.  ``wkv6_fwd_cuda`` is the
 same launch that also returns its scratch, which holds the state at each
-chunk boundary; ``wkv6_bwd_cuda`` (``csrc/wkv6_bwd.cu``) rebuilds each
-chunk's states from it.  Its plain version is
-``kernels/ref.py::wkv6_bwd_ref``.
+chunk boundary and each chunk's decay product.
+
+``wkv6_bwd_cuda`` (``csrc/wkv6_bwd.cu``) is the VJP, chunk-parallel like
+the forward; its plain version is ``kernels/ref.py::wkv6_bwd_ref``.  Its
+bound is the fp32 rate (~12 operations per state entry a step: 0.030 ms
+at rwkv6-3b's training microbatch, B = 1, T = 1024, H = 40).  The first
+design walked every chunk of a (b, h) in turn, staging 64 states per 8
+rows in 128 KB of shared memory (one block an SM, 5-shuffle sums, 1.17
+ms).  This one runs each 64-step chunk's local sweeps in parallel (four
+threads a state row or column, sums inside the thread; in each SUB-step
+sub-chunk the states enter dw only through row dots with its first
+state, so no per-step state is kept), carries the state's gradient over
+chunks with the forward's decay products, and adds each chunk's carry
+terms as two 64 x 64 products (0.34 ms on an H100).
+``bwd_scratch_parts`` gives its scratch from the shapes alone.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -22,7 +34,7 @@ from repro_torch.kernels import build
 
 HEAD_SIZE = 64            # WKV_N in csrc/wkv6.cu: one thread per column
 CHUNK = 64                # WKV_C in csrc/wkv6.cu: steps per time chunk
-ROWS = 8                  # WB_ROWS in csrc/wkv6_bwd.cu: state rows a block
+SUB = 16                  # WB_SUB in csrc/wkv6_bwd.cu: steps a sub-chunk
 _TYPES = (torch.float32, torch.bfloat16)
 
 
@@ -73,6 +85,21 @@ def wkv6_fwd_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return y, s_t, scratch
 
 
+def bwd_scratch_parts(b: int, t: int, h: int) -> Dict[str, int]:
+    """``wkv6_bwd_cuda``'s scratch, fp32 elements by part in the order
+    ``csrc/wkv6_bwd.cu`` lays them out: each sub-chunk's starting state
+    but the first of each chunk (rows kernel, written and read back by
+    the same thread), du's per-chunk partials, and, past one chunk, each
+    chunk's Gloc_start (G_out after phase B) and phase A's fp32 dk, dv,
+    dw for phase C to finish."""
+    n, chunks = HEAD_SIZE, max(1, -(-t // CHUNK))
+    many = chunks > 1
+    return {"sub_states": b * h * chunks * (CHUNK // SUB - 1) * n * n,
+            "du_partials": b * h * chunks * n,
+            "g_start": b * h * chunks * n * n if many else 0,
+            "local_dk_dv_dw": 3 * b * t * h * n if many else 0}
+
+
 def wkv6_bwd_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   w: torch.Tensor, u: torch.Tensor, s0: torch.Tensor,
                   states: torch.Tensor, dy: torch.Tensor,
@@ -95,21 +122,25 @@ def wkv6_bwd_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     build.require(s0, "s0", (b, h, n, n), torch.float32)
     if dsT is not None:
         build.require(dsT, "dsT", (b, h, n, n), torch.float32)
-    chunks = -(-t // CHUNK) if t > CHUNK else 0
-    build.require(states, "states", (b * h * chunks * (n * n + n),),
+    slots = -(-t // CHUNK) if t > CHUNK else 0    # the forward's scratch
+    build.require(states, "states", (b * h * slots * (n * n + n),),
                   torch.float32)
+    # 16-byte rows for the kernel's asynchronous copies
+    r, k, v, w, dy = (x if x.data_ptr() % 16 == 0 else x.clone()
+                      for x in (r, k, v, w, dy))
     dr, dk, dv = (torch.empty_like(r) for _ in range(3))
     dw = torch.empty_like(w)
-    du = torch.zeros((h, n), dtype=torch.float32, device=r.device)
-    ds0 = (dsT.clone() if dsT is not None else torch.zeros_like(s0))
     if b == 0 or h == 0 or t == 0:
-        return dr, dk, dv, dw, du, ds0
-    scratch = torch.empty(HEAD_SIZE // ROWS * b * t * h * n + b * h * n,
+        return (dr, dk, dv, dw, s0.new_zeros((h, n)),
+                dsT.clone() if dsT is not None else torch.zeros_like(s0))
+    du = torch.empty((h, n), dtype=torch.float32, device=r.device)
+    ds0 = torch.empty_like(s0)
+    scratch = torch.empty(sum(bwd_scratch_parts(b, t, h).values()),
                           dtype=torch.float32, device=r.device)
     lib = build.load("wkv6_bwd")
     build.check(lib.wkv6_bwd_launch(
         r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
-        u.data_ptr(), s0.data_ptr(), states.data_ptr() if chunks else None,
+        u.data_ptr(), s0.data_ptr(), states.data_ptr() if slots else None,
         dy.data_ptr(), dsT.data_ptr() if dsT is not None else None, b, t, h,
         int(r.dtype == torch.bfloat16), int(w.dtype == torch.bfloat16),
         dr.data_ptr(), dk.data_ptr(), dv.data_ptr(), dw.data_ptr(),

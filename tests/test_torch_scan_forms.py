@@ -15,19 +15,32 @@ to hold for the arithmetic itself, against the JAX reference's kernels
 in interpret mode and its chunked WKV form.  The MUFU's own error is
 not emulated: exp2 here is PyTorch's; the card tests and
 ``chip_smoke.py`` measure the kernel against the plain version.
+
+``csrc/wkv6_bwd.cu`` is the recurrence's backward in the same chunks:
+each chunk's local sweeps from zero (four threads a state row: the
+forward walk for dr, then sub-chunks of ``kernels/wkv6.py::SUB`` steps
+whose states enter dw only through row dots and the step recurrences of
+G's dots; four a column of G for dv), the reverse carry of G over chunks
+with the forward's decay products, and the carry terms through X, Q and
+Y.  ``wkv6_bwd_segmented`` repeats that order and is held against
+``jax.vjp`` of the reference's scans and against the port's plain
+backward.
 """
 import math
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from repro.kernels import ref as ref_kref
 from repro.kernels.selective_scan import selective_scan_pallas
 from repro.kernels.wkv6 import wkv6_pallas
 from repro.models.rwkv6 import wkv6_chunked
 from repro_torch.kernels import ref
-from repro_torch.kernels.wkv6 import CHUNK
+from repro_torch.kernels import wkv6 as wkv6_kernel
+from repro_torch.kernels.wkv6 import CHUNK, SUB
 from torch_threads import torch_intra_op_threads  # noqa: F401
 
 LOG2E = 1.4426950408889634
@@ -147,6 +160,181 @@ def test_wkv6_decay_products_stay_exact_at_zero():
     assert torch.equal(s_t, s_tail)
     want_y, want_s = ref.wkv6_ref(r, k, v, w, u, s0)
     assert _err(y, want_y) <= 1e-5 and _err(s_t, want_s) <= 1e-5
+
+
+# --- wkv6's backward: phases A (rows, columns), B, C -------------------------
+
+
+def wkv6_bwd_segmented(r, k, v, w, u, s0, dy, dsT=None):
+    """``csrc/wkv6_bwd.cu``'s arithmetic: (dr, dk, dv, dw, du, ds0) in
+    fp32 from fp32 operands, the forward's operands and cotangents."""
+    b, t, h, n = r.shape
+    chunks = max(1, -(-t // CHUNK))
+    bhn = lambda *s: torch.zeros(b, h, *s)
+    dot = lambda m, x: torch.einsum("bhij,bhj->bhi", m, x)
+    s_in, decay, s = [], [], s0         # the forward's scratch
+    for ck in range(chunks):
+        s_in.append(s)
+        d = torch.ones(b, h, n)
+        for tt in range(ck * CHUNK, min(t, (ck + 1) * CHUNK)):
+            s = _fma(w[:, tt, ..., None], s, k[:, tt, ..., None]
+                     * v[:, tt, :, None, :])
+            d = d * w[:, tt]
+        decay.append(d)
+    dr, dk, dv, dw = (torch.zeros(b, t, h, n) for _ in range(4))
+    du_part, g_start = [], []
+    for ck in range(chunks):            # phase A, each chunk from zero
+        t0, span = ck * CHUNK, min(CHUNK, t - ck * CHUNK)
+        last = ck == chunks - 1
+        g_end = dsT if last and dsT is not None else bhn(n, n)
+        st, sub_s = s_in[ck], []        # rows: the forward walk, dr
+        for c in range(span):
+            if c % SUB == 0:
+                sub_s.append(st)
+            tt = t0 + c
+            vdy = (v[:, tt] * dy[:, tt]).sum(-1, keepdim=True)
+            dr[:, tt] = _fma(u * k[:, tt], vdy, dot(st, dy[:, tt]))
+            st = _fma(w[:, tt, ..., None], st,
+                      k[:, tt, ..., None] * v[:, tt, :, None, :])
+        g, du = g_end, bhn(n)           # rows: sub-chunks from the last
+        for q in reversed(range(len(sub_s))):
+            steps = [t0 + c for c in range(q * SUB, min(span, q * SUB + SUB))]
+            sig = [dot(sub_s[q], dy[:, tt]) for tt in steps]
+            kap = [dot(g, v[:, tt]) for tt in steps]
+            e = (g * sub_s[q]).sum(-1)
+            for c in reversed(range(len(steps))):
+                tt = steps[c]
+                vdy = (v[:, tt] * dy[:, tt]).sum(-1, keepdim=True)
+                dk[:, tt] = _fma(r[:, tt] * u, vdy, kap[c])
+                hw = e                  # G_t . S_{t-1}, a Horner sum
+                for s_ in range(c):
+                    hw = _fma(w[:, steps[s_]], hw, k[:, steps[s_]] * kap[s_])
+                dw[:, tt] = hw
+                du = _fma(r[:, tt] * k[:, tt], vdy, du)
+                for s_ in range(c):
+                    a = (v[:, steps[s_]] * dy[:, tt]).sum(-1, keepdim=True)
+                    kap[s_] = _fma(w[:, tt], kap[s_], r[:, tt] * a)
+                e = _fma(w[:, tt], e, r[:, tt] * sig[c])
+            acc, pr = bhn(n, n), torch.ones(b, h, n)
+            for tt in steps:            # G over the whole sub-chunk
+                acc = _fma((pr * r[:, tt])[..., None], dy[:, tt, :, None, :]
+                           .expand(b, h, n, n), acc)
+                pr = pr * w[:, tt]
+            g = _fma(pr[..., None], g, acc)
+        g_start.append(g)
+        du_part.append(du)
+        g = g_end                       # columns: dv
+        for tt in reversed(range(t0, t0 + span)):
+            bonus = (r[:, tt] * u * k[:, tt]).sum(-1, keepdim=True)
+            dv[:, tt] = _fma(bonus, dy[:, tt],
+                             torch.einsum("bhij,bhi->bhj", g, k[:, tt]))
+            g = _fma(w[:, tt, ..., None], g,
+                     r[:, tt, ..., None] * dy[:, tt, :, None, :])
+    g_out = [None] * chunks             # phase B: G_out[ck], in reverse
+    carry = g_start[-1]
+    for ck in range(chunks - 2, -1, -1):
+        g_out[ck] = carry
+        carry = _fma(decay[ck][..., None], carry, g_start[ck])
+    ds0 = carry
+    for ck in range(chunks - 1):        # phase C: the carry terms
+        g, t0 = g_out[ck], ck * CHUNK
+        q, qs = torch.ones(b, h, n), [None] * CHUNK
+        for c in reversed(range(CHUNK)):
+            qs[c], q = q, q * w[:, t0 + c]
+        y = (g * s_in[ck]).sum(-1)
+        for c in range(CHUNK):
+            tt = t0 + c
+            x = dot(g, v[:, tt])
+            dv[:, tt] += torch.einsum("bhij,bhi->bhj", g, qs[c] * k[:, tt])
+            dk[:, tt] = _fma(qs[c], x, dk[:, tt])
+            dw[:, tt] = _fma(qs[c], y, dw[:, tt])
+            y = _fma(w[:, tt], y, k[:, tt] * x)
+    return dr, dk, dv, dw, sum(du_part).sum(0), ds0
+
+
+def _wkv_vjp(fn, ops_np, dy, ds):
+    (_, s_t), vjp = jax.vjp(fn, *map(jnp.asarray, ops_np))
+    return vjp((jnp.asarray(dy),
+                jnp.zeros_like(s_t) if ds is None else jnp.asarray(ds)))
+
+
+@pytest.mark.parametrize("edge", [False, True])
+@pytest.mark.parametrize("with_ds", [False, True])
+@pytest.mark.parametrize("b,t", [(1, CHUNK), (1, CHUNK + 1),
+                                 (2, 2 * CHUNK + 1), (1, 3 * CHUNK + 8)])
+def test_wkv6_bwd_segmented_matches_vjp_and_plain(b, t, with_ds, edge):
+    """The backward's phases (local sweeps from zero in SUB-step
+    sub-chunks, the reverse carry with D[k], the carry terms through X,
+    Q and Y) at one chunk, one step past it, two chunks and a step, and
+    a ragged fourth chunk, against the port's plain backward
+    (``ref.wkv6_bwd_ref``, an explicit reverse sweep) and ``jax.vjp`` of
+    the reference's per-step oracle, each gradient within 1e-5 of its
+    largest magnitude (fp32 sums in other orders), and against
+    ``jax.vjp`` of its default chunked form within 1e-4 (its decays go
+    through log and exp, as ``tests/test_torch_train_families.py``
+    holds the plain backward).  The edge cases add decays of exactly 0,
+    1e-31 and 1 - 2^-24, where the chunked form clamps w at 1e-30 and
+    loses digits (the forward's test above), so they are held against
+    the two step recurrences only."""
+    ops_np = _wkv_inputs(b, t, 2, seed=t + b, edge=edge)
+    rng = np.random.default_rng(t)
+    dy = rng.normal(size=(b, t, 2, 64)).astype(np.float32)
+    ds = (rng.normal(size=(b, 2, 64, 64)).astype(np.float32)
+          if with_ds else None)
+    got = wkv6_bwd_segmented(*(torch.tensor(z) for z in ops_np),
+                             torch.tensor(dy),
+                             None if ds is None else torch.tensor(ds))
+    assert all(bool(torch.isfinite(g).all()) for g in got)
+    wants = [(ref.wkv6_bwd_ref(*(torch.tensor(z) for z in ops_np),
+                               torch.tensor(dy),
+                               None if ds is None else torch.tensor(ds)),
+              1e-5),
+             (_wkv_vjp(ref_kref.wkv6_ref, ops_np, dy, ds), 1e-5)]
+    if not edge:
+        wants.append((_wkv_vjp(wkv6_chunked, ops_np, dy, ds), 1e-4))
+    for want, tol in wants:
+        for name, g, w_ in zip(("dr", "dk", "dv", "dw", "du", "ds0"), got,
+                               want):
+            assert _err(g, w_) <= tol, name
+
+
+@pytest.mark.parametrize("b,t,h", [(1, 1024, 40), (1, 64, 3), (3, 200, 4)])
+def test_wkv6_bwd_scratch_is_the_wrappers(monkeypatch, b, t, h):
+    """``bwd_scratch_parts`` is what ``wkv6_bwd_cuda`` allocates and
+    hands the launch (the wrapper run on CPU tensors with the build's
+    checks and library stubbed): each chunk's sub-chunk states but the
+    first, du's per-chunk partials and, past one chunk, Gloc_start and
+    the three fp32 partials."""
+    parts = wkv6_kernel.bwd_scratch_parts(b, t, h)
+    chunks = -(-t // CHUNK)
+    assert parts["sub_states"] == b * h * chunks * (CHUNK // SUB - 1) * 4096
+    assert parts["du_partials"] == b * h * chunks * 64
+    assert parts["g_start"] == (b * h * chunks * 4096 if chunks > 1 else 0)
+    assert parts["local_dk_dv_dw"] == (3 * b * t * h * 64 if chunks > 1
+                                       else 0)
+    seen = {}
+
+    class Lib:
+        @staticmethod
+        def wkv6_bwd_launch(*args):
+            seen["scratch"] = args[-2]
+            return 0
+    monkeypatch.setattr(wkv6_kernel.build, "require", lambda *a: None)
+    monkeypatch.setattr(wkv6_kernel.build, "load", lambda name: Lib)
+    monkeypatch.setattr(wkv6_kernel.build, "stream_ptr", lambda x: 0)
+    sizes = {}
+    real_empty = torch.empty
+
+    def empty(*shape, **kw):
+        out = real_empty(*shape, **kw)
+        sizes[out.data_ptr()] = out.numel()
+        return out
+    monkeypatch.setattr(torch, "empty", empty)
+    x = torch.zeros(b, t, h, 64)
+    states = torch.zeros(b * h * (chunks if chunks > 1 else 0) * (4096 + 64))
+    wkv6_kernel.wkv6_bwd_cuda(x, x, x, x, torch.zeros(h, 64),
+                              torch.zeros(b, h, 64, 64), states, x)
+    assert sizes[seen["scratch"]] == sum(parts.values())
 
 
 # --- selective_scan: lanes, exp2, the reduction tree ------------------------
