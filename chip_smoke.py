@@ -112,8 +112,8 @@ Phases (any failure exits non-zero; no phase's exception is caught):
    step of gemma-2b, rwkv6-3b, jamba-v0.1-52b (mamba + MoE, then
    attention + MLP, 4 experts of full width; fp32, ROADMAP C3) and
    whisper-medium (2 + 2 layers over 1500 frames) with 2 layers at full
-   width (B=2, S=64, rwkv6-3b's S=128 over two of wkv6's chunks, 2
-   microbatches) on the card against the CPU (loss,
+   width (B=2, S=128 over two chunks of each recurrence's backward,
+   gemma-2b's S=64; 2 microbatches) on the card against the CPU (loss,
    ce, grad_norm and every parameter's update within 2^-5), each with
    its launches (the forward kernels twice a layer a microbatch, the
    backwards once); then ``python -m repro_torch.launch.train --steps 4
@@ -1226,10 +1226,11 @@ TRAIN_PATHS = {
                        {"flash_attention": 288, "flash_attention_bwd": 144}),
 }
 # their 2-layer checks on the card against the CPU (B = 2, 2 microbatches,
-# S = 64: the CPU's reference step is most of a check's time; rwkv6-3b's
-# S = 128, two of wkv6's 64-step chunks, so the backward's carry over
-# chunks is held against the CPU too): arch -> (config changes, fp32
-# compute, launches); bf16
+# S = 128: two of wkv6's 64-step chunks and two of the selective scan's
+# saved-state intervals, so both backwards' carries over chunks are held
+# against the CPU through the model; gemma-2b's at S = 64, the CPU's
+# reference step being most of a check's time): arch -> (config changes,
+# fp32 compute, launches); bf16
 # held within MODEL_TOL, fp32 within TRAIN_FP32_TOL.  jamba's (mamba +
 # MoE, then attention + MLP; 4 experts of full width, a capacity that
 # drops nothing) computes in fp32 on both sides: in bf16 a router
@@ -1239,8 +1240,8 @@ TRAIN_PATHS = {
 # update moves by a few percent of its scale from one bf16 path to
 # another (~5%: the card's and the CPU's bf16 steps against each other
 # and against the CPU's fp32 step, PERF.md)
-TRAIN_CHECK = dict(batch=2, seq=64, grad_accum=2)
-TRAIN_CHECK_SEQ = {"rwkv6-3b": 128}
+TRAIN_CHECK = dict(batch=2, seq=128, grad_accum=2)
+TRAIN_CHECK_SEQ = {"gemma-2b": 64}
 TRAIN_FP32_TOL = 1e-4
 TRAIN_CHECKS = {
     "gemma-2b": (dict(num_layers=2), False,
@@ -1469,7 +1470,8 @@ def train_check(dev, arch: str) -> dict:
 
     dtype = torch.float32 if fp32 else compute
     p0 = registry.init_params(torch.Generator(device=dev).manual_seed(0), cfg)
-    before = tree_to(p0, "cpu")
+    before = tree_to(p0, "cpu")       # the CPU step's start (in place)
+    start = _copy(p0)                 # both steps' start, on the card
     batch = registry.make_concrete_batch(
         cfg, shape, torch.Generator().manual_seed(1), "train")
     build.reset_launches()
@@ -1479,11 +1481,11 @@ def train_check(dev, arch: str) -> dict:
     t_dev = time.perf_counter() - t_dev
     launches = {k: v for k, v in build.LAUNCHES.items() if v}
     t_cpu = time.perf_counter()
-    p_cpu, _, m_cpu = run(_copy(before), batch, dtype)
+    p_cpu, _, m_cpu = run(before, batch, dtype)
     t_cpu = time.perf_counter() - t_cpu
     rel = {k: abs(float(m_dev[k]) - float(m_cpu[k])) / abs(float(m_cpu[k]))
            for k in ("loss", "ce", "grad_norm")}
-    worst, upd_err = update_err(p_dev, p_cpu, before)
+    worst, upd_err = update_err(p_dev, p_cpu, start)
     ok = (max(rel.values()) <= tol and upd_err <= tol and launches == want
           and all(math.isfinite(float(m_dev[k])) for k in rel))
     log(f"[check] train step {arch} {cfg.num_layers} layers"
@@ -1501,12 +1503,13 @@ def train_check(dev, arch: str) -> dict:
     if not ok:
         raise AssertionError(f"the {arch} train step on the card disagrees "
                              f"with the CPU")
-    del p_dev, p_cpu, p0, before
+    del p_dev, p_cpu, p0, before, start
     return launches
 
 
 def _copy(tree):
-    """A CPU parameter tree's copy (the train step updates in place)."""
+    """A parameter tree's copy on its device (the train step updates in
+    place)."""
     if isinstance(tree, dict):
         return {k: _copy(v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
@@ -1515,15 +1518,18 @@ def _copy(tree):
 
 
 def update_err(got, want, before) -> tuple:
-    """(key path, error) of the parameter whose update ``got`` is
-    farthest from ``want``'s (both from ``before``, on the CPU): the
-    largest difference less the two updated values' rounding (2^-22 of
-    the parameter), over the largest element of ``want``'s update."""
+    """(key path, error) of the parameter whose update ``got`` (on the
+    card) is farthest from ``want``'s (on the CPU), both from ``before``
+    (on the card): the largest difference less the two updated values'
+    rounding (2^-22 of the parameter), over the largest element of
+    ``want``'s update.  Taken on the card, one of ``want``'s leaves
+    copied there at a time (elementwise, so the same numbers as on the
+    CPU)."""
     from repro_torch.train.optim import tree_leaves
     worst, upd_err = "", 0.0
     for (path, d), c, p0 in zip(_leaf_paths(got), tree_leaves(want),
                                 tree_leaves(before)):
-        d = d.cpu()
+        c = c.to(d.device)
         scale = float((c - p0).abs().max())
         err = float(((d - c).abs() - 2 ** -22 * c.abs()).clamp(min=0).max()
                     / max(scale, 1e-30))

@@ -125,9 +125,8 @@ def wkv6_bwd_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     slots = -(-t // CHUNK) if t > CHUNK else 0    # the forward's scratch
     build.require(states, "states", (b * h * slots * (n * n + n),),
                   torch.float32)
-    # 16-byte rows for the kernel's asynchronous copies
-    r, k, v, w, dy = (x if x.data_ptr() % 16 == 0 else x.clone()
-                      for x in (r, k, v, w, dy))
+    if any(x.data_ptr() % 16 for x in (r, k, v, w, dy)):    # cp.async
+        raise ValueError("wkv6_bwd: operands must be 16-byte aligned")
     dr, dk, dv = (torch.empty_like(r) for _ in range(3))
     dw = torch.empty_like(w)
     if b == 0 or h == 0 or t == 0:

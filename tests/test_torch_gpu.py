@@ -1456,6 +1456,32 @@ def test_wkv6_bwd_kernel_matches_plain(cuda, b, t, h, dtype, w_dtype,
         assert torch.equal(x, y), name
 
 
+@pytest.mark.parametrize("operand", [0, 1, 2, 3, "dy"])
+def test_wkv6_bwd_refuses_misaligned_operands(cuda, operand):
+    """An operand 4 bytes off a 16-byte boundary (contiguous, a view one
+    fp32 into its storage) raises, and nothing is launched: the kernel
+    stages its rows with 16-byte asynchronous copies."""
+    from repro_torch.kernels.wkv6 import wkv6_bwd_cuda
+    args, states, dy, _ = _wkv_bwd_args(1, 65, 2, torch.float32,
+                                        torch.float32, cuda, False)
+
+    def shifted(x):
+        y = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+        y = y[1:].view(x.shape)
+        y.copy_(x)
+        return y
+
+    if operand == "dy":
+        dy = shifted(dy)
+    else:
+        args = list(args)
+        args[operand] = shifted(args[operand])
+    before = build.LAUNCHES["wkv6_bwd"]
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        wkv6_bwd_cuda(*args, states, dy)
+    assert build.LAUNCHES["wkv6_bwd"] == before
+
+
 def _scan_bwd_args(b, t, di, n, dtype, device, with_dh, seed=0,
                    underflow=False):
     """The forward kernel's operands and saved states, an fp32 cotangent
