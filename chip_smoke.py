@@ -5,6 +5,7 @@
     python3 chip_smoke.py --c12-readings   # one-off readings, see below
     python3 chip_smoke.py --flash-parent SRC
     python3 chip_smoke.py --wkv-parent SRC
+    python3 chip_smoke.py --scan-parent SRC
 
 Phases (any failure exits non-zero; no phase's exception is caught):
 
@@ -103,7 +104,9 @@ Phases (any failure exits non-zero; no phase's exception is caught):
    kernels, B: the carry, C: the carry terms and du);
    ``selective_scan_bwd`` at jamba's training
    microbatch (B=1, T=1024, Di=8192, N=16), at an odd Di and T with N=7,
-   at N=32 and at Di=8200 with exp(dt a) underflowing; each in fp32
+   at N=32 and at Di=8200 with exp(dt a) underflowing, its device time
+   split by phase (A: each chunk's forward walk, B: the carry, C: each
+   chunk's sweeps, sum: the ordered sums); each in fp32
    within 1e-5 and bf16 within 2^-7 of each gradient's largest
    magnitude, the final state's cotangent given and None,
    bit-repeatable; both timed in bf16 at the microbatch beside their
@@ -364,7 +367,9 @@ under SRC with the same helper and times it against this tree's in
 turns in bf16 at rwkv6-3b's training microbatch (B=1, T=1024, H=40),
 both within 2^-7 of each gradient's largest magnitude of the plain
 version (bits not compared: the order of the sums differs), then this
-tree's device time by phase (no result line).
+tree's device time by phase (no result line).  ``--scan-parent SRC``
+does the same for ``selective_scan_bwd.cu`` at jamba's training
+microbatch (B=1, T=1024, Di=8192, N=16).
 """
 from __future__ import annotations
 
@@ -1270,7 +1275,9 @@ WKV_BWD_PHASES = (("A rows", ("wkv6_bwd_rows_kernel",)),
                   ("A cols", ("wkv6_bwd_cols_kernel",)),
                   ("B", ("wkv6_bwd_carry_kernel",)),
                   ("C", ("wkv6_bwd_cross_kernel",)))
-SCAN_BWD_PHASES = (("sweep", ("selective_scan_bwd_kernel",)),
+SCAN_BWD_PHASES = (("A", ("selective_scan_bwd_chunk_kernel",)),
+                   ("B", ("selective_scan_bwd_carry_kernel",)),
+                   ("C", ("selective_scan_bwd_sweep_kernel",)),
                    ("sum", ("selective_scan_bwd_sum_kernel",)))
 
 
@@ -1748,20 +1755,28 @@ def scan_bwd_bound(case, elem_bytes: int, design: bool = False):
     written once in fp32); 18 fp32 operations per (b, t, d, n) (the
     states rebuilt, 3; the sweep, 15) over the fp32 peak; one exp per (b,
     t, d, n) over the SFU's rate, counted as operations.  ``design``: the
-    work ``csrc/selective_scan_bwd.cu`` does beside it: two exps per (b,
-    t, d, n) (rebuilt, then again in the sweep), 20 operations, the
-    saved states read, the 16-channel blocks' dB and dC partials written
-    and read, da's B partials."""
-    from repro_torch.kernels.selective_scan import CHANNELS, SAVE
+    work ``csrc/selective_scan_bwd.cu`` does, its scratch from
+    ``kernels/selective_scan.py::bwd_scratch_parts``: phases A and C each
+    read the operands and the forward's chunk-start states, A writes the
+    sub-chunk starts (C reads them), Gloc and P (B reads both and writes G
+    over Gloc, C reads G), the dB, dC and da partials are written and
+    read once; per (b, t, d, n) three exps (A's walk, C's walk forward and
+    back) and 28 operations (A: the state, P, Gloc and dC's term, 10; C:
+    the state, 4, the reverse step, 12; the sums' adds, 2)."""
+    from repro_torch.kernels.selective_scan import SAVE, bwd_scratch_parts
     b, t, di, n = case[:4]
-    n_bytes = (2 * (2 * b * t * di + 2 * b * t * n) * elem_bytes
-               + b * t * di * 4 + (2 * di * n + 2 * b * di * n) * 4)
+    io_in = (2 * b * t * di + 2 * b * t * n) * elem_bytes + b * t * di * 4
+    n_bytes = (io_in + (2 * b * t * di + 2 * b * t * n) * elem_bytes
+               + (2 * di * n + 2 * b * di * n) * 4)
     n_ops, n_exp = 18 * b * t * di * n, b * t * di * n
     if design:
-        blocks = -(-di // CHANNELS)
-        n_bytes += (2 * 2 * b * blocks * t * n + 2 * b * di * n
-                    + b * (-(-t // SAVE) - 1) * di * n) * 4
-        n_ops, n_exp = 20 * b * t * di * n, 2 * b * t * di * n
+        parts = bwd_scratch_parts(b, t, di, n)
+        n_bytes += (io_in + 2 * b * (-(-t // SAVE) - 1) * di * n * 4
+                    + 4 * (2 * parts["checkpoints"] + 4 * parts["g_carry"]
+                           + 2 * parts["decay"] + 2 * parts["db_partials"]
+                           + 2 * parts["dc_partials"]
+                           + 2 * parts["da_partials"]))
+        n_ops, n_exp = 28 * b * t * di * n, 3 * b * t * di * n
     parts = {"bytes": n_bytes / HBM_BYTES_PER_S * 1e3,
              "fp32": n_ops / FP32_FLOP_PER_S * 1e3,
              "exp": n_exp / SFU_EXP_PER_S * 1e3}
@@ -1863,21 +1878,23 @@ def parent_libs(src: str, names) -> dict:
     return libs
 
 
-def wkv_parent(src: str) -> int:
-    """``--wkv-parent SRC``: the ``wkv6_bwd.cu`` of the package under SRC
-    (an older checkout's ``src``; its C entry point takes this tree's
-    arguments) against this tree's in bf16 at WKV_BWD_STEP, on the
-    operands and forward states ``recurrence_bwd_times`` times: both
-    timed in turns (parent, this tree, this tree, parent), each within
-    2^-7 of each gradient's largest magnitude of the plain version (bits
-    not compared: the order of the sums differs), then this tree's
-    device time by phase.  The parent gets the larger of its first
-    design's scratch (8 row groups' dv partials and du's) and this
-    tree's."""
+def recurrence_parent(name: str, src: str) -> int:
+    """``--wkv-parent SRC`` (``name`` ``wkv6_bwd``) and ``--scan-parent
+    SRC`` (``selective_scan_bwd``): the ``<name>.cu`` of the package under
+    SRC (an older checkout's ``src``; its C entry point takes this tree's
+    arguments) against this tree's in bf16 at WKV_BWD_STEP or
+    SCAN_BWD_STEP, on the operands and forward states
+    ``recurrence_bwd_times`` times: both timed in turns (parent, this
+    tree, this tree, parent), each within 2^-7 of each gradient's largest
+    magnitude of the plain version (bits not compared: the order of the
+    sums differs), then this tree's device time by phase.  The parent
+    gets the larger of its first design's scratch and this tree's:
+    ``wkv6_bwd``'s 8 row groups' dv partials and du's, or
+    ``selective_scan_bwd``'s 16-channel blocks' dB and dC partials and
+    da's."""
     import ctypes
     import torch
     from repro_torch.kernels import build, ref
-    from repro_torch.kernels.wkv6 import bwd_scratch_parts, wkv6_bwd_cuda
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
               file=sys.stderr)
@@ -1886,55 +1903,72 @@ def wkv_parent(src: str) -> int:
         subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                         "--format=csv,noheader"], capture_output=True,
                        text=True, check=True).stdout.strip())
-    libs = parent_libs(src, ("wkv6_bwd",))
-    if "wkv6_bwd" not in libs:
-        raise RuntimeError(f"{src} has no wkv6_bwd.cu")
-    fn = libs["wkv6_bwd"].wkv6_bwd_launch
+    libs = parent_libs(src, (name,))
+    if name not in libs:
+        raise RuntimeError(f"{src} has no {name}.cu")
+    fn = getattr(libs[name], f"{name}_launch")
     fn.argtypes = [build._CTYPE[c] for c in
-                   build._SIGNATURES["wkv6_bwd"]["wkv6_bwd_launch"]]
+                   build._SIGNATURES[name][f"{name}_launch"]]
     fn.restype = ctypes.c_int
-    b, t, h = WKV_BWD_STEP
-    args, states, dy, _ = wkv_bwd_args(WKV_BWD_STEP, torch.bfloat16, "cuda",
-                                       False, seed=2, edge=False)
-    r, k, v, w, u, s0 = args
-    outs = [torch.empty_like(z) for z in (r, k, v, w)]
-    du = torch.empty((h, WKV_N), dtype=torch.float32, device="cuda")
-    ds0 = torch.empty_like(s0)
-    scratch = torch.empty(max(8 * b * t * h * WKV_N + b * h * WKV_N,
-                              sum(bwd_scratch_parts(b, t, h).values())),
-                          dtype=torch.float32, device="cuda")
+    if name == "wkv6_bwd":
+        from repro_torch.kernels.wkv6 import bwd_scratch_parts, wkv6_bwd_cuda
+        b, t, h = case = WKV_BWD_STEP
+        args, states, dy, _ = wkv_bwd_args(case, torch.bfloat16, "cuda",
+                                           False, seed=2, edge=False)
+        outs = [torch.empty_like(z) for z in args[:4]] + [
+            torch.empty((h, WKV_N), dtype=torch.float32, device="cuda"),
+            torch.empty_like(args[5])]
+        floats = max(8 * b * t * h * WKV_N + b * h * WKV_N,
+                     sum(bwd_scratch_parts(b, t, h).values()))
+        dims, kernel, plain = (b, t, h, 1, 0), wkv6_bwd_cuda, ref.wkv6_bwd_ref
+        (b_ms, b_by), (d_ms, d_by) = (wkv_bwd_bound(*case),
+                                      wkv_bwd_bound(*case, design=True))
+        label, phases, tag = ("B={} T={} H={} bf16".format(*case),
+                              WKV_BWD_PHASES, "wkv parent")
+    else:
+        from repro_torch.kernels.selective_scan import (
+            bwd_scratch_parts, selective_scan_bwd_cuda)
+        case = SCAN_BWD_STEP
+        b, t, di, n = case[:4]
+        args, states, dy, _ = scan_bwd_args(case, torch.bfloat16, "cuda",
+                                            False, seed=2)
+        outs = [torch.empty_like(z) for z in args]
+        floats = max(2 * b * -(-di // 16) * t * n + b * di * n,
+                     sum(bwd_scratch_parts(b, t, di, n).values()))
+        dims, kernel = (b, t, di, n, 1), selective_scan_bwd_cuda
+        plain = ref.selective_scan_bwd_ref
+        b_ms, b_by, _ = scan_bwd_bound(case, 2)
+        d_ms, d_by, _ = scan_bwd_bound(case, 2, design=True)
+        label, phases, tag = ("B={} T={} Di={} N={} bf16".format(*case[:4]),
+                              SCAN_BWD_PHASES, "scan parent")
+    scratch = torch.empty(floats, dtype=torch.float32, device="cuda")
 
     def parent():
         build.check(fn(*(z.data_ptr() for z in args), states.data_ptr(),
-                       dy.data_ptr(), None, b, t, h, 1, 0,
-                       *(z.data_ptr() for z in outs), du.data_ptr(),
-                       ds0.data_ptr(), scratch.data_ptr(),
+                       dy.data_ptr(), None, *dims,
+                       *(z.data_ptr() for z in outs), scratch.data_ptr(),
                        torch.cuda.current_stream().cuda_stream),
-                    "parent wkv6_bwd")
-        return (*outs, du, ds0)
+                    f"parent {name}")
+        return outs
 
     def this():
-        return wkv6_bwd_cuda(*args, states, dy)
-    want = ref.wkv6_bwd_ref(*args, dy)
+        return kernel(*args, states, dy)
+    want = plain(*args, dy)
     errs = {}
-    for label, call in (("parent", parent), ("this tree", this)):
+    for who, call in (("parent", parent), ("this tree", this)):
         got = call()
         torch.cuda.synchronize()
-        errs[label] = max(scaled_err(g, x) for g, x in zip(got, want))
+        errs[who] = max(scaled_err(g, x) for g, x in zip(got, want))
     ms = [time_ms(call, 20) for call in (parent, this, this, parent)]
     ok = max(errs.values()) <= 2 ** -7
-    label = "B={} T={} H={} bf16".format(*WKV_BWD_STEP)
-    log(f"[wkv parent] wkv6_bwd {label}: parent {ms[0]:.4f} / {ms[3]:.4f} "
-        f"ms, this tree {ms[1]:.4f} / {ms[2]:.4f} ms; max err / scale "
-        f"against the plain version parent {errs['parent']:.3g}, this tree "
+    log(f"[{tag}] {name} {label}: parent {ms[0]:.4f} / {ms[3]:.4f} ms, "
+        f"this tree {ms[1]:.4f} / {ms[2]:.4f} ms; max err / scale against "
+        f"the plain version parent {errs['parent']:.3g}, this tree "
         f"{errs['this tree']:.3g} (tol {2 ** -7:.3g}) "
         f"{'OK' if ok else 'FAIL'}")
-    (b_ms, b_by), (d_ms, d_by) = (wkv_bwd_bound(*WKV_BWD_STEP),
-                                  wkv_bwd_bound(*WKV_BWD_STEP, design=True))
-    log_bwd_phases("wkv6_bwd", dict(call=this, shape=label,
-                                    timing=(ms[1], None, b_ms, b_by),
-                                    design_ms=d_ms, design_by=d_by),
-                   WKV_BWD_PHASES)
+    log_bwd_phases(name, dict(call=this, shape=label,
+                              timing=(ms[1], None, b_ms, b_by),
+                              design_ms=d_ms, design_by=d_by), phases)
     return int(not ok)
 
 
@@ -5717,8 +5751,8 @@ def main() -> int:
                   for case, (row, call) in zip(FLASH_BWD_TIMED, bwd_rows)]
 
     # the recurrences' backwards at the training microbatches: device
-    # time a launch by phase (wkv6_bwd: A, B, C; the scan: the sweep, the
-    # ordered sum)
+    # time a launch by phase (wkv6_bwd: A rows, A cols, B, C; the scan: A,
+    # B, C and the ordered sums)
     for name, phases in (("wkv6_bwd", WKV_BWD_PHASES),
                          ("selective_scan_bwd", SCAN_BWD_PHASES)):
         row = rec_rows[name]
@@ -5874,5 +5908,7 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--flash-parent"] and len(sys.argv) == 3:
         sys.exit(flash_parent(sys.argv[2]))
     if sys.argv[1:2] == ["--wkv-parent"] and len(sys.argv) == 3:
-        sys.exit(wkv_parent(sys.argv[2]))
+        sys.exit(recurrence_parent("wkv6_bwd", sys.argv[2]))
+    if sys.argv[1:2] == ["--scan-parent"] and len(sys.argv) == 3:
+        sys.exit(recurrence_parent("selective_scan_bwd", sys.argv[2]))
     sys.exit(main())

@@ -14,8 +14,9 @@ where a call runs more than one CUDA kernel, as ``wkv6`` past one time
 chunk, ``flash_attention_bwd`` (its dQ kernel, its dK/dV kernel and,
 where the plan splits a kv tile, the sum of its partials), ``wkv6_bwd``
 (its rows and columns kernels, past one time chunk the carry, and the
-carry terms with du's sum) and ``selective_scan_bwd`` (a sweep and the
-ordered sum of its partials) do, and
+carry terms with du's sum) and ``selective_scan_bwd`` (each chunk's
+forward walk, past one chunk the carry, each chunk's sweep back, and the
+ordered sums of its partials) do, and
 where one call takes several seeds, as the sweep's
 seed-batched ``probe_fuzzy`` and ``neighbor_elect`` do), so a run can
 show that its main path went through the kernels.

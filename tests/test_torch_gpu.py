@@ -1407,11 +1407,11 @@ def test_kill_and_resume_on_the_card(cuda, tmp_path, run):
 # microbatch, B = 2, the chunk edges, two whole chunks, B > 1 with a
 # ragged last chunk) and (B, T, Di, N) for the selective
 # scan (jamba's training microbatch, an odd Di and T with N = 7, N = 32,
-# a Di past a block's 16 channels)
+# a Di past a block's 64 channels, a last chunk of one step)
 WKV_BWD_CASES = [(1, 1024, 40), (2, 1024, 40), (1, 64, 40), (1, 65, 40),
                  (2, 129, 8), (1, 5, 3), (1, 128, 40), (3, 200, 4)]
 SCAN_BWD_CASES = [(1, 1024, 8192, 16), (3, 77, 300, 7), (1, 200, 1024, 32),
-                  (2, 130, 8200, 16)]
+                  (2, 130, 8200, 16), (1, 129, 1024, 16)]
 
 
 def _wkv_bwd_args(b, t, h, dtype, w_dtype, device, with_ds, seed=0):

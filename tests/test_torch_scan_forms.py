@@ -25,6 +25,19 @@ with the forward's decay products, and the carry terms through X, Q and
 Y.  ``wkv6_bwd_segmented`` repeats that order and is held against
 ``jax.vjp`` of the reference's scans and against the port's plain
 backward.
+
+``csrc/selective_scan_bwd.cu`` is the selective scan's backward over the
+forward's 64-step chunks: phase A walks each chunk forward (the states at
+phase C's sub-chunk starts, dC's terms, the chunk's decay product P and
+its own gradient Gloc summed forward), phase B carries the state's
+gradient over chunks (G = P G + Gloc), phase C sweeps each chunk back
+from its true G, and the sums over a channel's states (4 a lane, then a
+tree over its lanes) and over channels (a tree over 4 channels of a warp,
+16 partials a 64-channel group in order, then four runs of groups added
+in a tree) run in fixed orders; a chunk's decay P is one exp2 of its
+summed exponent, a' sum_t dt_t.  ``selective_scan_bwd_segmented`` repeats
+that arithmetic and is held against ``jax.vjp`` of the reference's model
+scan and against the port's plain backward.
 """
 import math
 
@@ -37,8 +50,10 @@ import torch
 from repro.kernels import ref as ref_kref
 from repro.kernels.selective_scan import selective_scan_pallas
 from repro.kernels.wkv6 import wkv6_pallas
+from repro.models.mamba import _ssm_scan
 from repro.models.rwkv6 import wkv6_chunked
 from repro_torch.kernels import ref
+from repro_torch.kernels import selective_scan as scan_kernel
 from repro_torch.kernels import wkv6 as wkv6_kernel
 from repro_torch.kernels.wkv6 import CHUNK, SUB
 from torch_threads import torch_intra_op_threads  # noqa: F401
@@ -429,3 +444,258 @@ def test_prescaled_rate_against_exact_exp_over_long_memories(
                        dt[tt] * inp[tt])
     assert _err(h_ex2, h_exact) <= 1e-6
     assert math.isfinite(float(h_ex2.abs().max()))
+
+
+# --- selective_scan's backward: phases A, B, C and the ordered sums ---------
+
+SB_S = 4                  # SB_S in csrc/selective_scan_bwd.cu: states a lane
+SB_CHANNELS = 64          # SB_CHANNELS: a block's channels
+SB_SUM_SPLIT = 4          # SB_SUM_SPLIT: runs of channel groups a sum adds
+LN2 = 0.6931471805599453
+
+
+def _ex2(z):
+    """exp2 with outputs below 2^-126 flushed to 0 (MUFU.EX2's .ftz)."""
+    e = torch.exp2(z)
+    return torch.where(e < 2.0 ** -126, torch.zeros_like(e), e)
+
+
+def _butterfly(v, dim, dists):
+    """The kernel's reduce by halves as each holder sees it: at every
+    distance a lane adds its partner's value to its own, in that order."""
+    idx = torch.arange(v.shape[dim])
+    for d in dists:
+        v = v + v.index_select(dim, idx ^ d)
+    return v
+
+
+def _block_partials(v, lanes):
+    """(B, Dp, NS) terms of a step -> (B, groups, NS): each 64-channel
+    group's 16 partials (a warp's 4 channels summed by halves at lane
+    distances 16 and 8, i.e. channel distances 16 / L and 8 / L) added in
+    order (warp by warp, then the partial within the warp)."""
+    b, dp, ns = v.shape
+    wc = 32 // lanes                       # channels a warp
+    pw = wc // 4                           # partials a warp
+    d1, d2 = 16 // lanes, 8 // lanes
+    v = v.reshape(b, dp // SB_CHANNELS, SB_CHANNELS // wc, wc, ns)
+    v = _butterfly(v, 3, (d1, d2))
+    part = torch.zeros(b, v.shape[1], v.shape[2], pw, ns)
+    for s_ in range(SB_S):                 # the term a holder keeps
+        for p_ in range(pw):
+            holder = (s_ >> 1) * d1 + (s_ & 1) * d2 + p_
+            part[..., p_, s_::SB_S] = v[:, :, :, holder, s_::SB_S]
+    part = part.reshape(b, v.shape[1], -1, ns)
+    acc = part[:, :, 0]
+    for w in range(1, part.shape[2]):
+        acc = acc + part[:, :, w]
+    return acc
+
+
+def _groups_sum(rows):
+    """(B, groups, N) partials -> (B, N): SB_SUM_SPLIT runs of groups, each
+    added in order, then ((run 0 + run 1) + (run 2 + run 3))."""
+    groups = rows.shape[1]
+    run = -(-groups // SB_SUM_SPLIT)
+    runs = []
+    for k in range(SB_SUM_SPLIT):
+        lo, hi = k * run, min(groups, (k + 1) * run)
+        acc = torch.zeros_like(rows[:, 0])
+        if lo < hi:
+            acc = rows[:, lo]
+            for g in range(lo + 1, hi):
+                acc = acc + rows[:, g]
+        runs.append(acc)
+    return _butterfly(torch.stack(runs, -1), -1, (1, 2))[..., 0]
+
+
+def _lane_partials(terms, other):
+    """A lane's sum of its 4 states' terms * other, fused, in state order:
+    (B, Dp, NS) -> (B, Dp, L)."""
+    b, dp, ns = terms.shape
+    t4 = terms.reshape(b, dp, ns // SB_S, SB_S)
+    o4 = other.reshape(b, dp, ns // SB_S, SB_S)
+    acc = torch.zeros(b, dp, ns // SB_S)
+    for s_ in range(SB_S):
+        acc = _fma(t4[..., s_], o4[..., s_], acc)
+    return acc
+
+
+def selective_scan_bwd_segmented(x, dt, bmat, cmat, a, h0, dy, dhT=None):
+    """``csrc/selective_scan_bwd.cu``'s arithmetic: (dx, ddt, dB, dC, da,
+    dh0) in fp32 from fp32 operands, the forward's operands and
+    cotangents."""
+    b, t, di = x.shape
+    n = bmat.shape[-1]
+    ns = scan_kernel.padded_state(n)
+    lanes = ns // SB_S
+    groups = -(-di // SB_CHANNELS)
+    dp = groups * SB_CHANNELS
+    chunks = -(-t // scan_kernel.SAVE)
+    pad_d = lambda z: torch.nn.functional.pad(z, (0, dp - di))
+    pad_n = lambda z: torch.nn.functional.pad(z, (0, ns - n))
+    xs, dts, dys = pad_d(x), pad_d(dt), pad_d(dy)
+    bs, cs = pad_n(bmat), pad_n(cmat)
+    a_pad = torch.nn.functional.pad(pad_n(a), (0, 0, 0, dp - di))
+    a2 = a_pad * torch.tensor(LOG2E, dtype=torch.float32)
+    h = torch.nn.functional.pad(pad_n(h0), (0, 0, 0, dp - di))
+    dtx = dts * xs
+    # A: each chunk walked forward (continuing the forward's states)
+    states, dc_rows, decay, gloc = [], [], [], []
+    for ck in range(chunks):
+        pr, gl = torch.ones_like(h), torch.zeros_like(h)
+        dt_sum = torch.zeros(b, dp, 1)
+        for tt in range(ck * scan_kernel.SAVE,
+                        min(t, (ck + 1) * scan_kernel.SAVE)):
+            states.append(h)                                  # h_{t-1}
+            al = _ex2(dts[:, tt, :, None] * a2)
+            h = _fma(al, h, dtx[:, tt, :, None] * bs[:, tt, None, :])
+            pr = pr * al
+            gl = _fma(pr, dys[:, tt, :, None] * cs[:, tt, None, :], gl)
+            dt_sum = dt_sum + dts[:, tt, :, None]
+            dc_rows.append(_block_partials(dys[:, tt, :, None] * h, lanes))
+        decay.append(_ex2(a2 * dt_sum))       # P: one exp of the exponents
+        gloc.append(gl)
+    # B: the gradient at each chunk's end, from the last
+    g_end = [None] * chunks
+    g_end[-1] = (torch.zeros_like(h) if dhT is None else
+                 torch.nn.functional.pad(pad_n(dhT), (0, 0, 0, dp - di)))
+    for ck in range(chunks - 2, -1, -1):
+        g_end[ck] = _fma(decay[ck + 1], g_end[ck + 1], gloc[ck + 1])
+    # C: each chunk swept back from its true G
+    dx, ddt = torch.zeros(b, t, dp), torch.zeros(b, t, dp)
+    db_rows = [None] * t
+    da_parts = []
+    for ck in range(chunks):
+        g, da = g_end[ck], torch.zeros_like(h)
+        for tt in reversed(range(ck * scan_kernel.SAVE,
+                                 min(t, (ck + 1) * scan_kernel.SAVE))):
+            gs = _fma(dys[:, tt, :, None], cs[:, tt, None, :], g)
+            gp = gs * _ex2(dts[:, tt, :, None] * a2)
+            qv = gp * states[tt]
+            q = tt % lanes                       # the lane holding step tt
+            px = _butterfly(_lane_partials(gs, bs[:, tt, None, :]
+                                           .expand_as(gs)), -1,
+                            [1 << l for l in range(lanes.bit_length() - 1)])
+            pd = _butterfly(_lane_partials(qv, a2.expand_as(qv)), -1,
+                            [1 << l for l in range(lanes.bit_length() - 1)])
+            px, pd = px[..., q], pd[..., q]
+            dx[:, tt] = px * dts[:, tt]
+            ddt[:, tt] = _fma(px, xs[:, tt], pd * torch.tensor(
+                LN2, dtype=torch.float32))
+            db_rows[tt] = _block_partials(gs * dtx[:, tt, :, None], lanes)
+            da = _fma(qv, dts[:, tt, :, None], da)
+            g = gp
+        da_parts.append(da)
+        if ck == 0:
+            dh0 = g
+    db = torch.stack([_groups_sum(r) for r in db_rows], 1)[..., :n]
+    dc = torch.stack([_groups_sum(r) for r in dc_rows], 1)[..., :n]
+    da_sum = da_parts[0][0]
+    for bb in range(b):
+        for ck in range(chunks):
+            if bb or ck:
+                da_sum = da_sum + da_parts[ck][bb]
+    return (dx[..., :di], ddt[..., :di], db, dc, da_sum[:di, :n],
+            dh0[:, :di, :n])
+
+
+def _scan_bwd_case(b, t, di, n, seed, underflow):
+    ops_np = list(_scan_inputs(b, t, di, n, seed))
+    if underflow:                 # exp(dt a) underflows to 0 there
+        ops_np[1][:, ::5] = 50.0
+        ops_np[4][::3] = -100.0
+    rng = np.random.default_rng(seed + 1)
+    dy = rng.normal(size=(b, t, di)).astype(np.float32)
+    dh = rng.normal(size=(b, di, n)).astype(np.float32)
+    return ops_np, dy, dh
+
+
+@pytest.mark.parametrize("underflow", [False, True])
+@pytest.mark.parametrize("with_dh", [False, True])
+@pytest.mark.parametrize("n", [7, 16])
+@pytest.mark.parametrize("t", [64, 65, 128, 130])
+def test_selective_scan_bwd_segmented_matches_vjp_and_plain(t, n, with_dh,
+                                                            underflow):
+    """The backward's order (A's forward walks with Gloc summed forward
+    and P one exp2 of the chunk's summed exponent, B's carry, C's sweeps
+    from the carried G; exp2 of the
+    pre-scaled rate; the lane, channel and group sums in the kernel's
+    trees and orders) at one chunk, one step past it, two chunks and two
+    chunks and two steps, N = 7 (padded to 8) and 16, 130 channels (three
+    64-channel groups, the last ragged), the final state's cotangent
+    given and None, and with dt 50 at every 5th step and a -100 at every
+    3rd channel (exp(dt a) underflows to 0), against ``jax.vjp`` of the
+    reference's model scan (``_ssm_scan``) and the port's plain backward
+    (``ref.selective_scan_bwd_ref``): each gradient within 1e-5 of its
+    largest magnitude (fp32 sums in other orders)."""
+    ops_np, dy, dh = _scan_bwd_case(1, t, 130, n, seed=t + n, underflow=
+                                    underflow)
+    dh = dh if with_dh else None
+    ops = [torch.tensor(z) for z in ops_np]
+    got = selective_scan_bwd_segmented(
+        *ops, torch.tensor(dy), None if dh is None else torch.tensor(dh))
+    assert all(bool(torch.isfinite(g).all()) for g in got)
+    (_, h_t), vjp = jax.vjp(_ssm_scan, *map(jnp.asarray, ops_np))
+    want_jax = vjp((jnp.asarray(dy), jnp.zeros_like(h_t) if dh is None
+                    else jnp.asarray(dh)))
+    want_ref = ref.selective_scan_bwd_ref(
+        *ops, torch.tensor(dy), None if dh is None else torch.tensor(dh))
+    names = ("dx", "ddt", "dB", "dC", "da", "dh0")
+    for want in (want_jax, want_ref):
+        for name, g, w in zip(names, got, want):
+            assert _err(g, w) <= 1e-5, name
+
+
+@pytest.mark.parametrize("b,t,di,n", [(1, 1024, 8192, 16), (3, 77, 300, 7),
+                                      (1, 200, 1024, 32), (2, 130, 8200, 16),
+                                      (1, 129, 1024, 16)])
+def test_selective_scan_bwd_scratch_is_the_wrappers(monkeypatch, b, t, di,
+                                                    n):
+    """``bwd_scratch_parts`` is what ``selective_scan_bwd_cuda`` allocates
+    and hands the launch (the wrapper run on CPU tensors with the build's
+    checks and library stubbed): the states at phase C's sub-chunk starts
+    (every 16 steps, 8 at N <= 8), Gloc and P for each chunk but the
+    first, the dB and dC partials per 64 channels and da's per (b, chunk);
+    below the first design's 2 B ceil(Di / 16) T N + B Di N floats at
+    jamba's training microbatch."""
+    parts = scan_kernel.bwd_scratch_parts(b, t, di, n)
+    chunks = -(-t // 64)
+    subs = 8 if n <= 8 else 4
+    groups = -(-di // 64)
+    assert parts == {"checkpoints": b * chunks * (subs - 1) * di * n,
+                     "g_carry": b * (chunks - 1) * di * n,
+                     "decay": b * (chunks - 1) * di * n,
+                     "db_partials": b * groups * t * n,
+                     "dc_partials": b * groups * t * n,
+                     "da_partials": b * chunks * di * n}
+    if (b, t, di, n) == (1, 1024, 8192, 16):
+        assert 4 * (parts["db_partials"] + parts["dc_partials"]) <= 16.8e6
+        assert sum(parts.values()) < 2 * b * -(-di // 16) * t * n + b * di * n
+    seen = {}
+
+    class Lib:
+        @staticmethod
+        def selective_scan_bwd_launch(*args):
+            seen["scratch"] = args[-2]
+            return 0
+    monkeypatch.setattr(scan_kernel.build, "require", lambda *a: None)
+    monkeypatch.setattr(scan_kernel.build, "load", lambda name: Lib)
+    monkeypatch.setattr(scan_kernel.build, "stream_ptr", lambda x: 0)
+    sizes = {}
+    real_empty = torch.empty
+
+    def empty(*shape, **kw):
+        out = real_empty(*shape, **kw)
+        sizes[out.data_ptr()] = out.numel()
+        return out
+    monkeypatch.setattr(torch, "empty", empty)
+    small = (1, min(t, 130), 64, n)          # the wrapper's own shapes
+    bb, tt, dd, nn = small if b * t * di > 10 ** 6 else (b, t, di, n)
+    x = torch.zeros(bb, tt, dd)
+    bm = torch.zeros(bb, tt, nn)
+    states = torch.zeros(bb, max(-(-tt // 64) - 1, 0), dd, nn)
+    scan_kernel.selective_scan_bwd_cuda(x, x, bm, bm, torch.zeros(dd, nn),
+                                        torch.zeros(bb, dd, nn), states, x)
+    assert sizes[seen["scratch"]] == sum(
+        scan_kernel.bwd_scratch_parts(bb, tt, dd, nn).values())
