@@ -185,14 +185,27 @@ Phases (any failure exits non-zero; no phase's exception is caught):
    never); ``python -m repro_torch.launch.fl_sim --scheme dcs --rounds 2
    --mesh clients=2``: 2 ranks on the card over gloo,
    each launching ``neighbor_elect`` (the gather seam), round 0's row
-   bit-equal to the single-device run's; 2 spawned ranks for round 0,
+   bit-equal to the single-device run's; beside it ``[mesh multihost]``,
+   the same CLI with ``--multihost 2`` (2 launcher processes, one world
+   over gloo): its banner names gloo and 2 processes, its rows are the
+   single-host CLI's bit for bit and its 2 rank lines their launches;
+   2 spawned ranks for round 0,
    whose masks equal the single-device round's and whose training half
    and FedAvg land within 1e-6 of it in fp64 under deterministic
    algorithms (fp32: a reading, as phase 5's); then the large
    fleet on 4 ranks of the card for 1 round through ``elect="auto"``
    (the ring halo): each rank launches ``probe_loss``, ``fuzzy_eval``
    and ``windowed_counts`` once and ``probe_fuzzy`` never, and the
-   masks and evals equal phase 5's single-device round 0; each rank's
+   masks and evals equal phase 5's single-device round 0; on the same
+   ranks ``[protocols]``, the paper's three selection protocols
+   (``core/protocol.py``) over round 0's fleet sorted along the road,
+   a block of 1024 vehicles a rank: the fuzzy gather equal to a stable
+   top-n on one device, the state gather (state_dim 25) to one device's
+   ``fuzzy_eval`` kernel and top-n, the DCS exchange to the dense
+   ``neighbor_elect`` kernel at the window the block edges need and to
+   a one-process emulation of the reference's exchange at window 64,
+   each rank's collective bytes equal to N x 25 x 4, N x 4 and 6 W x 4;
+   each rank's
    ``probe_loss`` time, the round's wall time and the host-staged
    collective bytes are printed (readings: four ranks share one card);
    ``[mesh event]``: on the same 4 ranks the large fleet's event server
@@ -1817,13 +1830,15 @@ def recurrence_bwd_times(dev) -> dict:
             label = "B={} T={} Di={} N={} bf16".format(*case[:4])
         call = functools.partial(kernel, *args, states, dy)
         ms = time_ms(call, 20)
-        plain_ms = time_ms(lambda: plain(*args, dy), 2, warmup=1)
+        # the plain versions take ~1 s a call: one timed call after one
+        # warm-up
+        plain_ms = time_ms(lambda: plain(*args, dy), 1, warmup=1)
 
         def autograd():
             leaves = [z.detach().requires_grad_(True) for z in args]
             y, _ = fwd(*leaves)
             return torch.autograd.grad(y, leaves, dy)
-        autograd_ms = time_ms(autograd, 2, warmup=1)
+        autograd_ms = time_ms(autograd, 1, warmup=1)
         log(f"[time] {name} {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f}"
             f" ms, autograd through the plain forward {autograd_ms:.4f} ms, "
             f"library none, bound {b_ms:.6f} ms ({b_by}), the design's own "
@@ -2430,7 +2445,8 @@ def mesh_fast(dev) -> None:
     seam) and never ``probe_fuzzy``, and round 0's row equals the
     single-device run's on every count and ``mean_eval_selected`` bit
     for bit (round 1 starts from params that FedAvg summed in another
-    order: a reading).  Then 2 spawned ranks for round 0: masks equal
+    order: a reading); beside it the same CLI with ``--multihost 2``
+    (``mesh_multihost``).  Then 2 spawned ranks for round 0: masks equal
     the single-device round's, and the sharded training half and FedAvg
     land within 1e-6 of the single-device one in fp64, where no ReLU or
     max-pool kink flips (the fp32 gap is a reading: a one-ulp nudge of
@@ -2440,33 +2456,54 @@ def mesh_fast(dev) -> None:
     from repro_torch.fl.rounds import FLSimulation
     from repro_torch.fl.runconfig import RunConfig
     from repro_torch.launch.mesh import spawn_ranks
+    # the single-host CLI, the --multihost 2 CLI and the 2 spawned ranks
+    # run together (their times are readings; nothing checked depends on
+    # them)
     t0 = time.perf_counter()
-    out = subprocess.run(
+    clis = {mh: subprocess.Popen(
         [sys.executable, "-m", "repro_torch.launch.fl_sim", "--scheme", "dcs",
-         "--rounds", "2", "--mesh", "clients=2"],
+         "--rounds", "2", "--mesh", "clients=2",
+         *(["--multihost", "2"] if mh else [])],
         cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
-        capture_output=True, text=True, timeout=600, check=True).stdout
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        start_new_session=True)
+        for mh in (False, True)}
+    try:
+        torch.use_deterministic_algorithms(True)
+        torch.backends.cudnn.deterministic = True
+        try:
+            single = FLSimulation(fast_config_dcs(2), run=RunConfig(),
+                                  device=dev)
+            want0 = round0_training(single)
+            want = [single.run_round(r) for r in range(2)]
+            t1 = time.perf_counter()
+            ranks2 = spawn_ranks(fast_round0_rank, 2, dev.type)
+            spawn_s = time.perf_counter() - t1
+        finally:
+            torch.use_deterministic_algorithms(False)
+            torch.backends.cudnn.deterministic = False
+        outs = {}
+        for mh, proc in clis.items():
+            stdout, stderr = proc.communicate(timeout=600)
+            if proc.returncode != 0:
+                log(stderr[-4000:])
+                raise AssertionError(f"fl_sim --mesh clients=2"
+                                     f"{' --multihost 2' if mh else ''} "
+                                     f"exited {proc.returncode}")
+            outs[mh] = stdout
+    finally:
+        for proc in clis.values():         # the launch's whole tree
+            if proc.poll() is None:
+                os.killpg(proc.pid, 9)
+                proc.wait()
     cli_s = time.perf_counter() - t0
+    out = outs[False]
     for line in out.strip().splitlines():
         log(f"[mesh cli] {line}")
     rows = [json.loads(line) for line in out.splitlines()
             if line.startswith("{")]
-    ranks = [json.loads(line.split("launches ", 1)[1].split(
-        ", host-staged")[0]) for line in out.splitlines()
-        if line.startswith("[fl_sim] rank ")]
-
-    torch.use_deterministic_algorithms(True)
-    torch.backends.cudnn.deterministic = True
-    try:
-        single = FLSimulation(fast_config_dcs(2), run=RunConfig(), device=dev)
-        want0 = round0_training(single)
-        want = [single.run_round(r) for r in range(2)]
-        t0 = time.perf_counter()
-        ranks2 = spawn_ranks(fast_round0_rank, 2, dev.type)
-        spawn_s = time.perf_counter() - t0
-    finally:
-        torch.use_deterministic_algorithms(False)
-        torch.backends.cudnn.deterministic = False
+    ranks = cli_rank_launches(out)
+    mesh_multihost(outs[True], rows, ranks)
     keys = ("n_selected", "n_aggregated", "n_straggler", "mean_eval_selected")
     row0 = all(rows[0][k] == want[0][k] for k in keys)
     masks = all(bool((r["mask0"] == want0["mask0"]).all()) for r in ranks2)
@@ -2482,7 +2519,8 @@ def mesh_fast(dev) -> None:
         and c["fuzzy_eval"] == 2 and c["neighbor_elect"] >= 2 for c in ranks)
     ok = ("backend gloo" in out and row0 and masks and gap64 <= 1e-6
           and launch_ok and len(rows) == 2)
-    log(f"[check] mesh clients=2 fast profile: CLI {cli_s:.1f}s; round 0 "
+    log(f"[check] mesh clients=2 fast profile: the CLIs and the spawned "
+        f"ranks together {cli_s:.1f}s; round 0 "
         f"row bit-equal to single-device {row0}; round 1 counts (a reading: "
         f"params differ after FedAvg) {[rows[1][k] for k in keys]} / "
         f"{[want[1][k] for k in keys]}; 2 spawned ranks ({spawn_s:.1f}s): "
@@ -2491,6 +2529,39 @@ def mesh_fast(dev) -> None:
         f"{'OK' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError("the 2-rank mesh differs from one device")
+
+
+def cli_rank_launches(out: str) -> list:
+    """The kernel launches on each ``[fl_sim] rank`` line of a mesh
+    CLI's output, in rank order."""
+    return [json.loads(line.split("launches ", 1)[1].split(
+        ", host-staged")[0]) for line in out.splitlines()
+        if line.startswith("[fl_sim] rank ")]
+
+
+def mesh_multihost(out: str, rows: list, ranks: list) -> None:
+    """``[mesh multihost]``: ``fl_sim --scheme dcs --rounds 2 --mesh
+    clients=2 --multihost 2`` on the card (2 launcher processes of one
+    rank each, one world over gloo): every row bit-equal to the
+    single-host ``--mesh clients=2`` CLI's ``rows``, the banner naming
+    gloo and 2 processes, and each of the 2 rank lines the single-host
+    ranks' launches ``ranks``."""
+    for line in out.strip().splitlines():
+        log(f"[mesh multihost] {line}")
+    got = [json.loads(line) for line in out.splitlines()
+           if line.startswith("{")]
+    banner = next((line for line in out.splitlines()
+                   if "client mesh" in line), "")
+    launches = cli_rank_launches(out)
+    same_rows = len(rows) == 2 and got == rows
+    ok = (same_rows and "backend gloo" in banner
+          and "/ 2 processes" in banner and launches == ranks)
+    log(f"[check] mesh multihost: --multihost 2 rows bit-equal to the "
+        f"single-host mesh CLI's {same_rows}; banner {banner!r}; rank "
+        f"launches equal to the single-host ranks' {launches == ranks} "
+        f"{'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the 2-process mesh differs from one host")
 
 
 def fast_config_dcs(n_rounds: int):
@@ -3181,18 +3252,130 @@ def paper_clis() -> None:
         raise AssertionError("fl_sim --out is wrong")
 
 
+# [protocols]: the state gather's width and the DCS exchange's fixed
+# window (the other window is the one the road's block edges need)
+PROTOCOL_STATE_DIM = 25
+PROTOCOL_WINDOW = 64
+
+
+def edge_window(pos, k: int, comm_range: float) -> int:
+    """The most vehicles of a neighbouring block (the ring's, K blocks
+    of the sorted positions ``pos``) that one vehicle has in range: the
+    DCS exchange's window at which it is the dense election."""
+    import torch
+    from repro_torch.kernels.ref import _f32
+    blk, most = pos.shape[0] // k, 0
+    cr = _f32(comm_range, pos)
+    block = lambda b: pos[(b % k) * blk:(b % k + 1) * blk]
+    for b in range(k):
+        for nb in (b - 1, b + 1):
+            near = torch.abs(block(b)[:, None] - block(nb)[None, :]) <= cr
+            most = max(most, int(near.sum(dim=1).max()))
+    return most
+
+
+def emulated_exchange(pos, evals, k: int, window: int, **kw):
+    """The reference's DCS neighbour exchange emulated in one process:
+    block b elects against its left neighbour's last ``window`` vehicles,
+    itself and its right neighbour's first ``window`` (the ring wraps)."""
+    import torch
+    from repro_torch.core.protocol import _elect_block
+    n = pos.shape[0]
+    blk = n // k
+    idx = torch.arange(n, dtype=torch.int32, device=pos.device)
+    out = []
+    for b in range(k):
+        part = lambda z, c: z[(c % k) * blk:(c % k + 1) * blk]
+        cand = [torch.cat([part(z, b - 1)[-window:], part(z, b),
+                           part(z, b + 1)[:window]])
+                for z in (pos, evals, idx)]
+        out.append(_elect_block(part(pos, b), part(evals, b), part(idx, b),
+                                *cand, **kw))
+    return torch.cat(out)
+
+
+def protocol_checks(mesh, sim, out) -> dict:
+    """``[protocols]``, on one rank of the large fleet's 4-way mesh: the
+    paper's three selection protocols (``core/protocol.py``) over round
+    0's positions sorted along the road, their evaluations and their
+    Eq. 8-normalized features (the fleet's, gathered from every rank's
+    shard), each rank holding one block of the road.  The fuzzy gather
+    against a stable top-n on one device; the state gather (the features
+    and ``PROTOCOL_STATE_DIM`` - 4 seeded columns) against one device's
+    ``fuzzy_eval`` kernel and top-n; the DCS exchange at the window the
+    block edges need against the dense ``neighbor_elect`` kernel, and at
+    ``PROTOCOL_WINDOW`` against ``emulated_exchange``.  Each check's
+    result, its collective output bytes on this rank and their formula
+    (N x state_dim x 4, N x 4, 6 W x 4)."""
+    import torch
+    from repro_torch.core import protocol
+    from repro_torch.core.selection import ccs_fuzzy_select
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import all_gather
+    dev, n, k, cfg = mesh.device, sim.n, mesh.size, sim.stage_cfg
+    n_top = cfg.n_clients_central
+
+    def fleet(key):
+        return all_gather(mesh, torch.as_tensor(out[key], device=dev))[:n]
+    pos, evals, feats = fleet("pos0"), fleet("evals0"), fleet("feats0")
+    order = torch.argsort(pos, stable=True)
+    pos, evals = pos[order].contiguous(), evals[order].contiguous()
+    filler = torch.rand((n, PROTOCOL_STATE_DIM - 4),
+                        generator=torch.Generator().manual_seed(25))
+    states = torch.cat([sim.evaluator.normalize(
+        feats[order], feats.max(dim=0).values), filler.to(dev)], 1)
+    mine = lambda z: protocol.shard(z, mesh)
+
+    def sent(fn):
+        before = dict(mesh.collective_bytes)
+        got = fn()
+        return got, sum(v - before[key]
+                        for key, v in mesh.collective_bytes.items())
+
+    res = {}
+    got, b = sent(lambda: protocol.make_ccs_fuzzy_gather(mesh, n_top)(
+        mine(evals)))
+    res["fuzzy gather"] = [bool(torch.equal(
+        got, mine(ccs_fuzzy_select(evals, n_top)))), b, n * 4]
+    got, b = sent(lambda: protocol.make_ccs_state_gather(
+        mesh, sim.evaluator, n_top, PROTOCOL_STATE_DIM)(mine(states)))
+    want = ccs_fuzzy_select(sim.evaluator.evaluate(
+        states[:, :4].contiguous()), n_top)
+    res[f"state gather (state_dim {PROTOCOL_STATE_DIM})"] = [
+        bool(torch.equal(got, mine(want))), b, n * PROTOCOL_STATE_DIM * 4]
+    kw = dict(comm_range=cfg.comm_range_m, top_m=cfg.top_m, e_tau=cfg.e_tau)
+    dense = ops.neighbor_elect(pos, evals, **kw)
+    w = edge_window(pos, k, cfg.comm_range_m)
+    got, b = sent(lambda: protocol.make_dcs_neighbor_exchange(
+        mesh, window=w, **kw)(mine(pos), mine(evals)))
+    res[f"dcs exchange W={w} (the edges' most in range) vs dense"] = [
+        bool(torch.equal(got, mine(dense))), b, 6 * w * 4]
+    emu = emulated_exchange(pos, evals, k, PROTOCOL_WINDOW, **kw)
+    got, b = sent(lambda: protocol.make_dcs_neighbor_exchange(
+        mesh, window=PROTOCOL_WINDOW, **kw)(mine(pos), mine(evals)))
+    res[f"dcs exchange W={PROTOCOL_WINDOW} vs the emulation (differs from "
+        f"dense at {int((emu != dense).sum())} vehicles)"] = [
+        bool(torch.equal(got, mine(emu))), b, 6 * PROTOCOL_WINDOW * 4]
+    return res
+
+
 def large_fleet_rank(mesh, cfg, run, event_run=None):
     """One rank of the large fleet's 4-way mesh: round 0 with the launch
-    counts reset just before and read just after, then ``probe_loss``
-    timed on the rank's region while the other ranks time theirs; with
-    ``event_run``, then ``LARGE_EVENT_ROUNDS`` rounds of the event server
-    under it from the same initial params (``event/...`` keys)."""
+    counts reset just before and read just after, then the selection
+    protocols on round 0's fleet (``protocol_checks``), then
+    ``probe_loss`` timed on the rank's region while the other ranks time
+    theirs; with ``event_run``, then ``LARGE_EVENT_ROUNDS`` rounds of the
+    event server under it from the same initial params (``event/...``
+    keys)."""
     from repro_torch.fl.rounds import FLSimulation
     from repro_torch.kernels import ops
     from repro_torch.launch import fl_sim
     sim = FLSimulation(cfg, run=run, mesh=mesh)
     params0 = {k: v.clone() for k, v in sim.params.items()}
     out = fl_sim.drive_rounds(sim, 1)
+    t0 = time.perf_counter()
+    out["protocols"] = protocol_checks(mesh, sim, out)
+    out["protocols_s"] = time.perf_counter() - t0
     if event_run is not None:
         ev = with_run(sim, event_run)
         ev.params = params0
@@ -3250,8 +3433,19 @@ def mesh_large_fleet(dev, big0, big):
     launch_ok = all(prefix_launches(r["launches"]) == {
         k: want.get(k, 0) for k in prefix_launches(r["launches"])}
         for r in ranks)
+    for r, res in enumerate(ranks):
+        log(f"[protocols] rank {r} of 4, N={n} ({res['protocols_s']:.2f} "
+            f"s): " + "; ".join(
+                f"{name}: {'equal' if same else 'DIFFERS'}, {b} bytes "
+                f"(formula {want})" for name, (same, b, want)
+                in res["protocols"].items()))
+    protocols_ok = all(same and b == want for res in ranks
+                       for same, b, want in res["protocols"].values())
+    log(f"[check] protocols on 4 ranks at N={n}: every mask as expected and "
+        f"every rank's bytes equal to their formula {protocols_ok} "
+        f"{'OK' if protocols_ok else 'FAIL'}")
     ok = masks and same_evals and launch_ok and ranks[0]["rows"][0][
-        "n_selected"] > 0
+        "n_selected"] > 0 and protocols_ok
     log(f"[check] mesh clients=4 large fleet round 0 ({spawn_s:.1f}s with "
         f"start-up): overflow flags {flags}, masks bit-equal to the "
         f"single-device round {masks}, evals bit-equal {same_evals}, "

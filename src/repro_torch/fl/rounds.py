@@ -76,7 +76,8 @@ import torch
 
 from repro_torch.configs.mnist_cnn import CONFIG as CNN_CFG
 from repro_torch.convert import params_from_jax, params_to_numpy
-from repro_torch.core.fuzzy import FuzzyEvaluatorConfig, default_level_centers
+from repro_torch.core.fuzzy import (FuzzyEvaluator, FuzzyEvaluatorConfig,
+                                    default_level_centers)
 from repro_torch.core.overhead import (IoVParams, accumulated_time_s,
                                        model_upload_bytes,
                                        state_maintenance_bytes)
@@ -177,8 +178,9 @@ class FLSimConfig:
 
 
 class FLSimulation:
-    def __init__(self, cfg: FLSimConfig, run: Optional[RunConfig] = None,
-                 *, device=None,
+    def __init__(self, cfg: FLSimConfig,
+                 evaluator: Optional[FuzzyEvaluator] = None,
+                 run: Optional[RunConfig] = None, *, device=None,
                  fields: Optional[Callable[[int],
                                            pipeline.RoundFields]] = None,
                  mesh: Optional[ClientMesh] = None):
@@ -192,6 +194,15 @@ class FLSimulation:
                 f"RunConfig.mesh={self.run_cfg.mesh!r} wants {k} rank(s); "
                 f"got a mesh of {mesh.size if mesh else 'none'}: build the "
                 f"simulation on each rank of launch.mesh.spawn_ranks")
+        # a mesh spanning several launcher processes (--multihost): the
+        # reference's limits on it
+        if mesh is not None and mesh.hosts > 1:
+            if self.run_cfg.engine != "batched":
+                raise ValueError("multi-host meshes require "
+                                 "engine='batched'")
+            if self.run_cfg.server == "event":
+                raise ValueError("the event-driven server does not "
+                                 "support multi-host meshes yet")
         # a mesh of one rank is the single-device path, as in the
         # reference (a client axis needs more than one shard)
         self.mesh = mesh if k > 1 else None
@@ -230,7 +241,8 @@ class FLSimulation:
                    + 1.0 / self.slowdown)
         self.mobility = FreewayMobility(
             cfg.mobility, quality_rank=np.argsort(-quality))
-        self.fuzzy_cfg = FuzzyEvaluatorConfig(e_tau=cfg.e_tau)
+        self.evaluator = evaluator or FuzzyEvaluator(
+            FuzzyEvaluatorConfig(e_tau=cfg.e_tau))
         self.params = init_cnn(torch.Generator().manual_seed(cfg.seed),
                                CNN_CFG, self.device)
         self._channel_shadow = pinned_channel_shadow(self.n)
@@ -247,6 +259,7 @@ class FLSimulation:
         def f32(a):
             return torch.as_tensor(np.asarray(a, np.float32),
                                    device=self.device)
+        self._membership = self._read_membership()
         return pipeline.RoundStatics(
             x0=f32(self.mobility.x0), speeds=f32(self.mobility.speeds),
             jitter_phase=f32(self.mobility._jitter_phase),
@@ -254,9 +267,31 @@ class FLSimulation:
             probe_images=self._probe_images,
             probe_labels=self._probe_labels, probe_seg=self._probe_seg,
             probe_counts=self._probe_counts,
-            means=f32(self.fuzzy_cfg.means),
-            sigmas=f32(self.fuzzy_cfg.sigmas),
+            means=f32(self._membership[0]),
+            sigmas=f32(self._membership[1]),
             level_centers=default_level_centers(self.device))
+
+    def _read_membership(self) -> Tuple[np.ndarray, np.ndarray]:
+        ecfg = self.evaluator.cfg
+        return (np.array(ecfg.means, np.float32),
+                np.array(ecfg.sigmas, np.float32))
+
+    def _current_statics(self) -> pipeline.RoundStatics:
+        """The statics with the evaluator's membership parameters as they
+        are now: read on every prefix call, as the reference's, so a
+        ``FuzzyEvaluator.calibrate()`` after construction moves the next
+        round's evaluations.  They cross to the device only when they
+        changed (through pinned memory: the host does not wait)."""
+        means, sigmas = self._read_membership()
+        old_means, old_sigmas = self._membership
+        if not (np.array_equal(means, old_means)
+                and np.array_equal(sigmas, old_sigmas)):
+            self._membership = (means, sigmas)
+            self.statics = replace(
+                self.statics,
+                means=to_device(torch.from_numpy(means), self.device),
+                sigmas=to_device(torch.from_numpy(sigmas), self.device))
+        return self.statics
 
     def device_groups(self) -> Tuple:
         """``self.groups`` with their stacks on the run's device
@@ -349,12 +384,12 @@ class FLSimulation:
         cfg = self.stage_cfg
         if elect is not None and elect != cfg.elect:
             cfg = replace(cfg, elect=elect)
+        st = self._current_statics()
         if self.mesh is not None:
             return pipeline.selection_prefix_sharded(
-                self.statics, self.params, rnd, fields, cfg=cfg,
-                mesh=self.mesh)
-        return pipeline.selection_prefix(self.statics, self.params, rnd,
-                                         fields, cfg=cfg)
+                st, self.params, rnd, fields, cfg=cfg, mesh=self.mesh)
+        return pipeline.selection_prefix(st, self.params, rnd, fields,
+                                         cfg=cfg)
 
     def _host(self, state: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
         """The prefix's outputs on the host.  On a mesh, the round's mask

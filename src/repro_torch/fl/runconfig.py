@@ -11,10 +11,13 @@ whose rows are the serial schedule's bit for bit.  ``checkpoint_dir``
 snapshots the round state every ``checkpoint_every`` rounds
 (``train/checkpoint.py``) and ``resume`` restores the latest good
 snapshot first (``rounds.resume_rows``): a resumed run's rows, masks and
-params are the uninterrupted run's bit for bit.  The knobs the port
-does not implement yet raise ``NotImplementedError`` naming the ROADMAP
-item that brings them (the multi-host launch A11b; the persistent
-compilation cache A14); none is silently ignored.
+params are the uninterrupted run's bit for bit.  ``multihost`` P > 1
+spreads the ``mesh``'s K ranks over P launcher processes
+(``launch/multihost.py``); it needs ``mesh="clients=K"`` with K % P ==
+0, as the reference's, and P = 1 runs as without it.  The knob the port
+does not implement yet, the persistent compilation cache, raises
+``NotImplementedError`` naming its ROADMAP item (A14); none is silently
+ignored.
 
 Async axis (any non-default value promotes ``server`` to "event"):
 
@@ -32,7 +35,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
-from repro_torch.launch.mesh import mesh_clients
+from repro_torch.launch.mesh import check_multihost, mesh_clients
 
 ENGINES = ("batched", "loop")
 ELECT_MODES = ("auto", "gather", "windowed")
@@ -56,8 +59,8 @@ class RunConfig:
     engine: str = "batched"
     fused_probe: bool = True             # fused probe->evaluate kernel
     overlap_rounds: bool = True          # round-ahead scheduler
-    # "clients=K": K ranks of the client mesh (launch/mesh.py) on one
-    # host; multihost > 0 (processes over several hosts) is unported
+    # "clients=K": K ranks of the client mesh (launch/mesh.py); with
+    # multihost P > 1 they span P launcher processes, K / P each
     mesh: Optional[str] = None
     multihost: int = 0
     server: str = "sync"                 # sync | event
@@ -79,8 +82,8 @@ class RunConfig:
 
     def resolved(self) -> "RunConfig":
         """Validate and promote, as the reference's: any churn, weighted
-        staleness or cadence promotes ``server`` to "event".  Every
-        unported knob raises here, before any work is done."""
+        staleness or cadence promotes ``server`` to "event".  A bad
+        knob raises here, before any work is done."""
         if self.engine not in ENGINES:
             raise ValueError(f"engine must be one of {ENGINES}: "
                              f"{self.engine!r}")
@@ -99,10 +102,9 @@ class RunConfig:
         if self.agg_cadence_s is not None and self.agg_cadence_s <= 0.0:
             raise ValueError(f"agg_cadence_s must be > 0: "
                              f"{self.agg_cadence_s}")
-        if self.multihost:
-            raise _unported("--multihost (torchrun over several hosts, "
-                            "launch/multihost.py, faults.py)", "A11b")
         mesh_clients(self.mesh)              # a bad spec raises here
+        if self.multihost > 1:
+            check_multihost(self.mesh, self.multihost)
         if self.checkpoint_every < 1:
             raise ValueError(f"checkpoint_every must be >= 1: "
                              f"{self.checkpoint_every}")
@@ -158,9 +160,9 @@ class RunConfig:
         the reference's: absent attributes keep the ``base`` (default)
         values, ``--compat-aligned-pack`` wins over ``--fused-probe``,
         ``--no-overlap-rounds`` over ``--overlap-rounds``, and an
-        ``--agg-cadence`` of 0 is the round period.  Resolved, so every
-        unported knob raises here; so does ``--jit-cache-dir``, which the
-        reference keeps beside its ``RunConfig``."""
+        ``--agg-cadence`` of 0 is the round period.  Resolved, so a bad
+        knob raises here; so does ``--jit-cache-dir`` (unported), which
+        the reference keeps beside its ``RunConfig``."""
         if getattr(args, "jit_cache_dir", None) is not None:
             raise _unported("--jit-cache-dir (the persistent compilation "
                             "cache)", "A14")

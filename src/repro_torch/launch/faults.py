@@ -36,10 +36,10 @@ event                  fired by                               params
 ``group-done``         the sweep, after each (cell, scenario) ``index``
                        group's rows reach the CSV
 ``resume``             ``restore_state``, via ``active``      --
+``mh-child-start``     a ``--multihost`` child, before its    ``rank``
+                       ranks join the group
+                       (``launch/mesh.py::spawn_ranks``)
 =====================  =====================================  ==========
-
-The reference's ``mh-child-start`` belongs to its multi-host launcher,
-which the port does not have yet (ROADMAP A11b).
 
 Nothing here imports torch: the plan is re-read from the environment on
 every ``fire``/``active``, so subprocesses inherit schedules without any

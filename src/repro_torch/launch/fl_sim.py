@@ -10,6 +10,8 @@ Usage:
   python -m repro_torch.launch.fl_sim --elect windowed --elect-window 2 \
       --distribution extreme
   python -m repro_torch.launch.fl_sim --mesh clients=2 --device cpu
+  python -m repro_torch.launch.fl_sim --mesh clients=4 --multihost 2 \
+      --device cpu
   python -m repro_torch.launch.fl_sim --scheme all --rounds 3 \
       --churn-rate 0.2 --staleness weighted --staleness-lambda 0.5
   python -m repro_torch.launch.fl_sim --rounds 4 --checkpoint-dir ck \
@@ -27,8 +29,15 @@ spawns K ranks of the client mesh (``launch/mesh.py``): each owns
 ``ceil(N / K)`` clients and the round's few global steps are
 collectives; rank 0 prints the mesh banner and the rows, then the
 launcher prints each rank's kernel launches and host-staged
-collectives (``--out`` writes rank 0's rows).  On one device the CLI
-prints the rows, then the kernel launches of the scheme's rounds.
+collectives (``--out`` writes rank 0's rows).  ``--multihost P`` (with
+``--mesh clients=K``, K % P == 0) runs the launcher as P processes
+(``launch/multihost.py``): the parent builds the kernels once and
+re-executes this module P times; process p starts global ranks ``p * K
+/ P`` on, all K join one world at the parent's coordinator, and process
+0 alone prints (the banner ends ``/ P processes``, then all K rank
+lines) and writes ``--out``; the rows are the single-host mesh's.  On
+one device the CLI prints the rows, then the kernel launches of the
+scheme's rounds.
 Rounds run round-ahead (``--no-overlap-rounds``: serially; the rows are
 the same).  ``--churn-rate``, ``--staleness weighted``
 (``--staleness-lambda``) or ``--agg-cadence`` run the event-driven
@@ -50,13 +59,14 @@ import contextlib
 import dataclasses
 import json
 import os
+import sys
 import time
 from typing import Dict, Optional
 
 import numpy as np
 import torch
 
-from repro_torch.device import synchronize
+from repro_torch.device import resolve_device, synchronize
 from repro_torch.fl import pipeline
 from repro_torch.fl.mobility import MobilityConfig
 from repro_torch.fl.partition import PartitionConfig
@@ -66,6 +76,9 @@ from repro_torch.ioutil import write_atomic_json
 from repro_torch.kernels import build
 from repro_torch.launch.mesh import (ClientMesh, describe, mesh_clients,
                                      spawn_ranks)
+from repro_torch.launch.multihost import (add_multihost_arguments,
+                                          multihost_from_args, should_spawn,
+                                          spawn_multihost)
 
 SCHEMES = ("dcs", "ccs-fuzzy", "random")
 
@@ -100,8 +113,7 @@ def sim_rank(mesh: ClientMesh, cfg: FLSimConfig, run: RunConfig,
     (``drive_rounds`` says what comes back).  Rank 0 prints the mesh
     banner and each row when ``print_rows``."""
     if print_rows and mesh.rank == 0:
-        print(f"[fl_sim] {describe(mesh.size, mesh.device.type)}",
-              flush=True)
+        print(f"[fl_sim] {describe(mesh)}", flush=True)
     sim = FLSimulation(cfg, run=run, mesh=mesh,
                        fields=fields.__getitem__ if fields else None)
     if params is not None:
@@ -180,9 +192,7 @@ def main(argv=None) -> int:
     ap.add_argument("--elect-capacity", type=int, default=None,
                     help="ring-halo election on the mesh: bucket slots "
                          "per (rank, road segment) (0 = auto)")
-    ap.add_argument("--multihost", type=int, default=0,
-                    help="processes over several hosts (not ported: "
-                         "raises)")
+    add_multihost_arguments(ap)
     ap.add_argument("--jit-cache-dir", default=None, metavar="DIR",
                     help="the reference's persistent jit cache (not "
                          "ported: raises)")
@@ -196,7 +206,17 @@ def main(argv=None) -> int:
 
     run = RunConfig.from_args(args)
     k = mesh_clients(run.mesh)
-    if run.server == "event":
+    if should_spawn(args):
+        # the parent of a --multihost P launch: build the kernels once,
+        # then re-execute this module P times and wait
+        if resolve_device(args.device).type == "cuda":
+            build.build_all()
+        return spawn_multihost("repro_torch.launch.fl_sim",
+                               sys.argv[1:] if argv is None else list(argv),
+                               args.multihost)
+    multihost = multihost_from_args(args)
+    lead = multihost is None or multihost[2] == 0
+    if run.server == "event" and lead:
         print(f"[fl_sim] event-driven server: churn={run.churn_rate} "
               f"staleness={run.staleness} lam={run.staleness_lambda} "
               f"cadence={run.agg_cadence_s or 'round period'}", flush=True)
@@ -221,8 +241,10 @@ def main(argv=None) -> int:
             ranks = spawn_ranks(
                 sim_rank, k, args.device,
                 args=(cfg, srun, args.rounds),
-                kwargs=dict(print_rows=True))
+                kwargs=dict(print_rows=True), multihost=multihost)
             res, where = ranks[0], f"{k} ranks"
+            if not lead:
+                continue
             for r, rank in enumerate(ranks):
                 print(f"[fl_sim] rank {r} on {rank['device']}: launches "
                       f"{json.dumps(rank['launches'])}, host-staged "
@@ -250,7 +272,7 @@ def main(argv=None) -> int:
               f"{accs[-1]:.3f} (best {max(accs):.3f}), avg selected "
               f"{nsel:.2f}, {dt:.1f}s", flush=True)
         results[scheme] = rows
-    if args.out:
+    if args.out and lead:
         write_atomic_json(args.out, results, indent=1)
         print(f"[fl_sim] wrote {args.out}", flush=True)
     return 0

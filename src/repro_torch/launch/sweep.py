@@ -9,6 +9,8 @@ card unless ``--device cpu`` is given.
   python -m repro_torch.launch.sweep --seeds 2 --rounds 1 --device cpu
   python -m repro_torch.launch.sweep --fast --seeds 2 --rounds 2 \
       --churn-rates 0,0.2 --staleness-lambdas 0,0.5 --agg-cadences 0,90
+  python -m repro_torch.launch.sweep --seeds 1 --rounds 1 --schemes dcs \
+      --device cpu --mesh clients=4 --multihost 2
 
 Each **cell** is a whole (scheme, classes_per_client, distribution,
 seed) simulation; the seeds of one (scheme, classes, distribution) are
@@ -59,11 +61,15 @@ every seed's probe pack, a group's round makes one
 ``fuzzy_eval`` launch for all its seeds), the ranks train their slices
 of each seed's cohort, and rank 0 alone writes the CSV and the group
 snapshots.  With ``--workers N`` each worker process runs its groups on
-K ranks of its own.
+K ranks of its own.  ``--multihost P`` spreads the K ranks over P
+launcher processes (``launch/multihost.py``; not with ``--workers``):
+the parent builds the kernels once and re-executes this module P times,
+process 0 alone prints, and the CSV is the single-host mesh's byte for
+byte.
 
-The knobs the port does not have yet raise ``NotImplementedError``
-naming their ROADMAP item before any work is done: ``--multihost``:
-A11b; ``--jit-cache-dir``: A14.
+The knob the port does not have yet, ``--jit-cache-dir``, raises
+``NotImplementedError`` naming its ROADMAP item (A14) before any work is
+done.
 """
 from __future__ import annotations
 
@@ -72,6 +78,7 @@ import dataclasses
 import io
 import json
 import os
+import sys
 import time
 import warnings
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
@@ -92,6 +99,9 @@ from repro_torch.kernels import build
 from repro_torch.launch import faults
 from repro_torch.launch.mesh import (ClientMesh, describe, mesh_clients,
                                      spawn_ranks)
+from repro_torch.launch.multihost import (add_multihost_arguments,
+                                          multihost_from_args, should_spawn,
+                                          spawn_multihost)
 from repro_torch.train.checkpoint import RoundCheckpointer
 
 SCHEMES = ("dcs", "ccs-fuzzy", "random")
@@ -616,9 +626,7 @@ def main(argv=None) -> int:
     ap.add_argument("--agg-cadences", type=_float_list, default=None,
                     help="comma list of aggregation cadences in simulated "
                          "seconds (scenario axis; 0 = the round period)")
-    ap.add_argument("--multihost", type=int, default=0, metavar="P",
-                    help="processes over several hosts (not ported: "
-                         "raises)")
+    add_multihost_arguments(ap)
     ap.add_argument("--jit-cache-dir", default=None, metavar="DIR",
                     help="the reference's persistent jit cache (not "
                          "ported: raises)")
@@ -634,6 +642,9 @@ def main(argv=None) -> int:
         args.checkpoint_dir = args.out + ".ckpt"
     if args.fast and args.paper_profile:
         ap.error("--fast and --paper-profile are mutually exclusive")
+    if args.multihost > 1 and args.workers > 1:
+        ap.error("--multihost and --workers are mutually exclusive (a "
+                 "multi-process mesh is already one placement domain)")
     if args.seeds < 1:
         ap.error("--seeds must be >= 1")
     if args.rounds < 1:
@@ -664,6 +675,16 @@ def main(argv=None) -> int:
                              or (base_run.agg_cadence_s or 0.0,))
     device = resolve_device(args.device)
     k = mesh_clients(base_run.mesh)
+    if should_spawn(args):
+        # the parent of a --multihost P launch: build the kernels once,
+        # then re-execute this module P times and wait
+        if device.type == "cuda":
+            build.build_all()
+        return spawn_multihost("repro_torch.launch.sweep",
+                               sys.argv[1:] if argv is None else list(argv),
+                               args.multihost)
+    multihost = multihost_from_args(args)
+    lead = multihost is None or multihost[2] == 0
 
     t0 = time.time()
     build.reset_launches()
@@ -673,13 +694,16 @@ def main(argv=None) -> int:
               checkpoint_dir=full_run.checkpoint_dir,
               checkpoint_every=full_run.checkpoint_every,
               resume=full_run.resume)
-    if k > 1:
-        print(f"[sweep] client mesh: {{'clients': {k}}} over {k} ranks "
-              f"({describe(k, device)})", flush=True)
+    if k > 1 and lead:
+        print(f"[sweep] client mesh: {{'clients': {k}}} over {k} ranks"
+              + (f" / {multihost[1]} processes" if multihost else ""),
+              flush=True)
     if k > 1 and args.workers <= 1:
         ranks = spawn_ranks(_sweep_rank, k, device,
                             args=(schemes, classes_list, distributions),
-                            kwargs=kw)
+                            kwargs=kw, multihost=multihost)
+        if not lead:
+            return 0
         n_rows = int(ranks[0]["n_rows"])
     else:
         rows = sweep(schemes, classes_list, distributions,
@@ -705,8 +729,11 @@ def main(argv=None) -> int:
 def _sweep_rank(mesh: ClientMesh, schemes, classes_list, distributions,
                 **kw) -> Dict:
     """One rank of ``--mesh clients=K``: the whole grid on the mesh;
-    rank 0 prints the log and writes the CSV.  Returns the row count,
-    this rank's device, kernel launches and host-staged collectives."""
+    rank 0 prints the placement and the log and writes the CSV.  Returns
+    the row count, this rank's device, kernel launches and host-staged
+    collectives."""
+    if mesh.rank == 0:
+        print(f"[sweep] {describe(mesh)}", flush=True)
     rows = sweep(schemes, classes_list, distributions,
                  log=lambda s: print(s, flush=True), mesh=mesh, **kw)
     if mesh.rank == 0:

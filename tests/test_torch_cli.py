@@ -7,9 +7,9 @@ CLI runs it (the simulation stubbed: no dataset, no round): the
 schedule and event-server flags land in the ``RunConfig`` the
 reference's ``RunConfig.from_args`` builds from the same command line,
 the checkpoint flags land there too (the snapshots in a directory a
-scheme, as the reference's), and every knob the port has not ported
-raises ``NotImplementedError`` naming its ROADMAP item before any work
-is done.  ``launch/serve.py --arch`` takes each of the reference's ten
+scheme, as the reference's), a knob the port has not ported raises
+``NotImplementedError`` naming its ROADMAP item before any work is
+done, and ``--multihost`` refuses what the reference refuses.  ``launch/serve.py --arch`` takes each of the reference's ten
 ids and serves its scaled-down variant on the CPU.
 """
 import argparse
@@ -31,9 +31,10 @@ from repro_torch.fl.runconfig import RunConfig
 from repro_torch.launch import fl_sim, serve, sweep
 from torch_threads import torch_intra_op_threads  # noqa: F401
 
-# options one parser has and the other has not: the reference's hidden
-# --multihost child flags; the port's device and ring-halo capacity
-REF_ONLY = {"_mh_coord", "_mh_procs", "_mh_proc_id"}
+# options one parser has and the other has not: none of the reference's
+# (the hidden --multihost child flags are the port's too); the port's
+# device and ring-halo capacity
+REF_ONLY = set()
 PORT_ONLY = {"device", "elect_capacity"}
 
 
@@ -74,7 +75,7 @@ def _runs(monkeypatch, argv):
         return {"rows": rows, "launches": {}, "prefix_s": [0.0] * n,
                 "round_s": [0.0] * n}
 
-    def spawn(fn, k, device, *, args, kwargs):
+    def spawn(fn, k, device, *, args, kwargs, multihost=None):
         runs.append(args[1])
         return [dict(drive(None, args[2]), device="cpu", staged={})
                 for _ in range(k)]
@@ -96,7 +97,6 @@ FL_SIM_CASES = [
     (["--checkpoint-every", "5"], None),
     (["--resume", "--checkpoint-dir", "ckpt"], None),
     (["--jit-cache-dir", "none"], "A14"),
-    (["--multihost", "2"], "A11b"),
     (["--mesh", "clients=2", "--churn-rate", "0.2"], None),
 ]
 
@@ -125,6 +125,15 @@ def test_fl_sim_takes_the_references_command_line(monkeypatch, flags, item):
     else:
         with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
             fl_sim.main(argv + ["--device", "cpu"])
+
+
+def test_fl_sim_multihost_needs_a_mesh_as_the_reference():
+    """``--multihost 2`` without ``--mesh clients=K``: the reference's
+    ``ValueError``, raised before anything is spawned."""
+    with pytest.raises(ValueError, match="--multihost needs --mesh "
+                                         "clients=K"):
+        fl_sim.main(["--scheme", "dcs", "--rounds", "1", "--device", "cpu",
+                     "--multihost", "2"])
 
 
 ASYNC_CASES = [
@@ -193,7 +202,7 @@ SWEEP_CASES = [
 def test_sweep_takes_the_references_command_line(argv):
     """The sweep's parser against the reference's: every shared ``dest``
     equal (the port adds ``--device``; the reference's hidden
-    ``--multihost`` child flags stay its own)."""
+    ``--multihost`` child flags are the port's too)."""
     theirs = _parsed(ref_sweep.main, argv)
     mine = _parsed(sweep.main, argv)
     assert set(theirs) - set(mine) == REF_ONLY

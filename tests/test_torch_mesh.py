@@ -627,8 +627,8 @@ def test_cli_mesh_matches_single_device_cli():
 
 
 @pytest.mark.parametrize("argv,err,match", [
-    (["--mesh", "clients=2", "--multihost", "2"], NotImplementedError,
-     "A11"),
+    (["--mesh", "clients=3", "--multihost", "2"], ValueError,
+     "must divide evenly over --multihost 2 processes"),
     (["--mesh", "clients=2,model=2"], ValueError, "unknown mesh axes"),
     (["--mesh", "clients"], ValueError, "axis=N"),
 ])

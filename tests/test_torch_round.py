@@ -20,6 +20,7 @@ import pytest
 import torch
 
 from repro.configs.mnist_cnn import CONFIG as REF_CNN
+from repro.core.fuzzy import FuzzyEvaluator as RefFuzzyEvaluator
 from repro.fl import client as ref_client
 from repro.fl import network as ref_net
 from repro.fl import pipeline as ref_pipeline
@@ -30,11 +31,13 @@ from repro.fl.rounds import FLSimulation as RefSimulation
 from repro.fl.runconfig import RunConfig as RefRunConfig
 from repro.models.cnn import init_cnn as ref_init_cnn
 from repro_torch.convert import params_from_jax, params_to_numpy
+from repro_torch.core.fuzzy import FuzzyEvaluator
 from repro_torch.fl import client, pipeline
 from repro_torch.fl.mobility import MobilityConfig
 from repro_torch.fl.partition import PartitionConfig
 from repro_torch.fl.rounds import FLSimConfig, FLSimulation
 from repro_torch.fl.runconfig import RunConfig
+from repro_torch.launch.mesh import ClientMesh
 from torch_threads import torch_intra_op_threads  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
@@ -157,6 +160,111 @@ def test_selection_prefix_matches_reference(fused, scheme):
         assert int(got["n_straggler"]) == int(want["n_straggler"])
 
 
+# -- the evaluator object (core/fuzzy.py::FuzzyEvaluator) --------------
+
+_EQ8_SCALES = np.array([4.5e3, 1.04e7, 1.0, 2.3], np.float32)
+
+
+@pytest.mark.parametrize("history", ["beta", "narrow"])
+def test_fuzzy_evaluator_calibrates_as_the_reference(history):
+    """``calibrate`` on the same history: the reference's means and
+    sigmas bit for bit (percentiles 10 / 50 / 90, a quarter of the 10-90
+    range as the spread, at least 0.05: the narrow history hits that
+    floor)."""
+    rng = np.random.default_rng(5)
+    hist = (rng.beta(2, 5, size=(1000, 4)) if history == "beta"
+            else 0.4 + 0.01 * rng.random((200, 4)))
+    ref, port = RefFuzzyEvaluator(), FuzzyEvaluator()
+    ref.calibrate(hist)
+    port.calibrate(hist)
+    for f in ("means", "sigmas"):
+        got, want = getattr(port.cfg, f), getattr(ref.cfg, f)
+        assert got.dtype == want.dtype == np.float32
+        np.testing.assert_array_equal(got, want, err_msg=f)
+    if history == "narrow":
+        assert (port.cfg.sigmas == np.float32(0.05)).all()
+
+
+@pytest.mark.parametrize("calibrated", [False, True])
+def test_fuzzy_evaluator_evaluates_as_the_reference(calibrated):
+    """``evaluate_raw`` on raw columns and ``evaluate`` of
+    ``normalize``'d ones against the reference's, to 1e-4 on [0, 100]
+    (the plain Mamdani's tolerance, ``test_torch_kernels.py``); each
+    within 1e-4 of the other, as the reference pins its own
+    (``tests/test_fuzzy.py``); ``level_of`` equal on the reference's
+    evaluations."""
+    rng = np.random.default_rng(6)
+    raw = (rng.random((33, 4)) * _EQ8_SCALES).astype(np.float32)
+    maxima = raw.max(axis=0)
+    ref, port = RefFuzzyEvaluator(), FuzzyEvaluator()
+    if calibrated:
+        hist = rng.beta(2, 5, size=(500, 4))
+        ref.calibrate(hist)
+        port.calibrate(hist)
+    want_raw = np.asarray(ref.evaluate_raw(jnp.asarray(raw)))
+    want = np.asarray(ref.evaluate(ref.normalize(jnp.asarray(raw),
+                                                 jnp.asarray(maxima))))
+    got_raw = port.evaluate_raw(torch.tensor(raw)).numpy()
+    normed = port.normalize(torch.tensor(raw), torch.tensor(maxima))
+    np.testing.assert_array_equal(
+        normed.numpy(), np.asarray(ref.normalize(jnp.asarray(raw),
+                                                 jnp.asarray(maxima))))
+    got = port.evaluate(normed).numpy()
+    np.testing.assert_allclose(got_raw, want_raw, rtol=0, atol=1e-4)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
+    np.testing.assert_allclose(got_raw, got, rtol=0, atol=1e-4)
+    levels = port.level_of(torch.tensor(want_raw)).numpy()
+    np.testing.assert_array_equal(
+        levels, np.asarray(ref.level_of(jnp.asarray(want_raw))))
+    assert levels.min() >= 0 and levels.max() <= 8
+
+
+def test_calibrate_after_construction_moves_the_next_round():
+    """A ``calibrate()`` after the simulation is built moves the next
+    round's evaluations in both packages (the prefix re-reads the
+    evaluator's means and sigmas on every call): round 0's prefix,
+    calibrated, against the reference's fed the same fields, evaluations
+    to 1e-3 and masks equal (the margin printed, ROADMAP C3)."""
+    ref, port = _pair(True)
+    port.params = params_from_jax(jax.device_get(ref.params))
+    saved = [(ev.cfg.means, ev.cfg.sigmas)
+             for ev in (ref.evaluator, port.evaluator)]
+    before = port.selection_state(0)["evals"].numpy()
+    hist = np.random.default_rng(7).beta(2, 5, size=(1000, 4))
+    try:
+        ref.evaluator.calibrate(hist)
+        port.evaluator.calibrate(hist)
+        want = jax.device_get(ref.selection_state(0))
+        got = port.selection_state(0)
+        np.testing.assert_array_equal(port.statics.means.numpy(),
+                                      port.evaluator.cfg.means)
+        np.testing.assert_array_equal(port.statics.sigmas.numpy(),
+                                      port.evaluator.cfg.sigmas)
+    finally:
+        for ev, (means, sigmas) in zip((ref.evaluator, port.evaluator),
+                                       saved):
+            ev.cfg.means, ev.cfg.sigmas = means, sigmas
+    assert np.abs(got["evals"].numpy() - before).max() > 1.0
+    np.testing.assert_allclose(got["evals"].numpy(), want["evals"],
+                               rtol=0, atol=1e-3)
+    # the election on the reference's positions and evaluations: equal;
+    # end to end only where no two evaluations (or one and E_tau) lie
+    # within the 1e-3 tolerance, which fp32 rounding could reorder (C3)
+    fields = reference_fields(ref, 0)
+    mask = pipeline.select(port.stage_cfg, torch.tensor(want["pos"]),
+                           torch.tensor(want["evals"]), fields)
+    np.testing.assert_array_equal(mask.numpy(), want["mask"])
+    margin = _eval_margin(want["evals"], port.stage_cfg.e_tau)
+    flips = int((got["mask"].numpy() != want["mask"]).sum())
+    print(f"[calibrated round 0] smallest eval margin {margin:.3g}, "
+          f"end-to-end mask entries differing {flips}")
+    if margin > 1e-3:
+        np.testing.assert_array_equal(got["mask"].numpy(), want["mask"])
+    # restored: the next prefix is the uncalibrated one again
+    np.testing.assert_array_equal(port.selection_state(0)["evals"].numpy(),
+                                  before)
+
+
 def test_local_train_batch_matches_reference():
     """Two epochs of local SGD from shared params on the reference's
     permutations: params agree to 1e-4 (fp32 gradients summed in
@@ -254,7 +362,8 @@ def test_port_imports_neither_jax_nor_repro():
             "repro_torch.launch.sweep, repro_torch.core.selection, "
             "repro_torch.fl.schemes, repro_torch.fl.network, "
             "repro_torch.fl.async_server, repro_torch.train.checkpoint, "
-            "repro_torch.launch.faults\n"
+            "repro_torch.launch.faults, repro_torch.launch.multihost, "
+            "repro_torch.core.protocol, repro_torch.core.fuzzy\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "
             "m.startswith('repro.')]\n"
@@ -280,12 +389,33 @@ def test_cli_without_cuda_raises():
         fl_sim.main(["--rounds", "1"])
 
 
-@pytest.mark.parametrize("kw", [
-    dict(mesh="clients=4", multihost=2),
-    dict(multihost=2)])
-def test_unported_knobs_raise(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP A11b"):
+@pytest.mark.parametrize("kw,match", [
+    (dict(multihost=2), "--multihost needs --mesh clients=K"),
+    (dict(mesh="clients=3", multihost=2),
+     "--mesh clients=3 must divide evenly over --multihost 2 processes")])
+def test_multihost_takes_the_references_mesh_checks(kw, match):
+    """``multihost`` P > 1 needs ``mesh="clients=K"`` with K % P == 0:
+    the reference's words (``repro/launch/mesh.py``); P = 1 runs as
+    without it."""
+    with pytest.raises(ValueError, match=match):
         RunConfig(**kw).resolved()
+    assert RunConfig(multihost=1).resolved().multihost == 1
+    assert RunConfig(mesh="clients=4", multihost=2).resolved().multihost == 2
+
+
+@pytest.mark.parametrize("kw,match", [
+    (dict(engine="loop"), "multi-host meshes require engine='batched'"),
+    (dict(server="event"), "event-driven server does not support "
+                           "multi-host meshes")])
+def test_multihost_mesh_refuses_what_the_reference_refuses(kw, match):
+    """On a mesh spanning several launcher processes the simulation
+    refuses the loop engine and the event server, as the reference's
+    (``repro/fl/rounds.py``), before it builds anything."""
+    _, cfg = _cfgs()
+    mesh = ClientMesh(0, 2, torch.device("cpu"), "gloo", hosts=2)
+    with pytest.raises(ValueError, match=match):
+        FLSimulation(cfg, run=RunConfig(mesh="clients=2", multihost=2, **kw),
+                     mesh=mesh)
 
 
 def test_mesh_with_churn_resolves_to_the_event_server():

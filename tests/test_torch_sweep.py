@@ -459,7 +459,6 @@ def test_central_schemes_take_a_seed_axis_with_ties():
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--multihost", "2"], "A11b"),
     (["--jit-cache-dir", "none"], "A14")])
 def test_unported_flags_raise_naming_their_item(flags, item, tmp_path,
                                                 monkeypatch):
@@ -468,6 +467,24 @@ def test_unported_flags_raise_naming_their_item(flags, item, tmp_path,
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         sweep.main(["--seeds", "1", "--rounds", "1", "--device", "cpu",
                     "--out", str(tmp_path / "x.csv"), *flags])
+
+
+def test_multihost_with_workers_is_refused_as_the_reference(
+        tmp_path, monkeypatch, capsys):
+    """``--multihost 2 --workers 2``: the reference's ``ap.error`` (exit
+    2, its words), before anything is spawned or run."""
+    monkeypatch.setattr(sweep, "sweep", lambda *a, **k: pytest.fail(
+        "the sweep ran"))
+    monkeypatch.setattr(sweep, "spawn_multihost", lambda *a, **k:
+                        pytest.fail("the launch was spawned"))
+    with pytest.raises(SystemExit) as exc:
+        sweep.main(["--seeds", "1", "--rounds", "1", "--device", "cpu",
+                    "--mesh", "clients=4", "--multihost", "2", "--workers",
+                    "2", "--out", str(tmp_path / "x.csv")])
+    assert exc.value.code == 2
+    assert ("--multihost and --workers are mutually exclusive (a "
+            "multi-process mesh is already one placement domain)"
+            in capsys.readouterr().err)
 
 
 @pytest.mark.parametrize("flags", [
